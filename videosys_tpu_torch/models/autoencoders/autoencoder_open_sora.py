@@ -1,0 +1,124 @@
+"""Open-Sora v1.2 video VAE, decode side: the causal temporal VAE (4x time)
+followed by the 2D spatial VAE (8x space), with 17-frame temporal chunks and
+a frame micro-batch for the spatial decoder.
+
+Port of `videosys_tpu/models/autoencoders/autoencoder_open_sora.py`. The
+state_dict keys follow the reference VideoAutoencoderPipeline
+(`spatial_vae.module.*`, `temporal_vae.*`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from videosys_tpu_torch.models.autoencoders.vae2d import AutoencoderKL2D
+from videosys_tpu_torch.models.autoencoders.vae_temporal import VAETemporal
+
+SHIFT = (-0.10, 0.34, 0.27, 0.98)
+SCALE = (3.85, 2.32, 2.33, 3.06)
+SPATIAL_SCALING = 0.18215
+
+
+@dataclasses.dataclass(frozen=True)
+class OpenSoraVAEConfig:
+    micro_frame_size: int = 17
+    micro_batch_size: Optional[int] = 4
+    latent_channels: int = 4
+
+
+class _Holder(nn.Module):
+    """Gives the spatial VAE the reference's `spatial_vae.module.` prefix."""
+
+    def __init__(self, module: nn.Module):
+        super().__init__()
+        self.module = module
+
+
+class OpenSoraVAE(nn.Module):
+    """Composition of AutoencoderKL2D and VAETemporal; computes in the
+    dtype of its parameters."""
+
+    def __init__(self, config: OpenSoraVAEConfig = OpenSoraVAEConfig(),
+                 spatial: Optional[AutoencoderKL2D] = None,
+                 temporal: Optional[VAETemporal] = None):
+        super().__init__()
+        self.config = config
+        self.spatial_vae = _Holder(spatial or AutoencoderKL2D())
+        self.temporal_vae = temporal or VAETemporal()
+        # 17 pixel frames -> 5 latent frames
+        self.micro_z_frame_size = -(-config.micro_frame_size // 4)
+        sf = 2 ** (len(self.spatial_vae.module.block_out_channels) - 1)
+        self.patch_size = (self.temporal_vae.time_downsample_factor, sf, sf)
+        self.out_channels = config.latent_channels
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.temporal_vae.post_quant_conv.conv.weight.dtype
+
+    def get_latent_size(self, input_size: Tuple[int, int, int]) -> list:
+        """(T, H, W) pixels -> latent sizes, with the chunked time math."""
+        T, H, W = input_size
+        mf = self.config.micro_frame_size
+        tdf, sf = self.patch_size[0], self.patch_size[1]
+        if T is None:
+            t_lat = None
+        elif mf is None:
+            t_lat = -(-T // tdf)
+        else:
+            t_lat = (T // mf) * self.micro_z_frame_size
+            rem = T % mf
+            if rem > 0:
+                t_lat += -(-rem // tdf)
+        return [t_lat, H // sf if H else None, W // sf if W else None]
+
+    def spatial_decode(self, z):
+        """z: [B, C, T, h, w] -> [B, 3, T, H, W], frames in micro-batches."""
+        B, C, T, h, w = z.shape
+        frames = z.transpose(1, 2).reshape(B * T, C, h, w) / SPATIAL_SCALING
+        mbs = self.config.micro_batch_size or B * T
+        out = torch.cat([self.spatial_vae.module.decode(frames[i:i + mbs])
+                         for i in range(0, B * T, mbs)], dim=0)
+        return out.reshape(B, T, *out.shape[1:]).transpose(1, 2)
+
+    def _unnormalize(self, z):
+        z = z.to(self.dtype)
+        shift = torch.tensor(SHIFT, dtype=z.dtype, device=z.device)
+        scale = torch.tensor(SCALE, dtype=z.dtype, device=z.device)
+        return z * scale[:, None, None, None] + shift[:, None, None, None]
+
+    def _chunks(self, z, num_frames: int):
+        """(latent chunk, pixel frames) pairs of the temporal decode."""
+        mf = self.config.micro_frame_size
+        if mf is None:
+            return [(z, num_frames)]
+        out, remaining = [], num_frames
+        for i in range(0, z.shape[2], self.micro_z_frame_size):
+            out.append((z[:, :, i:i + self.micro_z_frame_size],
+                        min(mf, remaining)))
+            remaining -= mf
+        return out
+
+    @torch.no_grad()
+    def decode(self, z, num_frames: int):
+        """z: [B, C, T_lat, h, w] normalized latents -> pixels
+        [B, 3, num_frames, H, W] in [-1, 1] (not clipped)."""
+        z = self._unnormalize(z)
+        x_z = torch.cat([self.temporal_vae.decode(c, nf)
+                         for c, nf in self._chunks(z, num_frames)], dim=2)
+        return self.spatial_decode(x_z)
+
+    @torch.no_grad()
+    def decode_chunks_u8(self, z, num_frames: int) -> List[torch.Tensor]:
+        """Decode one temporal chunk at a time to uint8 [B, nf, H, W, 3]
+        video; equal to decode() followed by the uint8 conversion."""
+        z = self._unnormalize(z)
+        outs = []
+        for c, nf in self._chunks(z, num_frames):
+            x = self.spatial_decode(self.temporal_vae.decode(c, nf))
+            u8 = torch.clamp((torch.clamp(x, -1, 1) + 1) / 2 * 255 + 0.5, 0, 255)
+            outs.append(u8.to(torch.uint8).permute(0, 2, 3, 4, 1))
+        return outs

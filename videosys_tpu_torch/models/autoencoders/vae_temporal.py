@@ -1,0 +1,124 @@
+"""Causal temporal VAE (MAGVIT style), decode side, layout [B, C, T, H, W].
+
+Port of the decoder of `videosys_tpu/models/autoencoders/vae_temporal.py`.
+Module names follow the reference VAE_Temporal state_dict (`res_blocks.j`,
+`block_res_blocks.i.j`, `conv_blocks.i.conv`). The encoder is not ported
+yet.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from videosys_tpu_torch.models.modules.normalization import GroupNorm
+
+
+class CausalConv3d(nn.Module):
+    """Conv3d with front-only temporal padding (kt - 1 frames) and
+    symmetric spatial padding."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: Tuple[int, int, int] = (3, 3, 3),
+                 bias: bool = True):
+        super().__init__()
+        kt, kh, kw = kernel_size
+        self.pad = (kw // 2, kw // 2, kh // 2, kh // 2, kt - 1, 0)
+        self.conv = nn.Conv3d(in_channels, out_channels, kernel_size, bias=bias)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, self.pad))
+
+
+class ResBlock3D(nn.Module):
+    """GroupNorm-SiLU-CausalConv twice, plus a 1x1x1 shortcut."""
+
+    def __init__(self, in_channels: int, filters: int, num_groups: int = 32):
+        super().__init__()
+        self.norm1 = GroupNorm(num_groups, in_channels, eps=1e-5)
+        self.conv1 = CausalConv3d(in_channels, filters, bias=False)
+        self.norm2 = GroupNorm(num_groups, filters, eps=1e-5)
+        self.conv2 = CausalConv3d(filters, filters, bias=False)
+        self.conv3 = (CausalConv3d(in_channels, filters, (1, 1, 1), bias=False)
+                      if in_channels != filters else None)
+
+    def forward(self, x):
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv2(F.silu(self.norm2(h)))
+        if self.conv3 is not None:
+            x = self.conv3(x)
+        return x + h
+
+
+class DecoderTemporal(nn.Module):
+    """Decoder with temporal depth-to-space upsampling."""
+
+    def __init__(self, latent_channels: int = 4, out_channels: int = 4,
+                 filters: int = 128, num_res_blocks: int = 4,
+                 channel_multipliers: Tuple[int, ...] = (1, 2, 2, 4),
+                 temporal_downsample: Tuple[bool, ...] = (False, True, True),
+                 num_groups: int = 32):
+        super().__init__()
+        self.temporal_downsample = tuple(temporal_downsample)
+        mult = tuple(channel_multipliers)
+        top = filters * mult[-1]
+        self.conv1 = CausalConv3d(latent_channels, top)
+        self.res_blocks = nn.ModuleList(
+            ResBlock3D(top, top, num_groups) for _ in range(num_res_blocks))
+        self.block_res_blocks = nn.ModuleList()
+        self.conv_blocks = nn.ModuleDict()
+        prev = top
+        for i in range(len(mult)):
+            self.block_res_blocks.append(nn.ModuleList())
+        for i in reversed(range(len(mult))):
+            f = filters * mult[i]
+            self.block_res_blocks[i].extend(
+                ResBlock3D(prev if j == 0 else f, f, num_groups)
+                for j in range(num_res_blocks))
+            prev = f
+            if i > 0 and self.temporal_downsample[i - 1]:
+                self.conv_blocks[str(i - 1)] = CausalConv3d(f, f * 2)
+        self.norm1 = GroupNorm(num_groups, prev, eps=1e-5)
+        self.conv_out = CausalConv3d(prev, out_channels)
+
+    def forward(self, z):
+        h = self.conv1(z)
+        for res in self.res_blocks:
+            h = res(h)
+        for i in reversed(range(len(self.block_res_blocks))):
+            for res in self.block_res_blocks[i]:
+                h = res(h)
+            if str(i - 1) in self.conv_blocks:
+                h = self.conv_blocks[str(i - 1)](h)
+                # depth to space on time: channel c*2 + s -> frame t*2 + s
+                B, C2, T, H, W = h.shape
+                h = h.reshape(B, C2 // 2, 2, T, H, W).transpose(2, 3)
+                h = h.reshape(B, C2 // 2, T * 2, H, W)
+        return self.conv_out(F.silu(self.norm1(h)))
+
+
+class VAETemporal(nn.Module):
+    """VAE_Temporal_SD, decode side: latent 4 channels, 4x time."""
+
+    def __init__(self, in_out_channels: int = 4, latent_embed_dim: int = 4,
+                 embed_dim: int = 4, filters: int = 128,
+                 num_res_blocks: int = 4,
+                 channel_multipliers: Tuple[int, ...] = (1, 2, 2, 4),
+                 temporal_downsample: Tuple[bool, ...] = (False, True, True),
+                 num_groups: int = 32):
+        super().__init__()
+        self.time_downsample_factor = 2 ** sum(temporal_downsample)
+        self.post_quant_conv = CausalConv3d(embed_dim, latent_embed_dim,
+                                            (1, 1, 1))
+        self.decoder = DecoderTemporal(
+            latent_embed_dim, in_out_channels, filters, num_res_blocks,
+            channel_multipliers, temporal_downsample, num_groups)
+
+    def decode(self, z, num_frames: int):
+        """z: [B, C, T_lat, h, w] -> [B, C_out, num_frames, h, w]."""
+        time_padding = (-num_frames) % self.time_downsample_factor
+        x = self.decoder(self.post_quant_conv(z))
+        return x[:, :, time_padding:time_padding + num_frames]
