@@ -5,8 +5,9 @@ card (an H100 is the target).
     python3 chip_smoke.py [--steps N]
 
 Phases, each fatal on failure:
-  1. build the flash-attention kernel from csrc/ and print the card;
-  2. hold the kernel against its plain PyTorch version at the main path's
+  1. build the flash-attention kernels from csrc/ (forward and backward, one
+     nvcc each, started together) and print the card;
+  2. hold the forward kernel against its plain PyTorch version at the main path's
      shapes (STDiT3 spatial, cross and temporal attention, the VAE mid
      attention) in bf16 and fp32, and time it beside the plain version and
      torch's own scaled_dot_product_attention (a yardstick the port never
@@ -18,13 +19,31 @@ Phases, each fatal on failure:
      STDiT3 forward at the 480p shapes against the same forward with the
      plain attention in place of the kernel;
   4. run a tiny configuration on the card and on the CPU (plain attention)
-     with the same weights and noise, and compare the latents and video.
+     with the same weights and noise, and compare the latents and video;
+  5. hold the three backward kernels (flash_bwd_fused, flash_bwd_dkv,
+     flash_bwd_dq) and the forward's log-sum-exp against their plain
+     versions at the training path's shapes (spatial 240p x 51 frames batch
+     2, temporal, cross attention to 8 and to 300 text tokens with a ragged
+     mask, and the 8160-token row of a 1080p image) in fp32 and bf16, and
+     time them beside the plain version and the backward of torch's
+     scaled_dot_product_attention;
+  6. train Open-Sora v1.2 at full width and depth (`run_training`: bf16
+     compute over fp32 parameters, recompute of every depth pair) for a few
+     steps on the default buckets and one step on a 1080p image bucket,
+     checking that losses and gradient norms are finite, that the step
+     count and the EMA moved, and that every attention forward and
+     backward went through the kernels, by launch counts predicted from
+     the shapes;
+  7. train a tiny configuration for 3 steps in fp32 on the card (kernels)
+     and on the CPU (plain versions) from the same weights and draws, and
+     compare the losses.
 
 bf16 outputs are held by two relative measures, rel_l2 = |got - want|_2 /
 |want|_2 and rel_max = max|got - want| / max|want|, at limits set per shape
 from this script's readings of a correct kernel; beside each it prints the
 same measures for a plain version that drops one key per row, the smallest
-fault the limits must still catch. fp32 outputs are held at 2e-5 absolute.
+fault the limits must still catch. fp32 outputs are held at 2e-5 absolute,
+fp32 gradients at 1e-4 absolute.
 
 The line before the last holds the kernel report as JSON, the one before it
 the card's name and power limit; the last line is the JSON status.
@@ -45,13 +64,21 @@ ROOT = Path(__file__).resolve().parent
 # HBM3 bandwidth
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 PEAK_BYTES = 3.35e12
+PHASES = ("kernel", "serve", "tiny", "bwd_kernel", "train", "tiny_train")
+TRAIN_STEPS = 4  # on the default buckets: two video shapes and an image
 F32_TOL = 2e-5
+F32_GRAD_TOL = 1e-4
 # bf16 limits per shape (rel_l2, rel_max), set from this script's readings
 # on an H100 (PERF.md): the kernel read at most half of each, and a plain
 # version that drops one key per row read at least twice one of them
 BF16_LIMITS = {"spatial": (8e-3, 2e-2), "cross": (1e-2, 2e-2),
                "temporal": (1e-2, 2e-2), "vae_mid": (6.5e-3, 1.5e-2),
                "stdit3_forward": (1.8e-2, 2.5e-2)}
+# the same for the gradients of the backward kernels (the largest of dq, dk,
+# dv): the kernels read at most a third of each limit (3.0e-4, 3.2e-3), the
+# one-key fault at least 10x one of them (1.1e-2, 1.0e-1 at the long row)
+BWD_BF16_LIMITS = {name: (1e-3, 1e-2) for name in (
+    "spatial", "temporal", "cross8", "cross300", "long_row")}
 
 
 def log(*a):
@@ -85,14 +112,23 @@ def drop_last_key(mask, B: int, Nk: int, device):
     return keep
 
 
-def check_bf16(name: str, got, want, fault) -> dict:
-    """Hold a bf16 output against its reference at BF16_LIMITS[name]."""
+def check_bf16(name: str, got, want, fault, limits=None) -> dict:
+    """Hold a bf16 output (or a tuple of them: the worst counts) against
+    its reference at `limits` (default BF16_LIMITS[name])."""
     import torch
 
-    l2, mx = rel_errors(got, want)
-    f_l2, f_mx = rel_errors(fault, want)
-    lim_l2, lim_mx = BF16_LIMITS[name]
-    ok = l2 <= lim_l2 and mx <= lim_mx and bool(torch.isfinite(got).all())
+    def worst(outs):
+        outs = outs if isinstance(outs, (tuple, list)) else (outs,)
+        wants = want if isinstance(want, (tuple, list)) else (want,)
+        errs = [rel_errors(o, w) for o, w in zip(outs, wants)]
+        return max(e[0] for e in errs), max(e[1] for e in errs)
+
+    l2, mx = worst(got)
+    f_l2, f_mx = worst(fault)
+    lim_l2, lim_mx = limits or BF16_LIMITS[name]
+    finite = all(bool(torch.isfinite(o).all()) for o in
+                 (got if isinstance(got, (tuple, list)) else (got,)))
+    ok = l2 <= lim_l2 and mx <= lim_mx and finite
     log(f"check {name:14s} bf16 rel_l2={l2:.3e} (limit {lim_l2:.1e}, one key "
         f"dropped {f_l2:.3e}) rel_max={mx:.3e} (limit {lim_mx:.1e}, one key "
         f"dropped {f_mx:.3e}) {'ok' if ok else 'FAIL'}")
@@ -422,13 +458,401 @@ def tiny_parity_phase(seed: int) -> dict:
     return {"latent_max_abs_err": lat_err, "video_max_level_diff": px_err}
 
 
+def ragged_mask(B: int, Nk: int, gen):
+    """[B, Nk] key mask of ragged real lengths, the longest filling Nk."""
+    import torch
+
+    lens = torch.randint(1, Nk + 1, (B,), device="cuda", generator=gen)
+    lens[0] = Nk
+    return torch.arange(Nk, device="cuda")[None] < lens[:, None]
+
+
+def backward_kernel_phase(fa) -> dict:
+    """The three backward kernels, and the forward's log-sum-exp, against
+    their plain versions at the training path's shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator("cuda").manual_seed(1)
+    # (name, B, H, Nq, Nk, D, masked, backward): 240p x 51 frames batch 2 is
+    # B*T = 30 rows of S = 405 tokens and B*S = 810 rows of T = 15; the dummy
+    # text has 8 tokens, real captions up to 300; a 1080p image is one row of
+    # 8160 tokens
+    shapes = [("spatial", 30, 16, 405, 405, 72, False, "fused"),
+              ("temporal", 810, 16, 15, 15, 72, False, "fused"),
+              ("cross8", 30, 16, 405, 8, 72, True, "fused"),
+              ("cross300", 30, 16, 405, 300, 72, True, "fused"),
+              ("long_row", 1, 16, 8160, 8160, 72, False, "blocked")]
+    products = {"fused": 5, "dkv": 4, "dq": 3}
+    results = {}
+    for name, B, H, Nq, Nk, D, masked, variant in shapes:
+        if fa.backward_variant(B, H, Nq, Nk, D, torch.bfloat16) != variant:
+            raise AssertionError(f"{name}: expected the {variant} backward")
+        q, k, v, do = (torch.randn(B, H, n, D, device="cuda", generator=gen)
+                       for n in (Nq, Nk, Nk, Nq))
+        mask = ragged_mask(B, Nk, gen) if masked else None
+        row = {"shape": [B, H, Nq, Nk, D], "masked": masked,
+               "backward": variant}
+
+        def kernels(qt, kt, vt, dot, out, lse):
+            """{kernel: outputs} of the variant's kernels."""
+            if variant == "fused":
+                return {"fused": fa.flash_bwd_fused(qt, kt, vt, mask, dot)}
+            di = (dot.float() * out.float()).sum(-1)
+            return {"dkv": fa.flash_bwd_dkv(qt, kt, vt, mask, dot, lse, di),
+                    "dq": (fa.flash_bwd_dq(qt, kt, vt, mask, dot, lse, di),)}
+
+        def plain(qt, kt, vt, dot, out, lse, m):
+            if variant == "fused":
+                return {"fused": fa.flash_attention_bwd_plain(qt, kt, vt, m, dot)}
+            dq, dk, dv = fa.flash_attention_bwd_lse_plain(qt, kt, vt, m, dot,
+                                                          out, lse)
+            return {"dkv": (dk, dv), "dq": (dq,)}
+
+        for dt, tdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            qt, kt, vt, dot = (t.to(tdt) for t in (q, k, v, do))
+            # the forward kernel's output and log-sum-exp feed both sides
+            out, lse = fa._launch(qt, kt, vt, None, mask, save_lse=True)
+            want_lse = fa.flash_attention_plain(qt, kt, vt, None, mask,
+                                                return_lse=True)[1]
+            lse_err = (lse - want_lse).abs().max().item()
+            got = kernels(qt, kt, vt, dot, out, lse)
+            want = plain(qt, kt, vt, dot, out, lse, mask)
+            torch.cuda.synchronize()
+            for kern in got:
+                err = max((g.float() - w.float()).abs().max().item()
+                          for g, w in zip(got[kern], want[kern]))
+                row.setdefault(kern, {})[f"max_abs_err_{dt}"] = err
+                log(f"bwd kernel {name:9s} {kern:5s} {dt} shape={row['shape']} "
+                    f"masked={masked} max_abs_err={err:.3e} lse_err={lse_err:.3e}")
+                if dt == "fp32" and not (
+                        err <= F32_GRAD_TOL and lse_err <= F32_GRAD_TOL and all(
+                            bool(torch.isfinite(g).all()) for g in got[kern])):
+                    raise AssertionError(
+                        f"bwd kernel {name} {kern} fp32 disagrees with plain "
+                        f"({err:.3e}, lse {lse_err:.3e} > {F32_GRAD_TOL:.0e})")
+            if mask is not None:
+                # masked keys get exactly zero dk and dv
+                dead = (~mask)[:, None, :, None]
+                for kern, idx in (("fused", (1, 2)), ("dkv", (0, 1))):
+                    for i in idx if kern in got else ():
+                        if bool((got[kern][i].masked_select(dead) != 0).any()):
+                            raise AssertionError(
+                                f"{name} {kern}: a masked key got a gradient")
+            if dt == "bf16":
+                fault = plain(qt, kt, vt, dot, out, lse,
+                              drop_last_key(mask, B, Nk, "cuda"))
+                for kern in got:
+                    row[kern]["bf16_check"] = check_bf16(
+                        f"{name}/{kern}", got[kern], want[kern], fault[kern],
+                        BWD_BF16_LIMITS[name])
+                del fault
+            del got, want, out, lse, want_lse
+        qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
+        out, lse = fa._launch(qb, kb, vb, None, mask, save_lse=True)
+        di = (dob.float() * out.float()).sum(-1)
+        iters = 3 if name == "long_row" else 10
+        timed = {"fused": lambda: fa.flash_bwd_fused(qb, kb, vb, mask, dob)} \
+            if variant == "fused" else {
+            "dkv": lambda: fa.flash_bwd_dkv(qb, kb, vb, mask, dob, lse, di),
+            "dq": lambda: fa.flash_bwd_dq(qb, kb, vb, mask, dob, lse, di)}
+        plain_ms = time_ms(lambda: plain(qb, kb, vb, dob, out, lse, mask), 2)
+        # yardstick: the backward of torch's own attention (never called by
+        # the port), all of dq, dk, dv
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (qb, kb, vb))
+        sdpa_mask = None if mask is None else mask[:, None, None, :]
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=sdpa_mask)
+        library_ms = time_ms(lambda: torch.autograd.grad(
+            lib_out, (ql, kl, vl), dob, retain_graph=True), iters)
+        el = 2.0  # bytes per bf16 element
+        n_q, n_k = B * H * Nq * D, B * H * Nk * D
+        stats = 2 * 4.0 * B * H * Nq  # lse and di, fp32
+        moved = {"fused": el * (2 * n_q + 2 * n_k) + el * (n_q + 2 * n_k),
+                 "dkv": el * (2 * n_q + 2 * n_k) + stats + el * 2 * n_k,
+                 "dq": el * (2 * n_q + 2 * n_k) + stats + el * n_q}
+        for kern, fn in timed.items():
+            r = row[kern]
+            r["ms"] = time_ms(fn, iters)
+            r["plain_ms"], r["library_ms"] = plain_ms, library_ms
+            flops = products[kern] * 2.0 * B * H * Nq * Nk * D
+            nbytes = moved[kern] + (B * Nk if masked else 0)
+            t_ops, t_bytes = flops / PEAK_FLOPS["bf16"], nbytes / PEAK_BYTES
+            r["bound_ms"] = max(t_ops, t_bytes) * 1e3
+            r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+            log(f"bwd kernel {name:9s} {kern:5s} bf16 ms={r['ms']:.4f} "
+                f"plain_ms={plain_ms:.4f} (all of dq, dk, dv) "
+                f"library_ms={library_ms:.4f} (all of dq, dk, dv) "
+                f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+                f"achieved={flops / r['ms'] / 1e9:.1f} TFLOP/s")
+        if name in ("spatial", "long_row"):
+            # the backward `backward_variant` passes up at this shape
+            other = {"dkv": lambda: fa.flash_bwd_dkv(qb, kb, vb, mask, dob, lse, di),
+                     "dq": lambda: fa.flash_bwd_dq(qb, kb, vb, mask, dob, lse, di)} \
+                if variant == "fused" else {
+                "fused": lambda: fa.flash_bwd_fused(qb, kb, vb, mask, dob)}
+            row["other_variant_ms"] = {k: time_ms(fn, 2) for k, fn in other.items()}
+            log(f"bwd dispatch {name:9s} chosen {variant}: "
+                f"{sum(row[k]['ms'] for k in timed):.4f} ms; passed up: "
+                f"{row['other_variant_ms']} ms")
+        results[name] = row
+        del q, k, v, do, qb, kb, vb, dob, out, lse, di, ql, kl, vl, lib_out
+        torch.cuda.empty_cache()
+    return results
+
+
+def expected_train_launches(fa, cfg, history) -> dict:
+    """Kernel launches of the logged training steps, by `LAUNCHES` key, from
+    their shapes: per depth pair and micro-batch one spatial, one temporal
+    (unless T = 1) and two cross attentions; under recompute every forward
+    runs twice; every backward is `backward_variant`'s choice."""
+    mc = cfg.model
+    D = mc.hidden_size // mc.num_heads
+    H = mc.num_heads
+    _, ph, pw = mc.patch_size
+    recompute = cfg.remat_policy != "none"
+    want = {key: 0 for key in fa.LAUNCHES}
+    for entry in history:
+        T, Hpx, Wpx = entry["thw"]
+        t_lat = max(1, T // 17 * 5) if T > 1 else 1
+        S = -(-(Hpx // 8) // ph) * -(-(Wpx // 8) // pw)
+        B = entry["batch"]
+        text_len = 8  # run_training's synthetic captions
+        calls = [(B * t_lat, S, S), (B * t_lat, S, text_len),
+                 (B * t_lat, S, text_len)]
+        if t_lat > 1:
+            calls.append((B * S, t_lat, t_lat))
+        for rows, Nq, Nk in calls:
+            n = mc.depth * entry["gas"]
+            want[fa.kernel_variant(mc.dtype, D)] += n * (2 if recompute else 1)
+            variant = fa.backward_variant(rows, H, Nq, Nk, D, mc.dtype)
+            for key in fa.backward_launch_keys(variant, mc.dtype):
+                want[key] += n
+    return want
+
+
+class no_fallback:
+    """While training on the card, the plain attention versions and torch's
+    own attention raise: nothing may take their route."""
+
+    NAMES = ("flash_attention_plain", "flash_attention_bwd_plain",
+             "flash_attention_bwd_lse_plain")
+
+    def __init__(self, fa):
+        self.fa = fa
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        def refuse(*a, **k):
+            raise AssertionError("training on the card left the kernels' route")
+
+        self.saved = {n: getattr(self.fa, n) for n in self.NAMES}
+        self.sdpa = F.scaled_dot_product_attention
+        for n in self.NAMES:
+            setattr(self.fa, n, refuse)
+        F.scaled_dot_product_attention = refuse
+
+    def __exit__(self, *exc):
+        import torch.nn.functional as F
+
+        for n, f in self.saved.items():
+            setattr(self.fa, n, f)
+        F.scaled_dot_product_attention = self.sdpa
+        return False
+
+
+def train_phase(fa, steps: int, seed: int, profile: bool = False,
+                remat_policy: str = "full") -> dict:
+    """`run_training` at full width and depth on the default buckets, then
+    one step on a 1080p image bucket (the 8160-token row that takes the
+    blocked backward pair)."""
+    import math
+
+    import torch
+
+    from videosys_tpu_torch import TrainConfig, run_training
+    from videosys_tpu_torch.training.datasets import DummyVariableVideoTextDataset
+
+    out = {"runs": []}
+    runs = [
+        ("default buckets", TrainConfig(
+            max_steps=steps, log_every=1, warmup_steps=2, seed=seed,
+            remat_policy=remat_policy), None),
+        ("1080p image", TrainConfig(
+            bucket_config={"1080p": {1: (1.0, 1)}}, max_steps=1, log_every=1,
+            warmup_steps=2, seed=seed, remat_policy=remat_policy),
+         DummyVariableVideoTextDataset(
+             size=4, seed=seed, frames_choices=(1,),
+             resolution_choices=((1080, 1920),))),
+    ]
+    fa.reset_launches()
+    want = {key: 0 for key in fa.LAUNCHES}
+    state = None
+    for name, cfg, dataset in runs:
+        del state
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with no_fallback(fa):
+            state, ema, history = run_training(cfg, dataset=dataset)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mc = cfg.model
+        n_params = sum(p.numel() for p in state.model.parameters())
+        p_dtypes = sorted({str(p.dtype) for p in state.model.parameters()})
+        ema_gap = max((ema[k] - p.detach().float()).abs().max().item()
+                      for k, p in state.model.named_parameters())
+        rec = {"run": name, "depth": mc.depth, "hidden": mc.hidden_size,
+               "params_b": n_params / 1e9, "param_dtypes": p_dtypes,
+               "compute_dtype": str(mc.dtype), "remat_policy": cfg.remat_policy,
+               "steps": state.step, "optimizer_updates": state.tx.count,
+               "history": history, "ema_gap": ema_gap, "wall_s": wall,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log("train:", json.dumps(rec))
+        if state.step != cfg.max_steps or len(history) != cfg.max_steps:
+            raise AssertionError(f"{name}: {state.step} steps, wanted "
+                                 f"{cfg.max_steps}")
+        if p_dtypes != ["torch.float32"]:
+            raise AssertionError(f"{name}: master weights are {p_dtypes}")
+        for h in history:
+            if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                    and h["grad_norm"] > 0):
+                raise AssertionError(f"{name}: bad loss or grad norm in {h}")
+        if cfg.max_steps > 1 and not ema_gap > 0:
+            # the first update has lr 0; from the second on the parameters
+            # move and the EMA trails them
+            raise AssertionError(f"{name}: the EMA did not move")
+        for key, n in expected_train_launches(fa, cfg, history).items():
+            want[key] += n
+        out["runs"].append(rec)
+        del ema
+    out["launches"] = dict(fa.LAUNCHES)
+    out["expected_launches"] = want
+    log(f"train: launches={out['launches']} expected={want}")
+    if out["launches"] != want:
+        raise AssertionError(f"train launches {out['launches']} != "
+                             f"expected {want}")
+    if profile:
+        out["profile"] = profile_train_step(state, seed)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_train_step(state, seed: int) -> dict:
+    """Device time of one full-width training step (240p, 51 frames, batch
+    2, frame mask) by kernel, from torch.profiler (launches made here come
+    after the counts were read)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from videosys_tpu_torch.schedulers.rflow import RFlowConfig, RFlowScheduler
+    from videosys_tpu_torch.training.train_step import make_train_step
+
+    mc = state.model.config
+    gen = torch.Generator().manual_seed(seed)
+    batch = {"x": torch.randn(2, mc.in_channels, 15, 30, 53, generator=gen),
+             "y": torch.randn(2, 8, mc.caption_channels, generator=gen),
+             "kv_mask": torch.ones(2, 8, dtype=torch.bool),
+             "fps": torch.full((2,), 24.0),
+             "mask": torch.ones(2, 15, dtype=torch.bool)}
+    batch["mask"][:, :3] = False
+    batch = {k: v.cuda() for k, v in batch.items()}
+    step = make_train_step(
+        state.model, RFlowScheduler(RFlowConfig(sample_method="logit-normal")),
+        state.tx, 240.0, 426.0, num_frames=51)
+
+    def run():
+        step(state, gen, batch)
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events)
+
+    def share(match):
+        return sum(e.self_device_time_total for e in events
+                   if match(e.key)) / max(total, 1)
+
+    gemm = ("gemm", "cutlass", "cublas", "xmma", "nvjet")
+    rows = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
+    res = {"shape": "240p x 51 frames, batch 2", "step_wall_ms": wall_ms,
+           "device_busy_ms": total / 1e3,
+           "idle_share": max(0.0, 1 - total / 1e3 / wall_ms),
+           "flash_fwd_share": share(lambda k: "flash_fwd" in k),
+           "flash_bwd_share": share(lambda k: "flash_bwd" in k),
+           "gemm_share": share(lambda k: any(g in k.lower() for g in gemm)),
+           "top": [{"name": e.key[:90], "calls": e.count,
+                    "ms": e.self_device_time_total / 1e3,
+                    "share": e.self_device_time_total / max(total, 1)}
+                   for e in rows]}
+    log("profile (one full-width training step):", json.dumps(res))
+    return res
+
+
+def tiny_train_parity_phase(fa, seed: int) -> dict:
+    """A tiny configuration trained 3 steps in fp32 on the card (kernels)
+    and on the CPU (plain versions): same weights, captions, dropout flags,
+    timesteps, noise and masks."""
+    import torch
+
+    from videosys_tpu_torch import TrainConfig, run_training
+    from videosys_tpu_torch.models.transformers.stdit3 import STDiT3, STDiT3Config
+
+    mc = STDiT3Config(depth=2, hidden_size=32, num_heads=2, caption_channels=16,
+                      model_max_length=8, dtype=torch.float32)
+    torch.manual_seed(seed)
+    params = {k: v.clone() for k, v in STDiT3(mc).state_dict().items()}
+
+    def run(device):
+        cfg = TrainConfig(
+            model=mc, bucket_config={"144p": {1: (1.0, 2), 51: (1.0, 2)}},
+            mask_ratios={"identity": 0.5, "quarter_head": 0.25, "random": 0.25},
+            max_steps=3, log_every=1, warmup_steps=2, lr=1e-3, seed=seed,
+            dataset_size=16)
+        return run_training(cfg, device=device, params=params)[2]
+
+    fa.reset_launches()
+    card = run("cuda")
+    launches = dict(fa.LAUNCHES)
+    cpu = run("cpu")
+    loss_err = max(abs(a["loss"] - b["loss"]) for a, b in zip(card, cpu))
+    norm_err = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                   for a, b in zip(card, cpu))
+    log(f"tiny train parity (card kernels vs CPU plain, fp32, 3 steps, buckets "
+        f"{[h['bucket'] for h in card]}): losses card={[h['loss'] for h in card]} "
+        f"cpu={[h['loss'] for h in cpu]} max_abs_diff={loss_err:.3e} (tol 1e-4) "
+        f"grad_norm max_rel_diff={norm_err:.3e} (tol 1e-3) launches={launches}")
+    if [h["bucket"] for h in card] != [h["bucket"] for h in cpu]:
+        raise AssertionError("card and CPU runs took different buckets")
+    if not (loss_err <= 1e-4 and norm_err <= 1e-3):
+        raise AssertionError("card and CPU training disagree on the tiny config")
+    if not (launches["f32"] > 0 and launches["bwd_fused_f32"] > 0):
+        raise AssertionError("the tiny card run did not launch the kernels")
+    return {"loss_max_abs_diff": loss_err, "grad_norm_max_rel_diff": norm_err}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=30,
                     help="rflow sampling steps of the full-width requests")
+    ap.add_argument("--remat-policy", default="full",
+                    choices=("full", "dots", "none"),
+                    help="activation recompute of the training phase")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of the phases to run "
+                         f"({', '.join(PHASES)}); the kernel report and the "
+                         "status line are printed only when all of them ran")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one full-width denoise step")
+                    help="also profile one full-width denoise step and one "
+                         "full-width training step")
     args = ap.parse_args(argv)
 
     import torch
@@ -436,7 +860,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not (ROOT / "videosys_tpu_torch" / "csrc" / "flash_fwd.cu").exists():
+    if not (ROOT / "videosys_tpu_torch" / "csrc" / "flash_bwd.cu").exists():
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 2
@@ -452,8 +876,9 @@ def main(argv=None) -> int:
     # phase 1: build, card
     card = card_line()
     t0 = time.perf_counter()
-    lib = fa.build()
-    log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s "
+    libs = fa.build()
+    log(f"build: {[lib.name for lib in libs.values()]} in "
+        f"{time.perf_counter() - t0:.1f} s "
         f"(nvcc {fa.build_info.get('seconds', 0.0):.1f} s)")
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"device_count={torch.cuda.device_count()}")
@@ -464,12 +889,26 @@ def main(argv=None) -> int:
          "aesthetic score: 6.5."])
     text_len = bucket_text_kv(y, m, 300)[2]
 
-    # phase 2: kernel against plain
-    shapes = kernel_phase(fa, text_len)
-    # phase 3: the main path
-    served = serve_phase(fa, args.steps, args.seed, args.profile)
-    # phase 4: tiny configuration, card against CPU
-    tiny_parity_phase(args.seed)
+    phases = args.phases.split(",")
+    if not set(phases) <= set(PHASES):
+        ap.error(f"--phases takes a subset of {PHASES}")
+    if "kernel" in phases:  # phase 2: forward kernel against plain
+        shapes = kernel_phase(fa, text_len)
+    if "serve" in phases:  # phase 3: the serving path
+        served = serve_phase(fa, args.steps, args.seed, args.profile)
+    if "tiny" in phases:  # phase 4: tiny configuration, card against CPU
+        tiny_parity_phase(args.seed)
+    if "bwd_kernel" in phases:  # phase 5: backward kernels against plain
+        bwd_shapes = backward_kernel_phase(fa)
+    if "train" in phases:  # phase 6: the training path
+        trained = train_phase(fa, TRAIN_STEPS, args.seed, args.profile,
+                              args.remat_policy)
+    if "tiny_train" in phases:  # phase 7: tiny training, card against CPU
+        tiny_train_parity_phase(fa, args.seed)
+    if set(phases) != set(PHASES):
+        log(f"partial run ({args.phases}) total_s="
+            f"{time.perf_counter() - t_start:.1f}: no kernel report")
+        return 0
 
     # the variants the main path launches (bf16), each with the TPU kernel
     # whose shapes it takes and the shape it is timed at
@@ -482,6 +921,24 @@ def main(argv=None) -> int:
             "name": f"flash_fwd_{key}", "route": "cuda",
             "source": "videosys_tpu_torch/csrc/flash_fwd.cu",
             "replaces": replaces, "launches": served["launches"][key],
+            "max_abs_err": r["max_abs_err_bf16"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the backward kernels, launches from the training path (bf16)
+    for key, shape, kern, replaces in (
+            ("bwd_fused", "spatial", "fused",
+             "videosys_tpu/ops/flash_attention.py:326"),
+            ("bwd_dkv", "long_row", "dkv",
+             "videosys_tpu/ops/flash_attention.py:522"),
+            ("bwd_dq", "long_row", "dq",
+             "videosys_tpu/ops/flash_attention.py:594")):
+        r = bwd_shapes[shape][kern]
+        if trained["launches"][key] <= 0:
+            raise AssertionError(f"training never launched flash_{key}")
+        kernels.append({
+            "name": f"flash_{key}", "route": "cuda",
+            "source": "videosys_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": replaces, "launches": trained["launches"][key],
             "max_abs_err": r["max_abs_err_bf16"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

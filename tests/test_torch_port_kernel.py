@@ -1,5 +1,5 @@
-"""The CUDA flash-attention kernel against its plain PyTorch version, on a
-card. Skips without one. This file imports no JAX, so it also runs where
+"""The CUDA flash-attention kernels, forward and backward, against their
+plain PyTorch versions, on a card. Skips without one. This file imports no JAX, so it also runs where
 JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_kernel.py
@@ -19,6 +19,14 @@ F32_TOL = 2e-5
 # 4.4e-4 / 8.7e-4), and a plain version that drops one key per row read at
 # least 1.1e-2 / 2.7e-2 wherever a row had a key to drop.
 HALF_LIMITS = {torch.bfloat16: (6.5e-3, 1.2e-2), torch.float16: (1e-3, 2e-3)}
+# Gradients: fp32 at 1e-4 absolute (the JAX package's own gradient
+# tolerance); half precision by the same two measures, the worst of dq, dk,
+# dv, with both sides reading the same forward output and log-sum-exp. The
+# kernels read at most 1.9e-4 / 3.4e-3 (bf16) and 4.9e-5 / 5.6e-4 (fp16) in
+# the readings of `__main__` on an H100; a plain version that drops one key
+# per row at least 5.9e-2 / 3.5e-1.
+F32_GRAD_TOL = 1e-4
+HALF_GRAD_LIMITS = {torch.bfloat16: (1e-3, 1.2e-2), torch.float16: (2e-4, 2e-3)}
 
 
 @pytest.fixture
@@ -115,6 +123,167 @@ def test_kernel_rejects_what_it_cannot_take(card):
         fa.flash_attention(q, q, q)
 
 
+BWD_SHAPES = [
+    (2, 3, 100, 150, 72, True),    # ragged tails, a fully masked batch row
+    (3, 4, 405, 405, 72, False),   # 240p spatial row
+    (40, 2, 15, 15, 72, False),    # temporal length
+    (2, 4, 405, 8, 72, True),      # cross attention to 8 text tokens
+    (1, 2, 300, 200, 128, True),   # the widest head the backward takes
+    (1, 2, 33, 40, 20, True),      # D % 8 != 0: element-wise loads
+]
+
+
+def run_bwd_case(dtype, variant, B, H, Nq, Nk, D, masked, drop_key=None):
+    """(kernel grads, plain grads) of one backward variant; the forward
+    kernel's output and log-sum-exp feed both. With `drop_key` the plain
+    side loses one key per row (the fault the limits must catch)."""
+    q, k, v, mask = inputs(dtype, B, H, Nq, Nk, D, masked)
+    rng = np.random.default_rng(1)
+    do = torch.from_numpy(rng.standard_normal(
+        (B, H, Nq, D)).astype(np.float32)).cuda().to(dtype)
+    if masked:
+        # the first row attends to every key (a row with one key has no
+        # gradient to measure against); the last is fully masked when there
+        # is another beside it
+        lens = torch.from_numpy(rng.integers(2, Nk + 1, size=B))
+        lens[0] = Nk
+        mask = (torch.arange(Nk)[None] < lens[:, None]).cuda()
+        if B > 1:
+            mask[-1] = False
+    out, lse = fa._launch(q, k, v, None, mask, save_lse=True)
+    want_lse = fa.flash_attention_plain(q, k, v, None, mask, return_lse=True)[1]
+    torch.testing.assert_close(lse, want_lse, atol=F32_GRAD_TOL, rtol=1e-5)
+    pmask = mask if drop_key is None else drop_key(mask, B, Nk, "cuda")
+    if variant == "fused":
+        got = fa.flash_bwd_fused(q, k, v, mask, do)
+        want = fa.flash_attention_bwd_plain(q, k, v, pmask, do)
+    else:
+        di = (do.float() * out.float()).sum(-1)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, mask, do, lse, di)
+        got = (fa.flash_bwd_dq(q, k, v, mask, do, lse, di), dk, dv)
+        want = fa.flash_attention_bwd_lse_plain(q, k, v, pmask, do, out, lse)
+    return got, want, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["fused", "blocked"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,H,Nq,Nk,D,masked", BWD_SHAPES)
+def test_backward_kernels_match_plain(card, variant, dtype, B, H, Nq, Nk, D,
+                                      masked):
+    fa.reset_launches()
+    got, want, mask = run_bwd_case(dtype, variant, B, H, Nq, Nk, D, masked)
+    torch.cuda.synchronize()
+    keys = fa.backward_launch_keys(variant, dtype)
+    assert {k: n for k, n in fa.LAUNCHES.items() if n} == {
+        fa.kernel_variant(dtype, D): 1, **{key: 1 for key in keys}}
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all()) and g.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=F32_GRAD_TOL, rtol=F32_GRAD_TOL)
+        else:
+            err = rel_errors(g, w)
+            lim_l2, lim_max = HALF_GRAD_LIMITS[dtype]
+            assert err["rel_l2"] <= lim_l2 and err["rel_max"] <= lim_max, err
+    if mask is not None:
+        # masked keys of rows that attend to something: exactly zero dk, dv;
+        # the fully masked batch row: no dq and no dk at all
+        dead = ((~mask) & mask.any(1, keepdim=True))[:, None, :, None]
+        assert not bool(got[1].masked_select(dead).any())
+        assert not bool(got[2].masked_select(dead).any())
+        if B > 1:
+            assert not bool(got[0][-1].any()) and not bool(got[1][-1].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_function_launches_the_backward_kernels(card, dtype):
+    """`flash_attention` on CUDA tensors that need gradients: the rule's
+    backward kernels run, a strided dO is made contiguous, and the plain
+    versions are never entered."""
+    from videosys_tpu_torch.ops.attention import scaled_dot_product_attention
+
+    for (B, H, N, D), variant in (((2, 4, 70, 72), "fused"),
+                                  ((1, 2, 2200, 72), "blocked")):
+        assert fa.backward_variant(B, H, N, N, D, dtype) == variant
+        x = torch.randn(3, B, N, H, D, device="cuda", dtype=dtype)
+        t = [a.clone().requires_grad_() for a in x]
+        w = torch.randn(B, N, H, D, device="cuda", dtype=dtype)
+        fa.reset_launches()
+        out = scaled_dot_product_attention(*(a.transpose(1, 2) for a in t))
+        (out.transpose(1, 2) * w).sum().backward()
+        keys = fa.backward_launch_keys(variant, dtype)
+        assert {k: n for k, n in fa.LAUNCHES.items() if n} == {
+            fa.kernel_variant(dtype, D): 1, **{key: 1 for key in keys}}
+        q, k, v = (a.detach().transpose(1, 2).contiguous() for a in t)
+        want = fa.flash_attention_bwd_plain(q, k, v, None,
+                                            w.transpose(1, 2).contiguous())
+        for a, g in zip(t, want):
+            err = rel_errors(a.grad.transpose(1, 2), g)
+            assert err["rel_l2"] <= (1e-5 if dtype == torch.float32 else 6.5e-3)
+        fa.reset_launches()
+        with torch.no_grad():
+            scaled_dot_product_attention(*(a.transpose(1, 2) for a in t))
+        assert sum(fa.LAUNCHES.values()) == 1
+
+
+@pytest.mark.cuda
+def test_recompute_policies_on_the_card(card):
+    """A tiny fp32 STDiT3 on the card: the three recompute policies give one
+    loss and one set of gradients, every attention through the kernels (the
+    forward twice where it is recomputed)."""
+    from videosys_tpu_torch.models.transformers.stdit3 import STDiT3, STDiT3Config
+
+    cfg = STDiT3Config(depth=2, hidden_size=32, num_heads=2,
+                       caption_channels=16, model_max_length=8)
+    torch.manual_seed(0)
+    sd = STDiT3(cfg).state_dict()
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 4, 5, 8, 8, generator=gen).cuda()
+    y = torch.randn(2, 8, 16, generator=gen).cuda()
+    t = torch.tensor([500.0, 130.0], device="cuda")
+    results = {}
+    for policy in STDiT3.REMAT_POLICIES:
+        model = STDiT3(cfg, remat=True, remat_policy=policy)
+        model.load_state_dict(sd)
+        model.cuda().train()
+        fa.reset_launches()
+        loss = model(x, t, y, height=64.0, width=64.0).square().mean()
+        loss.backward()
+        # per pair: spatial, temporal and two cross attentions
+        n = cfg.depth * 4
+        assert fa.LAUNCHES["f32"] == n * (1 if policy == "none" else 2)
+        assert fa.LAUNCHES["bwd_fused_f32"] == n
+        results[policy] = (loss.item(), {k: p.grad for k, p in
+                                         model.named_parameters()
+                                         if p.grad is not None})
+    for policy in ("dots", "none"):
+        assert results[policy][0] == pytest.approx(results["full"][0], rel=1e-6)
+        for k, g in results["full"][1].items():
+            torch.testing.assert_close(results[policy][1][k], g,
+                                       atol=1e-6, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_backward_rejects_what_it_cannot_take(card):
+    q = torch.zeros(1, 1, 8, 136, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # head_dim > 128
+        fa.flash_bwd_fused(q, q, q, None, q)
+    q = torch.zeros(1, 1, 40000, 64, device="cuda")
+    k = torch.zeros(1, 1, 8, 64, device="cuda")
+    with pytest.raises(ValueError):  # row statistics beyond shared memory
+        fa.flash_bwd_fused(q, k, k, None, q)
+    assert fa.backward_variant(1, 1, 40000, 8, 64, torch.float32) == "blocked"
+    q = torch.zeros(1, 1, 8, 64, device="cuda")
+    with pytest.raises(ValueError):  # strided dO at the raw wrapper
+        fa.flash_bwd_fused(q, q, q, None,
+                           torch.zeros(1, 1, 64, 8, device="cuda").transpose(2, 3))
+    lib = fa._library("bwd")
+    for dt, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        assert lib.flash_bwd_fused_smem(code, 405, 72) == \
+            fa.fused_smem_bytes(405, 72, dt)
+
+
 if __name__ == "__main__":
     # The half-precision readings the limits above are set from, beside
     # those of a plain version that drops one key per row (on a card):
@@ -129,3 +298,17 @@ if __name__ == "__main__":
                 q, k, v, kv_mask=drop_last_key(mask, case[0], case[3], "cuda"))
             print(f"readings {dtype} {case} kernel {rel_errors(got, want)} "
                   f"one key dropped {rel_errors(fault, want)}", flush=True)
+
+    def worst(got, want):
+        errs = [rel_errors(g, w) for g, w in zip(got, want)]
+        return {m: max(e[m] for e in errs) for m in errs[0]}
+
+    for dtype in (torch.bfloat16, torch.float16):
+        for variant in ("fused", "blocked"):
+            for case in BWD_SHAPES:
+                got, want, _ = run_bwd_case(dtype, variant, *case)
+                _, fault, _ = run_bwd_case(dtype, variant, *case,
+                                           drop_key=drop_last_key)
+                print(f"bwd readings {dtype} {variant} {case} kernel "
+                      f"{worst(got, want)} one key dropped {worst(fault, want)}",
+                      flush=True)

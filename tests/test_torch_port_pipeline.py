@@ -160,9 +160,11 @@ def test_copies_equal_originals(mod_j, mod_p, extra):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, videosys_tpu_torch, videosys_tpu_torch.utils.from_jax;"
+    code = ("import sys, videosys_tpu_torch, videosys_tpu_torch.utils.from_jax,"
+            " videosys_tpu_torch.training.train, videosys_tpu_torch.training.ckpt,"
+            " videosys_tpu_torch.training.datasets;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'videosys_tpu')];"
+            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'videosys_tpu')];"
             "assert not bad, bad")
     root = Path(__file__).resolve().parents[1]
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True)

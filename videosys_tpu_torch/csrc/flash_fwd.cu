@@ -12,8 +12,10 @@
 // sequential grid axis), keeping a running (max, sum, acc) in fp32 and
 // dividing by the sum once at the end. The softmax scale times log2(e) is
 // applied to the fp32 scores, so the exponentials are exp2. The log-sum-exp
-// output of _flash_kernel serves only the training backward and is not
-// written.
+// output of _flash_kernel (natural log of the sum over the scaled scores,
+// one fp32 per q row, [B*H, Nq]) is written only when the caller passes a
+// buffer: the KV-blocked backward (flash_bwd.cu) reads it. A fully masked
+// row stores MASK_VALUE itself.
 //
 // What bounds it on an H100: STDiT3 spatial attention (B*H = 480, N = 1590,
 // D = 72) does 4*B*H*N^2*D = 3.5e11 flop per layer against 2.2e8 bytes of
@@ -44,125 +46,9 @@
 // schedule, and 64-row q tiles that waste 49 of 64 rows on temporal
 // attention (N = 15).
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr int BLOCK_M = 64;  // q rows per block: 4 warps x 16 rows
-constexpr int BLOCK_N = 64;  // keys per loop iteration
-constexpr int THREADS = 128;
-constexpr int PAD = 8;       // shared-memory row padding against bank conflicts
-constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
-
-template <typename T>
-struct Ops;
-
-template <>
-struct Ops<__nv_bfloat16> {
-  static __device__ __forceinline__ __nv_bfloat16 from_float(float x) {
-    return __float2bfloat16(x);
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-template <>
-struct Ops<__half> {
-  static __device__ __forceinline__ __half from_float(float x) {
-    return __float2half(x);
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 h = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  // copies src_bytes (16 or 0) and zero-fills the rest of the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// Starts copying rows [row0, row0 + 64) and columns [col0, col0 + width) of
-// a row-major [N, D] matrix into shared memory with row stride `ld`, zero
-// filling whatever lies past N or D. `width` is a multiple of 8. With `vec`
-// (D % 8 == 0 and 16-byte aligned rows) 8-element chunks go by cp.async and
-// land after cp_async_wait_all(); otherwise elements are copied one by one.
-// Either way a __syncthreads() must follow before the tile is read.
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
-                                          int row0, int N, int col0,
-                                          int width, int D, bool vec) {
-  const int chunks = width / 8;
-  const T zero = Ops<T>::from_float(0.f);
-  for (int c = threadIdx.x; c < 64 * chunks; c += THREADS) {
-    const int r = c / chunks;
-    const int cc = (c % chunks) * 8;
-    const int grow = row0 + r;
-    const int gcol = col0 + cc;
-    T* d = dst + r * ld + cc;
-    if (vec && gcol + 8 <= D) {
-      const bool in = grow < N;
-      cp_async16(d, in ? src + (size_t)grow * D + gcol : src, in ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int col = gcol + e;
-        d[e] = (grow < N && col < D) ? src[(size_t)grow * D + col] : zero;
-      }
-    }
-  }
-}
 
 // Tensor-core kernel. Grid (B*H, ceil(Nq/64), column splits); NT = output
 // columns per block / 8. With STAGES = 2 the next key tile is copied in
@@ -171,8 +57,8 @@ template <typename T, int NT, int STAGES>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                  T* __restrict__ o, int H, int Nq, int Nk, int D, int DP,
-                  float scale_log2, int vec) {
+                  T* __restrict__ o, float* __restrict__ lse, int H, int Nq,
+                  int Nk, int D, int DP, float scale_log2, int vec) {
   constexpr int DC = NT * 8;
   static_assert(NT % 2 == 0, "output columns come in 16-wide pairs");
   static_assert(STAGES == 1 || STAGES == 2, "one or two key-tile buffers");
@@ -321,6 +207,14 @@ __global__ void __launch_bounds__(THREADS)
     if (l[r] == 0.f) l[r] = 1.f;
   }
   const int row = q0 + warp * 16 + lane / 4;
+  if (lse != nullptr && blockIdx.z == 0 && lane % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row + r * 8 < Nq)
+        lse[(size_t)bh * Nq + row + r * 8] =
+            m_r[r] <= 0.5f * MASK_VALUE ? MASK_VALUE
+                                        : (m_r[r] + log2f(l[r])) * LN2;
+  }
   T* ob = o + (size_t)bh * Nq * D;
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
@@ -344,8 +238,8 @@ constexpr int F32_MAX_D = 512;
 __global__ void __launch_bounds__(F32_ROWS * 32)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                  float* __restrict__ o, int H, int Nq, int Nk, int D,
-                  float scale_log2) {
+                  float* __restrict__ o, float* __restrict__ lse, int H, int Nq,
+                  int Nk, int D, float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ldk = D | 1;  // odd stride: the 32 lanes read 32 distinct banks
   float* sQ = reinterpret_cast<float*>(smem_raw);
@@ -420,6 +314,9 @@ __global__ void __launch_bounds__(F32_ROWS * 32)
   const int r = row0 + warp;
   if (r < Nq) {
     const float inv_l = l == 0.f ? 1.f : l;
+    if (lse != nullptr && lane == 0)
+      lse[(size_t)bh * Nq + r] =
+          m <= 0.5f * MASK_VALUE ? MASK_VALUE : (m + log2f(inv_l)) * LN2;
 #pragma unroll
     for (int i = 0; i < F32_MAX_D / 32; ++i) {
       const int d = lane + 32 * i;
@@ -430,8 +327,8 @@ __global__ void __launch_bounds__(F32_ROWS * 32)
 
 template <typename T, int NT, int STAGES>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       const uint8_t* mask, void* o, int BH, int H, int Nq,
-                       int Nk, int D, float scale_log2, int vec,
+                       const uint8_t* mask, void* o, float* lse, int BH,
+                       int H, int Nq, int Nk, int D, float scale_log2, int vec,
                        cudaStream_t stream) {
   constexpr int DC = NT * 8;
   const int DP = (D + 15) / 16 * 16;
@@ -447,24 +344,24 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   dim3 grid(BH, (Nq + BLOCK_M - 1) / BLOCK_M, splits);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(o), H, Nq, Nk, D, DP,
-      scale_log2, vec);
+      static_cast<const T*>(v), mask, static_cast<T*>(o), lse, H, Nq, Nk, D,
+      DP, scale_log2, vec);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
-                         const uint8_t* mask, void* o, int BH, int H, int Nq,
-                         int Nk, int D, float scale_log2, int vec,
-                         cudaStream_t stream) {
+                         const uint8_t* mask, void* o, float* lse, int BH,
+                         int H, int Nq, int Nk, int D, float scale_log2,
+                         int vec, cudaStream_t stream) {
   const int DP = (D + 15) / 16 * 16;
   if (DP > 128)  // wide heads: column splits, one buffer (shared memory)
-    return launch_mma<T, 16, 1>(q, k, v, mask, o, BH, H, Nq, Nk, D,
+    return launch_mma<T, 16, 1>(q, k, v, mask, o, lse, BH, H, Nq, Nk, D,
                                 scale_log2, vec, stream);
   switch (DP / 8) {
 #define VIDEOSYS_CASE(NT)                                                 \
   case NT:                                                                \
-    return launch_mma<T, NT, 2>(q, k, v, mask, o, BH, H, Nq, Nk, D,       \
+    return launch_mma<T, NT, 2>(q, k, v, mask, o, lse, BH, H, Nq, Nk, D,  \
                                 scale_log2, vec, stream);
     VIDEOSYS_CASE(2)
     VIDEOSYS_CASE(4)
@@ -484,16 +381,18 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
 
 // C interface, loaded with ctypes. q: [BH, Nq, D], k/v: [BH, Nk, D], o:
 // [BH, Nq, D], all contiguous and of one type (dtype 0 = fp32, 1 = bf16,
-// 2 = fp16); mask: [BH / H, Nk] bytes (nonzero = attend) or null. Launches
-// on `stream` and returns the launch's cudaError_t.
+// 2 = fp16); mask: [BH / H, Nk] bytes (nonzero = attend) or null; lse: fp32
+// [BH, Nq] or null. Launches on `stream` and returns the launch's
+// cudaError_t.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
-                         const void* mask, void* o, int dtype, int BH, int H,
-                         int Nq, int Nk, int D, float scale, int vec,
-                         void* stream) {
+                         const void* mask, void* o, void* lse, int dtype,
+                         int BH, int H, int Nq, int Nk, int D, float scale,
+                         int vec, void* stream) {
   if (BH <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || D <= 0 || D > F32_MAX_D)
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = scale * 1.4426950408889634f;
   const uint8_t* m = static_cast<const uint8_t*>(mask);
+  float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
@@ -506,14 +405,14 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
     dim3 grid(BH, (Nq + F32_ROWS - 1) / F32_ROWS);
     flash_fwd_f32<<<grid, F32_ROWS * 32, smem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), m, static_cast<float*>(o), H, Nq, Nk, D,
-        scale_log2);
+        static_cast<const float*>(v), m, static_cast<float*>(o), l, H, Nq, Nk,
+        D, scale_log2);
     err = cudaGetLastError();
   } else if (dtype == 1) {
-    err = dispatch_mma<__nv_bfloat16>(q, k, v, m, o, BH, H, Nq, Nk, D,
+    err = dispatch_mma<__nv_bfloat16>(q, k, v, m, o, l, BH, H, Nq, Nk, D,
                                       scale_log2, vec, s);
   } else if (dtype == 2) {
-    err = dispatch_mma<__half>(q, k, v, m, o, BH, H, Nq, Nk, D, scale_log2,
+    err = dispatch_mma<__half>(q, k, v, m, o, l, BH, H, Nq, Nk, D, scale_log2,
                                vec, s);
   } else {
     err = cudaErrorInvalidValue;

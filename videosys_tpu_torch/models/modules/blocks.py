@@ -11,6 +11,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from videosys_tpu_torch.models.modules.cast import Linear
 from videosys_tpu_torch.models.modules.embeddings import apply_rope_channel
 from videosys_tpu_torch.models.modules.normalization import RMSNorm
 from videosys_tpu_torch.ops.attention import scaled_dot_product_attention
@@ -27,8 +28,8 @@ class SelfAttention(nn.Module):
         self.dim = dim
         self.num_heads = num_heads
         head_dim = dim // num_heads
-        self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, dim * 3, bias=qkv_bias)
+        self.proj = Linear(dim, dim)
         if qk_norm:
             self.q_norm = RMSNorm(head_dim, num_heads=num_heads)
             self.k_norm = RMSNorm(head_dim, num_heads=num_heads)
@@ -68,9 +69,9 @@ class MultiHeadCrossAttention(nn.Module):
         super().__init__()
         self.dim = dim
         self.num_heads = num_heads
-        self.q_linear = nn.Linear(dim, dim)
-        self.kv_linear = nn.Linear(dim, dim * 2)
-        self.proj = nn.Linear(dim, dim)
+        self.q_linear = Linear(dim, dim)
+        self.kv_linear = Linear(dim, dim * 2)
+        self.proj = Linear(dim, dim)
 
     def forward(self, x, cond, kv_mask: Optional[torch.Tensor] = None):
         Bf, N, C = x.shape

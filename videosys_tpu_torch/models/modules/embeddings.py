@@ -16,6 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from videosys_tpu_torch.models.modules.cast import Linear, compute_dtype_of
+
 
 def timestep_embedding(t: torch.Tensor, dim: int,
                        max_period: int = 10000) -> torch.Tensor:
@@ -32,8 +34,8 @@ def timestep_embedding(t: torch.Tensor, dim: int,
 
 
 def _mlp_seq(in_features: int, hidden: int) -> nn.Sequential:
-    return nn.Sequential(nn.Linear(in_features, hidden), nn.SiLU(),
-                         nn.Linear(hidden, hidden))
+    return nn.Sequential(Linear(in_features, hidden), nn.SiLU(),
+                         Linear(hidden, hidden))
 
 
 class TimestepEmbedder(nn.Module):
@@ -46,7 +48,7 @@ class TimestepEmbedder(nn.Module):
 
     def forward(self, t):
         x = timestep_embedding(t, self.freq_embed_size)
-        return self.mlp(x.to(self.mlp[0].weight.dtype))
+        return self.mlp(x.to(compute_dtype_of(self.mlp[0])))
 
 
 class SizeEmbedder(TimestepEmbedder):
@@ -69,8 +71,8 @@ class Mlp(nn.Module):
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: int):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, hidden_features)
-        self.fc2 = nn.Linear(hidden_features, out_features)
+        self.fc1 = Linear(in_features, hidden_features)
+        self.fc2 = Linear(hidden_features, out_features)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
@@ -110,7 +112,11 @@ class PatchEmbed3D(nn.Module):
         pad = ((-W) % pw, (-H) % ph, (-T) % pt)
         if any(pad):
             x = F.pad(x, (0, pad[0], 0, pad[1], 0, pad[2]))
-        return self.proj(x).permute(0, 2, 3, 4, 1)
+        # weights held in another dtype than x (fp32 master weights) are
+        # cast at use, like the Linear layers
+        out = F.conv3d(x, self.proj.weight.to(x.dtype),
+                       self.proj.bias.to(x.dtype), stride=self.patch_size)
+        return out.permute(0, 2, 3, 4, 1)
 
 
 def pos_embed_2d(dim: int, h: int, w: int, scale: float = 1.0,

@@ -1,24 +1,34 @@
 """STDiT3 (Open-Sora v1.2), the spatio-temporal DiT: dense path.
 
-Port of `videosys_tpu/models/transformers/stdit3.py` without PAB caching,
-rematerialization or sharding. Activations are [B, T, S, C]; the depth
-pairs are a Python loop over `spatial_blocks` and `temporal_blocks`, named
-as in the reference checkpoint's state_dict.
+Port of `videosys_tpu/models/transformers/stdit3.py` without PAB caching
+or sharding. Activations are [B, T, S, C]; the depth pairs are a Python
+loop over `spatial_blocks` and `temporal_blocks`, named as in the reference
+checkpoint's state_dict. For training, `remat` recomputes each
+spatial+temporal pair in the backward pass, and `compute_dtype` computes in
+another dtype than the parameters are held in (fp32 master weights, bf16
+matmuls and attention).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from videosys_tpu_torch.models.modules.blocks import (
     MultiHeadCrossAttention,
     SelfAttention,
 )
+from videosys_tpu_torch.models.modules.cast import Linear, set_compute_dtype
 from videosys_tpu_torch.models.modules.embeddings import (
     CaptionEmbedder,
     Mlp,
@@ -35,8 +45,9 @@ from videosys_tpu_torch.models.modules.normalization import layer_norm, t2i_modu
 @dataclasses.dataclass(frozen=True)
 class STDiT3Config:
     """STDiT3-XL/2 by default: depth 28, hidden 1152, patch (1, 2, 2),
-    16 heads. `dtype` is the one the pipeline holds the weights in; the
-    model computes in its parameters' dtype."""
+    16 heads. `dtype` is the one the serving pipeline holds the weights in
+    and the one training computes in (over fp32 parameters); a model built
+    without `compute_dtype` computes in its parameters' dtype."""
 
     input_sq_size: int = 512
     in_channels: int = 4
@@ -54,6 +65,17 @@ class STDiT3Config:
     @property
     def out_channels(self) -> int:
         return self.in_channels * 2 if self.pred_sigma else self.in_channels
+
+
+_MATMUL_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+               torch.ops.aten.bmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of "dots": keep matmul outputs."""
+    if op in _MATMUL_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def t_mask_select(x_mask, x, masked_x):
@@ -136,22 +158,43 @@ class FinalLayer(nn.Module):
         super().__init__()
         self.scale_shift_table = nn.Parameter(
             torch.randn(2, hidden_size) / hidden_size ** 0.5)
-        self.linear = nn.Linear(hidden_size, out_features)
+        self.linear = Linear(hidden_size, out_features)
 
 
 class STDiT3(nn.Module):
     """Full STDiT3 transformer. forward(x [B, C_in, T, H, W], timestep [B],
-    y [B, L, caption_channels]) -> [B, out_channels, T, H, W] fp32."""
+    y [B, L, caption_channels]) -> [B, out_channels, T, H, W] fp32.
 
-    def __init__(self, config: STDiT3Config = STDiT3Config()):
+    `remat` recomputes each depth pair in the backward pass instead of
+    keeping its activations (non-reentrant `torch.utils.checkpoint`):
+    `remat_policy` "full" recomputes everything, "dots" keeps the outputs
+    of the matrix products (the Linear layers) and recomputes the rest,
+    attention included, "none" keeps every activation. Values never differ
+    between the policies.
+
+    `compute_dtype`: the dtype of matmuls, attention and activations when it
+    differs from the parameters' (each Linear casts its weight, bias and
+    input at use); None computes in the parameters' dtype."""
+
+    REMAT_POLICIES = ("full", "dots", "none")
+
+    def __init__(self, config: STDiT3Config = STDiT3Config(),
+                 remat: bool = False, remat_policy: str = "full",
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        if remat_policy not in self.REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r} not in "
+                             f"{self.REMAT_POLICIES}")
+        self.remat = remat
+        self.remat_policy = remat_policy
+        self.compute_dtype = compute_dtype
         cfg = config
         C = cfg.hidden_size
         self.config = cfg
         self.x_embedder = PatchEmbed3D(cfg.patch_size, cfg.in_channels, C)
         self.t_embedder = TimestepEmbedder(C)
         self.fps_embedder = SizeEmbedder(C)
-        self.t_block = nn.Sequential(nn.SiLU(), nn.Linear(C, 6 * C))
+        self.t_block = nn.Sequential(nn.SiLU(), Linear(C, 6 * C))
         self.y_embedder = CaptionEmbedder(cfg.caption_channels, C,
                                           cfg.model_max_length)
         self.spatial_blocks = nn.ModuleList(
@@ -160,13 +203,19 @@ class STDiT3(nn.Module):
             STDiT3Block(cfg, temporal=True) for _ in range(cfg.depth))
         pt, ph, pw = cfg.patch_size
         self.final_layer = FinalLayer(C, pt * ph * pw * cfg.out_channels)
+        set_compute_dtype(self, compute_dtype)
+
+    @staticmethod
+    def _pair(spatial, temporal, xe, y, t_mlp, t0_mlp, x_mask, kv_mask):
+        xe = spatial(xe, y, t_mlp, t0_mlp, x_mask, kv_mask)
+        return temporal(xe, y, t_mlp, t0_mlp, x_mask, kv_mask)
 
     def forward(self, x, timestep, y, kv_mask: Optional[torch.Tensor] = None,
                 x_mask: Optional[torch.Tensor] = None,
                 fps: Optional[torch.Tensor] = None,
                 height: float = 0.0, width: float = 0.0):
         cfg = self.config
-        dtype = self.final_layer.linear.weight.dtype
+        dtype = self.compute_dtype or self.final_layer.linear.weight.dtype
         device = x.device
         B, _, Rt, Rh, Rw = x.shape
         pt, ph, pw = cfg.patch_size
@@ -196,9 +245,19 @@ class STDiT3(nn.Module):
         xe = self.x_embedder(x.to(dtype)).reshape(B, T, S, cfg.hidden_size)
         xe = xe + pos[None, None]
 
+        recompute = (self.remat and self.remat_policy != "none"
+                     and torch.is_grad_enabled())
         for spatial, temporal in zip(self.spatial_blocks, self.temporal_blocks):
-            xe = spatial(xe, y, t_mlp, t0_mlp, x_mask, kv_mask)
-            xe = temporal(xe, y, t_mlp, t0_mlp, x_mask, kv_mask)
+            if recompute:
+                context = {} if self.remat_policy == "full" else {
+                    "context_fn": functools.partial(
+                        create_selective_checkpoint_contexts, _save_matmuls)}
+                xe = checkpoint(self._pair, spatial, temporal, xe, y, t_mlp,
+                                t0_mlp, x_mask, kv_mask, use_reentrant=False,
+                                **context)
+            else:
+                xe = self._pair(spatial, temporal, xe, y, t_mlp, t0_mlp,
+                                x_mask, kv_mask)
 
         table = self.final_layer.scale_shift_table.float()
         mods = (table[None] + t[:, None].float()).to(dtype)

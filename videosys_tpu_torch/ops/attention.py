@@ -1,11 +1,15 @@
-"""Attention dispatch: the CUDA flash kernel for CUDA tensors, plain
+"""Attention dispatch: the CUDA flash kernels for CUDA tensors, plain
 attention on the CPU.
 
 Port of `videosys_tpu/ops/attention.py`. Its size thresholds were tuned on
-a TPU and are not carried over: on CUDA every call goes to the kernel,
-temporal (N = 15) and cross attention (Nk <= 300) included, and a shape the
-kernel cannot take (head_dim > 512) raises. A CUDA tensor never reaches the
-plain version.
+a TPU and are not carried over: on CUDA every call goes to the kernels,
+temporal (N = 15) and cross attention (Nk <= 300) included, forward and,
+when an input needs a gradient, backward; a shape the kernels cannot take
+(head_dim > 512 forward, > 128 backward) raises. A CUDA tensor never
+reaches a plain version. `.contiguous()` on the heads is a differentiable
+copy, so the graph is kept; with `force_flash` on the CPU a call that needs
+gradients goes through `FlashAttentionFunction` and its plain backward
+versions, otherwise `reference_attention` is differentiated by autograd.
 """
 
 from __future__ import annotations

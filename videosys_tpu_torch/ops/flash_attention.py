@@ -1,18 +1,31 @@
-"""Flash-attention forward: hand-written CUDA kernel for Hopper, with its
-plain PyTorch version beside it.
+"""Flash attention, forward and backward: hand-written CUDA kernels for
+Hopper, each with its plain PyTorch version beside it.
 
-The kernel (`csrc/flash_fwd.cu`) replaces both forward Pallas kernels of the
-JAX package (`videosys_tpu/ops/flash_attention.py`: `_single_pass_kernel`
-and the blocked `_flash_kernel`). It is compiled with `nvcc` into a shared
-library with a C interface at first use, into `build/kernels/` at the
-repository root, and loaded with `ctypes`; importing this module builds
-nothing.
+The kernels replace the five Pallas kernels of the JAX package
+(`videosys_tpu/ops/flash_attention.py`):
 
-`flash_attention` launches the kernel for CUDA tensors and runs
-`flash_attention_plain` for CPU tensors, nothing else: a CUDA tensor the
-kernel cannot take raises. `LAUNCHES` counts kernel launches by the CUDA
-variant launched (`kernel_variant`), so a run can show that its attention
-went through the kernel.
+* `csrc/flash_fwd.cu`: `_single_pass_kernel` and the blocked `_flash_kernel`
+  (one kernel here, with an optional log-sum-exp output);
+* `csrc/flash_bwd.cu`: `_flash_bwd_kernel` -> `flash_bwd_fused` (dq, dk, dv
+  from q, k, v, mask and dO alone), `_flash_bwd_dkv_kernel` ->
+  `flash_bwd_dkv` and `_flash_bwd_dq_kernel` -> `flash_bwd_dq` (from the
+  forward's log-sum-exp and di = rowsum(dO * O)).
+
+`FlashAttentionFunction` takes the place of the JAX package's custom-VJP
+glue: its forward decides which backward will run (`backward_variant`) and
+saves the output and the log-sum-exp only for the blocked pair.
+
+The sources are compiled with `nvcc` into shared libraries with a C
+interface at first use, into `build/kernels/` at the repository root, and
+loaded with `ctypes`; importing this module builds nothing.
+
+`flash_attention` launches kernels for CUDA tensors and runs the plain
+versions for CPU tensors, nothing else: a CUDA tensor a kernel cannot take
+raises. When no input needs a gradient it launches the forward kernel
+alone. `LAUNCHES` counts kernel launches: forward launches by the CUDA
+variant launched (`kernel_variant`: `mma`, `mma_split`, `f32`), backward
+launches by kernel (`bwd_fused`, `bwd_dkv`, `bwd_dq`; fp32 inputs, which
+take the SIMT variants, count under `*_f32`).
 """
 
 from __future__ import annotations
@@ -25,7 +38,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -34,13 +47,31 @@ MAX_HEAD_DIM = 512
 # widest head (padded to a multiple of 16) whose accumulator one block holds
 # in registers; wider heads split their output columns over blocks
 MMA_MAX_PADDED_D = 128
+# widest head the backward kernels take (accumulators in registers)
+BWD_MAX_HEAD_DIM = 128
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "flash_fwd.cu"
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_SOURCES = {"fwd": _CSRC / "flash_fwd.cu", "bwd": _CSRC / "flash_bwd.cu"}
+_HEADER = _CSRC / "flash_common.cuh"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-LAUNCHES = {"mma": 0, "mma_split": 0, "f32": 0}
-_lib = None
+# Dispatch of the backward. `flash_bwd_fused` gives one block to each
+# (batch, head) and keeps two fp32 statistics per q row in shared memory
+# beside its tiles: the row count is limited by the 227 KB a block may use
+# on an H100 (about 23,000 rows at head_dim 72 in bf16). Long before that
+# limit a launch with fewer blocks than the card has multiprocessors leaves
+# most of the card idle, so rows of more than FUSED_MAX_TILE_PAIRS 64 x 64
+# tile pairs with fewer than NUM_SMS (batch, head) pairs go to the blocked
+# pair, whose grids also spread over the tiles.
+SMEM_PER_BLOCK = 232448
+NUM_SMS = 132
+FUSED_MAX_TILE_PAIRS = 1024
+
+LAUNCHES = {"mma": 0, "mma_split": 0, "f32": 0,
+            "bwd_fused": 0, "bwd_dkv": 0, "bwd_dq": 0,
+            "bwd_fused_f32": 0, "bwd_dkv_f32": 0, "bwd_dq_f32": 0}
+_libs: Dict[str, ctypes.CDLL] = {}
 build_info: dict = {}
 
 
@@ -54,24 +85,127 @@ def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
     return "mma" if padded <= MMA_MAX_PADDED_D else "mma_split"
 
 
+def fused_smem_bytes(Nq: int, D: int, dtype: torch.dtype) -> int:
+    """Shared memory `flash_bwd_fused` asks for (the formula of
+    `flash_bwd_fused_smem` in csrc/flash_bwd.cu): four 64-row tiles, 64 key
+    flags, and 8 bytes of row statistics per q row padded to 64."""
+    stats = 2 * (-(-Nq // 64) * 64) * 4
+    if dtype == torch.float32 or dtype == torch.float64:
+        ld = (-(-D // 16) * 16) | 1
+        return (4 * 64 * ld + 2 * 64 * 65) * 4 + 64 + stats
+    dp = 32 if D <= 32 else 64 if D <= 64 else 80 if D <= 80 else 128
+    return 4 * 64 * (dp + 8) * 2 + 64 + stats
+
+
+def backward_variant(B: int, H: int, Nq: int, Nk: int, D: int,
+                     dtype: torch.dtype) -> str:
+    """Which backward `FlashAttentionFunction` runs for these shapes:
+    "fused" (`flash_bwd_fused`, nothing saved but q, k, v) or "blocked"
+    (`flash_bwd_dkv` + `flash_bwd_dq`, which need the forward's output and
+    log-sum-exp). Shapes alone decide, on every device."""
+    if fused_smem_bytes(Nq, D, dtype) > SMEM_PER_BLOCK:
+        return "blocked"
+    tile_pairs = -(-Nq // 64) * -(-Nk // 64)
+    if B * H < NUM_SMS and tile_pairs > FUSED_MAX_TILE_PAIRS:
+        return "blocked"
+    return "fused"
+
+
+def backward_launch_keys(variant: str, dtype: torch.dtype) -> tuple:
+    """The `LAUNCHES` keys one backward of `variant` adds one to."""
+    names = ("bwd_fused",) if variant == "fused" else ("bwd_dkv", "bwd_dq")
+    suffix = "_f32" if dtype == torch.float32 else ""
+    return tuple(n + suffix for n in names)
+
+
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
 
 
-def flash_attention_plain(q, k, v, scale=None, kv_mask=None):
-    """The kernel's math in plain PyTorch: fp32 scores and softmax, masked
-    keys at DEFAULT_MASK_VALUE (a fully masked row averages v over its Nk
-    keys), probabilities cast to q's dtype before the PV product.
-    q: [B, H, Nq, D]; k, v: [B, H, Nk, D]; kv_mask: [B, Nk] bool."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+# ---- plain versions -------------------------------------------------------
+
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _scores(q, k, scale, kv_mask):
+    acc = _acc_dtype(q)
+    s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
     if kv_mask is not None:
         s = s.masked_fill(~kv_mask[:, None, None, :], DEFAULT_MASK_VALUE)
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    return torch.matmul(p, v).to(q.dtype)
+    return s
 
+
+def flash_attention_plain(q, k, v, scale=None, kv_mask=None,
+                          return_lse: bool = False):
+    """The forward kernel's math in plain PyTorch: fp32 scores and softmax,
+    masked keys at DEFAULT_MASK_VALUE (a fully masked row averages v over
+    its Nk keys), probabilities cast to q's dtype before the PV product.
+    q: [B, H, Nq, D]; k, v: [B, H, Nk, D]; kv_mask: [B, Nk] bool. With
+    `return_lse` also the fp32 log-sum-exp of the scaled scores [B, H, Nq]
+    (DEFAULT_MASK_VALUE itself for a fully masked row)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = _scores(q, k, scale, kv_mask)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    out = torch.matmul(p, v).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(s, dim=-1)
+    lse = torch.where(lse <= 0.5 * DEFAULT_MASK_VALUE,
+                      torch.full_like(lse, DEFAULT_MASK_VALUE), lse)
+    return out, lse
+
+
+def _grads_from(p, ds, q, k, do, scale, kv_mask):
+    """dq, dk, dv from P and dS (fp32), both rounded to the inputs' dtype
+    before their products as the kernels round them. A masked score is a
+    constant, so dS is 0 there (P already is, except in a fully masked
+    row)."""
+    acc = _acc_dtype(q)
+    if kv_mask is not None:
+        ds = ds.masked_fill(~kv_mask[:, None, None, :], 0.0)
+    ds = ds.to(q.dtype).to(acc)
+    p = p.to(q.dtype).to(acc)
+    dq = torch.matmul(ds, k.to(acc)) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(acc)) * scale
+    dv = torch.matmul(p.transpose(-1, -2), do.to(acc))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(k.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, kv_mask, do, scale=None):
+    """`flash_bwd_fused`'s math in plain PyTorch: (dq, dk, dv) from q, k,
+    v, the mask and dO alone. P = softmax(S) is recomputed, delta =
+    rowsum(P * dP), dS = P * (dP - delta)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    acc = _acc_dtype(q)
+    p = torch.softmax(_scores(q, k, scale, kv_mask), dim=-1)
+    dp = torch.matmul(do.to(acc), v.to(acc).transpose(-1, -2))
+    delta = (p * dp).sum(-1, keepdim=True)
+    return _grads_from(p, p * (dp - delta), q, k, do, scale, kv_mask)
+
+
+def flash_attention_bwd_lse_plain(q, k, v, kv_mask, do, o, lse, scale=None):
+    """`flash_bwd_dkv` + `flash_bwd_dq`'s math in plain PyTorch: P = exp(S -
+    lse) from the forward's log-sum-exp [B, H, Nq] (a fully masked row,
+    lse = DEFAULT_MASK_VALUE, has P = 1/Nk), delta = rowsum(dO * O)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    acc = _acc_dtype(q)
+    s = _scores(q, k, scale, kv_mask)
+    lse = lse.to(acc)
+    dead = lse <= 0.5 * DEFAULT_MASK_VALUE
+    lse = torch.where(dead, torch.full_like(lse, DEFAULT_MASK_VALUE), lse)
+    p = torch.exp(s - lse[..., None])
+    p = torch.where(dead[..., None], p / k.shape[2], p)
+    dp = torch.matmul(do.to(acc), v.to(acc).transpose(-1, -2))
+    delta = (do.to(acc) * o.to(acc)).sum(-1, keepdim=True)
+    return _grads_from(p, p * (dp - delta), q, k, do, scale, kv_mask)
+
+
+# ---- build and load -------------------------------------------------------
 
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
@@ -83,45 +217,73 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def build() -> Path:
-    """Compile the kernel library if this source has not been built yet and
-    return its path. The file name carries the source's hash, so an edited
-    source builds anew."""
-    src = _SOURCE.read_bytes()
-    lib = BUILD_DIR / f"libflash_fwd_{hashlib.sha256(src).hexdigest()[:12]}.so"
-    if lib.exists():
-        build_info.setdefault("seconds", 0.0)
-        build_info.setdefault("log", "")
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(_SOURCE)]
+def build() -> Dict[str, Path]:
+    """Compile the kernel libraries whose sources have not been built yet
+    (one `nvcc` per source, started together) and return their paths by
+    name ("fwd", "bwd"). A file name carries the hash of its source and the
+    shared header, so an edited source builds anew."""
+    header = _HEADER.read_bytes()
+    libs, running = {}, []
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, lib)
-    build_info.update(seconds=time.perf_counter() - t0, log=res.stderr)
-    return lib
+    for name, source in _SOURCES.items():
+        digest = hashlib.sha256(header + source.read_bytes()).hexdigest()[:12]
+        lib = BUILD_DIR / f"libflash_{name}_{digest}.so"
+        libs[name] = lib
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-o", str(tmp), str(source)]
+        running.append((name, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], []
+    for name, lib, tmp, proc in running:
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name} ({proc.returncode}):\n{err}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    if running:
+        build_info.update(seconds=time.perf_counter() - t0,
+                          log="".join(logs))
+    build_info.setdefault("seconds", 0.0)
+    build_info.setdefault("log", "")
+    return libs
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.flash_fwd.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        lib.flash_fwd.restype = ctypes.c_int
-        lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
-        lib.flash_fwd_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+def _library(name: str):
+    if name not in _libs:
+        paths = build()
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fwd = ctypes.CDLL(str(paths["fwd"]))
+        fwd.flash_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [f32, i32, ptr]
+        bwd = ctypes.CDLL(str(paths["bwd"]))
+        tail = [i32] * 6 + [f32, i32, ptr]
+        bwd.flash_bwd_fused.argtypes = [ptr] * 8 + tail
+        bwd.flash_bwd_dkv.argtypes = [ptr] * 9 + tail
+        bwd.flash_bwd_dq.argtypes = [ptr] * 8 + tail
+        bwd.flash_bwd_fused_smem.argtypes = [i32, i32, i32]
+        bwd.flash_bwd_fused_smem.restype = ctypes.c_long
+        for lib, fns, err in (
+                (fwd, ("flash_fwd",), "flash_fwd_error_string"),
+                (bwd, ("flash_bwd_fused", "flash_bwd_dkv", "flash_bwd_dq"),
+                 "flash_bwd_error_string")):
+            for fn in fns:
+                getattr(lib, fn).restype = i32
+            getattr(lib, err).argtypes = [i32]
+            getattr(lib, err).restype = ctypes.c_char_p
+        _libs.update(fwd=fwd, bwd=bwd)
+    return _libs[name]
 
 
-def _launch(q, k, v, scale, kv_mask):
+# ---- launches -------------------------------------------------------------
+
+def _check(q, k, v, scale, kv_mask, max_head_dim):
     B, H, Nq, D = q.shape
     Nk = k.shape[2]
     for name, t in (("k", k), ("v", v)):
@@ -131,7 +293,7 @@ def _launch(q, k, v, scale, kv_mask):
             raise ValueError(f"{name} shape {tuple(t.shape)} != {(B, H, Nk, D)}")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash kernel takes fp32/bf16/fp16, not {q.dtype}")
-    if not 0 < D <= MAX_HEAD_DIM or Nq == 0 or Nk == 0:
+    if not 0 < D <= max_head_dim or Nq == 0 or Nk == 0:
         raise ValueError(f"unsupported shape q={tuple(q.shape)}, Nk={Nk}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
@@ -140,22 +302,161 @@ def _launch(q, k, v, scale, kv_mask):
                 or kv_mask.device != q.device or not kv_mask.is_contiguous():
             raise ValueError("kv_mask must be a contiguous [B, Nk] bool "
                              "tensor on q's device")
-    if scale is None:
-        scale = 1.0 / math.sqrt(D)
-    lib = _library()
+    return 1.0 / math.sqrt(D) if scale is None else float(scale)
+
+
+def _vec(D: int, *tensors) -> int:
+    """1 when rows can be copied in 16-byte chunks."""
+    return int(D % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
+
+
+def _launch(q, k, v, scale, kv_mask, save_lse: bool = False):
+    """Forward kernel: the output, and the fp32 log-sum-exp [B, H, Nq] when
+    `save_lse` (else None)."""
+    scale = _check(q, k, v, scale, kv_mask, MAX_HEAD_DIM)
+    B, H, Nq, D = q.shape
+    lib = _library("fwd")
     out = torch.empty_like(q)
-    vec = int(D % 8 == 0 and all(t.data_ptr() % 16 == 0
-                                 for t in (q, k, v, out)))
+    lse = torch.empty(B, H, Nq, dtype=torch.float32, device=q.device) \
+        if save_lse else None
     err = lib.flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        kv_mask.data_ptr() if kv_mask is not None else None, out.data_ptr(),
-        _DTYPE_CODES[q.dtype], B * H, H, Nq, Nk, D, float(scale), vec,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+        out.data_ptr(), _ptr(lse), _DTYPE_CODES[q.dtype], B * H, H, Nq,
+        k.shape[2], D, scale, _vec(D, q, k, v, out),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError("flash_fwd launch failed: "
                            + lib.flash_fwd_error_string(err).decode())
     LAUNCHES[kernel_variant(q.dtype, D)] += 1
-    return out
+    return out, lse
+
+
+def _check_bwd(q, k, v, scale, kv_mask, do):
+    scale = _check(q, k, v, scale, kv_mask, BWD_MAX_HEAD_DIM)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device \
+            or not do.is_contiguous():
+        raise ValueError("dO must be contiguous and match q")
+    return scale
+
+
+def _raise_bwd(lib, name: str, err: int):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           + lib.flash_bwd_error_string(err).decode())
+
+
+def flash_bwd_fused(q, k, v, kv_mask, do, scale=None):
+    """Launch `flash_bwd_fused`: (dq, dk, dv) of CUDA tensors."""
+    scale = _check_bwd(q, k, v, scale, kv_mask, do)
+    B, H, Nq, D = q.shape
+    if fused_smem_bytes(Nq, D, q.dtype) > SMEM_PER_BLOCK:
+        raise ValueError(f"flash_bwd_fused cannot hold the statistics of "
+                         f"{Nq} rows in shared memory")
+    lib = _library("bwd")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = lib.flash_bwd_fused(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _DTYPE_CODES[q.dtype], B * H, H, Nq, k.shape[2], D, scale,
+        _vec(D, q, k, v, do), torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_bwd(lib, "flash_bwd_fused", err)
+    LAUNCHES[backward_launch_keys("fused", q.dtype)[0]] += 1
+    return dq, dk, dv
+
+
+def _check_stats(q, lse, di):
+    for name, t in (("lse", lse), ("di", di)):
+        if t.shape != q.shape[:3] or t.dtype != torch.float32 \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous fp32 [B, H, Nq] "
+                             f"tensor on q's device")
+
+
+def flash_bwd_dkv(q, k, v, kv_mask, do, lse, di, scale=None):
+    """Launch `flash_bwd_dkv`: (dk, dv) of CUDA tensors from the forward's
+    log-sum-exp and di = rowsum(dO * O), both fp32 [B, H, Nq]."""
+    scale = _check_bwd(q, k, v, scale, kv_mask, do)
+    _check_stats(q, lse, di)
+    B, H, Nq, D = q.shape
+    lib = _library("bwd")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = lib.flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+        do.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), _DTYPE_CODES[q.dtype], B * H, H, Nq, k.shape[2], D,
+        scale, _vec(D, q, k, v, do),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_bwd(lib, "flash_bwd_dkv", err)
+    LAUNCHES[backward_launch_keys("blocked", q.dtype)[0]] += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, kv_mask, do, lse, di, scale=None):
+    """Launch `flash_bwd_dq`: dq of CUDA tensors, same inputs as
+    `flash_bwd_dkv`."""
+    scale = _check_bwd(q, k, v, scale, kv_mask, do)
+    _check_stats(q, lse, di)
+    B, H, Nq, D = q.shape
+    lib = _library("bwd")
+    dq = torch.empty_like(q)
+    err = lib.flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+        do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+        _DTYPE_CODES[q.dtype], B * H, H, Nq, k.shape[2], D, scale,
+        _vec(D, q, k, v, do), torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_bwd(lib, "flash_bwd_dq", err)
+    LAUNCHES[backward_launch_keys("blocked", q.dtype)[1]] += 1
+    return dq
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Attention with the kernels' own backward. `apply(q, k, v, kv_mask,
+    scale, backward)`: `backward` is "fused", "blocked" or None for
+    `backward_variant`'s choice. The forward saves q, k, v and the mask,
+    and for the blocked pair also the output and the log-sum-exp. CUDA
+    tensors launch the kernels; CPU tensors run the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, scale, backward=None):
+        B, H, Nq, D = q.shape
+        variant = backward or backward_variant(B, H, Nq, k.shape[2], D,
+                                               q.dtype)
+        if variant not in ("fused", "blocked"):
+            raise ValueError(f"unknown backward {variant!r}")
+        need_lse = variant == "blocked"
+        if q.device.type == "cuda":
+            out, lse = _launch(q, k, v, scale, kv_mask, save_lse=need_lse)
+        elif need_lse:
+            out, lse = flash_attention_plain(q, k, v, scale, kv_mask,
+                                             return_lse=True)
+        else:
+            out, lse = flash_attention_plain(q, k, v, scale, kv_mask), None
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, kv_mask,
+                              out if need_lse else None, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        on_card = q.device.type == "cuda"
+        if lse is None:
+            fn = flash_bwd_fused if on_card else flash_attention_bwd_plain
+            dq, dk, dv = fn(q, k, v, kv_mask, do, ctx.scale)
+        elif on_card:
+            # di = rowsum(dO * O), plain as in the JAX package
+            di = (do.float() * out.float()).sum(-1)
+            dk, dv = flash_bwd_dkv(q, k, v, kv_mask, do, lse, di, ctx.scale)
+            dq = flash_bwd_dq(q, k, v, kv_mask, do, lse, di, ctx.scale)
+        else:
+            dq, dk, dv = flash_attention_bwd_lse_plain(
+                q, k, v, kv_mask, do, out, lse, ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -163,9 +464,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Non-causal attention. q: [B, H, Nq, D]; k, v: [B, H, Nk, D];
     kv_mask: optional [B, Nk] bool, True = attend. CUDA tensors launch the
-    kernel (or raise); CPU tensors run `flash_attention_plain`."""
+    kernels (or raise); CPU tensors run the plain versions. When an input
+    needs a gradient the call goes through `FlashAttentionFunction`, whose
+    backward is `flash_bwd_fused` or `flash_bwd_dkv` + `flash_bwd_dq` on the
+    card; otherwise only the forward kernel is launched."""
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no flash attention for device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, kv_mask, scale, None)
     if q.device.type == "cuda":
-        return _launch(q, k, v, scale, kv_mask)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale=scale, kv_mask=kv_mask)
-    raise ValueError(f"no flash attention for device {q.device}")
+        return _launch(q, k, v, scale, kv_mask)[0]
+    return flash_attention_plain(q, k, v, scale=scale, kv_mask=kv_mask)

@@ -74,7 +74,9 @@ STDIT3_RENAMES = (
 
 def stdit3_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
     """STDiT3 Flax params ({"params": ...} or the inner tree) -> state_dict
-    of `models.transformers.stdit3.STDiT3`."""
+    of `models.transformers.stdit3.STDiT3`. A gradient tree of the same
+    structure maps the same way (each layout change is a transpose), to
+    gradients by parameter name."""
     p = dict(_params(params))
     blocks = p.pop("blocks")
     sd = convert(p, STDIT3_RENAMES)
