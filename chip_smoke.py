@@ -5,13 +5,16 @@ card (an H100 is the target).
     python3 chip_smoke.py [--steps N]
 
 Phases, each fatal on failure:
-  1. build the flash-attention kernels from csrc/ (forward and backward, one
-     nvcc each, started together) and print the card;
-  2. hold the forward kernel against its plain PyTorch version at the main path's
-     shapes (STDiT3 spatial, cross and temporal attention, the VAE mid
-     attention) in bf16 and fp32, and time it beside the plain version and
-     torch's own scaled_dot_product_attention (a yardstick the port never
-     calls);
+  1. build the flash-attention kernels from csrc/ (forward, blocked
+     backward, fused backward: one nvcc each, started together) and print
+     the card;
+  2. hold the forward kernels against their plain PyTorch version at the main
+     path's shapes (STDiT3 spatial, cross and temporal attention on the
+     mma.sync kernel, the VAE mid attention on the wgmma kernel) in bf16 and
+     fp32, and time them beside the plain version and torch's own
+     scaled_dot_product_attention (a yardstick the port never calls); then
+     the wgmma kernel's edges: a key mask and the log-sum-exp output at
+     D = 512 with 6360 q rows, D = 256, a head that is no multiple of 8;
   3. serve Open-Sora v1.2 text-to-video at full width (STDiT3-XL/2, depth
      28, hidden 1152; the full VAE) with random weights from a seed: one
      480p 9:16 2 s video and one 144p 1:1 image, checking that every
@@ -26,7 +29,10 @@ Phases, each fatal on failure:
      2, temporal, cross attention to 8 and to 300 text tokens with a ragged
      mask, and the 8160-token row of a 1080p image) in fp32 and bf16, and
      time them beside the plain version and the backward of torch's
-     scaled_dot_product_attention;
+     scaled_dot_product_attention; then the fused backward's edges (1, 15,
+     63, 64, 65 and 405 keys, four packed short rows with one fully masked,
+     a full cluster of 512 keys) and that the same inputs give bit-equal
+     gradients twice;
   6. train Open-Sora v1.2 at full width and depth (`run_training`: bf16
      compute over fp32 parameters, recompute of every depth pair) for a few
      steps on the default buckets and one step on a 1080p image bucket,
@@ -216,7 +222,43 @@ def kernel_phase(fa, text_len: int) -> dict:
         results[name] = row
         del q, k, v, qb, kb, vb
         torch.cuda.empty_cache()
+    results["wgmma_edges"] = wide_forward_edges(fa)
     return results
+
+
+def wide_forward_edges(fa) -> dict:
+    """The wgmma forward at the edges its design brings, bf16 against plain
+    at the VAE mid limits: output and log-sum-exp."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(2)
+    lim_l2, lim_mx = BF16_LIMITS["vae_mid"]
+    out = {}
+    # (B, H, Nq, Nk, D): 6360 q rows (not a multiple of 64) under a key mask;
+    # the narrower instance; heads padded to 256 and 512; D % 8 != 0
+    for B, H, Nq, Nk, D in ((2, 1, 6360, 300, 512), (2, 2, 130, 333, 256),
+                            (1, 1, 50, 90, 200), (1, 1, 40, 70, 300),
+                            (1, 1, 33, 65, 132)):
+        q, k, v = (torch.randn(B, H, n, D, device="cuda", generator=gen)
+                   .bfloat16() for n in (Nq, Nk, Nk))
+        mask = ragged_mask(B, Nk, gen)
+        if fa.kernel_variant(q.dtype, D) != "wgmma":
+            raise AssertionError(f"D={D}: expected the wgmma forward")
+        got, lse = fa._launch(q, k, v, None, mask, save_lse=True)
+        torch.cuda.synchronize()
+        want, want_lse = fa.flash_attention_plain(q, k, v, None, mask,
+                                                  return_lse=True)
+        l2, mx = rel_errors(got, want)
+        lse_err = (lse - want_lse).abs().max().item()
+        ok = l2 <= lim_l2 and mx <= lim_mx and lse_err <= F32_GRAD_TOL \
+            and bool(torch.isfinite(got).all())
+        log(f"kernel edge wgmma shape={[B, H, Nq, Nk, D]} masked rel_l2={l2:.3e} "
+            f"rel_max={mx:.3e} lse_err={lse_err:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"wgmma forward disagrees with plain at D={D}")
+        out[f"{B}x{H}x{Nq}x{Nk}x{D}"] = {"rel_l2": l2, "rel_max": mx,
+                                         "lse_err": lse_err}
+    return out
 
 
 def expected_launches(fa, pipe, num_frames: int, height: int, width: int,
@@ -467,6 +509,54 @@ def ragged_mask(B: int, Nk: int, gen):
     return torch.arange(Nk, device="cuda")[None] < lens[:, None]
 
 
+def fused_backward_edges(fa) -> dict:
+    """`flash_bwd_fused` in bf16 at the edges its design brings, against
+    plain at the backward limits, and twice for bit-equal gradients."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(3)
+    lim_l2, lim_mx = BWD_BF16_LIMITS["spatial"]
+    out = {}
+    # (B, H, Nq, Nk, fully masked last row): key counts around the 16-key
+    # groups and the 64-key blocks; seven blocks to a cluster; four short rows
+    # packed into one block with one fully masked; a full cluster of eight
+    for B, H, Nq, Nk, dead_row in (
+            (2, 2, 100, 1, False), (2, 2, 100, 15, False),
+            (2, 2, 100, 63, False), (2, 2, 100, 64, False),
+            (2, 2, 100, 65, False), (2, 2, 100, 405, True),
+            (4, 1, 15, 15, True), (2, 2, 70, 512, False)):
+        q, k, v, do = (torch.randn(B, H, n, 72, device="cuda", generator=gen)
+                       .bfloat16() for n in (Nq, Nk, Nk, Nq))
+        mask = ragged_mask(B, Nk, gen)
+        if dead_row:
+            mask[-1] = False
+        got = fa.flash_bwd_fused(q, k, v, mask, do)
+        again = fa.flash_bwd_fused(q, k, v, mask, do)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bwd_plain(q, k, v, mask, do)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        l2 = mx = 0.0
+        for g, w in zip(got, want):
+            d = g.float() - w.float()
+            # a gradient that is all zero (one key) is held absolutely
+            l2 = max(l2, d.norm().item() / (w.float().norm().item() or 1.0))
+            mx = max(mx, d.abs().max().item() / (w.float().abs().max().item() or 1.0))
+        live = mask.any(1, keepdim=True)
+        dead = ((~mask) & live)[:, None, :, None]
+        zero = not bool(got[1].masked_select(dead).any()) \
+            and not bool(got[2].masked_select(dead).any())
+        ok = l2 <= lim_l2 and mx <= lim_mx and same and zero and all(
+            bool(torch.isfinite(g).all()) for g in got)
+        kind = fa.fused_kind(Nq, Nk, q.dtype)
+        log(f"bwd edge {kind:7s} shape={[B, H, Nq, Nk, 72]} dead_row={dead_row} "
+            f"rel_l2={l2:.3e} rel_max={mx:.3e} bit_equal={same} "
+            f"masked_keys_zero={zero} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_bwd_fused fails at Nq={Nq}, Nk={Nk}")
+        out[f"{B}x{H}x{Nq}x{Nk}"] = {"rel_l2": l2, "rel_max": mx, "kind": kind}
+    return out
+
+
 def backward_kernel_phase(fa) -> dict:
     """The three backward kernels, and the forward's log-sum-exp, against
     their plain versions at the training path's shapes."""
@@ -584,19 +674,25 @@ def backward_kernel_phase(fa) -> dict:
                 f"library_ms={library_ms:.4f} (all of dq, dk, dv) "
                 f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
                 f"achieved={flops / r['ms'] / 1e9:.1f} TFLOP/s")
-        if name in ("spatial", "long_row"):
-            # the backward `backward_variant` passes up at this shape
+        if variant == "fused":
+            # the blocked pair, which `backward_variant` passes up here, with
+            # the di = rowsum(dO * O) its route computes first
             other = {"dkv": lambda: fa.flash_bwd_dkv(qb, kb, vb, mask, dob, lse, di),
-                     "dq": lambda: fa.flash_bwd_dq(qb, kb, vb, mask, dob, lse, di)} \
-                if variant == "fused" else {
-                "fused": lambda: fa.flash_bwd_fused(qb, kb, vb, mask, dob)}
-            row["other_variant_ms"] = {k: time_ms(fn, 2) for k, fn in other.items()}
-            log(f"bwd dispatch {name:9s} chosen {variant}: "
-                f"{sum(row[k]['ms'] for k in timed):.4f} ms; passed up: "
-                f"{row['other_variant_ms']} ms")
+                     "dq": lambda: fa.flash_bwd_dq(qb, kb, vb, mask, dob, lse, di),
+                     "di": lambda: (dob.float() * out.float()).sum(-1)}
+            row["other_variant_ms"] = {k: time_ms(fn, iters)
+                                       for k, fn in other.items()}
+            log(f"bwd dispatch {name:9s} chosen fused "
+                f"({fa.fused_kind(Nq, Nk, qb.dtype)}): {row['fused']['ms']:.4f} ms; "
+                f"passed up: {row['other_variant_ms']} ms, "
+                f"{sum(row['other_variant_ms'].values()):.4f} in all")
+        else:
+            log(f"bwd dispatch {name:9s} chosen blocked: the fused backward "
+                f"takes at most {fa.FUSED_MAX_CLUSTER * fa.FUSED_KEYS_PER_BLOCK} keys")
         results[name] = row
         del q, k, v, do, qb, kb, vb, dob, out, lse, di, ql, kl, vl, lib_out
         torch.cuda.empty_cache()
+    results["fused_edges"] = fused_backward_edges(fa)
     return results
 
 
@@ -625,7 +721,7 @@ def expected_train_launches(fa, cfg, history) -> dict:
             n = mc.depth * entry["gas"]
             want[fa.kernel_variant(mc.dtype, D)] += n * (2 if recompute else 1)
             variant = fa.backward_variant(rows, H, Nq, Nk, D, mc.dtype)
-            for key in fa.backward_launch_keys(variant, mc.dtype):
+            for key in fa.backward_launch_keys(variant, mc.dtype, Nq, Nk):
                 want[key] += n
     return want
 
@@ -884,7 +980,7 @@ def main(argv=None) -> int:
         f"device_count={torch.cuda.device_count()}")
 
     # the cross-attention key length the first request will use
-    y, m = StubTextEncoder(16, 300).encode(
+    y, m = StubTextEncoder(16, 300, device="cpu").encode(
         ["a drone shot of waves breaking on a rocky coast at sunset "
          "aesthetic score: 6.5."])
     text_len = bucket_text_kv(y, m, 300)[2]
@@ -915,7 +1011,7 @@ def main(argv=None) -> int:
     kernels = []
     for key, shape, replaces in (
             ("mma", "spatial", "videosys_tpu/ops/flash_attention.py:125"),
-            ("mma_split", "vae_mid", "videosys_tpu/ops/flash_attention.py:49")):
+            ("wgmma", "vae_mid", "videosys_tpu/ops/flash_attention.py:49")):
         r = shapes[shape]
         kernels.append({
             "name": f"flash_fwd_{key}", "route": "cuda",
@@ -925,19 +1021,22 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     # the backward kernels, launches from the training path (bf16)
-    for key, shape, kern, replaces in (
-            ("bwd_fused", "spatial", "fused",
+    fused_src = "videosys_tpu_torch/csrc/flash_bwd_fused.cu"
+    blocked_src = "videosys_tpu_torch/csrc/flash_bwd.cu"
+    for key, shape, kern, source, replaces in (
+            ("bwd_fused", "spatial", "fused", fused_src,
              "videosys_tpu/ops/flash_attention.py:326"),
-            ("bwd_dkv", "long_row", "dkv",
+            ("bwd_fused_short", "temporal", "fused", fused_src,
+             "videosys_tpu/ops/flash_attention.py:326"),
+            ("bwd_dkv", "long_row", "dkv", blocked_src,
              "videosys_tpu/ops/flash_attention.py:522"),
-            ("bwd_dq", "long_row", "dq",
+            ("bwd_dq", "long_row", "dq", blocked_src,
              "videosys_tpu/ops/flash_attention.py:594")):
         r = bwd_shapes[shape][kern]
         if trained["launches"][key] <= 0:
             raise AssertionError(f"training never launched flash_{key}")
         kernels.append({
-            "name": f"flash_{key}", "route": "cuda",
-            "source": "videosys_tpu_torch/csrc/flash_bwd.cu",
+            "name": f"flash_{key}", "route": "cuda", "source": source,
             "replaces": replaces, "launches": trained["launches"][key],
             "max_abs_err": r["max_abs_err_bf16"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -135,7 +135,7 @@ def test_cpu_dispatch_choice(monkeypatch, force, env, want):
 @pytest.mark.parametrize("dtype,D,want", [
     (torch.float32, 72, "f32"), (torch.float32, 512, "f32"),
     (torch.bfloat16, 72, "mma"), (torch.float16, 128, "mma"),
-    (torch.bfloat16, 129, "mma_split"), (torch.bfloat16, 512, "mma_split"),
+    (torch.bfloat16, 129, "wgmma"), (torch.bfloat16, 512, "wgmma"),
 ])
 def test_kernel_variant(dtype, D, want):
     """Launch counts are keyed by the CUDA variant flash_fwd.cu launches."""

@@ -186,13 +186,14 @@ def test_no_grad_inputs_take_the_forward_alone(monkeypatch):
     ((30, 16, 405, 405, 72), torch.bfloat16, "fused"),    # 240p spatial
     ((810, 16, 15, 15, 72), torch.bfloat16, "fused"),     # temporal
     ((30, 16, 405, 300, 72), torch.bfloat16, "fused"),    # cross
-    ((30, 16, 1590, 1590, 72), torch.bfloat16, "fused"),  # 480p video
+    ((30, 16, 512, 512, 72), torch.bfloat16, "fused"),    # a full cluster
+    ((30, 16, 1590, 1590, 72), torch.bfloat16, "blocked"),  # 480p video
     ((1, 16, 8160, 8160, 72), torch.bfloat16, "blocked"),  # 1080p image
-    ((16, 16, 8160, 8160, 72), torch.bfloat16, "fused"),  # a block per SM
+    ((16, 16, 8160, 8160, 72), torch.float32, "fused"),   # a block per SM
     ((1, 1, 40000, 64, 72), torch.float32, "blocked"),    # statistics > 227 KB
 ])
 def test_backward_variant(shape, dtype, want):
     assert fa.backward_variant(*shape, dtype) == want
-    keys = fa.backward_launch_keys(want, dtype)
+    keys = fa.backward_launch_keys(want, dtype, shape[2], shape[3])
     assert all(key in fa.LAUNCHES for key in keys)
     assert len(keys) == (1 if want == "fused" else 2)

@@ -40,17 +40,25 @@ def card():
 SHAPES = [
     (2, 3, 100, 77, 72, True),     # ragged q and kv tails, unaligned D
     (1, 2, 130, 4200, 64, False),  # Nk > 4096 (the blocked TPU kernel's range)
-    (2, 1, 70, 300, 512, True),    # D = 512 split over column blocks
+    (2, 1, 70, 300, 512, True),    # D = 512: the wgmma kernel
+    (1, 1, 6360, 6360, 512, True),  # the VAE mid row (not a multiple of 64)
+    (2, 2, 130, 333, 256, True),   # D = 256: the narrower wgmma instance
+    (1, 1, 50, 90, 200, False),    # padded to 256
+    (1, 1, 40, 70, 300, True),     # padded to 512
+    (1, 1, 33, 65, 132, True),     # D % 8 != 0 on the wgmma kernel
     (4, 2, 15, 15, 24, False),     # temporal length
     (1, 2, 33, 40, 20, True),      # D % 8 != 0: element-wise loads
 ]
 
 
 def rel_errors(got, want):
+    """Relative to the reference's norm and largest entry (absolute where
+    the reference is all zero)."""
     d = (got.float() - want.float())
     want = want.float()
-    return {"rel_l2": (d.norm() / want.norm()).item(),
-            "rel_max": (d.abs().max() / want.abs().max()).item()}
+    norm, top = want.norm().item() or 1.0, want.abs().max().item() or 1.0
+    return {"rel_l2": d.norm().item() / norm,
+            "rel_max": d.abs().max().item() / top}
 
 
 def inputs(dtype, B, H, Nq, Nk, D, masked):
@@ -93,6 +101,24 @@ def test_kernel_matches_plain(card, dtype, B, H, Nq, Nk, D, masked):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,H,Nq,Nk,D,masked", [
+    (2, 1, 70, 300, 512, True), (1, 2, 6360, 200, 512, False),
+    (2, 2, 130, 333, 256, True)])
+def test_wide_forward_log_sum_exp(card, dtype, B, H, Nq, Nk, D, masked):
+    """The wgmma kernel's lse output against the plain version's."""
+    q, k, v, mask = inputs(dtype, B, H, Nq, Nk, D, masked)
+    assert fa.kernel_variant(dtype, D) == "wgmma"
+    out, lse = fa._launch(q, k, v, None, mask, save_lse=True)
+    want, want_lse = fa.flash_attention_plain(q, k, v, None, mask,
+                                              return_lse=True)
+    torch.testing.assert_close(lse, want_lse, atol=F32_GRAD_TOL, rtol=1e-5)
+    err = rel_errors(out, want)
+    lim_l2, lim_max = HALF_LIMITS[dtype]
+    assert err["rel_l2"] <= lim_l2 and err["rel_max"] <= lim_max, err
+
+
+@pytest.mark.cuda
 def test_dispatch_never_sends_cuda_to_plain(card, monkeypatch):
     from videosys_tpu_torch.ops.attention import scaled_dot_product_attention
 
@@ -130,6 +156,13 @@ BWD_SHAPES = [
     (2, 4, 405, 8, 72, True),      # cross attention to 8 text tokens
     (1, 2, 300, 200, 128, True),   # the widest head the backward takes
     (1, 2, 33, 40, 20, True),      # D % 8 != 0: element-wise loads
+    (4, 1, 15, 15, 72, True),      # four packed short rows, one fully masked
+    (2, 2, 100, 15, 72, True),     # key counts around the 16-key groups
+    (2, 2, 100, 63, 72, True),     # and the 64-key blocks of a cluster
+    (2, 2, 100, 64, 72, True),
+    (2, 2, 100, 65, 72, True),
+    (2, 1, 100, 405, 72, True),    # seven blocks to a cluster
+    (1, 2, 70, 512, 64, True),     # a full cluster of eight
 ]
 
 
@@ -174,7 +207,7 @@ def test_backward_kernels_match_plain(card, variant, dtype, B, H, Nq, Nk, D,
     fa.reset_launches()
     got, want, mask = run_bwd_case(dtype, variant, B, H, Nq, Nk, D, masked)
     torch.cuda.synchronize()
-    keys = fa.backward_launch_keys(variant, dtype)
+    keys = fa.backward_launch_keys(variant, dtype, Nq, Nk)
     assert {k: n for k, n in fa.LAUNCHES.items() if n} == {
         fa.kernel_variant(dtype, D): 1, **{key: 1 for key in keys}}
     for g, w in zip(got, want):
@@ -196,6 +229,36 @@ def test_backward_kernels_match_plain(card, variant, dtype, B, H, Nq, Nk, D,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_fused_backward_with_one_key(card, dtype):
+    """One key: P is 1, so dq and dk are zero and dv is dO summed over the
+    q rows."""
+    q, k, v, _ = inputs(dtype, 2, 2, 100, 1, 72, False)
+    do = torch.randn_like(q)
+    dq, dk, dv = fa.flash_bwd_fused(q, k, v, None, do)
+    assert not bool(dq.any()) and not bool(dk.any())
+    err = rel_errors(dv, do.float().sum(2, keepdim=True))
+    assert err["rel_l2"] <= (1e-5 if dtype == torch.float32 else 6.5e-3), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,H,Nq,Nk,D,masked", [
+    (3, 4, 405, 405, 72, False), (2, 4, 405, 300, 72, True),
+    (40, 2, 15, 15, 72, False), (4, 1, 15, 15, 72, True)])
+def test_fused_backward_gives_the_same_bits_twice(card, dtype, B, H, Nq, Nk,
+                                                  D, masked):
+    """No sum of the fused backward depends on the order blocks finish in:
+    the same inputs give bit-equal gradients."""
+    q, k, v, mask = inputs(dtype, B, H, Nq, Nk, D, masked)
+    do = torch.randn_like(q)
+    first = fa.flash_bwd_fused(q, k, v, mask, do)
+    for _ in range(3):
+        again = fa.flash_bwd_fused(q, k, v, mask, do)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_autograd_function_launches_the_backward_kernels(card, dtype):
     """`flash_attention` on CUDA tensors that need gradients: the rule's
@@ -212,7 +275,7 @@ def test_autograd_function_launches_the_backward_kernels(card, dtype):
         fa.reset_launches()
         out = scaled_dot_product_attention(*(a.transpose(1, 2) for a in t))
         (out.transpose(1, 2) * w).sum().backward()
-        keys = fa.backward_launch_keys(variant, dtype)
+        keys = fa.backward_launch_keys(variant, dtype, N, N)
         assert {k: n for k, n in fa.LAUNCHES.items() if n} == {
             fa.kernel_variant(dtype, D): 1, **{key: 1 for key in keys}}
         q, k, v = (a.detach().transpose(1, 2).contiguous() for a in t)
@@ -278,10 +341,28 @@ def test_backward_rejects_what_it_cannot_take(card):
     with pytest.raises(ValueError):  # strided dO at the raw wrapper
         fa.flash_bwd_fused(q, q, q, None,
                            torch.zeros(1, 1, 64, 8, device="cuda").transpose(2, 3))
-    lib = fa._library("bwd")
-    for dt, code in ((torch.float32, 0), (torch.bfloat16, 1)):
-        assert lib.flash_bwd_fused_smem(code, 405, 72) == \
-            fa.fused_smem_bytes(405, 72, dt)
+    q = torch.zeros(1, 1, 8, 64, device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros(1, 1, 513, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # more keys than a cluster holds
+        fa.flash_bwd_fused(q, k, k, None, q)
+
+
+@pytest.mark.cuda
+def test_python_mirrors_of_the_kernels_formulas(card):
+    """The dispatch reads Python copies of the sources' shared-memory
+    formulas and of the fused backward's choice of kernel."""
+    assert fa._library("bwd").flash_bwd_fused_smem(405, 72) == \
+        fa.fused_smem_bytes(405, 72)
+    lib = fa._library("bwd_fused")
+    for D in (8, 32, 33, 64, 72, 80, 81, 128):
+        for i, which in enumerate(("stats", "cluster", "short")):
+            assert lib.flash_bwd_fused_mma_smem(i, D) == \
+                fa.fused_kernel_smem_bytes(which, D) <= fa.SMEM_PER_BLOCK
+    kinds = {1: "cluster", 2: "short", -1: None}
+    for Nq, Nk in ((405, 405), (15, 15), (16, 16), (17, 16), (16, 17),
+                   (8160, 512), (64, 513)):
+        assert kinds[lib.flash_bwd_fused_mma_kind(Nq, Nk, 72)] == \
+            fa.fused_kind(Nq, Nk, torch.bfloat16)
 
 
 if __name__ == "__main__":

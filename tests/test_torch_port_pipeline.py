@@ -68,7 +68,7 @@ def test_stub_encoder_and_bucketing_bit_equal():
     texts = ["a red square aesthetic score: 6.5.", "", "waves " * 80]
     for L in (8, 300):
         jy, jm = JStub(16, L).encode(texts)
-        py, pm = PStub(16, L).encode(texts)
+        py, pm = PStub(16, L, device="cpu").encode(texts)
         np.testing.assert_array_equal(py.numpy(), np.asarray(jy))
         np.testing.assert_array_equal(pm.numpy(), np.asarray(jm))
         jy2, jm2, jl = j_bucket(jy, jm, L)
@@ -76,7 +76,7 @@ def test_stub_encoder_and_bucketing_bit_equal():
         assert pl == jl
         np.testing.assert_array_equal(py2.numpy(), np.asarray(jy2))
         np.testing.assert_array_equal(pm2.numpy(), np.asarray(jm2))
-    short = PStub(16, 300).encode(["one two"])
+    short = PStub(16, 300, device="cpu").encode(["one two"])
     assert p_bucket(*short, 300)[2] == 64
 
 

@@ -1,10 +1,12 @@
 // Flash-attention backward for Hopper (sm_90a), non-causal, with a [B, Nk]
-// key mask: three kernels.
+// key mask: the blocked pair, and the fused backward for fp32 inputs.
 //
-// They replace the three backward Pallas kernels of the JAX package,
-// videosys_tpu/ops/flash_attention.py:
+// With flash_bwd_fused.cu this replaces the three backward Pallas kernels of
+// the JAX package, videosys_tpu/ops/flash_attention.py:
 //   * _flash_bwd_kernel (:326)      -> flash_bwd_fused: dq, dk, dv from
-//     (q, k, v, mask, dO) alone, in one launch, no residual of the forward;
+//     (q, k, v, mask, dO) alone, no residual of the forward. Here only its
+//     fp32 form (a SIMT loop); bf16 and fp16 inputs, the main path's, take
+//     the tensor-core kernels of flash_bwd_fused.cu;
 //   * _flash_bwd_dkv_kernel (:522)  -> flash_bwd_dkv: dk, dv from the
 //     forward's log-sum-exp and di = rowsum(dO * O);
 //   * _flash_bwd_dq_kernel (:594)   -> flash_bwd_dq: dq from the same.
@@ -13,37 +15,28 @@
 //   dS = P * (dP - delta)  delta = rowsum(P * dP) = rowsum(dO * O)
 //   dq = scale * dS k      dk = scale * dS^T q  dv = P^T dO
 //
-// All three are built from one tile loop (`bwd_tile_loop`), which a block
-// runs over a 64-row tile it owns while it streams 64-row tiles of the other
-// side through shared memory:
+// The blocked pair is built from one tile loop (`bwd_tile_loop`), which a
+// block runs over a 64-row tile it owns while it streams 64-row tiles of the
+// other side through shared memory:
 //   * DQ:    owns 64 q rows, streams the keys; S and dP tiles come out of
 //            mma.sync in the accumulator layout, which is the A-operand
 //            layout of the next product, so dS feeds dq += dS k from
 //            registers;
 //   * DKV:   owns 64 keys, streams the q rows; it computes the transposed
 //            tiles S^T = k q^T and dP^T = v dO^T, so that P^T and dS^T feed
-//            dv += P^T dO and dk += dS^T q from registers as well;
-//   * STATS: owns 64 q rows, streams the keys and keeps a running (max, sum,
-//            sum of e * dP) per row: the row's log-sum-exp and delta.
+//            dv += P^T dO and dk += dS^T q from registers as well.
+// The fp32 loop (`bwd_tile_loop_f32`) has a third role, STATS: it owns 64 q
+// rows, streams the keys and keeps a running (max, sum, sum of e * dP) per
+// row, the row's log-sum-exp and delta; the fp32 fused kernel runs STATS,
+// then DKV, then DQ in one block per (batch, head).
 // No [Nq, Nk] tensor reaches device memory, and no sum crosses blocks, so
 // there are no atomics and results do not change from run to run.
 //
-// flash_bwd_fused gives one block to each (batch, head): STATS over all q
-// tiles into shared memory, then DKV for every key tile, then DQ for every q
-// tile. The TPU kernel holds a whole score row in VMEM and needs 5 products;
-// here the row statistics cost 2 more and the two orientations recompute S
-// and dP, 9 products in all. What limits it is the shared memory for the row
-// statistics (8 bytes per q row beside the four tiles, 227 KB per block) and,
-// long before that, having only B*H blocks: the Python wrapper sends long
-// rows with few (batch, head) pairs to the blocked pair, whose grids are
-// (B*H, key tiles) and (B*H, q tiles).
-//
-// What bounds them on an H100: at STDiT3's training shapes (spatial N = 405,
-// D = 72) the five products are 10*B*H*Nq*Nk*D flop against 8*B*H*N*D bytes,
-// far above the card's 295 flop per byte, so the products run on the tensor
-// cores (mma.sync m16n8k16, bf16 or fp16 in, fp32 accumulate); temporal
-// attention (15 x 15) is bound by bytes and pads 15 rows to 64. fp32 inputs
-// take a SIMT loop with the same arithmetic (`bwd_tile_loop_f32`).
+// What bounds them on an H100: at the 1080p image row (N = 8160, D = 72) the
+// pair's seven products are 14*B*H*N^2*D flop against 16*B*H*N*D bytes, far
+// above the card's 295 flop per byte, so the products run on the tensor
+// cores (mma.sync m16n8k16, bf16 or fp16 in, fp32 accumulate) and the grids
+// spread over the tiles: (B*H, key tiles) and (B*H, q tiles).
 //
 // Masking as in the forward: keys at or past Nk score -inf, masked keys
 // -0.7*FLT_MAX, so their P and dS are exactly 0 and so are their dk, dv rows;
@@ -52,8 +45,9 @@
 // filled (dO = 0), contribute nothing and are not written. head_dim is zero
 // padded in shared memory to 32, 64, 80 or 128 columns.
 //
-// What the simple design gives up: wgmma and TMA, double buffering, the 2 to
-// 4 recomputed products, and 49 of 64 rows on temporal attention.
+// What the pair's simple design gives up: wgmma and TMA, double buffering of
+// the streamed tiles, and the two recomputed products (S and dP in both
+// orientations).
 
 #include "flash_common.cuh"
 
@@ -62,7 +56,6 @@ namespace {
 constexpr int MODE_DQ = 0;
 constexpr int MODE_DKV = 1;
 constexpr int MODE_STATS = 2;
-constexpr float MASK_HALF = 0.5f * MASK_VALUE;
 
 // Row statistics as the loops read them: log-sum-exp in log2 units (a fully
 // masked row: MASK_VALUE, with P = 1/Nk), and delta.
@@ -92,16 +85,6 @@ __device__ __forceinline__ void load_stats(const RowStats& st, int row, int Nq,
   lse2 = l;
 }
 
-__device__ __forceinline__ int8_t key_flag(const uint8_t* mrow, int key,
-                                           int Nk) {
-  // 1 attend, 0 masked, -1 past Nk
-  return key >= Nk ? -1 : ((mrow && !mrow[key]) ? 0 : 1);
-}
-
-__device__ __forceinline__ float masked_score(float x, int8_t flag) {
-  return flag < 0 ? -INFINITY : (flag == 0 ? MASK_VALUE : x);
-}
-
 // Shared memory of the tensor-core loop: four [64][DP + PAD] tiles and 64
 // key flags.
 template <typename T, int NT>
@@ -112,13 +95,13 @@ __host__ __device__ constexpr size_t mma_tiles_bytes() {
 // One owned 64-row tile against every streamed tile; 128 threads, warp w owns
 // rows [16 w, 16 w + 16) of the owned tile. `own0` is the first owned row (a
 // q row, or a key in MODE_DKV). MODE_DQ writes out1 = dq rows; MODE_DKV writes
-// out1 = dk, out2 = dv rows; MODE_STATS writes stats_lse (log2 units) and
-// stats_delta at [own0, own0 + 64).
+// out1 = dk, out2 = dv rows.
 template <typename T, int NT, int MODE>
 __device__ __forceinline__ void bwd_tile_loop(
     unsigned char* smem, const T* qb, const T* kb, const T* vb, const T* dob,
-    const uint8_t* mrow, RowStats st, float* stats_lse, float* stats_delta,
-    T* out1, T* out2, int own0, int Nq, int Nk, int D, float scale, int vec) {
+    const uint8_t* mrow, RowStats st, T* out1, T* out2, int own0, int Nq,
+    int Nk, int D, float scale, int vec) {
+  static_assert(MODE == MODE_DQ || MODE == MODE_DKV, "the blocked pair");
   constexpr int DP = NT * 8;
   constexpr int ld = DP + PAD;
   constexpr int NT2 = MODE == MODE_DKV ? NT : 1;
@@ -158,10 +141,6 @@ __device__ __forceinline__ void bwd_tile_loop(
     for (int r = 0; r < 2; ++r)
       own_flag[r] = key_flag(mrow, own_row + r * 8, Nk);
   }
-  float m_r[2] = {-INFINITY, -INFINITY};  // MODE_STATS: running max,
-  float l_r[2] = {0.f, 0.f};              // sum of e (this lane's share),
-  float d_r[2] = {0.f, 0.f};              // sum of e * dP (this lane's share)
-
   float acc1[NT][4];
   float acc2[NT2][4];
 #pragma unroll
@@ -226,34 +205,6 @@ __device__ __forceinline__ void bwd_tile_loop(
         s[n][e] = masked_score(s[n][e] * scale_log2, flag);
       }
 
-    if (MODE == MODE_STATS) {
-      float mt[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) mt[e / 2] = fmaxf(mt[e / 2], s[n][e]);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
-        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-        // the tile's first key is real, so the new max is finite
-        const float m_new = fmaxf(m_r[r], mt[r]);
-        const float alpha = exp2f(m_r[r] - m_new);
-        m_r[r] = m_new;
-        l_r[r] *= alpha;
-        d_r[r] *= alpha;
-      }
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2f(s[n][e] - m_r[e / 2]);
-          l_r[e / 2] += p;
-          d_r[e / 2] += p * dp[n][e];
-        }
-      continue;
-    }
-
     // P and dS = P * (dP - delta), packed as A operands
     uint32_t pa[4][4], dsa[4][4];
 #pragma unroll
@@ -303,23 +254,6 @@ __device__ __forceinline__ void bwd_tile_loop(
       }
   }
 
-  if (MODE == MODE_STATS) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float l = l_r[r], d = d_r[r];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      d += __shfl_xor_sync(0xffffffffu, d, 1);
-      d += __shfl_xor_sync(0xffffffffu, d, 2);
-      if (lane % 4 == 0) {
-        stats_lse[own_row + r * 8] =
-            m_r[r] <= MASK_HALF ? MASK_VALUE : m_r[r] + log2f(l);
-        stats_delta[own_row + r * 8] = d / l;
-      }
-    }
-    return;
-  }
-
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     const int col = n * 8 + (lane % 4) * 2;
@@ -334,41 +268,6 @@ __device__ __forceinline__ void bwd_tile_loop(
       }
     }
   }
-}
-
-template <typename T, int NT>
-__global__ void __launch_bounds__(THREADS)
-    flash_bwd_fused_mma(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v,
-                        const uint8_t* __restrict__ mask,
-                        const T* __restrict__ dout, T* __restrict__ dq,
-                        T* __restrict__ dk, T* __restrict__ dv, int H, int Nq,
-                        int Nk, int D, float scale, int vec) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int nq_pad = (Nq + 63) / 64 * 64;
-  float* s_lse = reinterpret_cast<float*>(smem_raw + mma_tiles_bytes<T, NT>());
-  float* s_delta = s_lse + nq_pad;
-  const int bh = blockIdx.x;
-  const T* qb = q + (size_t)bh * Nq * D;
-  const T* kb = k + (size_t)bh * Nk * D;
-  const T* vb = v + (size_t)bh * Nk * D;
-  const T* dob = dout + (size_t)bh * Nq * D;
-  const uint8_t* mrow = mask ? mask + (size_t)(bh / H) * Nk : nullptr;
-  const RowStats st{s_lse, s_delta, true};
-  for (int q0 = 0; q0 < Nq; q0 += 64)
-    bwd_tile_loop<T, NT, MODE_STATS>(smem_raw, qb, kb, vb, dob, mrow, st,
-                                     s_lse, s_delta, nullptr, nullptr, q0, Nq,
-                                     Nk, D, scale, vec);
-  // the next loop starts with a __syncthreads(): the statistics are visible
-  for (int k0 = 0; k0 < Nk; k0 += 64)
-    bwd_tile_loop<T, NT, MODE_DKV>(smem_raw, qb, kb, vb, dob, mrow, st,
-                                   nullptr, nullptr, dk + (size_t)bh * Nk * D,
-                                   dv + (size_t)bh * Nk * D, k0, Nq, Nk, D,
-                                   scale, vec);
-  for (int q0 = 0; q0 < Nq; q0 += 64)
-    bwd_tile_loop<T, NT, MODE_DQ>(smem_raw, qb, kb, vb, dob, mrow, st, nullptr,
-                                  nullptr, dq + (size_t)bh * Nq * D, nullptr,
-                                  q0, Nq, Nk, D, scale, vec);
 }
 
 // Grid (B*H, key tiles) for MODE_DKV, (B*H, q tiles) for MODE_DQ; lse and
@@ -390,7 +289,7 @@ __global__ void __launch_bounds__(THREADS)
   bwd_tile_loop<T, NT, MODE>(
       smem_raw, q + (size_t)bh * Nq * D, k + (size_t)bh * Nk * D,
       v + (size_t)bh * Nk * D, dout + (size_t)bh * Nq * D,
-      mask ? mask + (size_t)(bh / H) * Nk : nullptr, st, nullptr, nullptr,
+      mask ? mask + (size_t)(bh / H) * Nk : nullptr, st,
       out1 + (size_t)bh * n_own * D,
       MODE == MODE_DKV ? out2 + (size_t)bh * n_own * D : nullptr,
       blockIdx.y * 64, Nq, Nk, D, scale, vec);
@@ -677,8 +576,6 @@ __global__ void __launch_bounds__(F32_THREADS)
 
 // ---- launches -------------------------------------------------------------
 
-constexpr size_t SMEM_PER_BLOCK = 232448;  // 227 KB, the most a block may ask
-
 struct Args {
   const void *q, *k, *v, *dout;
   const uint8_t* mask;
@@ -697,24 +594,18 @@ cudaError_t set_smem(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// kind: 0 fused, 1 dkv, 2 dq
+// kind: 1 dkv, 2 dq (0, the fused backward, takes 16-bit inputs in
+// flash_bwd_fused.cu)
 template <typename T, int NT>
 cudaError_t launch_mma(int kind, const Args& a) {
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
-  size_t smem = mma_tiles_bytes<T, NT>();
+  const size_t smem = mma_tiles_bytes<T, NT>();
   cudaError_t err;
-  if (kind == 0) {
-    smem += (size_t)2 * ((a.Nq + 63) / 64 * 64) * sizeof(float);
-    auto kernel = flash_bwd_fused_mma<T, NT>;
-    if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
-    kernel<<<a.BH, THREADS, smem, a.stream>>>(
-        q, k, v, a.mask, dout, static_cast<T*>(a.out1),
-        static_cast<T*>(a.out2), static_cast<T*>(a.out3), a.H, a.Nq, a.Nk,
-        a.D, a.scale, a.vec);
-  } else if (kind == 1) {
+  if (kind == 0) return cudaErrorInvalidValue;
+  if (kind == 1) {
     auto kernel = flash_bwd_blocked_mma<T, NT, MODE_DKV>;
     if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
     dim3 grid(a.BH, (a.Nk + 63) / 64);
@@ -793,6 +684,8 @@ int launch(int kind, int dtype, const Args& a) {
 // [BH, Nq] fp32. Each launches on `stream` and returns the launch's
 // cudaError_t (cudaErrorInvalidValue for a shape it does not take: head_dim
 // above 128, or row statistics that do not fit the block's shared memory).
+// flash_bwd_fused here takes fp32 inputs only; bf16 and fp16 go to
+// flash_bwd_fused_mma in flash_bwd_fused.cu.
 extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v,
                                const void* mask, const void* dout, void* dq,
                                void* dk, void* dv, int dtype, int BH, int H,
@@ -801,6 +694,7 @@ extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v,
   const Args a{q, k, v, dout, static_cast<const uint8_t*>(mask), nullptr,
                nullptr, dq, dk, dv, BH, H, Nq, Nk, D, scale, vec,
                static_cast<cudaStream_t>(stream)};
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   return launch(0, dtype, a);
 }
 
@@ -829,15 +723,12 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   return launch(2, dtype, a);
 }
 
-// Bytes of shared memory flash_bwd_fused asks for, or -1 for a type or
+// Bytes of shared memory the fp32 flash_bwd_fused asks for, or -1 for a
 // head_dim it does not take; the wrapper's dispatch reads the same formula.
-extern "C" long flash_bwd_fused_smem(int dtype, int Nq, int D) {
+extern "C" long flash_bwd_fused_smem(int Nq, int D) {
   if (D <= 0 || D > 128 || Nq <= 0) return -1;
   const size_t stats = (size_t)2 * ((Nq + 63) / 64 * 64) * sizeof(float);
-  if (dtype == 0) return (long)(f32_tiles_bytes(D) + stats);
-  if (dtype != 1 && dtype != 2) return -1;
-  const int dp = D <= 32 ? 32 : D <= 64 ? 64 : D <= 80 ? 80 : 128;
-  return (long)((size_t)4 * 64 * (dp + PAD) * 2 + 64 + stats);
+  return (long)(f32_tiles_bytes(D) + stats);
 }
 
 extern "C" const char* flash_bwd_error_string(int err) {

@@ -1,5 +1,6 @@
-// Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// the bf16/fp16 mma.sync wrappers, ldmatrix and cp.async, and the tile loader.
+// Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
+// flash_bwd_fused.cu): the bf16/fp16 mma.sync wrappers, ldmatrix and cp.async,
+// the tile loader and the key flags.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -17,6 +18,8 @@ constexpr int PAD = 8;       // shared-memory row padding against bank conflicts
 constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+constexpr float MASK_HALF = 0.5f * MASK_VALUE;
+constexpr size_t SMEM_PER_BLOCK = 232448;  // 227 KB, the most a block may ask
 
 template <typename T>
 struct Ops;
@@ -85,12 +88,36 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(src_bytes));
 }
 
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  // copies src_bytes (4 or 0) and zero-fills the rest of the 4 bytes
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// waits until at most PENDING of this thread's committed groups are in flight
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+}
+
+__device__ __forceinline__ int8_t key_flag(const uint8_t* mrow, int key,
+                                           int Nk) {
+  // 1 attend, 0 masked, -1 past Nk
+  return key >= Nk ? -1 : ((mrow && !mrow[key]) ? 0 : 1);
+}
+
+__device__ __forceinline__ float masked_score(float x, int8_t flag) {
+  return flag < 0 ? -INFINITY : (flag == 0 ? MASK_VALUE : x);
 }
 
 // Starts copying rows [row0, row0 + 64) and columns [col0, col0 + width) of
@@ -111,8 +138,8 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
     const int grow = row0 + r;
     const int gcol = col0 + cc;
     T* d = dst + r * ld + cc;
-    if (vec && gcol + 8 <= D) {
-      const bool in = grow < N;
+    if (vec) {  // D % 8 == 0: a chunk lies wholly inside or outside D
+      const bool in = grow < N && gcol < D;
       cp_async16(d, in ? src + (size_t)grow * D + gcol : src, in ? 16 : 0);
     } else {
 #pragma unroll

@@ -17,10 +17,15 @@ import torch
 
 class StubTextEncoder:
     def __init__(self, output_dim: int = 4096, max_length: int = 300,
-                 device="cpu"):
+                 device=None):
+        """`device`: where `encode` puts its outputs; None is the card, and
+        a CUDA device without a card raises (pass "cpu" to run there)."""
         self.output_dim = output_dim
         self.max_length = max_length
-        self.device = torch.device(device)
+        self.device = torch.device(device if device is not None else "cuda")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device available; pass device='cpu' "
+                               "to run on the CPU")
 
     def _word_vec(self, word: str) -> np.ndarray:
         seed = int.from_bytes(hashlib.sha256(word.encode()).digest()[:4], "little")

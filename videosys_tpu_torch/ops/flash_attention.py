@@ -5,10 +5,13 @@ The kernels replace the five Pallas kernels of the JAX package
 (`videosys_tpu/ops/flash_attention.py`):
 
 * `csrc/flash_fwd.cu`: `_single_pass_kernel` and the blocked `_flash_kernel`
-  (one kernel here, with an optional log-sum-exp output);
-* `csrc/flash_bwd.cu`: `_flash_bwd_kernel` -> `flash_bwd_fused` (dq, dk, dv
-  from q, k, v, mask and dO alone), `_flash_bwd_dkv_kernel` ->
-  `flash_bwd_dkv` and `_flash_bwd_dq_kernel` -> `flash_bwd_dq` (from the
+  (an mma.sync kernel for heads up to 128 wide and a wgmma kernel for wider
+  ones, both with an optional log-sum-exp output);
+* `csrc/flash_bwd_fused.cu`: `_flash_bwd_kernel` -> `flash_bwd_fused` (dq,
+  dk, dv from q, k, v, mask and dO alone) for bf16 and fp16: a statistics
+  kernel and a thread-block-cluster kernel, or one short-row kernel;
+* `csrc/flash_bwd.cu`: the fp32 `flash_bwd_fused`, `_flash_bwd_dkv_kernel`
+  -> `flash_bwd_dkv` and `_flash_bwd_dq_kernel` -> `flash_bwd_dq` (from the
   forward's log-sum-exp and di = rowsum(dO * O)).
 
 `FlashAttentionFunction` takes the place of the JAX package's custom-VJP
@@ -23,9 +26,10 @@ loaded with `ctypes`; importing this module builds nothing.
 versions for CPU tensors, nothing else: a CUDA tensor a kernel cannot take
 raises. When no input needs a gradient it launches the forward kernel
 alone. `LAUNCHES` counts kernel launches: forward launches by the CUDA
-variant launched (`kernel_variant`: `mma`, `mma_split`, `f32`), backward
-launches by kernel (`bwd_fused`, `bwd_dkv`, `bwd_dq`; fp32 inputs, which
-take the SIMT variants, count under `*_f32`).
+variant launched (`kernel_variant`: `mma`, `wgmma`, `f32`), backward
+launches by kernel (`bwd_fused`: the statistics + cluster kernels,
+`bwd_fused_short`: the short-row kernel, `bwd_dkv`, `bwd_dq`; fp32 inputs,
+which take the SIMT variants, count under `*_f32`).
 """
 
 from __future__ import annotations
@@ -44,32 +48,41 @@ import torch
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 MAX_HEAD_DIM = 512
-# widest head (padded to a multiple of 16) whose accumulator one block holds
-# in registers; wider heads split their output columns over blocks
+# widest head (padded to a multiple of 16) the mma.sync forward takes: its
+# accumulator sits in the registers of 4 warps; wider heads take the wgmma
+# kernel, whose two warpgroups hold 256 or 512 padded columns
 MMA_MAX_PADDED_D = 128
 # widest head the backward kernels take (accumulators in registers)
 BWD_MAX_HEAD_DIM = 128
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_SOURCES = {"fwd": _CSRC / "flash_fwd.cu", "bwd": _CSRC / "flash_bwd.cu"}
-_HEADER = _CSRC / "flash_common.cuh"
+_SOURCES = {"fwd": _CSRC / "flash_fwd.cu", "bwd": _CSRC / "flash_bwd.cu",
+            "bwd_fused": _CSRC / "flash_bwd_fused.cu"}
+_HEADERS = (_CSRC / "flash_common.cuh", _CSRC / "wgmma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-# Dispatch of the backward. `flash_bwd_fused` gives one block to each
-# (batch, head) and keeps two fp32 statistics per q row in shared memory
-# beside its tiles: the row count is limited by the 227 KB a block may use
-# on an H100 (about 23,000 rows at head_dim 72 in bf16). Long before that
-# limit a launch with fewer blocks than the card has multiprocessors leaves
-# most of the card idle, so rows of more than FUSED_MAX_TILE_PAIRS 64 x 64
-# tile pairs with fewer than NUM_SMS (batch, head) pairs go to the blocked
-# pair, whose grids also spread over the tiles.
+# Dispatch of the backward. For bf16 and fp16 `flash_bwd_fused` is a
+# statistics kernel (grid over q tiles) and a cluster kernel in which each
+# block of a thread-block cluster owns FUSED_KEYS_PER_BLOCK keys of one
+# (batch, head): a portable cluster has at most FUSED_MAX_CLUSTER blocks, so
+# it takes rows of up to 512 keys; rows of at most FUSED_SHORT_ROWS queries
+# and keys take the short-row kernel (one warp per (batch, head)). Longer rows
+# go to the blocked pair, and so do long q rows with too few blocks to fill
+# the card (fewer than NUM_SMS, more than FUSED_MAX_TILE_PAIRS 64 x 64 tile
+# pairs each): the pair's grids also spread over the q tiles. The fp32 fused
+# kernel gives one block to each (batch, head) and keeps two fp32 statistics
+# per q row in shared memory beside its tiles, so the 227 KB a block may use
+# limit its row count.
 SMEM_PER_BLOCK = 232448
 NUM_SMS = 132
 FUSED_MAX_TILE_PAIRS = 1024
+FUSED_KEYS_PER_BLOCK = 64
+FUSED_MAX_CLUSTER = 8
+FUSED_SHORT_ROWS = 16
 
-LAUNCHES = {"mma": 0, "mma_split": 0, "f32": 0,
-            "bwd_fused": 0, "bwd_dkv": 0, "bwd_dq": 0,
+LAUNCHES = {"mma": 0, "wgmma": 0, "f32": 0,
+            "bwd_fused": 0, "bwd_fused_short": 0, "bwd_dkv": 0, "bwd_dq": 0,
             "bwd_fused_f32": 0, "bwd_dkv_f32": 0, "bwd_dq_f32": 0}
 _libs: Dict[str, ctypes.CDLL] = {}
 build_info: dict = {}
@@ -77,24 +90,67 @@ build_info: dict = {}
 
 def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
     """The `__global__` variant `csrc/flash_fwd.cu` launches: the SIMT
-    kernel for fp32, else the tensor-core kernel, with output-column splits
-    when the padded head is wider than MMA_MAX_PADDED_D."""
+    kernel for fp32, else a tensor-core kernel: mma.sync up to a padded
+    head of MMA_MAX_PADDED_D, wgmma (two warpgroups) above."""
     if dtype == torch.float32:
         return "f32"
     padded = -(-head_dim // 16) * 16
-    return "mma" if padded <= MMA_MAX_PADDED_D else "mma_split"
+    return "mma" if padded <= MMA_MAX_PADDED_D else "wgmma"
 
 
-def fused_smem_bytes(Nq: int, D: int, dtype: torch.dtype) -> int:
-    """Shared memory `flash_bwd_fused` asks for (the formula of
-    `flash_bwd_fused_smem` in csrc/flash_bwd.cu): four 64-row tiles, 64 key
-    flags, and 8 bytes of row statistics per q row padded to 64."""
+def wide_smem_bytes(head_dim: int) -> int:
+    """Shared memory the wgmma forward asks for (`wide_smem_bytes` in
+    csrc/flash_fwd.cu): Q, one K and one V tile of 64 rows at the padded
+    width (256 or 512), two 64 x 64 fp32 score halves, key flags."""
+    dp = 256 if -(-head_dim // 16) * 16 <= 256 else 512
+    return 3 * 64 * dp * 2 + 2 * 32 * 128 * 4 + 2 * 64
+
+
+def _bwd_padded(D: int) -> int:
+    return 32 if D <= 32 else 64 if D <= 64 else 80 if D <= 80 else 128
+
+
+def fused_kernel_smem_bytes(which: str, D: int) -> int:
+    """Shared memory a block of the 16-bit fused backward asks for
+    (`flash_bwd_fused_mma_smem` in csrc/flash_bwd_fused.cu). "stats": Q, dO
+    and two buffers each of K and V, 64 rows; "cluster": K and V of 64 keys,
+    two buffers each of Q and dO, the dS^T tile, two buffers of received
+    fp32 dq shares (70 rows), row statistics: two blocks fit an SM at
+    head_dim 72; "short": per warp four 16-row tiles and the P and dS
+    tiles."""
+    dp = _bwd_padded(D)
+    if which == "stats":
+        return 6 * 64 * dp * 2 + 2 * 64
+    if which == "cluster":
+        return ((2 * FUSED_KEYS_PER_BLOCK + 4 * 64) * dp * 2
+                + 64 * 64 * 2 + 2 * 70 * dp * 4 + 4 * 64 * 4)
+    if which == "short":
+        return 8 * (4 * 16 * (dp + 8) + 2 * 16 * 24) * 2
+    raise ValueError(which)
+
+
+def fused_smem_bytes(Nq: int, D: int) -> int:
+    """Shared memory the fp32 `flash_bwd_fused` asks for (the formula of
+    `flash_bwd_fused_smem` in csrc/flash_bwd.cu): four 64-row tiles, the P
+    and dS tiles, 64 key flags, and 8 bytes of row statistics per q row
+    padded to 64."""
     stats = 2 * (-(-Nq // 64) * 64) * 4
+    ld = (-(-D // 16) * 16) | 1
+    return (4 * 64 * ld + 2 * 64 * 65) * 4 + 64 + stats
+
+
+def fused_kind(Nq: int, Nk: int, dtype: torch.dtype) -> Optional[str]:
+    """The kernel `flash_bwd_fused` launches for these shapes: "f32" (SIMT,
+    one block per (batch, head)), "short" (rows of at most 16 queries and
+    keys), "cluster" (statistics + cluster kernels, up to 512 keys), or
+    None where it takes none (`flash_bwd_fused_mma_kind` in the source)."""
     if dtype == torch.float32 or dtype == torch.float64:
-        ld = (-(-D // 16) * 16) | 1
-        return (4 * 64 * ld + 2 * 64 * 65) * 4 + 64 + stats
-    dp = 32 if D <= 32 else 64 if D <= 64 else 80 if D <= 80 else 128
-    return 4 * 64 * (dp + 8) * 2 + 64 + stats
+        return "f32"
+    if Nq <= FUSED_SHORT_ROWS and Nk <= FUSED_SHORT_ROWS:
+        return "short"
+    if Nk <= FUSED_MAX_CLUSTER * FUSED_KEYS_PER_BLOCK:
+        return "cluster"
+    return None
 
 
 def backward_variant(B: int, H: int, Nq: int, Nk: int, D: int,
@@ -103,17 +159,31 @@ def backward_variant(B: int, H: int, Nq: int, Nk: int, D: int,
     "fused" (`flash_bwd_fused`, nothing saved but q, k, v) or "blocked"
     (`flash_bwd_dkv` + `flash_bwd_dq`, which need the forward's output and
     log-sum-exp). Shapes alone decide, on every device."""
-    if fused_smem_bytes(Nq, D, dtype) > SMEM_PER_BLOCK:
+    kind = fused_kind(Nq, Nk, dtype)
+    if kind is None:
         return "blocked"
+    if kind == "f32" and fused_smem_bytes(Nq, D) > SMEM_PER_BLOCK:
+        return "blocked"
+    blocks = B * H
+    if kind == "cluster":
+        blocks *= -(-Nk // FUSED_KEYS_PER_BLOCK)
     tile_pairs = -(-Nq // 64) * -(-Nk // 64)
-    if B * H < NUM_SMS and tile_pairs > FUSED_MAX_TILE_PAIRS:
+    if blocks < NUM_SMS and tile_pairs > FUSED_MAX_TILE_PAIRS:
         return "blocked"
     return "fused"
 
 
-def backward_launch_keys(variant: str, dtype: torch.dtype) -> tuple:
-    """The `LAUNCHES` keys one backward of `variant` adds one to."""
-    names = ("bwd_fused",) if variant == "fused" else ("bwd_dkv", "bwd_dq")
+def backward_launch_keys(variant: str, dtype: torch.dtype, Nq: int,
+                         Nk: int) -> tuple:
+    """The `LAUNCHES` keys one backward of `variant` adds one to, at rows of
+    Nq queries and Nk keys (the fused backward counts its short-row kernel
+    under its own key)."""
+    if variant != "fused":
+        names = ("bwd_dkv", "bwd_dq")
+    elif fused_kind(Nq, Nk, dtype) == "short":
+        names = ("bwd_fused_short",)
+    else:
+        names = ("bwd_fused",)
     suffix = "_f32" if dtype == torch.float32 else ""
     return tuple(n + suffix for n in names)
 
@@ -205,6 +275,97 @@ def flash_attention_bwd_lse_plain(q, k, v, kv_mask, do, o, lse, scale=None):
     return _grads_from(p, p * (dp - delta), q, k, do, scale, kv_mask)
 
 
+# ---- plain versions of how the kernels combine partial results -------------
+
+def scores_by_depth_halves_plain(q, k, scale, padded: int):
+    """The wgmma forward's scores: head_dim zero-padded to `padded` (256 or
+    512), each warpgroup's product over one half of the depth, the two fp32
+    halves summed. Equals `_scores` without a mask."""
+    acc = _acc_dtype(q)
+    pad = padded - q.shape[-1]
+    qp = torch.nn.functional.pad(q.to(acc), (0, pad))
+    kp = torch.nn.functional.pad(k.to(acc), (0, pad))
+    half = padded // 2
+    halves = [torch.matmul(qp[..., lo:lo + half],
+                           kp[..., lo:lo + half].transpose(-1, -2))
+              for lo in (0, half)]
+    return (halves[0] + halves[1]) * scale
+
+
+def row_stats_by_key_tiles_plain(q, k, v, kv_mask, do, scale=None,
+                                 tile: int = 64):
+    """The statistics kernel's running merge: per 64-key tile a row's (max,
+    sum of e, sum of e * dP), rescaled into the running triple. Returns the
+    log-sum-exp of the scaled scores (DEFAULT_MASK_VALUE for a fully masked
+    row) and delta = rowsum(P * dP), both [B, H, Nq]."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    acc = _acc_dtype(q)
+    s_all = _scores(q, k, scale, kv_mask)
+    dp_all = torch.matmul(do.to(acc), v.to(acc).transpose(-1, -2))
+    m = torch.full(s_all.shape[:-1], -math.inf, dtype=acc)
+    l = torch.zeros_like(m)
+    d = torch.zeros_like(m)
+    for k0 in range(0, k.shape[2], tile):
+        s, dp = s_all[..., k0:k0 + tile], dp_all[..., k0:k0 + tile]
+        m_new = torch.maximum(m, s.max(-1).values)
+        alpha = torch.exp(m - m_new)
+        e = torch.exp(s - m_new[..., None])
+        l = l * alpha + e.sum(-1)
+        d = d * alpha + (e * dp).sum(-1)
+        m = m_new
+    lse = torch.where(m <= 0.5 * DEFAULT_MASK_VALUE,
+                      torch.full_like(m, DEFAULT_MASK_VALUE), m + torch.log(l))
+    return lse, d / l
+
+
+def cluster_key_ranges(Nk: int) -> list:
+    """[(first key, keys)] of the blocks of one cluster: the 16-key groups of
+    a row dealt out evenly over ceil(Nk / 64) blocks, as
+    `flash_bwd_cluster_mma` deals them."""
+    blocks = -(-Nk // FUSED_KEYS_PER_BLOCK)
+    groups = -(-Nk // 16)
+    base, extra = divmod(groups, blocks)
+    out = []
+    for rank in range(blocks):
+        first = (rank * base + min(rank, extra)) * 16
+        n = (base + (rank < extra)) * 16
+        out.append((first, min(n, Nk - first)))
+    return out
+
+
+def flash_attention_bwd_cluster_plain(q, k, v, kv_mask, do, scale=None):
+    """`flash_bwd_fused`'s cluster design in plain PyTorch: row statistics
+    from the running merge over key tiles, then per block of a cluster (its
+    key range) P = exp(S - lse), dS, the block's dk and dv, and its share of
+    dq; the shares are summed in rank order (the kernel deals the rows of a
+    share out to the blocks, each of which sums its rows in that order).
+    Equals `flash_attention_bwd_plain`."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    acc = _acc_dtype(q)
+    lse, delta = row_stats_by_key_tiles_plain(q, k, v, kv_mask, do, scale)
+    dead = lse <= 0.5 * DEFAULT_MASK_VALUE
+    Nk = k.shape[2]
+    dq = torch.zeros_like(q, dtype=acc)
+    dks, dvs = [], []
+    for first, n in cluster_key_ranges(Nk):
+        kr, vr = k[:, :, first:first + n], v[:, :, first:first + n]
+        mr = None if kv_mask is None else kv_mask[:, first:first + n]
+        s = _scores(q, kr, scale, mr)
+        p = torch.exp(s - lse[..., None])
+        p = torch.where(dead[..., None], p / Nk, p)
+        dp = torch.matmul(do.to(acc), vr.to(acc).transpose(-1, -2))
+        ds = p * (dp - delta[..., None])
+        if mr is not None:
+            ds = ds.masked_fill(~mr[:, None, None, :], 0.0)
+        dq = dq + torch.matmul(ds, kr.to(acc))  # rank order
+        dks.append(torch.matmul(ds.transpose(-1, -2), q.to(acc)) * scale)
+        dvs.append(torch.matmul(p.transpose(-1, -2), do.to(acc)))
+    return ((dq * scale).to(q.dtype), torch.cat(dks, 2).to(k.dtype),
+            torch.cat(dvs, 2).to(k.dtype))
+
+
 # ---- build and load -------------------------------------------------------
 
 def _nvcc() -> str:
@@ -220,9 +381,9 @@ def _nvcc() -> str:
 def build() -> Dict[str, Path]:
     """Compile the kernel libraries whose sources have not been built yet
     (one `nvcc` per source, started together) and return their paths by
-    name ("fwd", "bwd"). A file name carries the hash of its source and the
-    shared header, so an edited source builds anew."""
-    header = _HEADER.read_bytes()
+    name ("fwd", "bwd", "bwd_fused"). A file name carries the hash of its
+    source and the shared headers, so an edited source builds anew."""
+    header = b"".join(h.read_bytes() for h in _HEADERS)
     libs, running = {}, []
     t0 = time.perf_counter()
     for name, source in _SOURCES.items():
@@ -267,17 +428,24 @@ def _library(name: str):
         bwd.flash_bwd_fused.argtypes = [ptr] * 8 + tail
         bwd.flash_bwd_dkv.argtypes = [ptr] * 9 + tail
         bwd.flash_bwd_dq.argtypes = [ptr] * 8 + tail
-        bwd.flash_bwd_fused_smem.argtypes = [i32, i32, i32]
+        bwd.flash_bwd_fused_smem.argtypes = [i32, i32]
         bwd.flash_bwd_fused_smem.restype = ctypes.c_long
+        fused = ctypes.CDLL(str(paths["bwd_fused"]))
+        fused.flash_bwd_fused_mma.argtypes = [ptr] * 9 + tail
+        fused.flash_bwd_fused_mma_kind.argtypes = [i32, i32, i32]
+        fused.flash_bwd_fused_mma_smem.argtypes = [i32, i32]
+        fused.flash_bwd_fused_mma_smem.restype = ctypes.c_long
         for lib, fns, err in (
                 (fwd, ("flash_fwd",), "flash_fwd_error_string"),
                 (bwd, ("flash_bwd_fused", "flash_bwd_dkv", "flash_bwd_dq"),
-                 "flash_bwd_error_string")):
+                 "flash_bwd_error_string"),
+                (fused, ("flash_bwd_fused_mma", "flash_bwd_fused_mma_kind"),
+                 "flash_bwd_fused_mma_error_string")):
             for fn in fns:
                 getattr(lib, fn).restype = i32
             getattr(lib, err).argtypes = [i32]
             getattr(lib, err).restype = ctypes.c_char_p
-        _libs.update(fwd=fwd, bwd=bwd)
+        _libs.update(fwd=fwd, bwd=bwd, bwd_fused=fused)
     return _libs[name]
 
 
@@ -350,21 +518,45 @@ def _raise_bwd(lib, name: str, err: int):
 
 
 def flash_bwd_fused(q, k, v, kv_mask, do, scale=None):
-    """Launch `flash_bwd_fused`: (dq, dk, dv) of CUDA tensors."""
+    """Launch `flash_bwd_fused`: (dq, dk, dv) of CUDA tensors. bf16 and fp16
+    take the short-row kernel, or the statistics kernel and the cluster
+    kernel (one count under `bwd_fused`; the row statistics pass between
+    them through 8 bytes per row of scratch); fp32 the SIMT kernel."""
     scale = _check_bwd(q, k, v, scale, kv_mask, do)
     B, H, Nq, D = q.shape
-    if fused_smem_bytes(Nq, D, q.dtype) > SMEM_PER_BLOCK:
+    Nk = k.shape[2]
+    kind = fused_kind(Nq, Nk, q.dtype)
+    if kind is None:
+        raise ValueError(f"flash_bwd_fused takes at most "
+                         f"{FUSED_MAX_CLUSTER * FUSED_KEYS_PER_BLOCK} keys "
+                         f"in {q.dtype}, not {Nk}")
+    if kind == "f32" and fused_smem_bytes(Nq, D) > SMEM_PER_BLOCK:
         raise ValueError(f"flash_bwd_fused cannot hold the statistics of "
                          f"{Nq} rows in shared memory")
-    lib = _library("bwd")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    err = lib.flash_bwd_fused(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
-        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _DTYPE_CODES[q.dtype], B * H, H, Nq, k.shape[2], D, scale,
-        _vec(D, q, k, v, do), torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_bwd(lib, "flash_bwd_fused", err)
-    LAUNCHES[backward_launch_keys("fused", q.dtype)[0]] += 1
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if kind == "f32":
+        lib = _library("bwd")
+        err = lib.flash_bwd_fused(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPE_CODES[q.dtype], B * H, H, Nq, Nk, D, scale,
+            _vec(D, q, k, v, do), stream)
+        _raise_bwd(lib, "flash_bwd_fused", err)
+    else:
+        lib = _library("bwd_fused")
+        stats = torch.empty(2, B * H, Nq, dtype=torch.float32,
+                            device=q.device) if kind == "cluster" else None
+        err = lib.flash_bwd_fused_mma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+            do.data_ptr(), _ptr(stats), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), _DTYPE_CODES[q.dtype], B * H, H, Nq, Nk, D, scale,
+            _vec(D, q, k, v, do, dq), stream)
+        if err != 0:
+            raise RuntimeError(
+                "flash_bwd_fused launch failed: "
+                + lib.flash_bwd_fused_mma_error_string(err).decode())
+    LAUNCHES[backward_launch_keys("fused", q.dtype, Nq, Nk)[0]] += 1
     return dq, dk, dv
 
 
@@ -391,7 +583,7 @@ def flash_bwd_dkv(q, k, v, kv_mask, do, lse, di, scale=None):
         scale, _vec(D, q, k, v, do),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_bwd(lib, "flash_bwd_dkv", err)
-    LAUNCHES[backward_launch_keys("blocked", q.dtype)[0]] += 1
+    LAUNCHES[backward_launch_keys("blocked", q.dtype, Nq, k.shape[2])[0]] += 1
     return dk, dv
 
 
@@ -409,7 +601,7 @@ def flash_bwd_dq(q, k, v, kv_mask, do, lse, di, scale=None):
         _DTYPE_CODES[q.dtype], B * H, H, Nq, k.shape[2], D, scale,
         _vec(D, q, k, v, do), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_bwd(lib, "flash_bwd_dq", err)
-    LAUNCHES[backward_launch_keys("blocked", q.dtype)[1]] += 1
+    LAUNCHES[backward_launch_keys("blocked", q.dtype, Nq, k.shape[2])[1]] += 1
     return dq
 
 
