@@ -5,16 +5,19 @@ card (an H100 is the target).
     python3 chip_smoke.py [--steps N]
 
 Phases, each fatal on failure:
-  1. build the flash-attention kernels from csrc/ (forward, blocked
-     backward, fused backward: one nvcc each, started together) and print
-     the card;
+  1. build the flash-attention kernels from csrc/ (forward, blocked dq
+     backward, fused backward, dk/dv backward: one nvcc each, started
+     together) and print the card;
   2. hold the forward kernels against their plain PyTorch version at the main
-     path's shapes (STDiT3 spatial, cross and temporal attention on the
-     mma.sync kernel, the VAE mid attention on the wgmma kernel) in bf16 and
-     fp32, and time them beside the plain version and torch's own
-     scaled_dot_product_attention (a yardstick the port never calls); then
-     the wgmma kernel's edges: a key mask and the log-sum-exp output at
-     D = 512 with 6360 q rows, D = 256, a head that is no multiple of 8;
+     path's shapes (STDiT3 spatial and cross attention on the narrow wgmma
+     kernel, temporal attention on the short-row kernel, the VAE mid
+     attention on the wide wgmma kernel) in bf16 and fp32, and time them
+     beside the plain version and torch's own scaled_dot_product_attention
+     (a yardstick the port never calls); then the edges of the short-row and
+     narrow kernels (rows and keys around 16, 64 and 128, head widths 32 to
+     128, a fully masked row, the log-sum-exp output) and of the wide kernel
+     (a key mask and the log-sum-exp output at D = 512 with 6360 q rows,
+     D = 256, a head that is no multiple of 8);
   3. serve Open-Sora v1.2 text-to-video at full width (STDiT3-XL/2, depth
      28, hidden 1152; the full VAE) with random weights from a seed: one
      480p 9:16 2 s video and one 144p 1:1 image, checking that every
@@ -25,13 +28,16 @@ Phases, each fatal on failure:
      with the same weights and noise, and compare the latents and video;
   5. hold the three backward kernels (flash_bwd_fused, flash_bwd_dkv,
      flash_bwd_dq) and the forward's log-sum-exp against their plain
-     versions at the training path's shapes (spatial 240p x 51 frames batch
-     2, temporal, cross attention to 8 and to 300 text tokens with a ragged
-     mask, and the 8160-token row of a 1080p image) in fp32 and bf16, and
-     time them beside the plain version and the backward of torch's
-     scaled_dot_product_attention; then the fused backward's edges (1, 15,
+     versions at the training path's shapes (spatial 144p x 51 frames batch
+     4 and 240p x 51 frames batch 2, temporal, cross attention to 8 and to
+     300 text tokens with a ragged mask, and the 8160-token row of a 1080p
+     image), each on the backward `backward_variant` picks, in fp32 and
+     bf16, and time them beside the plain version, the backward of torch's
+     scaled_dot_product_attention and the route passed up ("bwd dispatch");
+     then the fused backward's edges (1, 15,
      63, 64, 65 and 405 keys, four packed short rows with one fully masked,
-     a full cluster of 512 keys) and that the same inputs give bit-equal
+     a full cluster of 512 keys) and the dk/dv kernel's (key counts around
+     its 128-key blocks, a fully masked row), each giving bit-equal
      gradients twice;
   6. train Open-Sora v1.2 at full width and depth (`run_training`: bf16
      compute over fp32 parameters, recompute of every depth pair) for a few
@@ -84,7 +90,7 @@ BF16_LIMITS = {"spatial": (8e-3, 2e-2), "cross": (1e-2, 2e-2),
 # dv): the kernels read at most a third of each limit (3.0e-4, 3.2e-3), the
 # one-key fault at least 10x one of them (1.1e-2, 1.0e-1 at the long row)
 BWD_BF16_LIMITS = {name: (1e-3, 1e-2) for name in (
-    "spatial", "temporal", "cross8", "cross300", "long_row")}
+    "spatial144", "spatial", "temporal", "cross8", "cross300", "long_row")}
 
 
 def log(*a):
@@ -191,7 +197,8 @@ def kernel_phase(fa, text_len: int) -> dict:
             err = (got.float() - want.float()).abs().max().item()
             row[f"max_abs_err_{dt}"] = err
             log(f"kernel {name:8s} {dt} shape={row['shape']} masked={masked} "
-                f"variant={fa.kernel_variant(tdt, D)} max_abs_err={err:.3e}")
+                f"variant={fa.kernel_variant(tdt, Nq, Nk, D)} "
+                f"max_abs_err={err:.3e}")
             if dt == "bf16":
                 fault = fa.flash_attention_plain(
                     qt, kt, vt, kv_mask=drop_last_key(mask, B, Nk, "cuda"))
@@ -222,8 +229,56 @@ def kernel_phase(fa, text_len: int) -> dict:
         results[name] = row
         del q, k, v, qb, kb, vb
         torch.cuda.empty_cache()
+    results["narrow_edges"] = narrow_forward_edges(fa)
     results["wgmma_edges"] = wide_forward_edges(fa)
     return results
+
+
+def narrow_forward_edges(fa) -> dict:
+    """The short-row and narrow forwards at the edges their designs bring,
+    bf16 against plain at the spatial limits: output and log-sum-exp, under a
+    ragged key mask whose last batch row is fully masked."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(4)
+    lim_l2, lim_mx = BF16_LIMITS["spatial"]
+    out = {}
+    # (B, H, Nq, Nk, D): short rows at 1, 15 and 16; 17 rows or keys; one
+    # key; a last block of 54 rows (1590 = 12 * 128 + 54) and one whose
+    # second warpgroup has no row (1590 keys, 63 rows); 64/65/127/128/129
+    # keys and rows; the head widths the kernels pad to
+    for B, H, Nq, Nk, D in ((3, 2, 1, 1, 72), (3, 2, 15, 15, 72),
+                            (3, 2, 16, 16, 32), (3, 2, 17, 16, 72),
+                            (3, 2, 16, 17, 128), (3, 2, 1590, 1, 72),
+                            (3, 2, 1590, 300, 72), (3, 2, 63, 1590, 64),
+                            (3, 2, 129, 65, 80), (3, 2, 128, 127, 72),
+                            (3, 2, 127, 129, 128), (3, 2, 65, 64, 32)):
+        q, k, v = (torch.randn(B, H, n, D, device="cuda", generator=gen)
+                   .bfloat16() for n in (Nq, Nk, Nk))
+        mask = ragged_mask(B, Nk, gen)
+        mask[-1] = False
+        variant = fa.kernel_variant(q.dtype, Nq, Nk, D)
+        want_variant = "short" if Nq <= 16 and Nk <= 16 else "narrow"
+        if variant != want_variant:
+            raise AssertionError(f"{[Nq, Nk, D]}: expected the {want_variant} "
+                                 f"forward, the dispatch says {variant}")
+        got, lse = fa._launch(q, k, v, None, mask, save_lse=True)
+        torch.cuda.synchronize()
+        want, want_lse = fa.flash_attention_plain(q, k, v, None, mask,
+                                                  return_lse=True)
+        l2, mx = rel_errors(got, want)
+        lse_err = (lse - want_lse).abs().max().item()
+        ok = l2 <= lim_l2 and mx <= lim_mx and lse_err <= F32_GRAD_TOL \
+            and bool(torch.isfinite(got).all())
+        log(f"kernel edge {variant:6s} shape={[B, H, Nq, Nk, D]} masked, last "
+            f"row dead rel_l2={l2:.3e} rel_max={mx:.3e} lse_err={lse_err:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{variant} forward disagrees with plain at "
+                                 f"{[B, H, Nq, Nk, D]}")
+        out[f"{B}x{H}x{Nq}x{Nk}x{D}"] = {"variant": variant, "rel_l2": l2,
+                                         "rel_max": mx, "lse_err": lse_err}
+    return out
 
 
 def wide_forward_edges(fa) -> dict:
@@ -242,7 +297,7 @@ def wide_forward_edges(fa) -> dict:
         q, k, v = (torch.randn(B, H, n, D, device="cuda", generator=gen)
                    .bfloat16() for n in (Nq, Nk, Nk))
         mask = ragged_mask(B, Nk, gen)
-        if fa.kernel_variant(q.dtype, D) != "wgmma":
+        if fa.kernel_variant(q.dtype, Nq, Nk, D) != "wgmma":
             raise AssertionError(f"D={D}: expected the wgmma forward")
         got, lse = fa._launch(q, k, v, None, mask, save_lse=True)
         torch.cuda.synchronize()
@@ -262,14 +317,20 @@ def wide_forward_edges(fa) -> dict:
 
 
 def expected_launches(fa, pipe, num_frames: int, height: int, width: int,
-                      steps: int) -> dict:
+                      steps: int, text_len: int) -> dict:
     """Kernel launches one request makes, by variant, from its shapes: per
-    denoise step each depth runs spatial, temporal (unless T = 1) and two
-    cross attentions; the VAE runs its mid attention once per frame
-    micro-batch."""
-    t_lat, _, _ = pipe.vae.get_latent_size((num_frames, height, width))
+    denoise step each depth runs spatial (S x S tokens), temporal (T x T,
+    unless T = 1) and two cross attentions (S x the bucketed text length),
+    each on the variant its shape takes; the VAE runs its mid attention once
+    per frame micro-batch."""
+    t_lat, h_lat, w_lat = pipe.vae.get_latent_size((num_frames, height, width))
     mc = pipe.model_config
-    per_step = mc.depth * (3 + (t_lat > 1))
+    _, ph, pw = mc.patch_size
+    S = -(-h_lat // ph) * -(-w_lat // pw)
+    D = mc.hidden_size // mc.num_heads
+    calls = [(S, S), (S, text_len), (S, text_len)]
+    if t_lat > 1:
+        calls.append((t_lat, t_lat))
     vae_cfg = pipe.vae.config
     n_vae, remaining = 0, num_frames
     for _ in range(0, t_lat, pipe.vae.micro_z_frame_size):
@@ -277,10 +338,11 @@ def expected_launches(fa, pipe, num_frames: int, height: int, width: int,
         n_vae += -(-nf // vae_cfg.micro_batch_size)
         remaining -= vae_cfg.micro_frame_size
     want = {key: 0 for key in fa.LAUNCHES}
-    want[fa.kernel_variant(pipe.dtype, mc.hidden_size // mc.num_heads)] += \
-        steps * per_step
+    for Nq, Nk in calls:
+        want[fa.kernel_variant(pipe.dtype, Nq, Nk, D)] += steps * mc.depth
     vae_mid_d = pipe.vae.spatial_vae.module.block_out_channels[-1]
-    want[fa.kernel_variant(pipe.dtype, vae_mid_d)] += n_vae
+    n_mid = h_lat * w_lat  # a frame's positions at the VAE's mid block
+    want[fa.kernel_variant(pipe.dtype, n_mid, n_mid, vae_mid_d)] += n_vae
     return want
 
 
@@ -321,7 +383,8 @@ def serve_phase(fa, steps: int, seed: int, profile: bool = False) -> dict:
         launches = {k: fa.LAUNCHES[k] - before[k] for k in before}
         h, w = get_image_size(req["resolution"], req["aspect_ratio"])
         nf = get_num_frames(req["num_frames"])
-        want = expected_launches(fa, pipe, nf, h, w, steps)
+        want = expected_launches(fa, pipe, nf, h, w, steps,
+                                 pipe.last_text_kv_len)
         lat = pipe.last_latents
         rec = {"request": {k: req[k] for k in req if k != "prompt"},
                "video_shape": list(video.shape), "video_dtype": str(video.dtype),
@@ -557,6 +620,51 @@ def fused_backward_edges(fa) -> dict:
     return out
 
 
+def dkv_edges(fa) -> dict:
+    """`flash_bwd_dkv` in bf16 at the edges its design brings (key counts
+    around its 128-key blocks, a warpgroup with no key, q rows past a 64-row
+    tile, a fully masked row), against plain at the backward limits, and
+    twice for bit-equal gradients. (With one key dk is rounding noise, dS =
+    dP - di = 0 up to the order of two sums, so the fewest keys held here
+    are two.)"""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(5)
+    lim_l2, lim_mx = BWD_BF16_LIMITS["long_row"]
+    out = {}
+    for B, H, Nq, Nk in ((2, 2, 100, 2), (2, 2, 100, 64), (2, 2, 100, 65),
+                         (2, 2, 70, 127), (2, 2, 70, 128), (2, 2, 70, 129),
+                         (2, 2, 200, 300), (1, 2, 1590, 405)):
+        q, k, v, do = (torch.randn(B, H, n, 72, device="cuda", generator=gen)
+                       .bfloat16() for n in (Nq, Nk, Nk, Nq))
+        mask = ragged_mask(B, Nk, gen)
+        if B > 1:
+            mask[-1] = False
+        o, lse = fa._launch(q, k, v, None, mask, save_lse=True)
+        di = (do.float() * o.float()).sum(-1)
+        got = fa.flash_bwd_dkv(q, k, v, mask, do, lse, di)
+        again = fa.flash_bwd_dkv(q, k, v, mask, do, lse, di)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bwd_lse_plain(q, k, v, mask, do, o, lse)[1:]
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        l2 = mx = 0.0
+        for g, w in zip(got, want):
+            d = g.float() - w.float()
+            l2 = max(l2, d.norm().item() / (w.float().norm().item() or 1.0))
+            mx = max(mx, d.abs().max().item() / (w.float().abs().max().item() or 1.0))
+        dead = ((~mask) & mask.any(1, keepdim=True))[:, None, :, None]
+        zero = not any(bool(g.masked_select(dead).any()) for g in got)
+        ok = l2 <= lim_l2 and mx <= lim_mx and same and zero and all(
+            bool(torch.isfinite(g).all()) for g in got)
+        log(f"bwd edge dkv     shape={[B, H, Nq, Nk, 72]} rel_l2={l2:.3e} "
+            f"rel_max={mx:.3e} bit_equal={same} masked_keys_zero={zero} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_bwd_dkv fails at Nq={Nq}, Nk={Nk}")
+        out[f"{B}x{H}x{Nq}x{Nk}"] = {"rel_l2": l2, "rel_max": mx}
+    return out
+
+
 def backward_kernel_phase(fa) -> dict:
     """The three backward kernels, and the forward's log-sum-exp, against
     their plain versions at the training path's shapes."""
@@ -564,14 +672,16 @@ def backward_kernel_phase(fa) -> dict:
     import torch.nn.functional as F
 
     gen = torch.Generator("cuda").manual_seed(1)
-    # (name, B, H, Nq, Nk, D, masked, backward): 240p x 51 frames batch 2 is
-    # B*T = 30 rows of S = 405 tokens and B*S = 810 rows of T = 15; the dummy
-    # text has 8 tokens, real captions up to 300; a 1080p image is one row of
-    # 8160 tokens
-    shapes = [("spatial", 30, 16, 405, 405, 72, False, "fused"),
+    # (name, B, H, Nq, Nk, D, masked, backward): 144p x 51 frames batch 4 is
+    # B*T = 60 rows of S = 144 tokens; 240p x 51 frames batch 2 is B*T = 30
+    # rows of S = 405 tokens and B*S = 810 rows of T = 15; the dummy text has
+    # 8 tokens, real captions up to 300; a 1080p image is one row of 8160
+    # tokens. Rows of more than 256 keys take the blocked pair.
+    shapes = [("spatial144", 60, 16, 144, 144, 72, False, "fused"),
+              ("spatial", 30, 16, 405, 405, 72, False, "blocked"),
               ("temporal", 810, 16, 15, 15, 72, False, "fused"),
               ("cross8", 30, 16, 405, 8, 72, True, "fused"),
-              ("cross300", 30, 16, 405, 300, 72, True, "fused"),
+              ("cross300", 30, 16, 405, 300, 72, True, "blocked"),
               ("long_row", 1, 16, 8160, 8160, 72, False, "blocked")]
     products = {"fused": 5, "dkv": 4, "dq": 3}
     results = {}
@@ -682,17 +792,30 @@ def backward_kernel_phase(fa) -> dict:
                      "di": lambda: (dob.float() * out.float()).sum(-1)}
             row["other_variant_ms"] = {k: time_ms(fn, iters)
                                        for k, fn in other.items()}
-            log(f"bwd dispatch {name:9s} chosen fused "
+            log(f"bwd dispatch {name:10s} chosen fused "
                 f"({fa.fused_kind(Nq, Nk, qb.dtype)}): {row['fused']['ms']:.4f} ms; "
                 f"passed up: {row['other_variant_ms']} ms, "
                 f"{sum(row['other_variant_ms'].values()):.4f} in all")
+        elif fa.fused_kind(Nq, Nk, qb.dtype) is not None:
+            # the pair with its di, against the fused backward passed up
+            row["di_ms"] = time_ms(lambda: (dob.float() * out.float()).sum(-1),
+                                   iters)
+            row["other_variant_ms"] = {"fused": time_ms(
+                lambda: fa.flash_bwd_fused(qb, kb, vb, mask, dob), iters)}
+            chosen = row["dkv"]["ms"] + row["dq"]["ms"] + row["di_ms"]
+            log(f"bwd dispatch {name:10s} chosen blocked: dkv + dq + di "
+                f"{row['dkv']['ms']:.4f} + {row['dq']['ms']:.4f} + "
+                f"{row['di_ms']:.4f} = {chosen:.4f} ms; passed up: fused "
+                f"({fa.fused_kind(Nq, Nk, qb.dtype)}) "
+                f"{row['other_variant_ms']['fused']:.4f} ms")
         else:
-            log(f"bwd dispatch {name:9s} chosen blocked: the fused backward "
+            log(f"bwd dispatch {name:10s} chosen blocked: the fused backward "
                 f"takes at most {fa.FUSED_MAX_CLUSTER * fa.FUSED_KEYS_PER_BLOCK} keys")
         results[name] = row
         del q, k, v, do, qb, kb, vb, dob, out, lse, di, ql, kl, vl, lib_out
         torch.cuda.empty_cache()
     results["fused_edges"] = fused_backward_edges(fa)
+    results["dkv_edges"] = dkv_edges(fa)
     return results
 
 
@@ -719,7 +842,8 @@ def expected_train_launches(fa, cfg, history) -> dict:
             calls.append((B * S, t_lat, t_lat))
         for rows, Nq, Nk in calls:
             n = mc.depth * entry["gas"]
-            want[fa.kernel_variant(mc.dtype, D)] += n * (2 if recompute else 1)
+            want[fa.kernel_variant(mc.dtype, Nq, Nk, D)] += \
+                n * (2 if recompute else 1)
             variant = fa.backward_variant(rows, H, Nq, Nk, D, mc.dtype)
             for key in fa.backward_launch_keys(variant, mc.dtype, Nq, Nk):
                 want[key] += n
@@ -1010,9 +1134,12 @@ def main(argv=None) -> int:
     # whose shapes it takes and the shape it is timed at
     kernels = []
     for key, shape, replaces in (
-            ("mma", "spatial", "videosys_tpu/ops/flash_attention.py:125"),
+            ("short", "temporal", "videosys_tpu/ops/flash_attention.py:125"),
+            ("narrow", "spatial", "videosys_tpu/ops/flash_attention.py:125"),
             ("wgmma", "vae_mid", "videosys_tpu/ops/flash_attention.py:49")):
         r = shapes[shape]
+        if served["launches"][key] <= 0:
+            raise AssertionError(f"serving never launched flash_fwd_{key}")
         kernels.append({
             "name": f"flash_fwd_{key}", "route": "cuda",
             "source": "videosys_tpu_torch/csrc/flash_fwd.cu",
@@ -1022,13 +1149,14 @@ def main(argv=None) -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     # the backward kernels, launches from the training path (bf16)
     fused_src = "videosys_tpu_torch/csrc/flash_bwd_fused.cu"
+    dkv_src = "videosys_tpu_torch/csrc/flash_bwd_dkv.cu"
     blocked_src = "videosys_tpu_torch/csrc/flash_bwd.cu"
     for key, shape, kern, source, replaces in (
-            ("bwd_fused", "spatial", "fused", fused_src,
+            ("bwd_fused", "spatial144", "fused", fused_src,
              "videosys_tpu/ops/flash_attention.py:326"),
             ("bwd_fused_short", "temporal", "fused", fused_src,
              "videosys_tpu/ops/flash_attention.py:326"),
-            ("bwd_dkv", "long_row", "dkv", blocked_src,
+            ("bwd_dkv", "long_row", "dkv", dkv_src,
              "videosys_tpu/ops/flash_attention.py:522"),
             ("bwd_dq", "long_row", "dq", blocked_src,
              "videosys_tpu/ops/flash_attention.py:594")):

@@ -183,10 +183,12 @@ def test_no_grad_inputs_take_the_forward_alone(monkeypatch):
 
 
 @pytest.mark.parametrize("shape,dtype,want", [
-    ((30, 16, 405, 405, 72), torch.bfloat16, "fused"),    # 240p spatial
+    ((30, 16, 405, 405, 72), torch.bfloat16, "blocked"),  # 240p spatial
+    ((60, 16, 144, 144, 72), torch.bfloat16, "fused"),    # 144p spatial
     ((810, 16, 15, 15, 72), torch.bfloat16, "fused"),     # temporal
-    ((30, 16, 405, 300, 72), torch.bfloat16, "fused"),    # cross
-    ((30, 16, 512, 512, 72), torch.bfloat16, "fused"),    # a full cluster
+    ((30, 16, 405, 8, 72), torch.bfloat16, "fused"),      # cross, 8 tokens
+    ((30, 16, 405, 300, 72), torch.bfloat16, "blocked"),  # cross, 300
+    ((30, 16, 512, 512, 72), torch.bfloat16, "blocked"),  # a full cluster
     ((30, 16, 1590, 1590, 72), torch.bfloat16, "blocked"),  # 480p video
     ((1, 16, 8160, 8160, 72), torch.bfloat16, "blocked"),  # 1080p image
     ((16, 16, 8160, 8160, 72), torch.float32, "fused"),   # a block per SM

@@ -90,7 +90,7 @@ def run_case(dtype, B, H, Nq, Nk, D, masked):
 def test_kernel_matches_plain(card, dtype, B, H, Nq, Nk, D, masked):
     got, want, launched = run_case(dtype, B, H, Nq, Nk, D, masked)
     assert launched == {**{key: 0 for key in launched},
-                        fa.kernel_variant(dtype, D): 1}
+                        fa.kernel_variant(dtype, Nq, Nk, D): 1}
     assert bool(torch.isfinite(got).all())
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=F32_TOL, rtol=F32_TOL)
@@ -108,7 +108,7 @@ def test_kernel_matches_plain(card, dtype, B, H, Nq, Nk, D, masked):
 def test_wide_forward_log_sum_exp(card, dtype, B, H, Nq, Nk, D, masked):
     """The wgmma kernel's lse output against the plain version's."""
     q, k, v, mask = inputs(dtype, B, H, Nq, Nk, D, masked)
-    assert fa.kernel_variant(dtype, D) == "wgmma"
+    assert fa.kernel_variant(dtype, Nq, Nk, D) == "wgmma"
     out, lse = fa._launch(q, k, v, None, mask, save_lse=True)
     want, want_lse = fa.flash_attention_plain(q, k, v, None, mask,
                                               return_lse=True)
@@ -116,6 +116,55 @@ def test_wide_forward_log_sum_exp(card, dtype, B, H, Nq, Nk, D, masked):
     err = rel_errors(out, want)
     lim_l2, lim_max = HALF_LIMITS[dtype]
     assert err["rel_l2"] <= lim_l2 and err["rel_max"] <= lim_max, err
+
+
+def check_forward(dtype, B, H, Nq, Nk, D, masked):
+    """The forward kernel the shape takes, output and log-sum-exp, against
+    plain; with `masked` the last batch row is fully masked."""
+    q, k, v, mask = inputs(dtype, B, H, Nq, Nk, D, masked)
+    fa.reset_launches()
+    out, lse = fa._launch(q, k, v, None, mask, save_lse=True)
+    assert fa.LAUNCHES[fa.kernel_variant(dtype, Nq, Nk, D)] == 1
+    want, want_lse = fa.flash_attention_plain(q, k, v, None, mask,
+                                              return_lse=True)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(lse, want_lse, atol=F32_GRAD_TOL, rtol=1e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, atol=F32_TOL, rtol=F32_TOL)
+    else:
+        err = rel_errors(out, want)
+        lim_l2, lim_max = HALF_LIMITS[dtype]
+        assert err["rel_l2"] <= lim_l2 and err["rel_max"] <= lim_max, err
+
+
+# rows and keys around the short-row kernel's 16, the 64-row warpgroups and
+# key tiles, the narrow kernel's 128-row blocks, and the spatial row
+EDGE_N = [1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 1590]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Nk", EDGE_N)
+@pytest.mark.parametrize("Nq", EDGE_N)
+def test_forward_edges(card, Nq, Nk):
+    """bf16 at D = 72 under a ragged key mask with a fully masked batch
+    row, whichever of the short and narrow kernels the shape takes."""
+    check_forward(torch.bfloat16, 2, 2, Nq, Nk, 72, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [32, 64, 72, 80, 128])
+@pytest.mark.parametrize("Nq,Nk", [(15, 15), (16, 17), (129, 65), (1590, 127)])
+def test_forward_head_widths(card, dtype, D, Nq, Nk):
+    check_forward(dtype, 2, 2, Nq, Nk, D, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("Nq,Nk,D", [(15, 15, 72), (100, 77, 72),
+                                     (33, 40, 20), (70, 300, 512)])
+def test_forward_log_sum_exp_of_every_variant(card, dtype, Nq, Nk, D):
+    check_forward(dtype, 3, 2, Nq, Nk, D, True)
 
 
 @pytest.mark.cuda
@@ -126,7 +175,7 @@ def test_dispatch_never_sends_cuda_to_plain(card, monkeypatch):
     monkeypatch.delenv("VIDEOSYS_FORCE_FLASH", raising=False)
     fa.reset_launches()
     scaled_dot_product_attention(q, q, q)
-    assert fa.LAUNCHES["mma"] == 1
+    assert fa.LAUNCHES["short"] == 1
     with pytest.raises(ValueError):
         scaled_dot_product_attention(q, q, q, force_flash=False)
     monkeypatch.setenv("VIDEOSYS_FORCE_FLASH", "0")
@@ -136,7 +185,7 @@ def test_dispatch_never_sends_cuda_to_plain(card, monkeypatch):
         scaled_dot_product_attention(*(torch.zeros(1, 1, 8, 600, device="cuda",
                                                    dtype=torch.bfloat16),) * 3,
                                      force_flash=True)
-    assert fa.LAUNCHES["mma"] == 1
+    assert fa.LAUNCHES["short"] == 1
 
 
 @pytest.mark.cuda
@@ -209,7 +258,7 @@ def test_backward_kernels_match_plain(card, variant, dtype, B, H, Nq, Nk, D,
     torch.cuda.synchronize()
     keys = fa.backward_launch_keys(variant, dtype, Nq, Nk)
     assert {k: n for k, n in fa.LAUNCHES.items() if n} == {
-        fa.kernel_variant(dtype, D): 1, **{key: 1 for key in keys}}
+        fa.kernel_variant(dtype, Nq, Nk, D): 1, **{key: 1 for key in keys}}
     for g, w in zip(got, want):
         assert bool(torch.isfinite(g).all()) and g.dtype == dtype
         if dtype == torch.float32:
@@ -259,6 +308,38 @@ def test_fused_backward_gives_the_same_bits_twice(card, dtype, B, H, Nq, Nk,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("Nq,Nk,D", [
+    (100, 2, 72), (70, 127, 72), (65, 128, 72), (129, 129, 72),
+    (200, 255, 72), (64, 257, 64), (40, 300, 128), (300, 130, 32)])
+def test_dkv_at_key_counts_off_the_block(card, dtype, Nq, Nk, D):
+    """`flash_bwd_dkv` where the last block of 128 keys is ragged or one of
+    its warpgroups has no key at all."""
+    got, want, mask = run_bwd_case(dtype, "blocked", 2, 2, Nq, Nk, D, True)
+    torch.cuda.synchronize()
+    lim_l2, lim_max = HALF_GRAD_LIMITS[dtype]
+    for g, w in zip(got[1:], want[1:]):
+        err = rel_errors(g, w)
+        assert err["rel_l2"] <= lim_l2 and err["rel_max"] <= lim_max, err
+    dead = ((~mask) & mask.any(1, keepdim=True))[:, None, :, None]
+    assert not bool(got[1].masked_select(dead).any())
+    assert not bool(got[2].masked_select(dead).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_dkv_gives_the_same_bits_twice(card, dtype):
+    q, k, v, mask = inputs(dtype, 2, 4, 700, 405, 72, True)
+    do = torch.randn_like(q)
+    out, lse = fa._launch(q, k, v, None, mask, save_lse=True)
+    di = (do.float() * out.float()).sum(-1)
+    first = fa.flash_bwd_dkv(q, k, v, mask, do, lse, di)
+    for _ in range(3):
+        again = fa.flash_bwd_dkv(q, k, v, mask, do, lse, di)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_autograd_function_launches_the_backward_kernels(card, dtype):
     """`flash_attention` on CUDA tensors that need gradients: the rule's
@@ -277,7 +358,7 @@ def test_autograd_function_launches_the_backward_kernels(card, dtype):
         (out.transpose(1, 2) * w).sum().backward()
         keys = fa.backward_launch_keys(variant, dtype, N, N)
         assert {k: n for k, n in fa.LAUNCHES.items() if n} == {
-            fa.kernel_variant(dtype, D): 1, **{key: 1 for key in keys}}
+            fa.kernel_variant(dtype, N, N, D): 1, **{key: 1 for key in keys}}
         q, k, v = (a.detach().transpose(1, 2).contiguous() for a in t)
         want = fa.flash_attention_bwd_plain(q, k, v, None,
                                             w.transpose(1, 2).contiguous())
@@ -363,6 +444,22 @@ def test_python_mirrors_of_the_kernels_formulas(card):
                    (8160, 512), (64, 513)):
         assert kinds[lib.flash_bwd_fused_mma_kind(Nq, Nk, 72)] == \
             fa.fused_kind(Nq, Nk, torch.bfloat16)
+    fwd = fa._library("fwd")
+    variants = {0: "f32", 1: "short", 2: "narrow", 3: "wgmma"}
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1),
+                        (torch.float16, 2)):
+        for Nq, Nk, D in ((15, 15, 72), (16, 16, 128), (17, 16, 72),
+                          (16, 17, 72), (1590, 1590, 72), (15, 15, 129),
+                          (6360, 6360, 512), (1, 1, 1)):
+            assert variants[fwd.flash_fwd_variant(code, Nq, Nk, D)] == \
+                fa.kernel_variant(dtype, Nq, Nk, D)
+    for D in (8, 32, 33, 64, 72, 80, 81, 128):
+        assert fwd.flash_fwd_smem(1, D) == fa.short_fwd_smem_bytes(D)
+        assert fwd.flash_fwd_smem(2, D) == fa.narrow_smem_bytes(D)
+        assert fa._library("bwd_dkv").flash_bwd_dkv_wgmma_smem(D) == \
+            fa.dkv_smem_bytes(D)
+    for D in (129, 256, 257, 512):
+        assert fwd.flash_fwd_smem(3, D) == fa.wide_smem_bytes(D)
 
 
 if __name__ == "__main__":

@@ -1,42 +1,41 @@
 // Flash-attention backward for Hopper (sm_90a), non-causal, with a [B, Nk]
-// key mask: the blocked pair, and the fused backward for fp32 inputs.
+// key mask: dq of the blocked pair, and the fp32 kernels.
 //
-// With flash_bwd_fused.cu this replaces the three backward Pallas kernels of
-// the JAX package, videosys_tpu/ops/flash_attention.py:
+// With flash_bwd_fused.cu and flash_bwd_dkv.cu this replaces the three
+// backward Pallas kernels of the JAX package,
+// videosys_tpu/ops/flash_attention.py:
 //   * _flash_bwd_kernel (:326)      -> flash_bwd_fused: dq, dk, dv from
 //     (q, k, v, mask, dO) alone, no residual of the forward. Here only its
 //     fp32 form (a SIMT loop); bf16 and fp16 inputs, the main path's, take
 //     the tensor-core kernels of flash_bwd_fused.cu;
 //   * _flash_bwd_dkv_kernel (:522)  -> flash_bwd_dkv: dk, dv from the
-//     forward's log-sum-exp and di = rowsum(dO * O);
+//     forward's log-sum-exp and di = rowsum(dO * O). Here only its fp32
+//     form; bf16 and fp16 take the wgmma kernel of flash_bwd_dkv.cu;
 //   * _flash_bwd_dq_kernel (:594)   -> flash_bwd_dq: dq from the same.
 //
 //   S = scale * q k^T      P = softmax(S)       dP = dO v^T
 //   dS = P * (dP - delta)  delta = rowsum(P * dP) = rowsum(dO * O)
 //   dq = scale * dS k      dk = scale * dS^T q  dv = P^T dO
 //
-// The blocked pair is built from one tile loop (`bwd_tile_loop`), which a
-// block runs over a 64-row tile it owns while it streams 64-row tiles of the
-// other side through shared memory:
-//   * DQ:    owns 64 q rows, streams the keys; S and dP tiles come out of
-//            mma.sync in the accumulator layout, which is the A-operand
-//            layout of the next product, so dS feeds dq += dS k from
-//            registers;
-//   * DKV:   owns 64 keys, streams the q rows; it computes the transposed
-//            tiles S^T = k q^T and dP^T = v dO^T, so that P^T and dS^T feed
-//            dv += P^T dO and dk += dS^T q from registers as well.
-// The fp32 loop (`bwd_tile_loop_f32`) has a third role, STATS: it owns 64 q
-// rows, streams the keys and keeps a running (max, sum, sum of e * dP) per
-// row, the row's log-sum-exp and delta; the fp32 fused kernel runs STATS,
-// then DKV, then DQ in one block per (batch, head).
+// The 16-bit dq kernel (`bwd_dq_tile_loop`) owns 64 q rows and streams the
+// keys through shared memory in 64-row tiles; S and dP tiles come out of
+// mma.sync in the accumulator layout, which is the A-operand layout of the
+// next product, so dS feeds dq += dS k from registers.
+// The fp32 loop (`bwd_tile_loop_f32`) runs a block over a 64-row tile it
+// owns while it streams 64-row tiles of the other side, in three roles: DQ
+// (owns q rows, streams the keys), DKV (owns keys, streams the q rows, and
+// computes the transposed tiles S^T and dP^T) and STATS (owns q rows,
+// streams the keys and keeps a running (max, sum, sum of e * dP) per row,
+// the row's log-sum-exp and delta); the fp32 fused kernel runs STATS, then
+// DKV, then DQ in one block per (batch, head).
 // No [Nq, Nk] tensor reaches device memory, and no sum crosses blocks, so
 // there are no atomics and results do not change from run to run.
 //
-// What bounds them on an H100: at the 1080p image row (N = 8160, D = 72) the
-// pair's seven products are 14*B*H*N^2*D flop against 16*B*H*N*D bytes, far
-// above the card's 295 flop per byte, so the products run on the tensor
-// cores (mma.sync m16n8k16, bf16 or fp16 in, fp32 accumulate) and the grids
-// spread over the tiles: (B*H, key tiles) and (B*H, q tiles).
+// What bounds them on an H100: at the 1080p image row (N = 8160, D = 72) dq's
+// three products are 6*B*H*N^2*D flop against 10*B*H*N*D bytes, far above
+// the card's 295 flop per byte, so the products run on the tensor cores
+// (mma.sync m16n8k16, bf16 or fp16 in, fp32 accumulate) and the grid spreads
+// over the q tiles: (B*H, q tiles).
 //
 // Masking as in the forward: keys at or past Nk score -inf, masked keys
 // -0.7*FLT_MAX, so their P and dS are exactly 0 and so are their dk, dv rows;
@@ -45,9 +44,9 @@
 // filled (dO = 0), contribute nothing and are not written. head_dim is zero
 // padded in shared memory to 32, 64, 80 or 128 columns.
 //
-// What the pair's simple design gives up: wgmma and TMA, double buffering of
-// the streamed tiles, and the two recomputed products (S and dP in both
-// orientations).
+// What the dq kernel's simple design gives up: wgmma and TMA, double
+// buffering of the streamed tiles, and the two recomputed products (S and
+// dP, also computed by the dk/dv kernel).
 
 #include "flash_common.cuh"
 
@@ -92,19 +91,17 @@ __host__ __device__ constexpr size_t mma_tiles_bytes() {
   return (size_t)4 * 64 * (NT * 8 + PAD) * sizeof(T) + 64;
 }
 
-// One owned 64-row tile against every streamed tile; 128 threads, warp w owns
-// rows [16 w, 16 w + 16) of the owned tile. `own0` is the first owned row (a
-// q row, or a key in MODE_DKV). MODE_DQ writes out1 = dq rows; MODE_DKV writes
-// out1 = dk, out2 = dv rows.
-template <typename T, int NT, int MODE>
-__device__ __forceinline__ void bwd_tile_loop(
+// dq of one 64-row q tile against every key tile; 128 threads, warp w owns q
+// rows [16 w, 16 w + 16) of the tile. The S and dP tiles come out of
+// mma.sync in the accumulator layout, which is the A-operand layout of the
+// next product, so dS feeds dq += dS k from registers.
+template <typename T, int NT>
+__device__ __forceinline__ void bwd_dq_tile_loop(
     unsigned char* smem, const T* qb, const T* kb, const T* vb, const T* dob,
-    const uint8_t* mrow, RowStats st, T* out1, T* out2, int own0, int Nq,
-    int Nk, int D, float scale, int vec) {
-  static_assert(MODE == MODE_DQ || MODE == MODE_DKV, "the blocked pair");
+    const uint8_t* mrow, RowStats st, T* dq, int q0, int Nq, int Nk, int D,
+    float scale, int vec) {
   constexpr int DP = NT * 8;
   constexpr int ld = DP + PAD;
-  constexpr int NT2 = MODE == MODE_DKV ? NT : 1;
   T* sX1 = reinterpret_cast<T*>(smem);
   T* sX2 = sX1 + 64 * ld;
   T* sY1 = sX2 + 64 * ld;
@@ -113,56 +110,34 @@ __device__ __forceinline__ void bwd_tile_loop(
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const T* x1 = MODE == MODE_DKV ? kb : qb;
-  const T* x2 = MODE == MODE_DKV ? vb : dob;
-  const T* y1 = MODE == MODE_DKV ? qb : kb;
-  const T* y2 = MODE == MODE_DKV ? dob : vb;
-  const int n_own = MODE == MODE_DKV ? Nk : Nq;
-  const int n_stream = MODE == MODE_DKV ? Nq : Nk;
   const float scale_log2 = scale * LOG2E;
 
-  __syncthreads();  // whoever used this shared memory before is done
-  load_tile(sX1, ld, x1, own0, n_own, 0, DP, D, vec);
-  load_tile(sX2, ld, x2, own0, n_own, 0, DP, D, vec);
+  load_tile(sX1, ld, qb, q0, Nq, 0, DP, D, vec);
+  load_tile(sX2, ld, dob, q0, Nq, 0, DP, D, vec);
 
-  // this thread's two owned rows: own0 + warp*16 + lane/4, and that + 8
-  const int own_row = own0 + warp * 16 + lane / 4;
-  float own_lse[2] = {0.f, 0.f}, own_delta[2] = {0.f, 0.f},
-        own_pmul[2] = {1.f, 1.f};
-  int8_t own_flag[2] = {1, 1};
-  if (MODE == MODE_DQ) {
+  // this thread's two q rows: q0 + warp*16 + lane/4, and that + 8
+  const int own_row = q0 + warp * 16 + lane / 4;
+  float own_lse[2], own_delta[2], own_pmul[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
-      load_stats(st, own_row + r * 8, Nq, Nk, own_lse[r], own_delta[r],
-                 own_pmul[r]);
-  }
-  if (MODE == MODE_DKV) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      own_flag[r] = key_flag(mrow, own_row + r * 8, Nk);
-  }
-  float acc1[NT][4];
-  float acc2[NT2][4];
+  for (int r = 0; r < 2; ++r)
+    load_stats(st, own_row + r * 8, Nq, Nk, own_lse[r], own_delta[r],
+               own_pmul[r]);
+  float acc[NT][4];
 #pragma unroll
   for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc1[n][e] = 0.f;
-#pragma unroll
-  for (int n = 0; n < NT2; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc2[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  for (int t0 = 0; t0 < n_stream; t0 += 64) {
+  for (int t0 = 0; t0 < Nk; t0 += 64) {
     if (t0 > 0) __syncthreads();  // every warp is done with the last tile
-    load_tile(sY1, ld, y1, t0, n_stream, 0, DP, D, vec);
-    load_tile(sY2, ld, y2, t0, n_stream, 0, DP, D, vec);
-    if (MODE != MODE_DKV && threadIdx.x < 64)
-      sF[threadIdx.x] = key_flag(mrow, t0 + threadIdx.x, Nk);
+    load_tile(sY1, ld, kb, t0, Nk, 0, DP, D, vec);
+    load_tile(sY2, ld, vb, t0, Nk, 0, DP, D, vec);
+    if (threadIdx.x < 64) sF[threadIdx.x] = key_flag(mrow, t0 + threadIdx.x, Nk);
     cp_async_commit();
     cp_async_wait_all();
     __syncthreads();
 
-    // s = X1 Y1^T and dp = X2 Y2^T: this warp's 16 rows x 64 streamed rows
+    // s = Q K^T and dp = dO V^T: this warp's 16 rows x 64 keys
     float s[8][4], dp[8][4];
 #pragma unroll
     for (int n = 0; n < 8; ++n)
@@ -193,49 +168,25 @@ __device__ __forceinline__ void bwd_tile_loop(
       }
     }
 
-    // scores in log2 units, masked; element (n, e) is owned row e / 2 and
-    // streamed row n*8 + (lane%4)*2 + (e&1)
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int8_t flag = MODE == MODE_DKV
-                                ? own_flag[e / 2]
-                                : sF[n * 8 + (lane % 4) * 2 + (e & 1)];
-        s[n][e] = masked_score(s[n][e] * scale_log2, flag);
-      }
-
-    // P and dS = P * (dP - delta), packed as A operands
-    uint32_t pa[4][4], dsa[4][4];
+    // dS = P * (dP - delta), P from the scores in log2 units, masked;
+    // element (n, e) is q row e / 2 and key n*8 + (lane%4)*2 + (e&1)
+    uint32_t dsa[4][4];
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      float p[4], ds[4];
-      float c_lse[2] = {0.f, 0.f}, c_delta[2] = {0.f, 0.f},
-            c_pmul[2] = {1.f, 1.f};
-      if (MODE == MODE_DKV) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          load_stats(st, t0 + n * 8 + (lane % 4) * 2 + j, Nq, Nk, c_lse[j],
-                     c_delta[j], c_pmul[j]);
-      }
+      float ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float lse2 = MODE == MODE_DKV ? c_lse[e & 1] : own_lse[e / 2];
-        const float delta =
-            MODE == MODE_DKV ? c_delta[e & 1] : own_delta[e / 2];
-        const float pmul = MODE == MODE_DKV ? c_pmul[e & 1] : own_pmul[e / 2];
-        p[e] = exp2f(s[n][e] - lse2) * pmul;
-        // a masked score is a constant: no gradient reaches q and k through
-        // it (only a fully masked row has p != 0 there)
-        ds[e] = s[n][e] == MASK_VALUE ? 0.f : p[e] * (dp[n][e] - delta);
+        const float x = masked_score(s[n][e] * scale_log2,
+                                     sF[n * 8 + (lane % 4) * 2 + (e & 1)]);
+        const float p = exp2f(x - own_lse[e / 2]) * own_pmul[e / 2];
+        // a masked score is a constant: no gradient reaches q through it
+        ds[e] = x == MASK_VALUE ? 0.f : p * (dp[n][e] - own_delta[e / 2]);
       }
-      pa[n / 2][(n % 2) * 2] = Ops<T>::pack(p[0], p[1]);
-      pa[n / 2][(n % 2) * 2 + 1] = Ops<T>::pack(p[2], p[3]);
       dsa[n / 2][(n % 2) * 2] = Ops<T>::pack(ds[0], ds[1]);
       dsa[n / 2][(n % 2) * 2 + 1] = Ops<T>::pack(ds[2], ds[3]);
     }
 
-    // acc1 += dS Y1 (dq += dS k, or dk += dS^T q); MODE_DKV: acc2 += P^T dO
+    // acc += dS K
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -244,13 +195,8 @@ __device__ __forceinline__ void bwd_tile_loop(
         const int b_off = (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * ld +
                           dpi * 16 + (lane / 16) * 8;
         ldmatrix_x4_trans(b, sY1 + b_off);
-        Ops<T>::mma(acc1[2 * dpi], dsa[kk], b);
-        Ops<T>::mma(acc1[2 * dpi + 1], dsa[kk], b + 2);
-        if (MODE == MODE_DKV) {
-          ldmatrix_x4_trans(b, sY2 + b_off);
-          Ops<T>::mma(acc2[(2 * dpi) % NT2], pa[kk], b);
-          Ops<T>::mma(acc2[(2 * dpi + 1) % NT2], pa[kk], b + 2);
-        }
+        Ops<T>::mma(acc[2 * dpi], dsa[kk], b);
+        Ops<T>::mma(acc[2 * dpi + 1], dsa[kk], b + 2);
       }
   }
 
@@ -261,38 +207,28 @@ __device__ __forceinline__ void bwd_tile_loop(
     for (int e = 0; e < 4; ++e) {
       const int r = own_row + (e / 2) * 8;
       const int c = col + (e & 1);
-      if (r < n_own && c < D) {
-        out1[(size_t)r * D + c] = Ops<T>::from_float(acc1[n][e] * scale);
-        if (MODE == MODE_DKV)
-          out2[(size_t)r * D + c] = Ops<T>::from_float(acc2[n % NT2][e]);
-      }
+      if (r < Nq && c < D)
+        dq[(size_t)r * D + c] = Ops<T>::from_float(acc[n][e] * scale);
     }
   }
 }
 
-// Grid (B*H, key tiles) for MODE_DKV, (B*H, q tiles) for MODE_DQ; lse and
-// di are [B*H, Nq] fp32 in device memory.
-template <typename T, int NT, int MODE>
+// Grid (B*H, q tiles); lse and di are [B*H, Nq] fp32 in device memory.
+template <typename T, int NT>
 __global__ void __launch_bounds__(THREADS)
-    flash_bwd_blocked_mma(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v,
-                          const uint8_t* __restrict__ mask,
-                          const T* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ di, T* __restrict__ out1,
-                          T* __restrict__ out2, int H, int Nq, int Nk, int D,
-                          float scale, int vec) {
+    flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const uint8_t* __restrict__ mask,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ di, T* __restrict__ dq, int H,
+                     int Nq, int Nk, int D, float scale, int vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int bh = blockIdx.x;
-  const int n_own = MODE == MODE_DKV ? Nk : Nq;
   const RowStats st{lse + (size_t)bh * Nq, di + (size_t)bh * Nq, false};
-  bwd_tile_loop<T, NT, MODE>(
+  bwd_dq_tile_loop<T, NT>(
       smem_raw, q + (size_t)bh * Nq * D, k + (size_t)bh * Nk * D,
       v + (size_t)bh * Nk * D, dout + (size_t)bh * Nq * D,
       mask ? mask + (size_t)(bh / H) * Nk : nullptr, st,
-      out1 + (size_t)bh * n_own * D,
-      MODE == MODE_DKV ? out2 + (size_t)bh * n_own * D : nullptr,
-      blockIdx.y * 64, Nq, Nk, D, scale, vec);
+      dq + (size_t)bh * Nq * D, blockIdx.y * 64, Nq, Nk, D, scale, vec);
 }
 
 // ---- fp32: SIMT loop with the same structure ------------------------------
@@ -594,32 +530,20 @@ cudaError_t set_smem(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// kind: 1 dkv, 2 dq (0, the fused backward, takes 16-bit inputs in
-// flash_bwd_fused.cu)
+// kind 2 (dq) only: 16-bit inputs take the fused backward in
+// flash_bwd_fused.cu and dk, dv in flash_bwd_dkv.cu
 template <typename T, int NT>
 cudaError_t launch_mma(int kind, const Args& a) {
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
+  if (kind != 2) return cudaErrorInvalidValue;
   const size_t smem = mma_tiles_bytes<T, NT>();
+  auto kernel = flash_bwd_dq_mma<T, NT>;
   cudaError_t err;
-  if (kind == 0) return cudaErrorInvalidValue;
-  if (kind == 1) {
-    auto kernel = flash_bwd_blocked_mma<T, NT, MODE_DKV>;
-    if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
-    dim3 grid(a.BH, (a.Nk + 63) / 64);
-    kernel<<<grid, THREADS, smem, a.stream>>>(
-        q, k, v, a.mask, dout, a.lse, a.di, static_cast<T*>(a.out1),
-        static_cast<T*>(a.out2), a.H, a.Nq, a.Nk, a.D, a.scale, a.vec);
-  } else {
-    auto kernel = flash_bwd_blocked_mma<T, NT, MODE_DQ>;
-    if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
-    dim3 grid(a.BH, (a.Nq + 63) / 64);
-    kernel<<<grid, THREADS, smem, a.stream>>>(
-        q, k, v, a.mask, dout, a.lse, a.di, static_cast<T*>(a.out1), nullptr,
-        a.H, a.Nq, a.Nk, a.D, a.scale, a.vec);
-  }
+  if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
+  dim3 grid(a.BH, (a.Nq + 63) / 64);
+  kernel<<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.mask, static_cast<const T*>(a.dout), a.lse,
+      a.di, static_cast<T*>(a.out1), a.H, a.Nq, a.Nk, a.D, a.scale, a.vec);
   return cudaGetLastError();
 }
 
@@ -684,8 +608,9 @@ int launch(int kind, int dtype, const Args& a) {
 // [BH, Nq] fp32. Each launches on `stream` and returns the launch's
 // cudaError_t (cudaErrorInvalidValue for a shape it does not take: head_dim
 // above 128, or row statistics that do not fit the block's shared memory).
-// flash_bwd_fused here takes fp32 inputs only; bf16 and fp16 go to
-// flash_bwd_fused_mma in flash_bwd_fused.cu.
+// flash_bwd_fused and flash_bwd_dkv here take fp32 inputs only; bf16 and
+// fp16 go to flash_bwd_fused_mma in flash_bwd_fused.cu and
+// flash_bwd_dkv_wgmma in flash_bwd_dkv.cu.
 extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v,
                                const void* mask, const void* dout, void* dq,
                                void* dk, void* dv, int dtype, int BH, int H,

@@ -567,44 +567,6 @@ __host__ __device__ constexpr size_t short_smem_bytes() {
   return (size_t)SH_WARPS * (4 * 16 * (NT * 8 + PAD) + 2 * 16 * SH_LDT) * sizeof(T);
 }
 
-// rows [0, N) of a row-major [N, D] matrix into a [16][ld] tile by one warp,
-// zero filled past N and past D
-template <typename T>
-__device__ __forceinline__ void load_rows_warp(T* dst, int ld, const T* src,
-                                               int N, int DP, int D, bool vec,
-                                               int lane) {
-  const int chunks = DP / 8;
-  const T zero = Ops<T>::from_float(0.f);
-  for (int c = lane; c < 16 * chunks; c += 32) {
-    const int r = c / chunks;
-    const int cc = (c % chunks) * 8;
-    T* d = dst + r * ld + cc;
-    if (vec) {  // D % 8 == 0: a chunk lies wholly inside or outside D
-      const bool in = r < N && cc < D;
-      cp_async16(d, in ? src + (size_t)r * D + cc : src, in ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        d[e] = (r < N && cc + e < D) ? src[(size_t)r * D + cc + e] : zero;
-    }
-  }
-}
-
-// out[r][c] = acc * mul for the 16 x DP accumulator of one warp
-template <typename T, int NT>
-__device__ __forceinline__ void store_rows_warp(T* out, const float (*acc)[4],
-                                                int N, int D, float mul,
-                                                int lane) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = lane / 4 + (e / 2) * 8;
-      const int c = n * 8 + (lane % 4) * 2 + (e & 1);
-      if (r < N && c < D) out[(size_t)r * D + c] = Ops<T>::from_float(acc[n][e] * mul);
-    }
-}
-
 template <typename T, int NT>
 __global__ void __launch_bounds__(SH_WARPS * 32)
     flash_bwd_short_mma(const T* __restrict__ q, const T* __restrict__ k,

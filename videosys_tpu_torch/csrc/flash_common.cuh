@@ -1,6 +1,7 @@
 // Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
-// flash_bwd_fused.cu): the bf16/fp16 mma.sync wrappers, ldmatrix and cp.async,
-// the tile loader and the key flags.
+// flash_bwd_fused.cu, flash_bwd_dkv.cu): the bf16/fp16 mma.sync wrappers,
+// ldmatrix and cp.async, the tile loaders, the key flags, and the output
+// stores of one warp (short rows) and of one warpgroup (wgmma tiles).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -11,9 +12,7 @@
 
 namespace {
 
-constexpr int BLOCK_M = 64;  // q rows per block: 4 warps x 16 rows
-constexpr int BLOCK_N = 64;  // keys per loop iteration
-constexpr int THREADS = 128;
+constexpr int THREADS = 128;  // a block of one warpgroup (four warps)
 constexpr int PAD = 8;       // shared-memory row padding against bank conflicts
 constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -148,6 +147,106 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
         d[e] = (grow < N && col < D) ? src[(size_t)grow * D + col] : zero;
       }
     }
+  }
+}
+
+// Rows [0, N) (N <= 16) of a row-major [N, D] matrix into a [16][ld] tile by
+// one warp, zero filled past N and past D: 16-byte chunks by cp.async with
+// `vec` (D % 8 == 0, 16-byte aligned rows), else element by element.
+template <typename T>
+__device__ __forceinline__ void load_rows_warp(T* dst, int ld, const T* src,
+                                               int N, int DP, int D, bool vec,
+                                               int lane) {
+  const int chunks = DP / 8;
+  const T zero = Ops<T>::from_float(0.f);
+  for (int c = lane; c < 16 * chunks; c += 32) {
+    const int r = c / chunks;
+    const int cc = (c % chunks) * 8;
+    T* d = dst + r * ld + cc;
+    if (vec) {  // D % 8 == 0: a chunk lies wholly inside or outside D
+      const bool in = r < N && cc < D;
+      cp_async16(d, in ? src + (size_t)r * D + cc : src, in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        d[e] = (r < N && cc + e < D) ? src[(size_t)r * D + cc + e] : zero;
+    }
+  }
+}
+
+// out[r][c] = acc * mul for rows r < N of the 16 x (NT * 8) mma.sync
+// accumulator of one warp, into a row-major [N, D] matrix. With `stage`
+// (16 * D elements of the warp's shared memory, 16-byte aligned; only with
+// D % 8 == 0 and a 16-byte aligned `out`) the rows are put together there
+// and leave as 16-byte stores of the contiguous N * D span; without it,
+// element by element.
+template <typename T, int NT>
+__device__ __forceinline__ void store_rows_warp(T* out, const float (*acc)[4],
+                                                int N, int D, float mul,
+                                                int lane, T* stage = nullptr) {
+  T* dst = stage ? stage : out;
+  if (stage) __syncwarp();  // every lane is done reading the staging tile
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = lane / 4 + (e / 2) * 8;
+      const int c = n * 8 + (lane % 4) * 2 + (e & 1);
+      if (r < N && c < D) dst[(size_t)r * D + c] = Ops<T>::from_float(acc[n][e] * mul);
+    }
+  if (!stage) return;
+  __syncwarp();
+  const int chunks = N * D / 8;
+  for (int i = lane; i < chunks; i += 32)
+    reinterpret_cast<uint4*>(out)[i] = reinterpret_cast<const uint4*>(stage)[i];
+}
+
+// Named barrier of one warpgroup (ids 1 and up; 0 is __syncthreads)
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// The fp32 accumulator of one warpgroup's wgmma (64 rows x NACC * 2 / 4
+// columns; element 4 n + e is row (warp % 4) * 16 + lane / 4 + (e / 2) * 8,
+// column n * 8 + (lane % 4) * 2 + (e & 1)), each row times mul[e / 2], into
+// rows [row0, row0 + min(64, N - row0)) of a row-major [N, D] matrix: the
+// tile is put together in `stage` (64 * D elements of shared memory that
+// only this warpgroup uses, 16-byte aligned) and leaves as 16-byte stores of
+// the contiguous span with `vec` (D % 8 == 0, 16-byte aligned `out`), else
+// element by element. A caller that writes `stage` again syncs the
+// warpgroup first.
+template <typename T, int NACC>
+__device__ __forceinline__ void store_tile_warpgroup(
+    T* out, const float* acc, const float* mul, int row0, int N, int D,
+    bool vec, T* stage, int barrier_id) {
+  const int tw = threadIdx.x % 128;
+  const int lane = threadIdx.x % 32;
+  const int rows = min(64, N - row0);
+#pragma unroll
+  for (int n = 0; n < NACC / 4; ++n) {
+    const int col = n * 8 + (lane % 4) * 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (tw / 32) * 16 + lane / 4 + h * 8;
+      const float x0 = acc[4 * n + 2 * h] * mul[h];
+      const float x1 = acc[4 * n + 2 * h + 1] * mul[h];
+      T* d = stage + r * D + col;
+      if (col + 1 < D && D % 2 == 0) {  // an even offset: 4-byte aligned
+        *reinterpret_cast<uint32_t*>(d) = Ops<T>::pack(x0, x1);
+      } else {
+        if (col < D) d[0] = Ops<T>::from_float(x0);
+        if (col + 1 < D) d[1] = Ops<T>::from_float(x1);
+      }
+    }
+  }
+  warpgroup_sync(barrier_id);
+  T* dst = out + (size_t)row0 * D;
+  if (vec) {
+    const int chunks = rows * D / 8;
+    for (int i = tw; i < chunks; i += 128)
+      reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(stage)[i];
+  } else {
+    for (int i = tw; i < rows * D; i += 128) dst[i] = stage[i];
   }
 }
 

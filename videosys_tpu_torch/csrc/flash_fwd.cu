@@ -7,139 +7,206 @@
 //     (STDiT3 spatial, cross and temporal attention);
 //   * _flash_kernel (:49)        -- KV-blocked online softmax, used above
 //     4096 keys (the VAE mid-block attention, D = 512, N = 6360 at 480p).
-// Here the head width picks the kernel, not the key count: heads padded to at
-// most 128 columns take `flash_fwd_mma` (mma.sync, four warps), wider ones
-// (129 to 512) take `flash_fwd_wide` (wgmma, two warpgroups; its note is
-// above it). In both, a block owns a 64-row q tile of one (batch*head) and
-// walks the keys in 64-row tiles in its own loop (the TPU's sequential grid
+// Here the shape picks the kernel, not the key count alone (`fwd_variant`):
+// rows of at most 16 queries and 16 keys (temporal attention over 15
+// frames) take `flash_fwd_short` (one warp per (batch, head), mma.sync);
+// other heads of at most 128 columns take `flash_fwd_narrow` (two
+// warpgroups of 64 q rows, wgmma); wider ones (129 to 512) take
+// `flash_fwd_wide` (wgmma, two warpgroups that split the output columns);
+// fp32 takes a SIMT kernel. Each kernel's note is above it. The tile kernels
+// walk the keys in 64-row tiles in their own loop (the TPU's sequential grid
 // axis), keeping a running (max, sum, acc) in fp32 and dividing by the sum
 // once at the end. The softmax scale times log2(e) is applied to the fp32
 // scores, so the exponentials are exp2. The log-sum-exp output of
 // _flash_kernel (natural log of the sum over the scaled scores, one fp32 per
 // q row, [B*H, Nq]) is written only when the caller passes a buffer: the
-// KV-blocked backward (flash_bwd.cu) reads it. A fully masked row stores
-// MASK_VALUE itself.
+// KV-blocked backward reads it. A fully masked row stores MASK_VALUE itself.
 //
 // What bounds them on an H100: STDiT3 spatial attention (B*H = 480, N = 1590,
 // D = 72) does 4*B*H*N^2*D = 3.5e11 flop per layer against 2.2e8 bytes of
 // q/k/v/o, and the VAE mid attention (D = 512) is denser still: by the
 // card's peaks both are bound by operations, so the products run on the
-// tensor cores (bf16 or fp16 in, fp32 accumulate). What the wide kernel
-// actually waits for is K and V coming out of L2 again for every 64-row q
-// tile (see its note). fp32 inputs take a plain SIMT kernel with the same
-// arithmetic; the main path never sends them.
+// tensor cores (bf16 or fp16 in, fp32 accumulate). What the tile kernels
+// actually wait for is K and V coming out of L2 again for every q tile;
+// cross attention (64 keys) and temporal attention (15 x 15) are bound by
+// bytes. fp32 inputs take a plain SIMT kernel with the same arithmetic; the
+// main path never sends them.
 //
-// Design choices of both:
-//   * head_dim is zero-padded in shared memory (to a multiple of 16 for
-//     mma.sync, to 256 or 512 for wgmma); device memory is never padded.
+// Design choices shared by the kernels:
+//   * head_dim is zero-padded in shared memory (to 32, 64, 80 or 128 for the
+//     short and narrow kernels, to 256 or 512 for the wide one); device
+//     memory is never padded.
 //   * Ragged q and kv tails are zero-filled on load; keys at or past Nk get
 //     a score of -inf and weigh nothing, keys masked off get
 //     -0.7*FLT_MAX, so a fully masked row averages v over its Nk keys (the
 //     plain PyTorch version does the same). Rows past Nq are not written.
-//   * Copies run beside the products: the mma.sync kernel has two buffers for
-//     the key tiles (cp.async copies tile j + 1 while tile j is computed on);
-//     the wgmma kernel has one buffer each for K and V and asks for the next
-//     K while P V runs and for the next V while Q K^T runs.
-//
-// What the mma.sync kernel's simple design gives up: wgmma, a TMA ring, a
-// persistent schedule, and 64-row q tiles that waste 49 of 64 rows on
-// temporal attention (N = 15).
 
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
-// Tensor-core kernel for heads padded to at most 128 columns. Grid (B*H,
-// ceil(Nq/64)); NT = padded head_dim / 8. The next key tile is copied in
-// (cp.async) while the current one is computed on.
-template <typename T, int NT>
-__global__ void __launch_bounds__(THREADS)
-    flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                  T* __restrict__ o, float* __restrict__ lse, int H, int Nq,
-                  int Nk, int D, int DP, float scale_log2, int vec) {
-  constexpr int DC = NT * 8;
-  constexpr int STAGES = 2;  // key-tile buffers
-  static_assert(NT % 2 == 0, "output columns come in 16-wide pairs");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldq = DP + PAD;
-  const int ldv = DC + PAD;
-  T* sQ = reinterpret_cast<T*>(smem_raw);
-  T* sK0 = sQ + BLOCK_M * ldq;                 // [STAGES][BLOCK_N][ldq]
-  T* sV0 = sK0 + STAGES * BLOCK_N * ldq;       // [STAGES][BLOCK_N][ldv]
-  int8_t* sM0 = reinterpret_cast<int8_t*>(sV0 + STAGES * BLOCK_N * ldv);
+// ---- heads up to 128 wide: wgmma, two warpgroups of 64 q rows --------------
+//
+// A block of two warpgroups (256 threads) owns 128 q rows of one (batch,
+// head); warpgroup w owns rows [64 w, 64 w + 64) and keeps their 64 x DP
+// fp32 accumulator in registers (DP / 2 a thread: 40 at D = 72). Both
+// warpgroups read the same K and V tile, so a key tile crosses L2 once per
+// 128 q rows, half the traffic of a 64-row block. Per 64-key tile:
+//   * S = Q K^T: wgmma m64n64k16 from shared memory (Q and K K-major);
+//   * the online softmax in registers; P leaves the accumulator as the
+//     register A operand of O += P V (wgmma m64n{DP}k16, V read with its
+//     columns contiguous).
+// K and V come through a ring of NARROW_STAGES tiles in the layout of
+// tma.cuh (128-byte swizzled blocks of 64 columns, the rest chunk-major: the
+// copies read whole L2 sectors, which the kernel is short of): one thread
+// asks the copy engine (TMA) for tile j + 2, one box a block, right after
+// the barrier that frees its stage and before the products of tile j, and
+// the warpgroups wait on the stage's mbarrier. No other thread spends an
+// instruction on a copy. (A head whose rows cannot be copied in 16-byte
+// chunks is loaded element by element by every thread instead.) The grid
+// runs the q tiles of one (batch, head) next to each other, so that they
+// find its K and V in L2. A warpgroup whose rows
+// all lie past Nq only takes part in the barriers. The output leaves through
+// shared memory (the warpgroup's own Q tile) as 16-byte stores of its
+// contiguous rows. Shared memory at D = 72 (DP = 80): Q 20 KB + three stages
+// of K and V 60 KB + flags and barriers: 82,144 bytes, two blocks an SM.
+constexpr int NARROW_THREADS = 256;
+constexpr int NARROW_STAGES = 3;
 
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * BLOCK_M;
-  const int warp = threadIdx.x / 32;
+template <int DP>
+__host__ __device__ constexpr size_t narrow_smem_bytes() {
+  // Q of 128 rows, the K and V ring, 64 key flags a stage, an mbarrier a
+  // stage and one for Q
+  return (size_t)(2 + 2 * NARROW_STAGES) * 64 * DP * 2 + NARROW_STAGES * 64 +
+         (NARROW_STAGES + 1) * 8;
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(NARROW_THREADS, DP <= 80 ? 2 : 1)
+    flash_fwd_narrow(const __grid_constant__ TileMaps tm_q,
+                     const __grid_constant__ TileMaps tm_k,
+                     const __grid_constant__ TileMaps tm_v,
+                     const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const uint8_t* __restrict__ mask,
+                     T* __restrict__ o, float* __restrict__ lse, int H, int Nq,
+                     int Nk, int D, float scale_log2, int vec) {
+  using L = TileLayout<DP, true>;
+  constexpr int TILE = 64 * DP * 2;  // bytes of a 64-row tile
+  constexpr int NACC = DP / 2;       // accumulator registers per thread
+  constexpr int S = NARROW_STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sQ = smem_raw;          // [2][TILE]: the block's 128 q rows
+  unsigned char* sK0 = sQ + 2 * TILE;    // [S][TILE]
+  unsigned char* sV0 = sK0 + S * TILE;   // [S][TILE]
+  int8_t* sF0 = reinterpret_cast<int8_t*>(sV0 + S * TILE);  // [S][64]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sF0 + S * 64);  // [S] K/V, Q
+
+  const int n_tiles = (Nq + 127) / 128;
+  const int bh = blockIdx.x / n_tiles;
+  const int q0 = (blockIdx.x % n_tiles) * 128;
+  const int wg = threadIdx.x / 128;  // warpgroup: rows [64 wg, 64 wg + 64)
+  const int tw = threadIdx.x % 128;  // thread within the warpgroup
   const int lane = threadIdx.x % 32;
+  const int row0 = q0 + wg * 64;
+  const bool live = row0 < Nq;
+  const int q_tiles = q0 + 64 < Nq ? 2 : 1;  // the block's live Q tiles
   const T* qb = q + (size_t)bh * Nq * D;
   const T* kb = k + (size_t)bh * Nk * D;
   const T* vb = v + (size_t)bh * Nk * D;
   const uint8_t* mrow = mask ? mask + (size_t)(bh / H) * Nk : nullptr;
 
-  // key tile starting at kv0 -> buffer `buf` (K, V, and per key: 1 attend,
-  // 0 masked, -1 past Nk)
-  auto issue_tile = [&](int kv0, int buf) {
-    load_tile(sK0 + buf * BLOCK_N * ldq, ldq, kb, kv0, Nk, 0, DP, D, vec);
-    load_tile(sV0 + buf * BLOCK_N * ldv, ldv, vb, kv0, Nk, 0, DC, D, vec);
-    if (threadIdx.x < BLOCK_N)
-      sM0[buf * BLOCK_N + threadIdx.x] = key_flag(mrow, kv0 + threadIdx.x, Nk);
-    cp_async_commit();
-  };
-
-  load_tile(sQ, ldq, qb, q0, Nq, 0, DP, D, vec);
-  issue_tile(0, 0);
-
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  // this thread's two rows: warp*16 + lane/4 and that + 8
-  float m_r[2] = {-INFINITY, -INFINITY};
-  float l_r[2] = {0.f, 0.f};
-
-  for (int kv0 = 0, j = 0; kv0 < Nk; kv0 += BLOCK_N, ++j) {
-    const int buf = j & 1;
-    cp_async_wait_all();
-    __syncthreads();  // tile j is in; every warp is done with tile j - 1
-    if (kv0 + BLOCK_N < Nk) issue_tile(kv0 + BLOCK_N, buf ^ 1);
-    const T* sK = sK0 + buf * BLOCK_N * ldq;
-    const T* sV = sV0 + buf * BLOCK_N * ldv;
-    const int8_t* sM = sM0 + buf * BLOCK_N;
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    for (int kk = 0; kk < DP; kk += 16) {
-      uint32_t a[4];
-      ldmatrix_x4(a, sQ + (warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * ldq
-                         + kk + (lane / 16) * 8);
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        uint32_t b[4];
-        ldmatrix_x4(b, sK + (p * 16 + (lane % 8) + (lane / 16) * 8) * ldq + kk
-                           + ((lane / 8) % 2) * 8);
-        Ops<T>::mma(s[2 * p], a, b);
-        Ops<T>::mma(s[2 * p + 1], a, b + 2);
+  if (vec) {
+    // the copies never write the pad chunks: zero them in every tile once
+    L::template zero_pad<NARROW_THREADS>(smem_raw, 2 + 2 * S, D);
+    if (threadIdx.x == 0) {
+      if (smem_addr(smem_raw) % 1024 != 0) __trap();  // the swizzle's atoms
+      for (int i = 0; i <= S; ++i) mbar_init(bar + i, 1);
+      mbar_init_fence();
+      for (const TileMaps* m : {&tm_q, &tm_k, &tm_v}) {
+        if (L::NSW > 0) tma_prefetch(&m->sw);
+        if (L::REM > 0) tma_prefetch(&m->rem);
       }
     }
+    fence_async_shared();
+    __syncthreads();
+  }
+  // key tile starting at kv0 -> stage `st` (K, V, and per key: 1 attend,
+  // 0 masked, -1 past Nk)
+  auto issue_tile = [&](int kv0, int st) {
+    unsigned char* sK = sK0 + st * TILE;
+    unsigned char* sV = sV0 + st * TILE;
+    if (vec) {
+      if (threadIdx.x == 0) {
+        mbar_expect_tx(bar + st, 2 * L::tx_bytes(D));
+        tma_tile<L>(smem_addr(sK), tm_k, kv0, bh, bar + st);
+        tma_tile<L>(smem_addr(sV), tm_v, kv0, bh, bar + st);
+      }
+    } else {
+      load_tile_rows<T, NARROW_THREADS, L>(sK, kb, kv0, Nk, D);
+      load_tile_rows<T, NARROW_THREADS, L>(sV, vb, kv0, Nk, D);
+    }
+    if (threadIdx.x < 64)
+      sF0[st * 64 + threadIdx.x] = key_flag(mrow, kv0 + threadIdx.x, Nk);
+  };
+  if (vec) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar + S, q_tiles * L::tx_bytes(D));
+      for (int t = 0; t < q_tiles; ++t)
+        tma_tile<L>(smem_addr(sQ + t * TILE), tm_q, q0 + t * 64, bh, bar + S);
+    }
+  } else {
+    for (int t = 0; t < 2; ++t)
+      load_tile_rows<T, NARROW_THREADS, L>(sQ + t * TILE, qb, q0 + t * 64, Nq,
+                                            D);
+  }
+  const int n_kv = (Nk + 63) / 64;
+  for (int st = 0; st < S - 1 && st < n_kv; ++st) issue_tile(st * 64, st);
+
+  float acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+  // this thread's two rows: row0 + (tw / 32) * 16 + lane / 4 and that + 8
+  float m_r[2] = {-INFINITY, -INFINITY};
+  float l_r[2] = {0.f, 0.f};
+  const uint32_t q_addr = smem_addr(sQ) + wg * TILE;
+  if (vec && live) mbar_wait(bar + S, 0);
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int st = j % S;
+    const int kv0 = j * 64;
+    if (!vec) fence_async_shared();  // this thread's stores of tile j
+    else if (live) mbar_wait(bar + st, (j / S) & 1);  // tile j has landed
+    __syncthreads();  // tile j is in; both warpgroups are done with tile j - 1
+    if (j + S - 1 < n_kv) issue_tile(kv0 + (S - 1) * 64, (j + S - 1) % S);
+    if (!live) continue;
+    const uint32_t k_addr = smem_addr(sK0 + st * TILE);
+    const uint32_t v_addr = smem_addr(sV0 + st * TILE);
+
+    // S = Q K^T: 64 q rows x 64 keys; element 4 n + e is row e / 2 of this
+    // thread's two, key n * 8 + (lane % 4) * 2 + (e & 1)
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss_n64<T>(s, L::k_major(q_addr, kk), L::k_major(k_addr, kk), 1);
+    wgmma_commit();
+    wgmma_wait();
 
     // scale to log2 units, mask (only tiles that need it), running max
-    const bool plain_tile = mrow == nullptr && kv0 + BLOCK_N <= Nk;
+    const bool plain_tile = mrow == nullptr && kv0 + 64 <= Nk;
+    const int8_t* sM = sF0 + st * 64;
     float mt[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale_log2;
+        float x = s[4 * n + e] * scale_log2;
         if (!plain_tile)
           x = masked_score(x, sM[n * 8 + (lane % 4) * 2 + (e & 1)]);
-        s[n][e] = x;
+        s[4 * n + e] = x;
         mt[e / 2] = fmaxf(mt[e / 2], x);
       }
     float alpha[2];
@@ -149,73 +216,176 @@ __global__ void __launch_bounds__(THREADS)
       mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
       // the tile's first key is real, so the new max is finite
       const float m_new = fmaxf(m_r[r], mt[r]);
-      alpha[r] = exp2f(m_r[r] - m_new);
+      alpha[r] = fast_exp2(m_r[r] - m_new);
       m_r[r] = m_new;
       l_r[r] *= alpha[r];
     }
-
-    // P = exp2(S - m) in fp32 for the sums, packed to T as the A operand of
-    // the PV product (the S accumulator layout is the A fragment layout)
+    // P = exp2(S - m): fp32 for the sums, packed as the A operand of P V
     uint32_t pa[4][4];
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      const float p0 = exp2f(s[n][0] - m_r[0]);
-      const float p1 = exp2f(s[n][1] - m_r[0]);
-      const float p2 = exp2f(s[n][2] - m_r[1]);
-      const float p3 = exp2f(s[n][3] - m_r[1]);
+      const float p0 = fast_exp2(s[4 * n] - m_r[0]);
+      const float p1 = fast_exp2(s[4 * n + 1] - m_r[0]);
+      const float p2 = fast_exp2(s[4 * n + 2] - m_r[1]);
+      const float p3 = fast_exp2(s[4 * n + 3] - m_r[1]);
       l_r[0] += p0 + p1;
       l_r[1] += p2 + p3;
       pa[n / 2][(n % 2) * 2] = Ops<T>::pack(p0, p1);
       pa[n / 2][(n % 2) * 2 + 1] = Ops<T>::pack(p2, p3);
     }
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int dp = 0; dp < NT / 2; ++dp) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, sV + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * ldv
-                                 + dp * 16 + (lane / 16) * 8);
-        Ops<T>::mma(acc[2 * dp], pa[kk], b);
-        Ops<T>::mma(acc[2 * dp + 1], pa[kk], b + 2);
-      }
-  }
+    for (int i = 0; i < NACC; ++i) acc[i] *= alpha[(i / 2) % 2];
 
-  float l[2];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)  // 16 keys a step: the depth of P V
+      L::template mn_product<T>(acc, pa[ks], v_addr, ks);
+    wgmma_commit();
+    wgmma_wait();
+  }
+  if (!live) return;
+
+  float inv_l[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l[r] = l_r[r];
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (l == 0.f) l = 1.f;
+    const int row = row0 + (tw / 32) * 16 + lane / 4 + r * 8;
+    if (lse != nullptr && lane % 4 == 0 && row < Nq)
+      lse[(size_t)bh * Nq + row] =
+          m_r[r] <= MASK_HALF ? MASK_VALUE : (m_r[r] + log2f(l)) * LN2;
+    inv_l[r] = 1.f / l;
+  }
+  // the warpgroup's Q tile is free: its last product has been waited for
+  store_tile_warpgroup<T, NACC>(o + (size_t)bh * Nq * D, acc, inv_l, row0, Nq,
+                                D, vec, reinterpret_cast<T*>(sQ + wg * TILE),
+                                1 + wg);
+}
+
+// ---- short rows (Nq <= 16 and Nk <= 16): one warp per (batch, head) --------
+//
+// Temporal attention over 15 frames fills 15 rows of a 64-row tile; here
+// eight warps share a block and each takes one (batch, head) on its own 16 x
+// 16 score tile (mma.sync m16n8k16): Q, K and V read once by 16-byte
+// cp.async, S and P V in registers (P leaves the S accumulator as the A
+// operand of P V), the whole row's softmax at once, the output staged in the
+// warp's Q tile and written as 16-byte stores of its contiguous rows. Bound
+// by bytes: every input is read once and the output written once. The
+// counterpart of `flash_bwd_short_mma` (flash_bwd_fused.cu).
+constexpr int SHORT_WARPS = 8;
+constexpr int SHORT_ROWS = 16;
+
+template <int NT>
+__host__ __device__ constexpr size_t short_smem_bytes() {
+  return (size_t)SHORT_WARPS * 3 * 16 * (NT * 8 + PAD) * 2;
+}
+
+template <typename T, int NT>
+__global__ void __launch_bounds__(SHORT_WARPS * 32)
+    flash_fwd_short(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const uint8_t* __restrict__ mask,
+                    T* __restrict__ o, float* __restrict__ lse, int BH, int H,
+                    int Nq, int Nk, int D, float scale_log2, int vec) {
+  constexpr int DP = NT * 8;
+  constexpr int ld = DP + PAD;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int bh = blockIdx.x * SHORT_WARPS + warp;
+  if (bh >= BH) return;  // warps are independent: no block barrier below
+  T* sQ = reinterpret_cast<T*>(smem_raw) + warp * 3 * 16 * ld;
+  T* sK = sQ + 16 * ld;
+  T* sV = sK + 16 * ld;
+  const uint8_t* mrow = mask ? mask + (size_t)(bh / H) * Nk : nullptr;
+
+  load_rows_warp(sQ, ld, q + (size_t)bh * Nq * D, Nq, DP, D, vec, lane);
+  load_rows_warp(sK, ld, k + (size_t)bh * Nk * D, Nk, DP, D, vec, lane);
+  load_rows_warp(sV, ld, v + (size_t)bh * Nk * D, Nk, DP, D, vec, lane);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncwarp();
+
+  // S = Q K^T: 16 q rows x 16 keys; element (n, e) is q row lane / 4 +
+  // (e / 2) * 8 and key n * 8 + (lane % 4) * 2 + (e & 1)
+  float s[2][4];
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DP; kk += 16) {
+    uint32_t a[4], b[4];
+    ldmatrix_x4(a, sQ + ((lane % 8) + ((lane / 8) % 2) * 8) * ld + kk +
+                       (lane / 16) * 8);
+    ldmatrix_x4(b, sK + ((lane % 8) + (lane / 16) * 8) * ld + kk +
+                       ((lane / 8) % 2) * 8);
+    Ops<T>::mma(s[0], a, b);
+    Ops<T>::mma(s[1], a, b + 2);
+  }
+  // the whole row's softmax in log2 units
+  float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = n * 8 + (lane % 4) * 2 + (e & 1);
+      s[n][e] = masked_score(s[n][e] * scale_log2, key_flag(mrow, key, Nk));
+      m[e / 2] = fmaxf(m[e / 2], s[n][e]);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+  }
+  float l[2] = {0.f, 0.f};
+  uint32_t pa[4];  // P as the A operand of P V (16 keys deep)
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = fast_exp2(s[n][e] - m[e / 2]);  // key 0 is real: m is finite
+      l[e / 2] += p[e];
+    }
+    pa[n * 2] = Ops<T>::pack(p[0], p[1]);
+    pa[n * 2 + 1] = Ops<T>::pack(p[2], p[3]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    if (l[r] == 0.f) l[r] = 1.f;
   }
-  const int row = q0 + warp * 16 + lane / 4;
+  // O = P V, V's 16 rows the depth
+  float acc[NT][4];
+#pragma unroll
+  for (int dpi = 0; dpi < NT / 2; ++dpi) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, sV + ((lane % 8) + ((lane / 8) % 2) * 8) * ld +
+                             dpi * 16 + (lane / 16) * 8);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[2 * dpi][e] = 0.f;
+      acc[2 * dpi + 1][e] = 0.f;
+    }
+    Ops<T>::mma(acc[2 * dpi], pa, b);
+    Ops<T>::mma(acc[2 * dpi + 1], pa, b + 2);
+  }
+  const int row = lane / 4;
   if (lse != nullptr && lane % 4 == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       if (row + r * 8 < Nq)
         lse[(size_t)bh * Nq + row + r * 8] =
-            m_r[r] <= 0.5f * MASK_VALUE ? MASK_VALUE
-                                        : (m_r[r] + log2f(l[r])) * LN2;
+            m[r] <= MASK_HALF ? MASK_VALUE : (m[r] + log2f(l[r])) * LN2;
   }
-  T* ob = o + (size_t)bh * Nq * D;
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int col = n * 8 + (lane % 4) * 2;
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = row + (e / 2) * 8;
-      const int c = col + (e & 1);
-      if (r < Nq && c < D)
-        ob[(size_t)r * D + c] = Ops<T>::from_float(acc[n][e] / l[e / 2]);
-    }
-  }
+    for (int e = 0; e < 4; ++e) acc[n][e] /= l[e / 2];  // l >= 1
+  store_rows_warp<T, NT>(o + (size_t)bh * Nq * D, acc, Nq, D, 1.f, lane,
+                         vec ? sQ : nullptr);
 }
 
 // ---- wide heads (128 < head_dim <= 512): wgmma, two warpgroups -------------
@@ -527,23 +697,62 @@ __global__ void __launch_bounds__(F32_ROWS * 32)
   }
 }
 
-template <typename T, int NT>
-cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       const uint8_t* mask, void* o, float* lse, int BH,
-                       int H, int Nq, int Nk, int D, float scale_log2, int vec,
-                       cudaStream_t stream) {
-  constexpr int DP = NT * 8;
-  const size_t smem =
-      (size_t)(BLOCK_M + 4 * BLOCK_N) * (DP + PAD) * sizeof(T) + 2 * BLOCK_N;
-  auto kernel = flash_fwd_mma<T, NT>;
-  cudaError_t err = cudaFuncSetAttribute(
+// The forward kernel a shape takes: 0 the fp32 SIMT kernel, 1 short rows,
+// 2 narrow (heads up to 128), 3 wide (129 to 512), -1 none.
+int fwd_variant(int dtype, int Nq, int Nk, int D) {
+  if (Nq <= 0 || Nk <= 0 || D <= 0 || D > F32_MAX_D) return -1;
+  if (dtype == 0) return 0;
+  if (dtype != 1 && dtype != 2) return -1;
+  if (D > 128) return 3;
+  return Nq <= SHORT_ROWS && Nk <= SHORT_ROWS ? 1 : 2;
+}
+
+template <typename K>
+cudaError_t set_smem(K kernel, size_t smem) {
+  if (smem > SMEM_PER_BLOCK) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T, int DP>
+cudaError_t launch_narrow(const void* q, const void* k, const void* v,
+                          const uint8_t* mask, void* o, float* lse, int BH,
+                          int H, int Nq, int Nk, int D, float scale_log2,
+                          int vec, cudaStream_t stream) {
+  const long long blocks = (long long)BH * ((Nq + 127) / 128);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_narrow<T, DP>;
+  cudaError_t err = set_smem(kernel, narrow_smem_bytes<DP>());
   if (err != cudaSuccess) return err;
-  dim3 grid(BH, (Nq + BLOCK_M - 1) / BLOCK_M);
-  kernel<<<grid, THREADS, smem, stream>>>(
+  TileMaps maps[3] = {};  // q, k, v; unused without `vec`
+  if (vec) {
+    const void* bases[3] = {q, k, v};
+    for (int i = 0; i < 3; ++i) {
+      err = tile_maps<TileLayout<DP, true>>(&maps[i], bases[i], BH, i == 0 ? Nq : Nk, D);
+      if (err != cudaSuccess) return err;
+    }
+  }
+  // the q tiles of one (batch, head) are neighbours: they share its K and V
+  kernel<<<(unsigned)blocks, NARROW_THREADS, narrow_smem_bytes<DP>(), stream>>>(
+      maps[0], maps[1], maps[2], static_cast<const T*>(q),
+      static_cast<const T*>(k), static_cast<const T*>(v), mask,
+      static_cast<T*>(o), lse, H, Nq, Nk, D, scale_log2, vec);
+  return cudaGetLastError();
+}
+
+template <typename T, int NT>
+cudaError_t launch_short(const void* q, const void* k, const void* v,
+                         const uint8_t* mask, void* o, float* lse, int BH,
+                         int H, int Nq, int Nk, int D, float scale_log2,
+                         int vec, cudaStream_t stream) {
+  auto kernel = flash_fwd_short<T, NT>;
+  cudaError_t err = set_smem(kernel, short_smem_bytes<NT>());
+  if (err != cudaSuccess) return err;
+  kernel<<<(BH + SHORT_WARPS - 1) / SHORT_WARPS, SHORT_WARPS * 32,
+           short_smem_bytes<NT>(), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(o), lse, H, Nq, Nk, D,
-      DP, scale_log2, vec);
+      static_cast<const T*>(v), mask, static_cast<T*>(o), lse, BH, H, Nq, Nk,
+      D, scale_log2, vec);
   return cudaGetLastError();
 }
 
@@ -567,34 +776,30 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v,
 }
 
 template <typename T>
-cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
-                         const uint8_t* mask, void* o, float* lse, int BH,
-                         int H, int Nq, int Nk, int D, float scale_log2,
-                         int vec, cudaStream_t stream) {
-  const int DP = (D + 15) / 16 * 16;
-  if (DP > 256)
-    return launch_wide<T, 512>(q, k, v, mask, o, lse, BH, H, Nq, Nk, D,
-                               scale_log2, vec, stream);
-  if (DP > 128)
-    return launch_wide<T, 256>(q, k, v, mask, o, lse, BH, H, Nq, Nk, D,
-                               scale_log2, vec, stream);
-  switch (DP / 8) {
-#define VIDEOSYS_CASE(NT)                                                 \
-  case NT:                                                                \
-    return launch_mma<T, NT>(q, k, v, mask, o, lse, BH, H, Nq, Nk, D,     \
-                                scale_log2, vec, stream);
-    VIDEOSYS_CASE(2)
-    VIDEOSYS_CASE(4)
-    VIDEOSYS_CASE(6)
-    VIDEOSYS_CASE(8)
-    VIDEOSYS_CASE(10)
-    VIDEOSYS_CASE(12)
-    VIDEOSYS_CASE(14)
-    VIDEOSYS_CASE(16)
-#undef VIDEOSYS_CASE
-    default:
-      return cudaErrorInvalidValue;
+cudaError_t dispatch_half(const void* q, const void* k, const void* v,
+                          const uint8_t* mask, void* o, float* lse, int BH,
+                          int H, int Nq, int Nk, int D, float scale_log2,
+                          int vec, cudaStream_t stream) {
+  const int variant = fwd_variant(1, Nq, Nk, D);
+#define VIDEOSYS_ARGS q, k, v, mask, o, lse, BH, H, Nq, Nk, D, scale_log2, vec, stream
+  if (variant == 3)
+    return (D + 15) / 16 * 16 > 256 ? launch_wide<T, 512>(VIDEOSYS_ARGS)
+                                    : launch_wide<T, 256>(VIDEOSYS_ARGS);
+  // head_dim padded to the next of 32, 64, 80, 128 columns
+  if (variant == 1) {
+    if (D <= 32) return launch_short<T, 4>(VIDEOSYS_ARGS);
+    if (D <= 64) return launch_short<T, 8>(VIDEOSYS_ARGS);
+    if (D <= 80) return launch_short<T, 10>(VIDEOSYS_ARGS);
+    return launch_short<T, 16>(VIDEOSYS_ARGS);
   }
+  if (variant == 2) {
+    if (D <= 32) return launch_narrow<T, 32>(VIDEOSYS_ARGS);
+    if (D <= 64) return launch_narrow<T, 64>(VIDEOSYS_ARGS);
+    if (D <= 80) return launch_narrow<T, 80>(VIDEOSYS_ARGS);
+    return launch_narrow<T, 128>(VIDEOSYS_ARGS);
+  }
+#undef VIDEOSYS_ARGS
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -608,7 +813,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* mask, void* o, void* lse, int dtype,
                          int BH, int H, int Nq, int Nk, int D, float scale,
                          int vec, void* stream) {
-  if (BH <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || D <= 0 || D > F32_MAX_D)
+  if (BH <= 0 || H <= 0 || fwd_variant(dtype, Nq, Nk, D) < 0)
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = scale * 1.4426950408889634f;
   const uint8_t* m = static_cast<const uint8_t*>(mask);
@@ -629,15 +834,38 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
         D, scale_log2);
     err = cudaGetLastError();
   } else if (dtype == 1) {
-    err = dispatch_mma<__nv_bfloat16>(q, k, v, m, o, l, BH, H, Nq, Nk, D,
-                                      scale_log2, vec, s);
-  } else if (dtype == 2) {
-    err = dispatch_mma<__half>(q, k, v, m, o, l, BH, H, Nq, Nk, D, scale_log2,
-                               vec, s);
+    err = dispatch_half<__nv_bfloat16>(q, k, v, m, o, l, BH, H, Nq, Nk, D,
+                                       scale_log2, vec, s);
   } else {
-    err = cudaErrorInvalidValue;
+    err = dispatch_half<__half>(q, k, v, m, o, l, BH, H, Nq, Nk, D,
+                                scale_log2, vec, s);
   }
   return (int)err;
+}
+
+// Which kernel a shape takes (0 fp32, 1 short rows, 2 narrow, 3 wide, -1
+// none); the wrapper's `kernel_variant` mirrors it.
+extern "C" int flash_fwd_variant(int dtype, int Nq, int Nk, int D) {
+  return fwd_variant(dtype, Nq, Nk, D);
+}
+
+// Bytes of shared memory a block of kernel `which` (1 short rows, 2 narrow,
+// 3 wide) asks for at head_dim D with 2-byte elements, or -1; the wrapper
+// mirrors the formulas.
+extern "C" long flash_fwd_smem(int which, int D) {
+  if (D <= 0) return -1;
+  if (which == 3 && D <= 512)
+    return (long)((D + 15) / 16 * 16 > 256 ? wide_smem_bytes<512>()
+                                           : wide_smem_bytes<256>());
+  if (D > 128) return -1;
+  const int i = D <= 32 ? 0 : D <= 64 ? 1 : D <= 80 ? 2 : 3;
+  const size_t narrow[4] = {narrow_smem_bytes<32>(), narrow_smem_bytes<64>(),
+                            narrow_smem_bytes<80>(), narrow_smem_bytes<128>()};
+  const size_t shorts[4] = {short_smem_bytes<4>(), short_smem_bytes<8>(),
+                            short_smem_bytes<10>(), short_smem_bytes<16>()};
+  if (which == 1) return (long)shorts[i];
+  if (which == 2) return (long)narrow[i];
+  return -1;
 }
 
 extern "C" const char* flash_fwd_error_string(int err) {

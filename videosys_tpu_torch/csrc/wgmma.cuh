@@ -210,6 +210,36 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t desc_a, uint64_t
   }
 }
 
+// d[8] (+)= A B: A 64 x 16 from registers (the accumulator layout of a
+// 64 x 16 slice, packed to 16 bits), B 16 x 16 from shared memory with the
+// 16 columns contiguous (MN-major, transposed by the instruction).
+template <typename T>
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a, uint64_t desc_b, int accumulate) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(accumulate));
+  }
+}
+
 // d[16] (+)= A B: A 64 x 16 from registers (the accumulator layout of a
 // 64 x 16 slice, packed to 16 bits), B 16 x 32 from shared memory with the
 // 32 columns contiguous (MN-major, transposed by the instruction).
@@ -656,12 +686,14 @@ __device__ __forceinline__ void wgmma_tt_n128(float* d, uint64_t desc_a, uint64_
 template <typename T, int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t desc_b, int accumulate) {
-  if constexpr (N == 32) wgmma_rs_n32<T>(d, a, desc_b, accumulate);
+  if constexpr (N == 16) wgmma_rs_n16<T>(d, a, desc_b, accumulate);
+  else if constexpr (N == 32) wgmma_rs_n32<T>(d, a, desc_b, accumulate);
   else if constexpr (N == 64) wgmma_rs_n64<T>(d, a, desc_b, accumulate);
   else if constexpr (N == 80) wgmma_rs_n80<T>(d, a, desc_b, accumulate);
   else if constexpr (N == 128) wgmma_rs_n128<T>(d, a, desc_b, accumulate);
   else wgmma_rs_n256<T>(d, a, desc_b, accumulate);
-  static_assert(N == 32 || N == 64 || N == 80 || N == 128 || N == 256, "");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 80 || N == 128 ||
+                    N == 256, "");
 }
 
 template <typename T, int N>

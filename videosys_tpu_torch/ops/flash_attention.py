@@ -5,14 +5,17 @@ The kernels replace the five Pallas kernels of the JAX package
 (`videosys_tpu/ops/flash_attention.py`):
 
 * `csrc/flash_fwd.cu`: `_single_pass_kernel` and the blocked `_flash_kernel`
-  (an mma.sync kernel for heads up to 128 wide and a wgmma kernel for wider
-  ones, both with an optional log-sum-exp output);
+  (a short-row kernel for rows of at most 16 queries and keys, a wgmma kernel
+  of two 64-row warpgroups for heads up to 128 wide and one for wider heads,
+  all with an optional log-sum-exp output);
 * `csrc/flash_bwd_fused.cu`: `_flash_bwd_kernel` -> `flash_bwd_fused` (dq,
   dk, dv from q, k, v, mask and dO alone) for bf16 and fp16: a statistics
   kernel and a thread-block-cluster kernel, or one short-row kernel;
-* `csrc/flash_bwd.cu`: the fp32 `flash_bwd_fused`, `_flash_bwd_dkv_kernel`
-  -> `flash_bwd_dkv` and `_flash_bwd_dq_kernel` -> `flash_bwd_dq` (from the
-  forward's log-sum-exp and di = rowsum(dO * O)).
+* `csrc/flash_bwd_dkv.cu`: `_flash_bwd_dkv_kernel` -> `flash_bwd_dkv` (dk,
+  dv from the forward's log-sum-exp and di = rowsum(dO * O)) for bf16 and
+  fp16: a wgmma kernel of two warpgroups owning 128 keys;
+* `csrc/flash_bwd.cu`: `_flash_bwd_dq_kernel` -> `flash_bwd_dq` (dq from the
+  same), and the fp32 `flash_bwd_fused` and `flash_bwd_dkv`.
 
 `FlashAttentionFunction` takes the place of the JAX package's custom-VJP
 glue: its forward decides which backward will run (`backward_variant`) and
@@ -26,7 +29,7 @@ loaded with `ctypes`; importing this module builds nothing.
 versions for CPU tensors, nothing else: a CUDA tensor a kernel cannot take
 raises. When no input needs a gradient it launches the forward kernel
 alone. `LAUNCHES` counts kernel launches: forward launches by the CUDA
-variant launched (`kernel_variant`: `mma`, `wgmma`, `f32`), backward
+variant launched (`kernel_variant`: `short`, `narrow`, `wgmma`, `f32`), backward
 launches by kernel (`bwd_fused`: the statistics + cluster kernels,
 `bwd_fused_short`: the short-row kernel, `bwd_dkv`, `bwd_dq`; fp32 inputs,
 which take the SIMT variants, count under `*_f32`).
@@ -47,18 +50,24 @@ from typing import Dict, Optional
 import torch
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+LOG2E = 1.4426950408889634
 MAX_HEAD_DIM = 512
-# widest head (padded to a multiple of 16) the mma.sync forward takes: its
-# accumulator sits in the registers of 4 warps; wider heads take the wgmma
-# kernel, whose two warpgroups hold 256 or 512 padded columns
-MMA_MAX_PADDED_D = 128
+# widest head the narrow forward takes: each of its two warpgroups keeps a
+# 64-row accumulator of up to 128 columns in registers; wider heads take the
+# wide kernel, whose two warpgroups split 256 or 512 padded columns
+NARROW_MAX_HEAD_DIM = 128
+# rows of at most this many queries and keys take the short-row kernels
+# (one warp per (batch, head) on a 16 x 16 tile), forward and backward
+SHORT_ROWS = 16
 # widest head the backward kernels take (accumulators in registers)
 BWD_MAX_HEAD_DIM = 128
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = {"fwd": _CSRC / "flash_fwd.cu", "bwd": _CSRC / "flash_bwd.cu",
-            "bwd_fused": _CSRC / "flash_bwd_fused.cu"}
-_HEADERS = (_CSRC / "flash_common.cuh", _CSRC / "wgmma.cuh")
+            "bwd_fused": _CSRC / "flash_bwd_fused.cu",
+            "bwd_dkv": _CSRC / "flash_bwd_dkv.cu"}
+_HEADERS = (_CSRC / "flash_common.cuh", _CSRC / "wgmma.cuh",
+            _CSRC / "tma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -66,36 +75,78 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # statistics kernel (grid over q tiles) and a cluster kernel in which each
 # block of a thread-block cluster owns FUSED_KEYS_PER_BLOCK keys of one
 # (batch, head): a portable cluster has at most FUSED_MAX_CLUSTER blocks, so
-# it takes rows of up to 512 keys; rows of at most FUSED_SHORT_ROWS queries
+# it takes rows of up to 512 keys; rows of at most SHORT_ROWS queries
 # and keys take the short-row kernel (one warp per (batch, head)). Longer rows
 # go to the blocked pair, and so do long q rows with too few blocks to fill
 # the card (fewer than NUM_SMS, more than FUSED_MAX_TILE_PAIRS 64 x 64 tile
 # pairs each): the pair's grids also spread over the q tiles. The fp32 fused
 # kernel gives one block to each (batch, head) and keeps two fp32 statistics
 # per q row in shared memory beside its tiles, so the 227 KB a block may use
-# limit its row count.
+# limit its row count. Where both routes take a 16-bit row, the card's
+# numbers decide (`tools/bwd_dispatch.py`, with the di = rowsum(dO * O) the
+# pair's route computes first): the fused backward up to FUSED_MAX_KEYS keys,
+# the pair above (faster from 300 keys up, slower from 8 to 256 but for 128).
 SMEM_PER_BLOCK = 232448
 NUM_SMS = 132
 FUSED_MAX_TILE_PAIRS = 1024
 FUSED_KEYS_PER_BLOCK = 64
 FUSED_MAX_CLUSTER = 8
-FUSED_SHORT_ROWS = 16
+FUSED_MAX_KEYS = 256
+# ring stages of the narrow forward (K, V) and of the dk/dv kernel (Q, dO,
+# lse, di); warps of a short-row block
+NARROW_STAGES = 3
+DKV_STAGES = 3
+SHORT_WARPS = 8
 
-LAUNCHES = {"mma": 0, "wgmma": 0, "f32": 0,
+LAUNCHES = {"short": 0, "narrow": 0, "wgmma": 0, "f32": 0,
             "bwd_fused": 0, "bwd_fused_short": 0, "bwd_dkv": 0, "bwd_dq": 0,
             "bwd_fused_f32": 0, "bwd_dkv_f32": 0, "bwd_dq_f32": 0}
 _libs: Dict[str, ctypes.CDLL] = {}
 build_info: dict = {}
 
 
-def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
-    """The `__global__` variant `csrc/flash_fwd.cu` launches: the SIMT
-    kernel for fp32, else a tensor-core kernel: mma.sync up to a padded
-    head of MMA_MAX_PADDED_D, wgmma (two warpgroups) above."""
+def kernel_variant(dtype: torch.dtype, Nq: int, Nk: int, head_dim: int) -> str:
+    """The forward kernel `csrc/flash_fwd.cu` launches for these shapes
+    (`fwd_variant` there): "f32" (SIMT) for fp32; for bf16 and fp16 "short"
+    (rows of at most SHORT_ROWS queries and keys, heads up to 128),
+    "narrow" (wgmma, two warpgroups of 64 q rows, heads up to 128) or
+    "wgmma" (the wide kernel, heads of 129 to 512)."""
     if dtype == torch.float32:
         return "f32"
-    padded = -(-head_dim // 16) * 16
-    return "mma" if padded <= MMA_MAX_PADDED_D else "wgmma"
+    if head_dim > NARROW_MAX_HEAD_DIM:
+        return "wgmma"
+    return "short" if Nq <= SHORT_ROWS and Nk <= SHORT_ROWS else "narrow"
+
+
+def _padded_width(D: int) -> int:
+    """The columns a head of D takes in the shared memory of the short,
+    narrow and backward kernels: the next of 32, 64, 80, 128."""
+    return 32 if D <= 32 else 64 if D <= 64 else 80 if D <= 80 else 128
+
+
+def narrow_smem_bytes(D: int) -> int:
+    """Shared memory the narrow forward asks for (`narrow_smem_bytes` in
+    csrc/flash_fwd.cu): Q of 128 rows and NARROW_STAGES stages of a K and a
+    V tile of 64 rows at the padded width, 64 key flags a stage, an 8-byte
+    mbarrier a stage and one for Q."""
+    return (2 + 2 * NARROW_STAGES) * 64 * _padded_width(D) * 2 \
+        + NARROW_STAGES * 64 + (NARROW_STAGES + 1) * 8
+
+
+def short_fwd_smem_bytes(D: int) -> int:
+    """Shared memory the short-row forward asks for (`short_smem_bytes` in
+    csrc/flash_fwd.cu): per warp a Q, a K and a V tile of 16 rows, rows
+    padded by 8 elements."""
+    return SHORT_WARPS * 3 * 16 * (_padded_width(D) + 8) * 2
+
+
+def dkv_smem_bytes(D: int) -> int:
+    """Shared memory the 16-bit dk/dv kernel asks for (`dkv_smem_bytes` in
+    csrc/flash_bwd_dkv.cu): K and V of 128 keys, DKV_STAGES stages of a Q
+    and a dO tile of 64 rows and their fp32 lse and di, an 8-byte mbarrier a
+    stage and one for K and V."""
+    return (4 + 2 * DKV_STAGES) * 64 * _padded_width(D) * 2 \
+        + DKV_STAGES * 2 * 64 * 4 + (DKV_STAGES + 1) * 8
 
 
 def wide_smem_bytes(head_dim: int) -> int:
@@ -106,10 +157,6 @@ def wide_smem_bytes(head_dim: int) -> int:
     return 3 * 64 * dp * 2 + 2 * 32 * 128 * 4 + 2 * 64
 
 
-def _bwd_padded(D: int) -> int:
-    return 32 if D <= 32 else 64 if D <= 64 else 80 if D <= 80 else 128
-
-
 def fused_kernel_smem_bytes(which: str, D: int) -> int:
     """Shared memory a block of the 16-bit fused backward asks for
     (`flash_bwd_fused_mma_smem` in csrc/flash_bwd_fused.cu). "stats": Q, dO
@@ -118,7 +165,7 @@ def fused_kernel_smem_bytes(which: str, D: int) -> int:
     fp32 dq shares (70 rows), row statistics: two blocks fit an SM at
     head_dim 72; "short": per warp four 16-row tiles and the P and dS
     tiles."""
-    dp = _bwd_padded(D)
+    dp = _padded_width(D)
     if which == "stats":
         return 6 * 64 * dp * 2 + 2 * 64
     if which == "cluster":
@@ -146,7 +193,7 @@ def fused_kind(Nq: int, Nk: int, dtype: torch.dtype) -> Optional[str]:
     None where it takes none (`flash_bwd_fused_mma_kind` in the source)."""
     if dtype == torch.float32 or dtype == torch.float64:
         return "f32"
-    if Nq <= FUSED_SHORT_ROWS and Nk <= FUSED_SHORT_ROWS:
+    if Nq <= SHORT_ROWS and Nk <= SHORT_ROWS:
         return "short"
     if Nk <= FUSED_MAX_CLUSTER * FUSED_KEYS_PER_BLOCK:
         return "cluster"
@@ -160,7 +207,7 @@ def backward_variant(B: int, H: int, Nq: int, Nk: int, D: int,
     (`flash_bwd_dkv` + `flash_bwd_dq`, which need the forward's output and
     log-sum-exp). Shapes alone decide, on every device."""
     kind = fused_kind(Nq, Nk, dtype)
-    if kind is None:
+    if kind is None or (kind == "cluster" and Nk > FUSED_MAX_KEYS):
         return "blocked"
     if kind == "f32" and fused_smem_bytes(Nq, D) > SMEM_PER_BLOCK:
         return "blocked"
@@ -319,6 +366,96 @@ def row_stats_by_key_tiles_plain(q, k, v, kv_mask, do, scale=None,
     return lse, d / l
 
 
+def _scores_log2(q, k, scale, kv_mask, key_rows: bool = False):
+    """Scores in log2 units as the tile kernels make them: q k^T times
+    scale * log2(e) in fp32, masked keys set to DEFAULT_MASK_VALUE after the
+    scaling. With `key_rows` the transposed tile, keys by rows (k q^T)."""
+    acc = _acc_dtype(q)
+    a, b = (k, q) if key_rows else (q, k)
+    s = torch.matmul(a.to(acc), b.to(acc).transpose(-1, -2)) * (scale * LOG2E)
+    if kv_mask is not None:
+        keep = kv_mask[:, None, :, None] if key_rows else kv_mask[:, None, None, :]
+        s = s.masked_fill(~keep, DEFAULT_MASK_VALUE)
+    return s
+
+
+def flash_attention_by_key_tiles_plain(q, k, v, scale=None, kv_mask=None,
+                                       return_lse: bool = False,
+                                       tile: int = 64):
+    """The narrow forward's online softmax in plain PyTorch: the keys in
+    `tile`-key tiles, scores in log2 units, a running (max, sum of 2^(s -
+    max), acc) per row that each tile rescales, P rounded to q's dtype before
+    its product, the sum divided out once at the end. With `return_lse` also
+    the natural log-sum-exp [B, H, Nq] (DEFAULT_MASK_VALUE for a fully masked
+    row). Equals `flash_attention_plain` up to rounding."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    acc = _acc_dtype(q)
+    s_all = _scores_log2(q, k, scale, kv_mask)
+    m = torch.full(s_all.shape[:-1], -math.inf, dtype=acc)
+    l = torch.zeros_like(m)
+    o = torch.zeros(q.shape, dtype=acc)
+    for k0 in range(0, k.shape[2], tile):
+        s = s_all[..., k0:k0 + tile]
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + torch.matmul(
+            p.to(q.dtype).to(acc), v[:, :, k0:k0 + tile].to(acc))
+        m = m_new
+    out = (o / l[..., None]).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(m <= 0.5 * DEFAULT_MASK_VALUE,
+                      torch.full_like(m, DEFAULT_MASK_VALUE),
+                      (m + torch.log2(l)) / LOG2E)
+    return out, lse
+
+
+def flash_bwd_dkv_by_key_blocks_plain(q, k, v, kv_mask, do, lse, di,
+                                      scale=None, keys: int = 128,
+                                      q_tile: int = 64):
+    """`flash_bwd_dkv`'s split in plain PyTorch: per block of `keys` keys
+    (two warpgroups of 64 on the card) dk and dv summed over the q rows in
+    `q_tile`-row tiles from the transposed tiles S^T and dP^T, P^T = 2^(S^T -
+    lse log2(e)) from the forward's natural log-sum-exp [B, H, Nq] (a fully
+    masked row, lse = DEFAULT_MASK_VALUE, has P = 1/Nk), dS^T = P^T (dP^T -
+    di), both rounded to the inputs' dtype before their products. Returns
+    (dk, dv), equal to those of `flash_attention_bwd_lse_plain` up to
+    rounding."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    acc = _acc_dtype(q)
+    Nq, Nk = q.shape[2], k.shape[2]
+    lse, di = lse.to(acc), di.to(acc)
+    dead = lse <= 0.5 * DEFAULT_MASK_VALUE
+    lse2 = torch.where(dead, torch.full_like(lse, DEFAULT_MASK_VALUE),
+                       lse * LOG2E)
+    pmul = torch.where(dead, torch.full_like(lse, 1.0 / Nk),
+                       torch.ones_like(lse))
+    dks, dvs = [], []
+    for k0 in range(0, Nk, keys):
+        kr, vr = k[:, :, k0:k0 + keys], v[:, :, k0:k0 + keys]
+        mr = None if kv_mask is None else kv_mask[:, k0:k0 + keys]
+        dk = torch.zeros(kr.shape, dtype=acc)
+        dv = torch.zeros(kr.shape, dtype=acc)
+        for q0 in range(0, Nq, q_tile):
+            rows = slice(q0, q0 + q_tile)
+            qt, dot = q[:, :, rows].to(acc), do[:, :, rows].to(acc)
+            st = _scores_log2(qt, kr, scale, mr, key_rows=True)
+            p = torch.exp2(st - lse2[:, :, None, rows]) * pmul[:, :, None, rows]
+            dpt = torch.matmul(vr.to(acc), dot.transpose(-1, -2))
+            ds = p * (dpt - di[:, :, None, rows])
+            if mr is not None:
+                ds = ds.masked_fill(~mr[:, None, :, None], 0.0)
+            dv = dv + torch.matmul(p.to(q.dtype).to(acc), dot)
+            dk = dk + torch.matmul(ds.to(q.dtype).to(acc), qt)
+        dks.append(dk * scale)
+        dvs.append(dv)
+    return torch.cat(dks, 2).to(k.dtype), torch.cat(dvs, 2).to(k.dtype)
+
+
 def cluster_key_ranges(Nk: int) -> list:
     """[(first key, keys)] of the blocks of one cluster: the 16-key groups of
     a row dealt out evenly over ceil(Nk / 64) blocks, as
@@ -381,7 +518,7 @@ def _nvcc() -> str:
 def build() -> Dict[str, Path]:
     """Compile the kernel libraries whose sources have not been built yet
     (one `nvcc` per source, started together) and return their paths by
-    name ("fwd", "bwd", "bwd_fused"). A file name carries the hash of its
+    name ("fwd", "bwd", "bwd_fused", "bwd_dkv"). A file name carries the hash of its
     source and the shared headers, so an edited source builds anew."""
     header = b"".join(h.read_bytes() for h in _HEADERS)
     libs, running = {}, []
@@ -423,6 +560,9 @@ def _library(name: str):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fwd = ctypes.CDLL(str(paths["fwd"]))
         fwd.flash_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [f32, i32, ptr]
+        fwd.flash_fwd_variant.argtypes = [i32] * 4
+        fwd.flash_fwd_smem.argtypes = [i32, i32]
+        fwd.flash_fwd_smem.restype = ctypes.c_long
         bwd = ctypes.CDLL(str(paths["bwd"]))
         tail = [i32] * 6 + [f32, i32, ptr]
         bwd.flash_bwd_fused.argtypes = [ptr] * 8 + tail
@@ -435,8 +575,15 @@ def _library(name: str):
         fused.flash_bwd_fused_mma_kind.argtypes = [i32, i32, i32]
         fused.flash_bwd_fused_mma_smem.argtypes = [i32, i32]
         fused.flash_bwd_fused_mma_smem.restype = ctypes.c_long
+        dkv = ctypes.CDLL(str(paths["bwd_dkv"]))
+        dkv.flash_bwd_dkv_wgmma.argtypes = [ptr] * 9 + tail
+        dkv.flash_bwd_dkv_wgmma_smem.argtypes = [i32]
+        dkv.flash_bwd_dkv_wgmma_smem.restype = ctypes.c_long
         for lib, fns, err in (
-                (fwd, ("flash_fwd",), "flash_fwd_error_string"),
+                (fwd, ("flash_fwd", "flash_fwd_variant"),
+                 "flash_fwd_error_string"),
+                (dkv, ("flash_bwd_dkv_wgmma",),
+                 "flash_bwd_dkv_wgmma_error_string"),
                 (bwd, ("flash_bwd_fused", "flash_bwd_dkv", "flash_bwd_dq"),
                  "flash_bwd_error_string"),
                 (fused, ("flash_bwd_fused_mma", "flash_bwd_fused_mma_kind"),
@@ -445,7 +592,7 @@ def _library(name: str):
                 getattr(lib, fn).restype = i32
             getattr(lib, err).argtypes = [i32]
             getattr(lib, err).restype = ctypes.c_char_p
-        _libs.update(fwd=fwd, bwd=bwd, bwd_fused=fused)
+        _libs.update(fwd=fwd, bwd=bwd, bwd_fused=fused, bwd_dkv=dkv)
     return _libs[name]
 
 
@@ -499,7 +646,7 @@ def _launch(q, k, v, scale, kv_mask, save_lse: bool = False):
     if err != 0:
         raise RuntimeError("flash_fwd launch failed: "
                            + lib.flash_fwd_error_string(err).decode())
-    LAUNCHES[kernel_variant(q.dtype, D)] += 1
+    LAUNCHES[kernel_variant(q.dtype, Nq, k.shape[2], D)] += 1
     return out, lse
 
 
@@ -570,19 +717,25 @@ def _check_stats(q, lse, di):
 
 def flash_bwd_dkv(q, k, v, kv_mask, do, lse, di, scale=None):
     """Launch `flash_bwd_dkv`: (dk, dv) of CUDA tensors from the forward's
-    log-sum-exp and di = rowsum(dO * O), both fp32 [B, H, Nq]."""
+    log-sum-exp and di = rowsum(dO * O), both fp32 [B, H, Nq]. bf16 and fp16
+    take the wgmma kernel of csrc/flash_bwd_dkv.cu, fp32 the SIMT kernel."""
     scale = _check_bwd(q, k, v, scale, kv_mask, do)
     _check_stats(q, lse, di)
     B, H, Nq, D = q.shape
-    lib = _library("bwd")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = lib.flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
-        do.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), _DTYPE_CODES[q.dtype], B * H, H, Nq, k.shape[2], D,
-        scale, _vec(D, q, k, v, do),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_bwd(lib, "flash_bwd_dkv", err)
+    half = q.dtype != torch.float32
+    lib = _library("bwd_dkv" if half else "bwd")
+    fn = lib.flash_bwd_dkv_wgmma if half else lib.flash_bwd_dkv
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+             do.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), _DTYPE_CODES[q.dtype], B * H, H, Nq, k.shape[2],
+             D, scale, _vec(D, q, k, v, do, dk, dv),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        errstr = lib.flash_bwd_dkv_wgmma_error_string if half \
+            else lib.flash_bwd_error_string
+        raise RuntimeError("flash_bwd_dkv launch failed: "
+                           + errstr(err).decode())
     LAUNCHES[backward_launch_keys("blocked", q.dtype, Nq, k.shape[2])[0]] += 1
     return dk, dv
 

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Times the wide-head forward and the fused backward of several source trees
-in one call on one card, each against its own plain version.
+"""Times the flash-attention kernels of several source trees in one call on
+one card, each against its own plain version.
 
-    python3 videosys_tpu_torch/tools/ab_kernels.py TREE [TREE ...]
+    python3 videosys_tpu_torch/tools/ab_kernels.py [--groups G,G] TREE [TREE ...]
 
 A TREE is a directory that holds a `videosys_tpu_torch/` package (the
 repository root, or a copy with an edited `csrc/`: `git archive HEAD
 videosys_tpu_torch | tar -x -C build/exp`). Each tree runs in a process of its
 own, builds its kernels into its own `build/kernels/`, and prints one JSON
-line: bf16, the VAE mid forward [8, 1, 6360, 6360, 512] and the fused backward
-at the training shapes, three timings each (CUDA events), the relative L2
-error against plain and whether two runs gave the same bits. Card times drift
+line: bf16, three timings each (CUDA events), the relative L2 error against
+plain and, for the backward kernels, whether two runs gave the same bits.
+Groups (all by default): `fwd` the serving forward at the STDiT3 shapes
+(spatial [30, 16, 1590, 1590, 72], cross to 64 masked keys, temporal [3180,
+16, 15, 15, 72]), `wide` the VAE mid forward [8, 1, 6360, 6360, 512], `fused`
+the fused backward at the training shapes, `dkv` `flash_bwd_dkv` at the 1080p
+row [1, 16, 8160, 8160, 72] and the spatial training shape. Card times drift
 between calls, so compare versions only within one call, and name a tree
 twice (A B B A) to see the spread. Needs a CUDA card and `nvcc`; prints the
 card's name and power limit.
@@ -24,6 +28,7 @@ import sys
 CHILD = r'''
 import json, sys, torch
 sys.path.insert(0, sys.argv[1])
+groups = sys.argv[2].split(",")
 from videosys_tpu_torch.ops import flash_attention as fa
 assert fa.__file__.startswith(sys.argv[1]), fa.__file__
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -47,46 +52,85 @@ def rel_l2(got, want):
     return d.norm().item() / want.float().norm().item()
 
 
+def ragged(B, Nk):
+    lens = torch.randint(1, Nk + 1, (B,), device="cuda", generator=gen)
+    lens[0] = Nk
+    return torch.arange(Nk, device="cuda")[None] < lens[:, None]
+
+
+def inputs(B, H, Nq, Nk, D, n=3):
+    return [torch.randn(B, H, m, D, device="cuda", generator=gen).bfloat16()
+            for m in (Nq, Nk, Nk, Nq)[:n]]
+
+
 gen = torch.Generator("cuda").manual_seed(0)
 out = {}
-B, H, N, D = 8, 1, 6360, 512
-q, k, v = (torch.randn(B, H, N, D, device="cuda", generator=gen).bfloat16()
-           for _ in range(3))
-got, lse = fa._launch(q, k, v, None, None, save_lse=True)
-want, want_lse = fa.flash_attention_plain(q, k, v, None, None, return_lse=True)
-out["fwd_wide"] = {
-    "rel_l2": rel_l2(got, want),
-    "lse_err": (lse - want_lse).abs().max().item(),
-    "ms": [time_ms(lambda: fa._launch(q, k, v, None, None), 10)
-           for _ in range(3)]}
-del q, k, v, got, want
-for name, B, H, Nq, Nk, masked in (
-        ("spatial", 30, 16, 405, 405, False),
-        ("cross300", 30, 16, 405, 300, True),
-        ("cross8", 30, 16, 405, 8, True),
-        ("temporal", 810, 16, 15, 15, False)):
-    q, k, v, do = (torch.randn(B, H, n, 72, device="cuda", generator=gen)
-                   .bfloat16() for n in (Nq, Nk, Nk, Nq))
-    mask = None
-    if masked:
-        lens = torch.randint(1, Nk + 1, (B,), device="cuda", generator=gen)
-        lens[0] = Nk
-        mask = torch.arange(Nk, device="cuda")[None] < lens[:, None]
-    got = fa.flash_bwd_fused(q, k, v, mask, do)
-    again = fa.flash_bwd_fused(q, k, v, mask, do)
-    want = fa.flash_attention_bwd_plain(q, k, v, mask, do)
-    out["bwd_fused_" + name] = {
-        "rel_l2": max(rel_l2(g, w) for g, w in zip(got, want)),
-        "bit_equal": all(torch.equal(a, b) for a, b in zip(got, again)),
-        "ms": [time_ms(lambda: fa.flash_bwd_fused(q, k, v, mask, do), 20)
+if "fwd" in groups:
+    for name, B, H, Nq, Nk, masked in (("spatial", 30, 16, 1590, 1590, False),
+                                       ("cross", 30, 16, 1590, 64, True),
+                                       ("temporal", 3180, 16, 15, 15, False)):
+        q, k, v = inputs(B, H, Nq, Nk, 72)
+        mask = ragged(B, Nk) if masked else None
+        got = fa._launch(q, k, v, None, mask)[0]
+        want = fa.flash_attention_plain(q, k, v, None, mask)
+        out["fwd_" + name] = {
+            "rel_l2": rel_l2(got, want),
+            "ms": [time_ms(lambda: fa._launch(q, k, v, None, mask), 20)
+                   for _ in range(3)]}
+        del q, k, v, got, want
+if "wide" in groups:
+    q, k, v = inputs(8, 1, 6360, 6360, 512)
+    got, lse = fa._launch(q, k, v, None, None, save_lse=True)
+    want, want_lse = fa.flash_attention_plain(q, k, v, None, None,
+                                              return_lse=True)
+    out["fwd_wide"] = {
+        "rel_l2": rel_l2(got, want),
+        "lse_err": (lse - want_lse).abs().max().item(),
+        "ms": [time_ms(lambda: fa._launch(q, k, v, None, None), 10)
                for _ in range(3)]}
+    del q, k, v, got, want
+if "fused" in groups:
+    for name, B, H, Nq, Nk, masked in (
+            ("spatial", 30, 16, 405, 405, False),
+            ("cross300", 30, 16, 405, 300, True),
+            ("cross8", 30, 16, 405, 8, True),
+            ("temporal", 810, 16, 15, 15, False)):
+        q, k, v, do = inputs(B, H, Nq, Nk, 72, 4)
+        mask = ragged(B, Nk) if masked else None
+        got = fa.flash_bwd_fused(q, k, v, mask, do)
+        again = fa.flash_bwd_fused(q, k, v, mask, do)
+        want = fa.flash_attention_bwd_plain(q, k, v, mask, do)
+        out["bwd_fused_" + name] = {
+            "rel_l2": max(rel_l2(g, w) for g, w in zip(got, want)),
+            "bit_equal": all(torch.equal(a, b) for a, b in zip(got, again)),
+            "ms": [time_ms(lambda: fa.flash_bwd_fused(q, k, v, mask, do), 20)
+                   for _ in range(3)]}
+if "dkv" in groups:
+    for name, B, H, N in (("long_row", 1, 16, 8160), ("spatial", 30, 16, 405)):
+        q, k, v, do = inputs(B, H, N, N, 72, 4)
+        o, lse = fa._launch(q, k, v, None, None, save_lse=True)
+        di = (do.float() * o.float()).sum(-1)
+        got = fa.flash_bwd_dkv(q, k, v, None, do, lse, di)
+        again = fa.flash_bwd_dkv(q, k, v, None, do, lse, di)
+        want = fa.flash_attention_bwd_lse_plain(q, k, v, None, do, o, lse)[1:]
+        out["bwd_dkv_" + name] = {
+            "rel_l2": max(rel_l2(g, w) for g, w in zip(got, want)),
+            "bit_equal": all(torch.equal(a, b) for a, b in zip(got, again)),
+            "ms": [time_ms(lambda: fa.flash_bwd_dkv(q, k, v, None, do, lse, di),
+                           5 if N > 4096 else 20) for _ in range(3)]}
+        del q, k, v, do, o, got, again, want
 print(json.dumps(out))
 '''
 
+GROUPS = ("fwd", "wide", "fused", "dkv")
+
 
 def main(argv=None) -> int:
-    trees = sys.argv[1:] if argv is None else argv
-    if not trees:
+    args = sys.argv[1:] if argv is None else argv
+    groups = ",".join(GROUPS)
+    if args[:1] == ["--groups"]:
+        groups, args = args[1], args[2:]
+    if not args or not set(groups.split(",")) <= set(GROUPS):
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -98,8 +142,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
     failed = 0
-    for tree in trees:
-        proc = subprocess.run([sys.executable, "-c", CHILD, tree],
+    for tree in args:
+        proc = subprocess.run([sys.executable, "-c", CHILD, tree, groups],
                               capture_output=True, text=True)
         print(f"{tree}: {proc.stdout.strip()[-4000:]}")
         if proc.returncode != 0:

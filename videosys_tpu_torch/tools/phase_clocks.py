@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""Where a block's time goes inside the two redesigned kernels: cycle counts
-of each phase of the cluster kernel of `flash_bwd_fused` and of the wide-head
-forward, and the device time of the fused backward's two kernels.
+"""Where a block's time goes inside the redesigned tile kernels: cycle counts
+of each phase of the cluster kernel of `flash_bwd_fused`, of the wide-head
+forward, of the narrow forward and of the dk/dv kernel, and the device time
+of the fused backward's two kernels.
 
     python3 videosys_tpu_torch/tools/phase_clocks.py [--what-if]
 
-The script builds throw-away copies of `csrc/flash_bwd_fused.cu` and
-`csrc/flash_fwd.cu` in which thread 0 of one block reads `clock64()` at the
-phase boundaries of its tile loop and adds the differences into a device
-array (text substitution on the sources: it stops if a boundary is no longer
-found), runs them at the spatial training shape [30, 16, 405, 405, 72] and at
-the VAE mid shape [8, 1, 6360, 6360, 512] in bf16, and prints the shares. The
-copies compute the same results; the clocks cost a few percent. One thread's
-view of one block: the other warps of the block and the other block on the SM
-run beside it. Needs a CUDA card and `nvcc`; prints the card's name and power
-limit.
+The script builds throw-away copies of `csrc/flash_bwd_fused.cu`,
+`csrc/flash_fwd.cu` and `csrc/flash_bwd_dkv.cu` in which thread 0 of one block
+reads `clock64()` at the phase boundaries of its tile loop and adds the
+differences into a device array (text substitution on the sources: it stops
+if a boundary is no longer found), runs them at the spatial training shape
+[30, 16, 405, 405, 72], at the VAE mid shape [8, 1, 6360, 6360, 512], at the
+spatial serving shape [30, 16, 1590, 1590, 72] and at the 1080p row [1, 16,
+8160, 8160, 72] in bf16, and prints the shares. The copies compute the same
+results; the clocks cost a few percent. One thread's view of one block (in
+the two-warpgroup kernels, warpgroup 0's): the other warps of the block and
+the other blocks on the SM run beside it. Needs a CUDA card and `nvcc`;
+prints the card's name and power limit.
 
 With `--what-if` it instead times (CUDA events) throw-away variants that
 leave a part of the work out, to bound what a better version of that part
@@ -23,7 +26,8 @@ read: the wide-head forward with every K and V tile copied from the first
 64 keys (the same bytes again and again: the copy path with nothing to miss
 in L2) and with no copies after the first tile (products, softmax and
 barriers alone); the fused backward with the dq shares neither pushed, nor
-waited for at the cluster barrier, nor summed.
+waited for at the cluster barrier, nor summed; the narrow forward and the
+dk/dv kernel with no copies after the first ring of tiles.
 """
 
 from __future__ import annotations
@@ -92,8 +96,8 @@ def timed_cluster_source() -> tuple:
 
 def timed_forward_source() -> tuple:
     s = (CSRC / "flash_fwd.cu").read_text()
-    s = mark(s, "namespace {\n\n// Tensor-core kernel for heads padded",
-             "namespace {\n" + CLOCKS + "\n// Tensor-core kernel for heads padded")
+    s = mark(s, "namespace {\n\n// ---- heads up to 128 wide",
+             "namespace {\n" + CLOCKS + "\n// ---- heads up to 128 wide")
     s = mark(s, "  for (int kv0 = 0, j = 0; kv0 < Nk; kv0 += 64, ++j) {\n"
              "    cp_async_wait_all();  // K(j) (and Q) of this thread have landed\n"
              "    fence_async_shared();\n    __syncthreads();  // K(j) is in; every warp is done with V(j - 1)\n"
@@ -108,7 +112,9 @@ def timed_forward_source() -> tuple:
              "    wgmma_commit();\n    wgmma_wait();\n    TT(4);\n    float* mine = sX + wg * 32 * 128;")
     s = mark(s, "    __syncthreads();  // both halves are out; every warp is done with K(j)\n",
              "    __syncthreads();  // both halves are out; every warp is done with K(j)\n    TT(5);\n")
-    s = mark(s, "    else cp_async_commit();  // keeps the count of groups in flight the same\n",
+    s = mark(s, "    if (kv0 + 64 < Nk) issue_k(kv0 + 64, j + 1);\n"
+             "    else cp_async_commit();  // keeps the count of groups in flight the same\n",
+             "    if (kv0 + 64 < Nk) issue_k(kv0 + 64, j + 1);\n"
              "    else cp_async_commit();  // keeps the count of groups in flight the same\n    TT(6);\n")
     s = mark(s, "    cp_async_wait_group<1>();  // V(j) has landed; K(j + 1) may be in flight\n"
              "    fence_async_shared();\n    __syncthreads();  // V(j) is in\n",
@@ -131,15 +137,95 @@ def timed_forward_source() -> tuple:
     return s + READER, names
 
 
+def timed_narrow_source() -> tuple:
+    s = (CSRC / "flash_fwd.cu").read_text()
+    s = mark(s, "namespace {\n\n// ---- heads up to 128 wide",
+             "namespace {\n" + CLOCKS + "\n// ---- heads up to 128 wide")
+    s = mark(s, "  for (int j = 0; j < n_kv; ++j) {\n    const int st = j % S;\n"
+             "    const int kv0 = j * 64;\n"
+             "    if (!vec) fence_async_shared();  // this thread's stores of tile j\n"
+             "    else if (live) mbar_wait(bar + st, (j / S) & 1);  // tile j has landed\n"
+             "    __syncthreads();  // tile j is in; both warpgroups are done with tile j - 1\n",
+             "  const bool timed_block = blockIdx.x == gridDim.x / 2;\n  long long t_last = clock64();\n"
+             "  for (int j = 0; j < n_kv; ++j) {\n    const int st = j % S;\n"
+             "    const int kv0 = j * 64;\n    TT(0);\n"
+             "    if (!vec) fence_async_shared();  // this thread's stores of tile j\n"
+             "    else if (live) mbar_wait(bar + st, (j / S) & 1);  // tile j has landed\n    TT(1);\n"
+             "    __syncthreads();  // tile j is in; both warpgroups are done with tile j - 1\n    TT(2);\n")
+    s = mark(s, "    if (!live) continue;\n    const uint32_t k_addr = smem_addr(sK0 + st * TILE);",
+             "    TT(3);\n    if (!live) continue;\n    const uint32_t k_addr = smem_addr(sK0 + st * TILE);")
+    s = mark(s, "    wgmma_commit();\n    wgmma_wait();\n\n"
+             "    // scale to log2 units, mask (only tiles that need it), running max\n"
+             "    const bool plain_tile = mrow == nullptr && kv0 + 64 <= Nk;\n"
+             "    const int8_t* sM = sF0 + st * 64;",
+             "    wgmma_commit();\n    wgmma_wait();\n    TT(4);\n\n"
+             "    // scale to log2 units, mask (only tiles that need it), running max\n"
+             "    const bool plain_tile = mrow == nullptr && kv0 + 64 <= Nk;\n"
+             "    const int8_t* sM = sF0 + st * 64;")
+    s = mark(s, "    for (int i = 0; i < NACC; ++i) acc[i] *= alpha[(i / 2) % 2];\n\n    wgmma_fence();",
+             "    for (int i = 0; i < NACC; ++i) acc[i] *= alpha[(i / 2) % 2];\n    TT(5);\n\n    wgmma_fence();")
+    s = mark(s, "    wgmma_commit();\n    wgmma_wait();\n  }\n  if (!live) return;\n",
+             "    wgmma_commit();\n    wgmma_wait();\n    TT(6);\n  }\n  if (!live) return;\n")
+    s = mark(s, "                                1 + wg);\n}\n\n// ---- short rows",
+             "                                1 + wg);\n  TT(7);\n}\n\n// ---- short rows")
+    names = ["loop top", "wait for copies", "fence, barrier", "issue the copies of tile j + 2",
+             "S product and wait", "softmax, rescale", "P V product and wait",
+             "epilogue: lse, output through shared memory"]
+    return s + READER, names
+
+
+def timed_dkv_source() -> tuple:
+    s = (CSRC / "flash_bwd_dkv.cu").read_text()
+    s = mark(s, "namespace {\n\nconstexpr int DKV_THREADS",
+             "namespace {\n" + CLOCKS + "\nconstexpr int DKV_THREADS")
+    s = mark(s, "  for (int i = 0; i < n_q; ++i) {\n    const int st = i % S;\n"
+             "    cp_async_wait_group<S - 2>();  // lse and di of tile i (this thread's)\n"
+             "    if (!vec) fence_async_shared();  // this thread's stores of tile i\n"
+             "    else if (live) mbar_wait(bar + st, (i / S) & 1);  // Q, dO of tile i\n"
+             "    __syncthreads();  // tile i is in; both warpgroups are done with tile i - 1\n",
+             "  const bool timed_block = blockIdx.x == gridDim.x / 2;\n  long long t_last = clock64();\n"
+             "  for (int i = 0; i < n_q; ++i) {\n    const int st = i % S;\n    TT(0);\n"
+             "    cp_async_wait_group<S - 2>();  // lse and di of tile i (this thread's)\n"
+             "    if (!vec) fence_async_shared();  // this thread's stores of tile i\n"
+             "    else if (live) mbar_wait(bar + st, (i / S) & 1);  // Q, dO of tile i\n    TT(1);\n"
+             "    __syncthreads();  // tile i is in; both warpgroups are done with tile i - 1\n    TT(2);\n")
+    s = mark(s, "    if (!live) continue;\n    const uint32_t q_addr",
+             "    TT(3);\n    if (!live) continue;\n    const uint32_t q_addr")
+    s = mark(s, "    wgmma_commit();\n    wgmma_wait();\n    // P^T and dS^T = P^T * (dP^T - di), packed as A operands",
+             "    wgmma_commit();\n    wgmma_wait();\n    TT(4);\n    // P^T and dS^T = P^T * (dP^T - di), packed as A operands")
+    s = mark(s, "    // dv += P^T dO, dk += dS^T Q: depth = the 64 q rows, four 16-row steps",
+             "    TT(5);\n    // dv += P^T dO, dk += dS^T Q: depth = the 64 q rows, four 16-row steps")
+    s = mark(s, "    wgmma_commit();\n    wgmma_wait();\n  }\n  if (!live) return;\n",
+             "    wgmma_commit();\n    wgmma_wait();\n    TT(6);\n  }\n  if (!live) return;\n")
+    s = mark(s, "                                1 + wg);\n}\n\ntemplate <typename T, int DP>\ncudaError_t launch_dkv(",
+             "                                1 + wg);\n  TT(7);\n}\n\ntemplate <typename T, int DP>\ncudaError_t launch_dkv(")
+    names = ["loop top", "wait for copies", "fence, barrier", "issue the copies of tile i + 2",
+             "S^T, dP^T products and wait", "elementwise P^T, dS^T",
+             "dv, dk products and wait", "epilogue: dk, dv through shared memory"]
+    return s + READER, names
+
+
 def what_if_sources() -> dict:
     """{name: source text} of the variants `--what-if` times."""
     fwd = (CSRC / "flash_fwd.cu").read_text()
-    hot = mark(fwd, "smem_addr(sK), kb, kv0, Nk, D);", "smem_addr(sK), kb, 0, Nk, D);")
-    hot = mark(hot, "smem_addr(sV), vb, kv0, Nk, D);", "smem_addr(sV), vb, 0, Nk, D);")
+    wide = "load_core_tile_wide<T, WIDE_THREADS, DP>("
+    hot = mark(fwd, wide + "smem_addr(sK), kb, kv0, Nk, D);",
+               wide + "smem_addr(sK), kb, 0, Nk, D);")
+    hot = mark(hot, wide + "smem_addr(sV), vb, kv0, Nk, D);",
+               wide + "smem_addr(sV), vb, 0, Nk, D);")
     none = mark(fwd, "    issue_v(kv0);\n",
                 "    if (kv0 == 0) issue_v(kv0);\n    else cp_async_commit();\n")
     none = mark(none, "    if (kv0 + 64 < Nk) issue_k(kv0 + 64, j + 1);\n    else cp_async_commit();",
                 "    cp_async_commit();")
+    # no copies after the first ring, and no waits for them
+    narrow = mark(fwd, "    if (j + S - 1 < n_kv) issue_tile(kv0 + (S - 1) * 64, (j + S - 1) % S);\n", "")
+    narrow = mark(narrow, "    else if (live) mbar_wait(bar + st, (j / S) & 1);",
+                  "    else if (live && j < S - 1) mbar_wait(bar + st, (j / S) & 1);")
+    dkv = (CSRC / "flash_bwd_dkv.cu").read_text()
+    dkv_none = mark(dkv, "    if (i + S - 1 < n_q) issue_tile((i + S - 1) * 64, (i + S - 1) % S);\n"
+                    "    else cp_async_commit();", "    cp_async_commit();")
+    dkv_none = mark(dkv_none, "    else if (live) mbar_wait(bar + st, (i / S) & 1);",
+                    "    else if (live && i < S - 1) mbar_wait(bar + st, (i / S) & 1);")
     bwd = (CSRC / "flash_bwd_fused.cu").read_text()
     alone = mark(bwd, "    if (i > 0) {\n      cluster.barrier_wait();\n      reduce_tile(i - 1);\n    }\n", "")
     a = alone.index("    // push this thread's two rows of the share")
@@ -147,6 +233,7 @@ def what_if_sources() -> dict:
     alone = alone[:a] + "  }\n" + alone[b:]
     alone = mark(alone, "  cluster.barrier_wait();\n  reduce_tile(n_tiles - 1);\n", "")
     return {"fwd": fwd, "fwd_same_tile": hot, "fwd_no_copies": none,
+            "narrow_no_copies": narrow, "dkv": dkv, "dkv_no_copies": dkv_none,
             "bwd": bwd, "bwd_no_dq_exchange": alone}
 
 
@@ -165,48 +252,85 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def runners(torch) -> dict:
+    """{kernel: (run(lib), rows, keys)}: one launch of the clocked or altered
+    kernel at its shape, bf16, with its block's tile counts."""
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    gen = torch.Generator("cuda").manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).bfloat16()
+
+    def forward(B, H, N, D):
+        q, k, v = (rand(B, H, N, D) for _ in range(3))
+        o = torch.empty_like(q)
+
+        def run(lib):
+            lib.flash_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [f32, i32, ptr]
+            err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                                o.data_ptr(), None, 1, B * H, H, N, N, D,
+                                D ** -0.5, 1, stream)
+            assert err == 0, err
+        return run
+
+    def fused(B, H, N, D):
+        q, k, v, do = (rand(B, H, N, D) for _ in range(4))
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        stats = torch.empty(2, B * H, N, device="cuda")
+
+        def run(lib):
+            lib.flash_bwd_fused_mma.argtypes = [ptr] * 9 + [i32] * 6 + [f32, i32, ptr]
+            err = lib.flash_bwd_fused_mma(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), None, do.data_ptr(),
+                stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                1, B * H, H, N, N, D, D ** -0.5, 1, stream)
+            assert err == 0, err
+        return run
+
+    def dkv(B, H, N, D):
+        q, k, v, do = (rand(B, H, N, D) for _ in range(4))
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        # statistics of a softmax that stays finite: lse = log(N), di = 0
+        lse = torch.full((B * H, N), float(N), device="cuda").log()
+        di = torch.zeros(B * H, N, device="cuda")
+
+        def run(lib):
+            lib.flash_bwd_dkv_wgmma.argtypes = [ptr] * 9 + [i32] * 6 + [f32, i32, ptr]
+            err = lib.flash_bwd_dkv_wgmma(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), None, do.data_ptr(),
+                lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                1, B * H, H, N, N, D, D ** -0.5, 1, stream)
+            assert err == 0, err
+        return run
+
+    return {"wide": (forward(8, 1, 6360, 512), 6360, 6360),
+            "narrow": (forward(30, 16, 1590, 72), 1590, 1590),
+            "fused": (fused(30, 16, 405, 72), 405, 405),
+            "dkv": (dkv(1, 16, 8160, 72), 8160, 8160)}
+
+
 def what_if() -> int:
     import json
 
     import torch
 
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    gen = torch.Generator("cuda").manual_seed(0)
-    stream = torch.cuda.current_stream().cuda_stream
-    B, H, N, D = 8, 1, 6360, 512
-    fq, fk, fv = (torch.randn(B, H, N, D, device="cuda", generator=gen)
-                  .bfloat16() for _ in range(3))
-    fo = torch.empty_like(fq)
-    Bb, Hb, Nb, Db = 30, 16, 405, 72
-    q, k, v, do = (torch.randn(Bb, Hb, Nb, Db, device="cuda", generator=gen)
-                   .bfloat16() for _ in range(4))
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    stats = torch.empty(2, Bb * Hb, Nb, device="cuda")
-    out = {}
+    run = runners(torch)
+    sources = what_if_sources()
+    # (variant, source, kernel it is timed as)
+    plan = [("wide", "fwd", "wide"), ("wide_same_tile", "fwd_same_tile", "wide"),
+            ("wide_no_copies", "fwd_no_copies", "wide"),
+            ("narrow", "fwd", "narrow"), ("narrow_no_copies", "narrow_no_copies", "narrow"),
+            ("dkv", "dkv", "dkv"), ("dkv_no_copies", "dkv_no_copies", "dkv"),
+            ("fused", "bwd", "fused"), ("fused_no_dq_exchange", "bwd_no_dq_exchange", "fused")]
+    out, libs = {}, {}
     with tempfile.TemporaryDirectory() as work:
-        for name, text in what_if_sources().items():
-            lib = build(Path(work), name, text)
-            if name.startswith("fwd"):
-                lib.flash_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [f32, i32, ptr]
-
-                def run():
-                    err = lib.flash_fwd(
-                        fq.data_ptr(), fk.data_ptr(), fv.data_ptr(), None,
-                        fo.data_ptr(), None, 1, B * H, H, N, N, D, D ** -0.5,
-                        1, stream)
-                    assert err == 0, err
-            else:
-                lib.flash_bwd_fused_mma.argtypes = \
-                    [ptr] * 9 + [i32] * 6 + [f32, i32, ptr]
-
-                def run():
-                    err = lib.flash_bwd_fused_mma(
-                        q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
-                        do.data_ptr(), stats.data_ptr(), dq.data_ptr(),
-                        dk.data_ptr(), dv.data_ptr(), 1, Bb * Hb, Hb, Nb, Nb,
-                        Db, Db ** -0.5, 1, stream)
-                    assert err == 0, err
-            out[name] = [time_ms(run, 10) for _ in range(2)]
+        for variant, source, kernel in plan:
+            if source not in libs:
+                libs[source] = build(Path(work), source, sources[source])
+            lib = libs[source]
+            out[variant] = [time_ms(lambda: run[kernel][0](lib), 10)
+                            for _ in range(2)]
     print(json.dumps(out))
     return 0
 
@@ -245,66 +369,38 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip())
     if "--what-if" in sys.argv[1:]:
         return what_if()
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    gen = torch.Generator("cuda").manual_seed(0)
-    stream = torch.cuda.current_stream().cuda_stream
+    run = runners(torch)
+    clocked = [("fused", "cluster kernel of the fused backward, spatial "
+                "[30, 16, 405, 405, 72]", timed_cluster_source, 64),
+               ("wide", "wide forward, VAE mid [8, 1, 6360, 6360, 512]",
+                timed_forward_source, 64),
+               ("narrow", "narrow forward, spatial [30, 16, 1590, 1590, 72]",
+                timed_narrow_source, 64),
+               ("dkv", "dk/dv kernel, 1080p row [1, 16, 8160, 8160, 72]",
+                timed_dkv_source, 64)]
     with tempfile.TemporaryDirectory() as work:
-        text, names = timed_cluster_source()
-        lib = build(Path(work), "bwd_timed", text)
-        B, H, N, D = 30, 16, 405, 72
-        q, k, v, do = (torch.randn(B, H, N, D, device="cuda", generator=gen)
-                       .bfloat16() for _ in range(4))
-        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-        stats = torch.empty(2, B * H, N, device="cuda")
-        fn = lib.flash_bwd_fused_mma
-        fn.argtypes = [ptr] * 9 + [i32] * 6 + [f32, i32, ptr]
-
-        def run_bwd():
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
-                     do.data_ptr(), stats.data_ptr(), dq.data_ptr(),
-                     dk.data_ptr(), dv.data_ptr(), 1, B * H, H, N, N, D,
-                     D ** -0.5, 1, stream)
-            assert err == 0, err
-
-        run_bwd()
-        torch.cuda.synchronize()
-        lib.read_times((ctypes.c_longlong * 32)())  # drop the warm-up's
-        run_bwd()
-        torch.cuda.synchronize()
-        report(f"cluster kernel, spatial {[B, H, N, N, D]}, one block", lib,
-               names, -(-N // 64))
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                run_bwd()
+        for kernel, title, source, tile in clocked:
+            text, names = source()
+            lib = build(Path(work), kernel + "_timed", text)
+            fn, rows, keys = run[kernel]
+            fn(lib)
             torch.cuda.synchronize()
-        for e in prof.key_averages():
-            if "flash_bwd" in e.key:
-                print(f"   device time {e.key.split('(')[1][21:55]:36s} "
-                      f"{e.self_device_time_total / e.count / 1e3:.4f} ms "
-                      f"(with the clocks in)")
-
-        text, names = timed_forward_source()
-        lib = build(Path(work), "fwd_timed", text)
-        B, H, N, D = 8, 1, 6360, 512
-        q, k, v = (torch.randn(B, H, N, D, device="cuda", generator=gen)
-                   .bfloat16() for _ in range(3))
-        o = torch.empty_like(q)
-        fwd = lib.flash_fwd
-        fwd.argtypes = [ptr] * 6 + [i32] * 6 + [f32, i32, ptr]
-
-        def run_fwd():
-            err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
-                      o.data_ptr(), None, 1, B * H, H, N, N, D, D ** -0.5, 1,
-                      stream)
-            assert err == 0, err
-
-        run_fwd()
-        torch.cuda.synchronize()
-        lib.read_times((ctypes.c_longlong * 32)())
-        run_fwd()
-        torch.cuda.synchronize()
-        report(f"wide forward, VAE mid {[B, H, N, N, D]}, one block", lib,
-               names, -(-N // 64))
+            lib.read_times((ctypes.c_longlong * 32)())  # drop the warm-up's
+            fn(lib)
+            torch.cuda.synchronize()
+            # the loop walks the keys (forwards) or the q rows (backwards)
+            walked = keys if kernel in ("wide", "narrow") else rows
+            report(f"{title}, one block", lib, names, -(-walked // tile))
+            if kernel == "fused":
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        fn(lib)
+                    torch.cuda.synchronize()
+                for e in prof.key_averages():
+                    if "flash_bwd" in e.key:
+                        print(f"   device time {e.key.split('(')[1][21:55]:36s} "
+                              f"{e.self_device_time_total / e.count / 1e3:.4f} ms "
+                              f"(with the clocks in)")
     return 0
 
 
