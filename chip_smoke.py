@@ -5,8 +5,8 @@ card (an H100 is the target).
     python3 chip_smoke.py [--steps N]
 
 Phases, each fatal on failure:
-  1. build the flash-attention kernels from csrc/ (forward, blocked dq
-     backward, fused backward, dk/dv backward: one nvcc each, started
+  1. build the flash-attention kernels from csrc/ (forward, fp32 backward,
+     fused backward, dk/dv backward, dq backward: one nvcc each, started
      together) and print the card;
   2. hold the forward kernels against their plain PyTorch version at the main
      path's shapes (STDiT3 spatial and cross attention on the narrow wgmma
@@ -26,8 +26,9 @@ Phases, each fatal on failure:
      plain attention in place of the kernel;
   4. run a tiny configuration on the card and on the CPU (plain attention)
      with the same weights and noise, and compare the latents and video;
-  5. hold the three backward kernels (flash_bwd_fused, flash_bwd_dkv,
-     flash_bwd_dq) and the forward's log-sum-exp against their plain
+  5. hold the three backward kernels (flash_bwd_fused, flash_bwd_dq with
+     the di = rowsum(dO * O) it writes, and flash_bwd_dkv fed that di) and
+     the forward's log-sum-exp against their plain
      versions at the training path's shapes (spatial 144p x 51 frames batch
      4 and 240p x 51 frames batch 2, temporal, cross attention to 8 and to
      300 text tokens with a ragged mask, and the 8160-token row of a 1080p
@@ -36,9 +37,10 @@ Phases, each fatal on failure:
      scaled_dot_product_attention and the route passed up ("bwd dispatch");
      then the fused backward's edges (1, 15,
      63, 64, 65 and 405 keys, four packed short rows with one fully masked,
-     a full cluster of 512 keys) and the dk/dv kernel's (key counts around
-     its 128-key blocks, a fully masked row), each giving bit-equal
-     gradients twice;
+     a full cluster of 512 keys), the dk/dv kernel's (key counts around
+     its 128-key blocks, a fully masked row) and the dq kernel's (q rows
+     around its 64- and 128-row blocks, a fully masked row), each giving
+     bit-equal gradients twice;
   6. train Open-Sora v1.2 at full width and depth (`run_training`: bf16
      compute over fp32 parameters, recompute of every depth pair) for a few
      steps on the default buckets and one step on a 1080p image bucket,
@@ -55,7 +57,7 @@ bf16 outputs are held by two relative measures, rel_l2 = |got - want|_2 /
 from this script's readings of a correct kernel; beside each it prints the
 same measures for a plain version that drops one key per row, the smallest
 fault the limits must still catch. fp32 outputs are held at 2e-5 absolute,
-fp32 gradients at 1e-4 absolute.
+fp32 gradients at 1e-4 absolute, di at 1e-5 relative to its largest entry.
 
 The line before the last holds the kernel report as JSON, the one before it
 the card's name and power limit; the last line is the JSON status.
@@ -80,6 +82,7 @@ PHASES = ("kernel", "serve", "tiny", "bwd_kernel", "train", "tiny_train")
 TRAIN_STEPS = 4  # on the default buckets: two video shapes and an image
 F32_TOL = 2e-5
 F32_GRAD_TOL = 1e-4
+DI_TOL = 1e-5  # di against rowsum(dO * O), relative to its largest entry
 # bf16 limits per shape (rel_l2, rel_max), set from this script's readings
 # on an H100 (PERF.md): the kernel read at most half of each, and a plain
 # version that drops one key per row read at least twice one of them
@@ -665,6 +668,61 @@ def dkv_edges(fa) -> dict:
     return out
 
 
+def check_di(name: str, di, do, out) -> float:
+    """Hold the di the dq kernel wrote against rowsum(dO * O) at DI_TOL,
+    relative to its largest entry (fp32 sums taken in another order)."""
+    want = (do.float() * out.float()).sum(-1)
+    err = ((di - want).abs().max() / want.abs().max()).item()
+    if not (err <= DI_TOL and di.shape == want.shape):
+        raise AssertionError(f"{name}: di disagrees with rowsum(dO * O) "
+                             f"({err:.3e} > {DI_TOL:.0e})")
+    return err
+
+
+def dq_edges(fa) -> dict:
+    """`flash_bwd_dq` in bf16 at the edges its design brings (q rows around
+    its 64-row warpgroups and 128-row blocks, a warpgroup with no row, a
+    fully masked row), against plain at the backward limits, twice for
+    bit-equal dq and di, and di against rowsum(dO * O). (With one key dq is
+    rounding noise, dS = dP - di = 0 up to the order of two sums, so the
+    fewest keys held here are two.)"""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(7)
+    lim_l2, lim_mx = BWD_BF16_LIMITS["long_row"]
+    out = {}
+    for Nq in (1, 63, 64, 65, 127, 128, 129, 405, 1590):
+        for Nk in (2, 65, 300, 405):
+            B, H = 2, 2
+            q, do = (torch.randn(B, H, Nq, 72, device="cuda", generator=gen)
+                     .bfloat16() for _ in range(2))
+            k, v = (torch.randn(B, H, Nk, 72, device="cuda", generator=gen)
+                    .bfloat16() for _ in range(2))
+            mask = ragged_mask(B, Nk, gen)
+            mask[-1] = False
+            o, lse = fa._launch(q, k, v, None, mask, save_lse=True)
+            got, di = fa.flash_bwd_dq(q, k, v, mask, do, lse, o)
+            again, di2 = fa.flash_bwd_dq(q, k, v, mask, do, lse, o)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_bwd_lse_plain(q, k, v, mask, do, o, lse)[0]
+            same = torch.equal(got, again) and torch.equal(di, di2)
+            d = got.float() - want.float()
+            l2 = d.norm().item() / (want.float().norm().item() or 1.0)
+            mx = d.abs().max().item() / (want.float().abs().max().item() or 1.0)
+            di_err = check_di(f"dq edge {Nq}x{Nk}", di, do, o)
+            dead_zero = not bool(got[-1].any())
+            ok = l2 <= lim_l2 and mx <= lim_mx and same and dead_zero and bool(
+                torch.isfinite(got).all())
+            log(f"bwd edge dq      shape={[B, H, Nq, Nk, 72]} rel_l2={l2:.3e} "
+                f"rel_max={mx:.3e} di_rel={di_err:.3e} bit_equal={same} "
+                f"dead_row_zero={dead_zero} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash_bwd_dq fails at Nq={Nq}, Nk={Nk}")
+            out[f"{B}x{H}x{Nq}x{Nk}"] = {"rel_l2": l2, "rel_max": mx,
+                                         "di_rel": di_err}
+    return out
+
+
 def backward_kernel_phase(fa) -> dict:
     """The three backward kernels, and the forward's log-sum-exp, against
     their plain versions at the training path's shapes."""
@@ -676,8 +734,8 @@ def backward_kernel_phase(fa) -> dict:
     # B*T = 60 rows of S = 144 tokens; 240p x 51 frames batch 2 is B*T = 30
     # rows of S = 405 tokens and B*S = 810 rows of T = 15; the dummy text has
     # 8 tokens, real captions up to 300; a 1080p image is one row of 8160
-    # tokens. Rows of more than 256 keys take the blocked pair.
-    shapes = [("spatial144", 60, 16, 144, 144, 72, False, "fused"),
+    # tokens. Rows of more than 8 keys take the blocked pair.
+    shapes = [("spatial144", 60, 16, 144, 144, 72, False, "blocked"),
               ("spatial", 30, 16, 405, 405, 72, False, "blocked"),
               ("temporal", 810, 16, 15, 15, 72, False, "fused"),
               ("cross8", 30, 16, 405, 8, 72, True, "fused"),
@@ -695,12 +753,15 @@ def backward_kernel_phase(fa) -> dict:
                "backward": variant}
 
         def kernels(qt, kt, vt, dot, out, lse):
-            """{kernel: outputs} of the variant's kernels."""
+            """{kernel: outputs} of the variant's kernels; the blocked
+            pair as `FlashAttentionFunction` runs it: dq, which writes di
+            (held here against rowsum(dO * O)), then dk, dv from that di."""
             if variant == "fused":
                 return {"fused": fa.flash_bwd_fused(qt, kt, vt, mask, dot)}
-            di = (dot.float() * out.float()).sum(-1)
-            return {"dkv": fa.flash_bwd_dkv(qt, kt, vt, mask, dot, lse, di),
-                    "dq": (fa.flash_bwd_dq(qt, kt, vt, mask, dot, lse, di),)}
+            dq, di = fa.flash_bwd_dq(qt, kt, vt, mask, dot, lse, out)
+            row[f"di_rel_{dt}"] = check_di(name, di, dot, out)
+            return {"dq": (dq,),
+                    "dkv": fa.flash_bwd_dkv(qt, kt, vt, mask, dot, lse, di)}
 
         def plain(qt, kt, vt, dot, out, lse, m):
             if variant == "fused":
@@ -750,12 +811,12 @@ def backward_kernel_phase(fa) -> dict:
             del got, want, out, lse, want_lse
         qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
         out, lse = fa._launch(qb, kb, vb, None, mask, save_lse=True)
-        di = (dob.float() * out.float()).sum(-1)
+        di = fa.flash_bwd_dq(qb, kb, vb, mask, dob, lse, out)[1]
         iters = 3 if name == "long_row" else 10
         timed = {"fused": lambda: fa.flash_bwd_fused(qb, kb, vb, mask, dob)} \
             if variant == "fused" else {
-            "dkv": lambda: fa.flash_bwd_dkv(qb, kb, vb, mask, dob, lse, di),
-            "dq": lambda: fa.flash_bwd_dq(qb, kb, vb, mask, dob, lse, di)}
+            "dq": lambda: fa.flash_bwd_dq(qb, kb, vb, mask, dob, lse, out),
+            "dkv": lambda: fa.flash_bwd_dkv(qb, kb, vb, mask, dob, lse, di)}
         plain_ms = time_ms(lambda: plain(qb, kb, vb, dob, out, lse, mask), 2)
         # yardstick: the backward of torch's own attention (never called by
         # the port), all of dq, dk, dv
@@ -767,16 +828,21 @@ def backward_kernel_phase(fa) -> dict:
         el = 2.0  # bytes per bf16 element
         n_q, n_k = B * H * Nq * D, B * H * Nk * D
         stats = 2 * 4.0 * B * H * Nq  # lse and di, fp32
+        # dq reads q, k, v, dO, O and lse and writes dq and di
         moved = {"fused": el * (2 * n_q + 2 * n_k) + el * (n_q + 2 * n_k),
                  "dkv": el * (2 * n_q + 2 * n_k) + stats + el * 2 * n_k,
-                 "dq": el * (2 * n_q + 2 * n_k) + stats + el * n_q}
+                 "dq": el * (3 * n_q + 2 * n_k) + stats + el * n_q}
+        # di = rowsum(dO * O) in the dq kernel: 2 fp32 operations an element
+        simt_flops = {"dq": 2.0 * B * H * Nq * D}
         for kern, fn in timed.items():
             r = row[kern]
             r["ms"] = time_ms(fn, iters)
             r["plain_ms"], r["library_ms"] = plain_ms, library_ms
             flops = products[kern] * 2.0 * B * H * Nq * Nk * D
             nbytes = moved[kern] + (B * Nk if masked else 0)
-            t_ops, t_bytes = flops / PEAK_FLOPS["bf16"], nbytes / PEAK_BYTES
+            t_ops = flops / PEAK_FLOPS["bf16"] \
+                + simt_flops.get(kern, 0.0) / PEAK_FLOPS["fp32"]
+            t_bytes = nbytes / PEAK_BYTES
             r["bound_ms"] = max(t_ops, t_bytes) * 1e3
             r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
             log(f"bwd kernel {name:9s} {kern:5s} bf16 ms={r['ms']:.4f} "
@@ -785,11 +851,10 @@ def backward_kernel_phase(fa) -> dict:
                 f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
                 f"achieved={flops / r['ms'] / 1e9:.1f} TFLOP/s")
         if variant == "fused":
-            # the blocked pair, which `backward_variant` passes up here, with
-            # the di = rowsum(dO * O) its route computes first
-            other = {"dkv": lambda: fa.flash_bwd_dkv(qb, kb, vb, mask, dob, lse, di),
-                     "dq": lambda: fa.flash_bwd_dq(qb, kb, vb, mask, dob, lse, di),
-                     "di": lambda: (dob.float() * out.float()).sum(-1)}
+            # the blocked pair, which `backward_variant` passes up here: dq
+            # (which computes di) and dk/dv
+            other = {"dq": lambda: fa.flash_bwd_dq(qb, kb, vb, mask, dob, lse, out),
+                     "dkv": lambda: fa.flash_bwd_dkv(qb, kb, vb, mask, dob, lse, di)}
             row["other_variant_ms"] = {k: time_ms(fn, iters)
                                        for k, fn in other.items()}
             log(f"bwd dispatch {name:10s} chosen fused "
@@ -797,25 +862,26 @@ def backward_kernel_phase(fa) -> dict:
                 f"passed up: {row['other_variant_ms']} ms, "
                 f"{sum(row['other_variant_ms'].values()):.4f} in all")
         elif fa.fused_kind(Nq, Nk, qb.dtype) is not None:
-            # the pair with its di, against the fused backward passed up
-            row["di_ms"] = time_ms(lambda: (dob.float() * out.float()).sum(-1),
-                                   iters)
+            # the pair (dq computes di), against the fused backward passed up
             row["other_variant_ms"] = {"fused": time_ms(
                 lambda: fa.flash_bwd_fused(qb, kb, vb, mask, dob), iters)}
-            chosen = row["dkv"]["ms"] + row["dq"]["ms"] + row["di_ms"]
-            log(f"bwd dispatch {name:10s} chosen blocked: dkv + dq + di "
-                f"{row['dkv']['ms']:.4f} + {row['dq']['ms']:.4f} + "
-                f"{row['di_ms']:.4f} = {chosen:.4f} ms; passed up: fused "
+            chosen = row["dq"]["ms"] + row["dkv"]["ms"]
+            log(f"bwd dispatch {name:10s} chosen blocked: dq + dkv "
+                f"{row['dq']['ms']:.4f} + {row['dkv']['ms']:.4f} = "
+                f"{chosen:.4f} ms; passed up: fused "
                 f"({fa.fused_kind(Nq, Nk, qb.dtype)}) "
                 f"{row['other_variant_ms']['fused']:.4f} ms")
         else:
-            log(f"bwd dispatch {name:10s} chosen blocked: the fused backward "
-                f"takes at most {fa.FUSED_MAX_CLUSTER * fa.FUSED_KEYS_PER_BLOCK} keys")
+            log(f"bwd dispatch {name:10s} chosen blocked: dq + dkv "
+                f"{row['dq']['ms'] + row['dkv']['ms']:.4f} ms; the fused "
+                f"backward takes at most "
+                f"{fa.FUSED_MAX_CLUSTER * fa.FUSED_KEYS_PER_BLOCK} keys")
         results[name] = row
         del q, k, v, do, qb, kb, vb, dob, out, lse, di, ql, kl, vl, lib_out
         torch.cuda.empty_cache()
     results["fused_edges"] = fused_backward_edges(fa)
     results["dkv_edges"] = dkv_edges(fa)
+    results["dq_edges"] = dq_edges(fa)
     return results
 
 
@@ -1150,15 +1216,15 @@ def main(argv=None) -> int:
     # the backward kernels, launches from the training path (bf16)
     fused_src = "videosys_tpu_torch/csrc/flash_bwd_fused.cu"
     dkv_src = "videosys_tpu_torch/csrc/flash_bwd_dkv.cu"
-    blocked_src = "videosys_tpu_torch/csrc/flash_bwd.cu"
+    dq_src = "videosys_tpu_torch/csrc/flash_bwd_dq.cu"
     for key, shape, kern, source, replaces in (
-            ("bwd_fused", "spatial144", "fused", fused_src,
+            ("bwd_fused", "cross8", "fused", fused_src,
              "videosys_tpu/ops/flash_attention.py:326"),
             ("bwd_fused_short", "temporal", "fused", fused_src,
              "videosys_tpu/ops/flash_attention.py:326"),
             ("bwd_dkv", "long_row", "dkv", dkv_src,
              "videosys_tpu/ops/flash_attention.py:522"),
-            ("bwd_dq", "long_row", "dq", blocked_src,
+            ("bwd_dq", "long_row", "dq", dq_src,
              "videosys_tpu/ops/flash_attention.py:594")):
         r = bwd_shapes[shape][kern]
         if trained["launches"][key] <= 0:

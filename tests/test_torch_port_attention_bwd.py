@@ -184,7 +184,7 @@ def test_no_grad_inputs_take_the_forward_alone(monkeypatch):
 
 @pytest.mark.parametrize("shape,dtype,want", [
     ((30, 16, 405, 405, 72), torch.bfloat16, "blocked"),  # 240p spatial
-    ((60, 16, 144, 144, 72), torch.bfloat16, "fused"),    # 144p spatial
+    ((60, 16, 144, 144, 72), torch.bfloat16, "blocked"),  # 144p spatial
     ((810, 16, 15, 15, 72), torch.bfloat16, "fused"),     # temporal
     ((30, 16, 405, 8, 72), torch.bfloat16, "fused"),      # cross, 8 tokens
     ((30, 16, 405, 300, 72), torch.bfloat16, "blocked"),  # cross, 300

@@ -19,6 +19,9 @@ F32_TOL = 2e-5
 # 4.4e-4 / 8.7e-4), and a plain version that drops one key per row read at
 # least 1.1e-2 / 2.7e-2 wherever a row had a key to drop.
 HALF_LIMITS = {torch.bfloat16: (6.5e-3, 1.2e-2), torch.float16: (1e-3, 2e-3)}
+# di = rowsum(dO * O), which the dq kernel writes for the dk/dv kernel: 1e-5
+# relative to its largest entry (fp32 sums in another order).
+DI_TOL = 1e-5
 # Gradients: fp32 at 1e-4 absolute (the JAX package's own gradient
 # tolerance); half precision by the same two measures, the worst of dq, dk,
 # dv, with both sides reading the same forward output and log-sum-exp. The
@@ -218,7 +221,9 @@ BWD_SHAPES = [
 def run_bwd_case(dtype, variant, B, H, Nq, Nk, D, masked, drop_key=None):
     """(kernel grads, plain grads) of one backward variant; the forward
     kernel's output and log-sum-exp feed both. With `drop_key` the plain
-    side loses one key per row (the fault the limits must catch)."""
+    side loses one key per row (the fault the limits must catch). The blocked
+    pair runs as `FlashAttentionFunction` runs it: dq (which writes di), then
+    dk and dv from that di, held against rowsum(dO * O) at DI_TOL."""
     q, k, v, mask = inputs(dtype, B, H, Nq, Nk, D, masked)
     rng = np.random.default_rng(1)
     do = torch.from_numpy(rng.standard_normal(
@@ -240,10 +245,13 @@ def run_bwd_case(dtype, variant, B, H, Nq, Nk, D, masked, drop_key=None):
         got = fa.flash_bwd_fused(q, k, v, mask, do)
         want = fa.flash_attention_bwd_plain(q, k, v, pmask, do)
     else:
-        di = (do.float() * out.float()).sum(-1)
+        dq, di = fa.flash_bwd_dq(q, k, v, mask, do, lse, out)
         dk, dv = fa.flash_bwd_dkv(q, k, v, mask, do, lse, di)
-        got = (fa.flash_bwd_dq(q, k, v, mask, do, lse, di), dk, dv)
+        got = (dq, dk, dv)
         want = fa.flash_attention_bwd_lse_plain(q, k, v, pmask, do, out, lse)
+        want_di = (do.float() * out.float()).sum(-1)
+        assert di.dtype == torch.float32 and di.shape == (B, H, Nq)
+        assert (di - want_di).abs().max() <= DI_TOL * want_di.abs().max()
     return got, want, mask
 
 
@@ -340,6 +348,29 @@ def test_dkv_gives_the_same_bits_twice(card, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("Nq,Nk,D", [
+    (1, 2, 72), (63, 65, 72), (64, 300, 72), (65, 2, 72), (127, 405, 72),
+    (128, 65, 72), (129, 300, 64), (405, 405, 32), (1590, 65, 128),
+    (200, 129, 80)])
+def test_dq_at_row_counts_off_the_block(card, dtype, Nq, Nk, D):
+    """`flash_bwd_dq` where the last block of 128 q rows is ragged or one
+    of its warpgroups has no row at all; dq twice gives the same bits."""
+    got, want, mask = run_bwd_case(dtype, "blocked", 2, 2, Nq, Nk, D, True)
+    torch.cuda.synchronize()
+    err = rel_errors(got[0], want[0])
+    lim_l2, lim_max = HALF_GRAD_LIMITS[dtype]
+    assert err["rel_l2"] <= lim_l2 and err["rel_max"] <= lim_max, err
+    assert not bool(got[0][-1].any())  # the fully masked batch row
+    q, k, v, _ = inputs(dtype, 2, 2, Nq, Nk, D, False)
+    do = torch.randn_like(q)
+    out, lse = fa._launch(q, k, v, None, mask, save_lse=True)
+    first = fa.flash_bwd_dq(q, k, v, mask, do, lse, out)
+    again = fa.flash_bwd_dq(q, k, v, mask, do, lse, out)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_autograd_function_launches_the_backward_kernels(card, dtype):
     """`flash_attention` on CUDA tensors that need gradients: the rule's
@@ -347,7 +378,7 @@ def test_autograd_function_launches_the_backward_kernels(card, dtype):
     versions are never entered."""
     from videosys_tpu_torch.ops.attention import scaled_dot_product_attention
 
-    for (B, H, N, D), variant in (((2, 4, 70, 72), "fused"),
+    for (B, H, N, D), variant in (((2, 4, 15, 72), "fused"),
                                   ((1, 2, 2200, 72), "blocked")):
         assert fa.backward_variant(B, H, N, N, D, dtype) == variant
         x = torch.randn(3, B, N, H, D, device="cuda", dtype=dtype)
@@ -458,6 +489,8 @@ def test_python_mirrors_of_the_kernels_formulas(card):
         assert fwd.flash_fwd_smem(2, D) == fa.narrow_smem_bytes(D)
         assert fa._library("bwd_dkv").flash_bwd_dkv_wgmma_smem(D) == \
             fa.dkv_smem_bytes(D)
+        assert fa._library("bwd_dq").flash_bwd_dq_wgmma_smem(D) == \
+            fa.dq_smem_bytes(D)
     for D in (129, 256, 257, 512):
         assert fwd.flash_fwd_smem(3, D) == fa.wide_smem_bytes(D)
 

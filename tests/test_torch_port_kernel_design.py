@@ -7,7 +7,8 @@ of the ways the kernels split the work (two halves of the depth summed into
 one score tile; the narrow forward's online softmax over 64-key tiles in
 exp2 units; row statistics merged over key tiles; key ranges of a cluster
 with their dq shares summed in rank order; dk and dv per block of 128 keys
-over 64-row q tiles), held against the unblocked plain versions at 1e-5
+over 64-row q tiles; dq and di = rowsum(dO * O) per block of 128 q rows over
+64-key tiles), held against the unblocked plain versions at 1e-5
 (forward) and 1e-4 (gradients) and, through the Pallas kernels in interpret
 mode, against the JAX package. The CUDA kernels themselves are held against
 the plain versions on a card (test_torch_port_kernel.py and chip_smoke.py).
@@ -59,7 +60,7 @@ def test_wide_forward_shared_memory(D, padded):
 
 
 @pytest.mark.parametrize("fn", [fa.narrow_smem_bytes, fa.short_fwd_smem_bytes,
-                                fa.dkv_smem_bytes])
+                                fa.dkv_smem_bytes, fa.dq_smem_bytes])
 @pytest.mark.parametrize("D", [8, 32, 33, 64, 72, 80, 81, 128])
 def test_redesigned_kernels_shared_memory(fn, D):
     n = fn(D)
@@ -78,6 +79,17 @@ def test_narrow_forward_blocks_per_sm(D, blocks):
         # Q 128 x 80, three stages of K and V 64 x 80, bf16; 64 key flags
         # a stage; four 8-byte mbarriers
         assert n == (128 + 3 * 2 * 64) * 80 * 2 + 3 * 64 + 4 * 8
+
+
+@pytest.mark.parametrize("D", [8, 32, 64, 72, 80, 128])
+def test_dq_kernel_shared_memory(D):
+    """Q and dO of 128 rows and three stages of a K and a V tile of 64 rows
+    at the padded width, bf16; 64 key flags a stage; four 8-byte mbarriers:
+    about 101 KB at D = 72, so two blocks fit an SM up to 80 columns."""
+    dp = 32 if D <= 32 else 64 if D <= 64 else 80 if D <= 80 else 128
+    n = fa.dq_smem_bytes(D)
+    assert n == (2 * 64 + 2 * 64 + 3 * 2 * 64) * dp * 2 + 3 * 64 + 4 * 8
+    assert (2 if dp <= 80 else 1) * (n + 1024) <= SM_SMEM
 
 
 @pytest.mark.parametrize("which", ["stats", "cluster", "short"])
@@ -104,12 +116,14 @@ def test_fused_kind(Nq, Nk, dtype, want):
 @pytest.mark.parametrize("shape,dtype,want,keys", [
     # 16-bit rows of more than FUSED_MAX_KEYS keys take the pair
     ((30, 16, 405, 405, 72), BF16, "blocked", ("bwd_dkv", "bwd_dq")),
-    ((30, 16, 405, 256, 72), BF16, "fused", ("bwd_fused",)),
+    ((30, 16, 405, 256, 72), BF16, "blocked", ("bwd_dkv", "bwd_dq")),
     ((30, 16, 405, 257, 72), FP16, "blocked", ("bwd_dkv", "bwd_dq")),
+    ((30, 16, 405, 9, 72), BF16, "blocked", ("bwd_dkv", "bwd_dq")),
+    ((60, 16, 144, 7, 72), FP16, "fused", ("bwd_fused",)),
     ((30, 16, 405, 300, 72), BF16, "blocked", ("bwd_dkv", "bwd_dq")),
     ((810, 16, 15, 15, 72), BF16, "fused", ("bwd_fused_short",)),
     ((30, 16, 405, 8, 72), BF16, "fused", ("bwd_fused",)),
-    ((60, 16, 144, 144, 72), BF16, "fused", ("bwd_fused",)),
+    ((60, 16, 144, 144, 72), BF16, "blocked", ("bwd_dkv", "bwd_dq")),
     ((2, 16, 700, 512, 72), BF16, "blocked", ("bwd_dkv", "bwd_dq")),
     ((2, 16, 700, 513, 72), BF16, "blocked", ("bwd_dkv", "bwd_dq")),
     ((3, 2, 405, 405, 72), FP32, "fused", ("bwd_fused_f32",)),
@@ -331,3 +345,58 @@ def test_stub_text_encoder_resolves_its_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             StubTextEncoder(8, 4)
+
+
+DQ_EDGES = [
+    (2, 1, 127, 100, 72, (100, 0)),  # one block short of 128 rows, dead row
+    (1, 2, 128, 70, 32, None),       # one full block
+    (2, 1, 129, 65, 72, (65, 30)),   # a second block of one row
+    (1, 1, 149, 130, 24, None),      # 21 rows past a block
+]
+
+
+def _dq_inputs(B, H, Nq, Nk, D, lens, seed):
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(B, H, Nq, Nk, D, seed))
+    mask = _mask(Nk, lens)
+    return q, k, v, do, None if mask is None else torch.from_numpy(mask)
+
+
+@pytest.mark.parametrize("B,H,Nq,Nk,D,lens", CASES + DQ_EDGES)
+def test_dq_q_blocks_match_unblocked_plain(B, H, Nq, Nk, D, lens):
+    """dq and di per block of 128 q rows over 64-key tiles against the
+    unblocked plain backward (1e-4) and rowsum(dO * O) (1e-5 relative)."""
+    q, k, v, do, mask = _dq_inputs(B, H, Nq, Nk, D, lens, Nq + Nk)
+    out, lse = fa.flash_attention_plain(q, k, v, None, mask, return_lse=True)
+    dq, di = fa.flash_bwd_dq_by_q_blocks_plain(q, k, v, mask, do, lse, out)
+    want = fa.flash_attention_bwd_lse_plain(q, k, v, mask, do, out, lse)[0]
+    torch.testing.assert_close(dq, want, atol=1e-4, rtol=1e-4)
+    want_di = (do * out).sum(-1)
+    assert di.dtype == torch.float32 and di.shape == (B, H, Nq)
+    assert (di - want_di).abs().max() <= 1e-5 * want_di.abs().max()
+    if mask is not None and not mask.all(1).all():
+        dead = ~mask.any(1)
+        # a fully masked batch row attends to no key: no dq at all
+        assert not bool(dq[dead].any())
+
+
+@pytest.mark.parametrize("B,H,Nq,Nk,D,lens", LIVE_CASES)
+def test_dq_q_blocks_match_jax_kernel(B, H, Nq, Nk, D, lens):
+    """dq per block of 128 q rows against `_flash_bwd_dq_kernel` in
+    interpret mode, both fed the JAX forward's output and log-sum-exp."""
+    q, k, v, do = _inputs(B, H, Nq, Nk, D, seed=11)
+    mask = _mask(Nk, lens)
+    jm = None if mask is None else jnp.asarray(mask)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    out, jlse = _flash_attention_fwd_impl(jq, jk, jv, jm, None, 128, 128, True,
+                                          save_lse=True)
+    dq, _, _ = _flash_attention_bwd_blocked_impl(jq, jk, jv, jm, jdo, out,
+                                                 jlse, None, True)
+    lse = torch.from_numpy(np.asarray(jlse)[:, :Nq, 0].reshape(B, H, Nq))
+    got, di = fa.flash_bwd_dq_by_q_blocks_plain(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        None if mask is None else torch.from_numpy(mask), torch.from_numpy(do),
+        lse, torch.from_numpy(np.asarray(out)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(dq), atol=1e-4,
+                               rtol=1e-4)
+    want_di = (do * np.asarray(out)).sum(-1)
+    assert np.abs(di.numpy() - want_di).max() <= 1e-5 * np.abs(want_di).max()

@@ -11,15 +11,20 @@ The kernels replace the five Pallas kernels of the JAX package
 * `csrc/flash_bwd_fused.cu`: `_flash_bwd_kernel` -> `flash_bwd_fused` (dq,
   dk, dv from q, k, v, mask and dO alone) for bf16 and fp16: a statistics
   kernel and a thread-block-cluster kernel, or one short-row kernel;
+* `csrc/flash_bwd_dq.cu`: `_flash_bwd_dq_kernel` -> `flash_bwd_dq` (dq from
+  the forward's log-sum-exp and output, and di = rowsum(dO * O), which it
+  computes first and writes out) for bf16 and fp16: a wgmma kernel of two
+  warpgroups owning 128 q rows;
 * `csrc/flash_bwd_dkv.cu`: `_flash_bwd_dkv_kernel` -> `flash_bwd_dkv` (dk,
-  dv from the forward's log-sum-exp and di = rowsum(dO * O)) for bf16 and
-  fp16: a wgmma kernel of two warpgroups owning 128 keys;
-* `csrc/flash_bwd.cu`: `_flash_bwd_dq_kernel` -> `flash_bwd_dq` (dq from the
-  same), and the fp32 `flash_bwd_fused` and `flash_bwd_dkv`.
+  dv from the log-sum-exp and that di) for bf16 and fp16: a wgmma kernel of
+  two warpgroups owning 128 keys;
+* `csrc/flash_bwd.cu`: the fp32 `flash_bwd_fused`, `flash_bwd_dkv` and
+  `flash_bwd_dq`.
 
 `FlashAttentionFunction` takes the place of the JAX package's custom-VJP
 glue: its forward decides which backward will run (`backward_variant`) and
-saves the output and the log-sum-exp only for the blocked pair.
+saves the output and the log-sum-exp only for the blocked pair, whose
+backward runs `flash_bwd_dq` (which writes di) and then `flash_bwd_dkv`.
 
 The sources are compiled with `nvcc` into shared libraries with a C
 interface at first use, into `build/kernels/` at the repository root, and
@@ -65,7 +70,8 @@ BWD_MAX_HEAD_DIM = 128
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = {"fwd": _CSRC / "flash_fwd.cu", "bwd": _CSRC / "flash_bwd.cu",
             "bwd_fused": _CSRC / "flash_bwd_fused.cu",
-            "bwd_dkv": _CSRC / "flash_bwd_dkv.cu"}
+            "bwd_dkv": _CSRC / "flash_bwd_dkv.cu",
+            "bwd_dq": _CSRC / "flash_bwd_dq.cu"}
 _HEADERS = (_CSRC / "flash_common.cuh", _CSRC / "wgmma.cuh",
             _CSRC / "tma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -83,19 +89,21 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # kernel gives one block to each (batch, head) and keeps two fp32 statistics
 # per q row in shared memory beside its tiles, so the 227 KB a block may use
 # limit its row count. Where both routes take a 16-bit row, the card's
-# numbers decide (`tools/bwd_dispatch.py`, with the di = rowsum(dO * O) the
-# pair's route computes first): the fused backward up to FUSED_MAX_KEYS keys,
-# the pair above (faster from 300 keys up, slower from 8 to 256 but for 128).
+# numbers decide (`tools/bwd_dispatch.py`, the pair's dq kernel computing the
+# di = rowsum(dO * O) its dk/dv kernel reads): the fused backward up to
+# FUSED_MAX_KEYS keys (the training path's 8-token captions), the pair above.
+# (The pair was faster from 8 keys up in two calls, at 8 keys by the least.)
 SMEM_PER_BLOCK = 232448
 NUM_SMS = 132
 FUSED_MAX_TILE_PAIRS = 1024
 FUSED_KEYS_PER_BLOCK = 64
 FUSED_MAX_CLUSTER = 8
-FUSED_MAX_KEYS = 256
-# ring stages of the narrow forward (K, V) and of the dk/dv kernel (Q, dO,
-# lse, di); warps of a short-row block
+FUSED_MAX_KEYS = 8
+# ring stages of the narrow forward and the dq kernel (K, V) and of the dk/dv
+# kernel (Q, dO, lse, di); warps of a short-row block
 NARROW_STAGES = 3
 DKV_STAGES = 3
+DQ_STAGES = 3
 SHORT_WARPS = 8
 
 LAUNCHES = {"short": 0, "narrow": 0, "wgmma": 0, "f32": 0,
@@ -147,6 +155,15 @@ def dkv_smem_bytes(D: int) -> int:
     stage and one for K and V."""
     return (4 + 2 * DKV_STAGES) * 64 * _padded_width(D) * 2 \
         + DKV_STAGES * 2 * 64 * 4 + (DKV_STAGES + 1) * 8
+
+
+def dq_smem_bytes(D: int) -> int:
+    """Shared memory the 16-bit dq kernel asks for (`dq_smem_bytes` in
+    csrc/flash_bwd_dq.cu): Q and dO of 128 rows and DQ_STAGES stages of a K
+    and a V tile of 64 rows at the padded width, 64 key flags a stage, an
+    8-byte mbarrier a stage and one for Q and dO."""
+    return (4 + 2 * DQ_STAGES) * 64 * _padded_width(D) * 2 \
+        + DQ_STAGES * 64 + (DQ_STAGES + 1) * 8
 
 
 def wide_smem_bytes(head_dim: int) -> int:
@@ -204,7 +221,7 @@ def backward_variant(B: int, H: int, Nq: int, Nk: int, D: int,
                      dtype: torch.dtype) -> str:
     """Which backward `FlashAttentionFunction` runs for these shapes:
     "fused" (`flash_bwd_fused`, nothing saved but q, k, v) or "blocked"
-    (`flash_bwd_dkv` + `flash_bwd_dq`, which need the forward's output and
+    (`flash_bwd_dq` + `flash_bwd_dkv`, which need the forward's output and
     log-sum-exp). Shapes alone decide, on every device."""
     kind = fused_kind(Nq, Nk, dtype)
     if kind is None or (kind == "cluster" and Nk > FUSED_MAX_KEYS):
@@ -456,6 +473,43 @@ def flash_bwd_dkv_by_key_blocks_plain(q, k, v, kv_mask, do, lse, di,
     return torch.cat(dks, 2).to(k.dtype), torch.cat(dvs, 2).to(k.dtype)
 
 
+def flash_bwd_dq_by_q_blocks_plain(q, k, v, kv_mask, do, lse, out, scale=None,
+                                   rows: int = 128, tile: int = 64):
+    """`flash_bwd_dq`'s split in plain PyTorch: per block of `rows` q rows
+    (two warpgroups of 64 on the card) di = rowsum(dO * O) from the block's
+    own dO and O, then dq summed over the keys in `tile`-key tiles from S and
+    dP, P = 2^(S - lse log2(e)) from the forward's natural log-sum-exp [B, H,
+    Nq], P = 0 at a masked key (a masked score is a constant; a fully masked
+    row attends to none), dS = P (dP - di) rounded to the inputs' dtype before
+    its product. Returns (dq, di [B, H, Nq] fp32), equal to the dq of
+    `flash_attention_bwd_lse_plain` and its delta up to rounding."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    acc = _acc_dtype(q)
+    Nq, Nk = q.shape[2], k.shape[2]
+    lse = lse.to(acc)
+    lse2 = torch.where(lse <= 0.5 * DEFAULT_MASK_VALUE,
+                       torch.full_like(lse, DEFAULT_MASK_VALUE), lse * LOG2E)
+    dqs, dis = [], []
+    for q0 in range(0, Nq, rows):
+        sl = slice(q0, q0 + rows)
+        qb, dob = q[:, :, sl].to(acc), do[:, :, sl].to(acc)
+        di = (dob * out[:, :, sl].to(acc)).sum(-1)
+        dq = torch.zeros(qb.shape, dtype=acc)
+        for k0 in range(0, Nk, tile):
+            kt, vt = k[:, :, k0:k0 + tile].to(acc), v[:, :, k0:k0 + tile].to(acc)
+            s = torch.matmul(qb, kt.transpose(-1, -2)) * (scale * LOG2E)
+            p = torch.exp2(s - lse2[:, :, sl, None])
+            if kv_mask is not None:
+                p = p.masked_fill(~kv_mask[:, None, None, k0:k0 + tile], 0.0)
+            dp = torch.matmul(dob, vt.transpose(-1, -2))
+            ds = (p * (dp - di[..., None])).to(q.dtype).to(acc)
+            dq = dq + torch.matmul(ds, kt)
+        dqs.append(dq * scale)
+        dis.append(di)
+    return torch.cat(dqs, 2).to(q.dtype), torch.cat(dis, 2).float()
+
+
 def cluster_key_ranges(Nk: int) -> list:
     """[(first key, keys)] of the blocks of one cluster: the 16-key groups of
     a row dealt out evenly over ceil(Nk / 64) blocks, as
@@ -518,7 +572,7 @@ def _nvcc() -> str:
 def build() -> Dict[str, Path]:
     """Compile the kernel libraries whose sources have not been built yet
     (one `nvcc` per source, started together) and return their paths by
-    name ("fwd", "bwd", "bwd_fused", "bwd_dkv"). A file name carries the hash of its
+    name ("fwd", "bwd", "bwd_fused", "bwd_dkv", "bwd_dq"). A file name carries the hash of its
     source and the shared headers, so an edited source builds anew."""
     header = b"".join(h.read_bytes() for h in _HEADERS)
     libs, running = {}, []
@@ -565,9 +619,10 @@ def _library(name: str):
         fwd.flash_fwd_smem.restype = ctypes.c_long
         bwd = ctypes.CDLL(str(paths["bwd"]))
         tail = [i32] * 6 + [f32, i32, ptr]
-        bwd.flash_bwd_fused.argtypes = [ptr] * 8 + tail
-        bwd.flash_bwd_dkv.argtypes = [ptr] * 9 + tail
-        bwd.flash_bwd_dq.argtypes = [ptr] * 8 + tail
+        tail32 = [i32] * 5 + [f32, ptr]  # fp32 only: no dtype, no `vec`
+        bwd.flash_bwd_fused.argtypes = [ptr] * 8 + tail32
+        bwd.flash_bwd_dkv.argtypes = [ptr] * 9 + tail32
+        bwd.flash_bwd_dq.argtypes = [ptr] * 9 + tail32
         bwd.flash_bwd_fused_smem.argtypes = [i32, i32]
         bwd.flash_bwd_fused_smem.restype = ctypes.c_long
         fused = ctypes.CDLL(str(paths["bwd_fused"]))
@@ -579,11 +634,17 @@ def _library(name: str):
         dkv.flash_bwd_dkv_wgmma.argtypes = [ptr] * 9 + tail
         dkv.flash_bwd_dkv_wgmma_smem.argtypes = [i32]
         dkv.flash_bwd_dkv_wgmma_smem.restype = ctypes.c_long
+        dq = ctypes.CDLL(str(paths["bwd_dq"]))
+        dq.flash_bwd_dq_wgmma.argtypes = [ptr] * 9 + tail
+        dq.flash_bwd_dq_wgmma_smem.argtypes = [i32]
+        dq.flash_bwd_dq_wgmma_smem.restype = ctypes.c_long
         for lib, fns, err in (
                 (fwd, ("flash_fwd", "flash_fwd_variant"),
                  "flash_fwd_error_string"),
                 (dkv, ("flash_bwd_dkv_wgmma",),
                  "flash_bwd_dkv_wgmma_error_string"),
+                (dq, ("flash_bwd_dq_wgmma",),
+                 "flash_bwd_dq_wgmma_error_string"),
                 (bwd, ("flash_bwd_fused", "flash_bwd_dkv", "flash_bwd_dq"),
                  "flash_bwd_error_string"),
                 (fused, ("flash_bwd_fused_mma", "flash_bwd_fused_mma_kind"),
@@ -592,7 +653,8 @@ def _library(name: str):
                 getattr(lib, fn).restype = i32
             getattr(lib, err).argtypes = [i32]
             getattr(lib, err).restype = ctypes.c_char_p
-        _libs.update(fwd=fwd, bwd=bwd, bwd_fused=fused, bwd_dkv=dkv)
+        _libs.update(fwd=fwd, bwd=bwd, bwd_fused=fused, bwd_dkv=dkv,
+                     bwd_dq=dq)
     return _libs[name]
 
 
@@ -687,8 +749,7 @@ def flash_bwd_fused(q, k, v, kv_mask, do, scale=None):
         err = lib.flash_bwd_fused(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _DTYPE_CODES[q.dtype], B * H, H, Nq, Nk, D, scale,
-            _vec(D, q, k, v, do), stream)
+            B * H, H, Nq, Nk, D, scale, stream)
         _raise_bwd(lib, "flash_bwd_fused", err)
     else:
         lib = _library("bwd_fused")
@@ -707,8 +768,8 @@ def flash_bwd_fused(q, k, v, kv_mask, do, scale=None):
     return dq, dk, dv
 
 
-def _check_stats(q, lse, di):
-    for name, t in (("lse", lse), ("di", di)):
+def _check_stats(q, **stats):
+    for name, t in stats.items():
         if t.shape != q.shape[:3] or t.dtype != torch.float32 \
                 or t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous fp32 [B, H, Nq] "
@@ -717,45 +778,67 @@ def _check_stats(q, lse, di):
 
 def flash_bwd_dkv(q, k, v, kv_mask, do, lse, di, scale=None):
     """Launch `flash_bwd_dkv`: (dk, dv) of CUDA tensors from the forward's
-    log-sum-exp and di = rowsum(dO * O), both fp32 [B, H, Nq]. bf16 and fp16
-    take the wgmma kernel of csrc/flash_bwd_dkv.cu, fp32 the SIMT kernel."""
+    log-sum-exp and di = rowsum(dO * O) (`flash_bwd_dq` writes it), both
+    fp32 [B, H, Nq]. bf16 and fp16 take the wgmma kernel of
+    csrc/flash_bwd_dkv.cu, fp32 the SIMT kernel of csrc/flash_bwd.cu."""
     scale = _check_bwd(q, k, v, scale, kv_mask, do)
-    _check_stats(q, lse, di)
+    _check_stats(q, lse=lse, di=di)
     B, H, Nq, D = q.shape
+    Nk = k.shape[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    half = q.dtype != torch.float32
-    lib = _library("bwd_dkv" if half else "bwd")
-    fn = lib.flash_bwd_dkv_wgmma if half else lib.flash_bwd_dkv
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
-             do.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), _DTYPE_CODES[q.dtype], B * H, H, Nq, k.shape[2],
-             D, scale, _vec(D, q, k, v, do, dk, dv),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        errstr = lib.flash_bwd_dkv_wgmma_error_string if half \
-            else lib.flash_bwd_error_string
-        raise RuntimeError("flash_bwd_dkv launch failed: "
-                           + errstr(err).decode())
-    LAUNCHES[backward_launch_keys("blocked", q.dtype, Nq, k.shape[2])[0]] += 1
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+            do.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
+            dv.data_ptr())
+    if q.dtype == torch.float32:
+        lib = _library("bwd")
+        _raise_bwd(lib, "flash_bwd_dkv", lib.flash_bwd_dkv(
+            *ptrs, B * H, H, Nq, Nk, D, scale, stream))
+    else:
+        lib = _library("bwd_dkv")
+        err = lib.flash_bwd_dkv_wgmma(
+            *ptrs, _DTYPE_CODES[q.dtype], B * H, H, Nq, Nk, D, scale,
+            _vec(D, q, k, v, do, dk, dv), stream)
+        if err != 0:
+            raise RuntimeError("flash_bwd_dkv launch failed: "
+                               + lib.flash_bwd_dkv_wgmma_error_string(err).decode())
+    LAUNCHES[backward_launch_keys("blocked", q.dtype, Nq, Nk)[0]] += 1
     return dk, dv
 
 
-def flash_bwd_dq(q, k, v, kv_mask, do, lse, di, scale=None):
-    """Launch `flash_bwd_dq`: dq of CUDA tensors, same inputs as
-    `flash_bwd_dkv`."""
+def flash_bwd_dq(q, k, v, kv_mask, do, lse, out, scale=None):
+    """Launch `flash_bwd_dq`: (dq, di) of CUDA tensors from the forward's
+    log-sum-exp (fp32 [B, H, Nq]) and output `out`; di = rowsum(dO * O),
+    fp32 [B, H, Nq], is computed by the kernel first and is what
+    `flash_bwd_dkv` reads. bf16 and fp16 take the wgmma kernel of
+    csrc/flash_bwd_dq.cu, fp32 the SIMT kernel of csrc/flash_bwd.cu."""
     scale = _check_bwd(q, k, v, scale, kv_mask, do)
-    _check_stats(q, lse, di)
+    _check_stats(q, lse=lse)
+    if out.shape != q.shape or out.dtype != q.dtype or out.device != q.device \
+            or not out.is_contiguous():
+        raise ValueError("the forward's output must be contiguous and match q")
     B, H, Nq, D = q.shape
-    lib = _library("bwd")
+    Nk = k.shape[2]
     dq = torch.empty_like(q)
-    err = lib.flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
-        do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
-        _DTYPE_CODES[q.dtype], B * H, H, Nq, k.shape[2], D, scale,
-        _vec(D, q, k, v, do), torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_bwd(lib, "flash_bwd_dq", err)
-    LAUNCHES[backward_launch_keys("blocked", q.dtype, Nq, k.shape[2])[1]] += 1
-    return dq
+    di = torch.empty(B, H, Nq, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+            do.data_ptr(), out.data_ptr(), lse.data_ptr(), di.data_ptr(),
+            dq.data_ptr())
+    if q.dtype == torch.float32:
+        lib = _library("bwd")
+        _raise_bwd(lib, "flash_bwd_dq", lib.flash_bwd_dq(
+            *ptrs, B * H, H, Nq, Nk, D, scale, stream))
+    else:
+        lib = _library("bwd_dq")
+        err = lib.flash_bwd_dq_wgmma(
+            *ptrs, _DTYPE_CODES[q.dtype], B * H, H, Nq, Nk, D, scale,
+            _vec(D, q, k, v, do, out, dq), stream)
+        if err != 0:
+            raise RuntimeError("flash_bwd_dq launch failed: "
+                               + lib.flash_bwd_dq_wgmma_error_string(err).decode())
+    LAUNCHES[backward_launch_keys("blocked", q.dtype, Nq, Nk)[1]] += 1
+    return dq, di
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -794,10 +877,9 @@ class FlashAttentionFunction(torch.autograd.Function):
             fn = flash_bwd_fused if on_card else flash_attention_bwd_plain
             dq, dk, dv = fn(q, k, v, kv_mask, do, ctx.scale)
         elif on_card:
-            # di = rowsum(dO * O), plain as in the JAX package
-            di = (do.float() * out.float()).sum(-1)
+            # the dq kernel computes di = rowsum(dO * O) for the dk/dv kernel
+            dq, di = flash_bwd_dq(q, k, v, kv_mask, do, lse, out, ctx.scale)
             dk, dv = flash_bwd_dkv(q, k, v, kv_mask, do, lse, di, ctx.scale)
-            dq = flash_bwd_dq(q, k, v, kv_mask, do, lse, di, ctx.scale)
         else:
             dq, dk, dv = flash_attention_bwd_lse_plain(
                 q, k, v, kv_mask, do, out, lse, ctx.scale)
@@ -811,7 +893,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_mask: optional [B, Nk] bool, True = attend. CUDA tensors launch the
     kernels (or raise); CPU tensors run the plain versions. When an input
     needs a gradient the call goes through `FlashAttentionFunction`, whose
-    backward is `flash_bwd_fused` or `flash_bwd_dkv` + `flash_bwd_dq` on the
+    backward is `flash_bwd_fused` or `flash_bwd_dq` + `flash_bwd_dkv` on the
     card; otherwise only the forward kernel is launched."""
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no flash attention for device {q.device}")

@@ -14,7 +14,11 @@ Groups (all by default): `fwd` the serving forward at the STDiT3 shapes
 (spatial [30, 16, 1590, 1590, 72], cross to 64 masked keys, temporal [3180,
 16, 15, 15, 72]), `wide` the VAE mid forward [8, 1, 6360, 6360, 512], `fused`
 the fused backward at the training shapes, `dkv` `flash_bwd_dkv` at the 1080p
-row [1, 16, 8160, 8160, 72] and the spatial training shape. Card times drift
+row [1, 16, 8160, 8160, 72] and the spatial training shape, `dq` `flash_bwd_dq`
+at the same two shapes and at cross attention from 405 tokens to 300 masked
+keys (a tree whose `flash_bwd_dq` still takes di, from before the dq kernel
+computed it, is timed without the di and reports the di's own time in plain
+PyTorch as `di_ms`). Card times drift
 between calls, so compare versions only within one call, and name a tree
 twice (A B B A) to see the spread. Needs a CUDA card and `nvcc`; prints the
 card's name and power limit.
@@ -119,10 +123,38 @@ if "dkv" in groups:
             "ms": [time_ms(lambda: fa.flash_bwd_dkv(q, k, v, None, do, lse, di),
                            5 if N > 4096 else 20) for _ in range(3)]}
         del q, k, v, do, o, got, again, want
+if "dq" in groups:
+    import inspect
+    computes_di = "out" in inspect.signature(fa.flash_bwd_dq).parameters
+    for name, B, H, Nq, Nk, masked in (("long_row", 1, 16, 8160, 8160, False),
+                                       ("spatial", 30, 16, 405, 405, False),
+                                       ("cross300", 30, 16, 405, 300, True)):
+        q, k, v, do = inputs(B, H, Nq, Nk, 72, 4)
+        mask = ragged(B, Nk) if masked else None
+        o, lse = fa._launch(q, k, v, None, mask, save_lse=True)
+        want_di = (do.float() * o.float()).sum(-1)
+        if computes_di:
+            run = lambda: fa.flash_bwd_dq(q, k, v, mask, do, lse, o)
+            got, di = run()
+            again = run()
+            row = {"di_rel": ((di - want_di).abs().max()
+                              / want_di.abs().max()).item()}
+            same = torch.equal(got, again[0]) and torch.equal(di, again[1])
+        else:
+            run = lambda: fa.flash_bwd_dq(q, k, v, mask, do, lse, want_di)
+            got, again = run(), run()
+            row = {"di_ms": [time_ms(lambda: (do.float() * o.float()).sum(-1),
+                                     20) for _ in range(3)]}
+            same = torch.equal(got, again)
+        want = fa.flash_attention_bwd_lse_plain(q, k, v, mask, do, o, lse)[0]
+        row.update(rel_l2=rel_l2(got, want), bit_equal=same,
+                   ms=[time_ms(run, 5 if Nq > 4096 else 20) for _ in range(3)])
+        out["bwd_dq_" + name] = row
+        del q, k, v, do, o, got, again, want
 print(json.dumps(out))
 '''
 
-GROUPS = ("fwd", "wide", "fused", "dkv")
+GROUPS = ("fwd", "wide", "fused", "dkv", "dq")
 
 
 def main(argv=None) -> int:

@@ -8,10 +8,10 @@ threshold on the card's numbers.
 For each shape [B, H, Nq, Nk, 72] in bf16 (a ragged key mask where Nk is a
 caption's length, none where it is a spatial row) it prints one JSON line:
 the fused backward's ms (`flash_bwd_fused`: statistics + cluster kernels, or
-the short-row kernel), the blocked route's ms split into `flash_bwd_dkv`,
-`flash_bwd_dq` and the di = rowsum(dO * O) that route computes first (plain
-PyTorch, as `FlashAttentionFunction` does), which route is faster, and which
-one `backward_variant` picks. Times are CUDA events over 10 calls after one
+the short-row kernel), the blocked route's ms split into `flash_bwd_dq`
+(which computes di = rowsum(dO * O) first and writes it) and `flash_bwd_dkv`
+(which reads it), as `FlashAttentionFunction` runs them, which route is
+faster, and which one `backward_variant` picks. Times are CUDA events over 10 calls after one
 warm-up. Shapes: the spatial rows of a 144p (144 tokens) and a 240p (405)
 latent frame and a 480p one (1590, past the fused kernel's 512 keys), and
 cross attention from 405 and 144 tokens to 8 to 512 caption keys. Needs a
@@ -71,16 +71,15 @@ def main() -> int:
             lens[0] = Nk
             mask = torch.arange(Nk, device="cuda")[None] < lens[:, None]
         out, lse = fa._launch(q, k, v, None, mask, save_lse=True)
-        di = (do.float() * out.float()).sum(-1)
+        di = fa.flash_bwd_dq(q, k, v, mask, do, lse, out)[1]
         row = {"shape": [B, H, Nq, Nk, D], "masked": mask is not None,
                "chosen": fa.backward_variant(B, H, Nq, Nk, D, q.dtype)}
         if fa.fused_kind(Nq, Nk, q.dtype) is not None:
             row["fused_ms"] = time_ms(
                 lambda: fa.flash_bwd_fused(q, k, v, mask, do))
         blocked = {
-            "dkv": time_ms(lambda: fa.flash_bwd_dkv(q, k, v, mask, do, lse, di)),
-            "dq": time_ms(lambda: fa.flash_bwd_dq(q, k, v, mask, do, lse, di)),
-            "di": time_ms(lambda: (do.float() * out.float()).sum(-1))}
+            "dq": time_ms(lambda: fa.flash_bwd_dq(q, k, v, mask, do, lse, out)),
+            "dkv": time_ms(lambda: fa.flash_bwd_dkv(q, k, v, mask, do, lse, di))}
         row["blocked_ms"] = blocked
         row["blocked_total_ms"] = sum(blocked.values())
         row["faster"] = "blocked" if row["blocked_total_ms"] < row.get(

@@ -1,19 +1,19 @@
 #!/usr/bin/env python3
 """Where a block's time goes inside the redesigned tile kernels: cycle counts
 of each phase of the cluster kernel of `flash_bwd_fused`, of the wide-head
-forward, of the narrow forward and of the dk/dv kernel, and the device time
-of the fused backward's two kernels.
+forward, of the narrow forward, of the dk/dv kernel and of the dq kernel, and
+the device time of the fused backward's two kernels.
 
     python3 videosys_tpu_torch/tools/phase_clocks.py [--what-if]
 
 The script builds throw-away copies of `csrc/flash_bwd_fused.cu`,
-`csrc/flash_fwd.cu` and `csrc/flash_bwd_dkv.cu` in which thread 0 of one block
+`csrc/flash_fwd.cu`, `csrc/flash_bwd_dkv.cu` and `csrc/flash_bwd_dq.cu` in which thread 0 of one block
 reads `clock64()` at the phase boundaries of its tile loop and adds the
 differences into a device array (text substitution on the sources: it stops
 if a boundary is no longer found), runs them at the spatial training shape
 [30, 16, 405, 405, 72], at the VAE mid shape [8, 1, 6360, 6360, 512], at the
 spatial serving shape [30, 16, 1590, 1590, 72] and at the 1080p row [1, 16,
-8160, 8160, 72] in bf16, and prints the shares. The copies compute the same
+8160, 8160, 72] (dk/dv and dq) in bf16, and prints the shares. The copies compute the same
 results; the clocks cost a few percent. One thread's view of one block (in
 the two-warpgroup kernels, warpgroup 0's): the other warps of the block and
 the other blocks on the SM run beside it. Needs a CUDA card and `nvcc`;
@@ -26,8 +26,8 @@ read: the wide-head forward with every K and V tile copied from the first
 64 keys (the same bytes again and again: the copy path with nothing to miss
 in L2) and with no copies after the first tile (products, softmax and
 barriers alone); the fused backward with the dq shares neither pushed, nor
-waited for at the cluster barrier, nor summed; the narrow forward and the
-dk/dv kernel with no copies after the first ring of tiles.
+waited for at the cluster barrier, nor summed; the narrow forward, the dk/dv
+kernel and the dq kernel with no copies after the first ring of tiles.
 """
 
 from __future__ import annotations
@@ -205,6 +205,43 @@ def timed_dkv_source() -> tuple:
     return s + READER, names
 
 
+def timed_dq_source() -> tuple:
+    s = (CSRC / "flash_bwd_dq.cu").read_text()
+    s = mark(s, "namespace {\n\nconstexpr int DQ_THREADS",
+             "namespace {\n" + CLOCKS + "\nconstexpr int DQ_THREADS")
+    s = mark(s, "  if (!vec) __syncthreads();  // every thread's stores of Q and dO\n",
+             "  const bool timed_block = blockIdx.x == gridDim.x / 2;\n  long long t_last = clock64();\n"
+             "  if (!vec) __syncthreads();  // every thread's stores of Q and dO\n")
+    s = mark(s, "  float acc[NACC];\n#pragma unroll\n  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;\n"
+             "  const uint32_t q_addr",
+             "  TT(0);\n  float acc[NACC];\n#pragma unroll\n  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;\n"
+             "  const uint32_t q_addr")
+    s = mark(s, "    if (!vec) fence_async_shared();  // this thread's stores of tile j\n"
+             "    else if (live) mbar_wait(bar + st, (j / S) & 1);  // tile j has landed\n"
+             "    __syncthreads();  // tile j is in; both warpgroups are done with tile j - 1\n",
+             "    TT(1);\n    if (!vec) fence_async_shared();  // this thread's stores of tile j\n"
+             "    else if (live) mbar_wait(bar + st, (j / S) & 1);  // tile j has landed\n    TT(2);\n"
+             "    __syncthreads();  // tile j is in; both warpgroups are done with tile j - 1\n    TT(3);\n")
+    s = mark(s, "    if (!live) continue;\n    const uint32_t k_addr",
+             "    TT(4);\n    if (!live) continue;\n    const uint32_t k_addr")
+    s = mark(s, "    wgmma_wait_n<1>();  // S is out; dP of the first half may still run\n",
+             "    wgmma_wait_n<1>();  // S is out; dP of the first half may still run\n    TT(5);\n")
+    s = mark(s, "    // per half: dS = P (dP - di), packed as the A operand of dq += dS K;\n",
+             "    TT(6);\n    // per half: dS = P (dP - di), packed as the A operand of dq += dS K;\n")
+    s = mark(s, "      wgmma_wait_n<0>();\n      fence_regs<16>(dp);\n",
+             "      TT(7);\n      wgmma_wait_n<0>();\n      fence_regs<16>(dp);\n      TT(8);\n")
+    s = mark(s, "    wgmma_wait_n<0>();\n  }\n  if (!live) return;\n",
+             "    TT(7);\n    wgmma_wait_n<0>();\n    TT(9);\n  }\n  if (!live) return;\n")
+    s = mark(s, "                                1 + wg);\n}\n\ntemplate <typename T, int DP>\ncudaError_t launch_dq(",
+             "                                1 + wg);\n  TT(10);\n}\n\ntemplate <typename T, int DP>\ncudaError_t launch_dq(")
+    names = ["prologue: Q, dO wait, di, lse", "loop top", "wait for copies", "barrier",
+             "issue the copies of tile j + 2", "S product and wait (dP issued)",
+             "P while dP runs", "dS of a half, issue dq (and dP) products",
+             "wait for dP or dq products", "wait for the last dq product",
+             "epilogue: dq through shared memory"]
+    return s + READER, names
+
+
 def what_if_sources() -> dict:
     """{name: source text} of the variants `--what-if` times."""
     fwd = (CSRC / "flash_fwd.cu").read_text()
@@ -226,6 +263,10 @@ def what_if_sources() -> dict:
                     "    else cp_async_commit();", "    cp_async_commit();")
     dkv_none = mark(dkv_none, "    else if (live) mbar_wait(bar + st, (i / S) & 1);",
                     "    else if (live && i < S - 1) mbar_wait(bar + st, (i / S) & 1);")
+    dq = (CSRC / "flash_bwd_dq.cu").read_text()
+    dq_none = mark(dq, "    if (j + S - 1 < n_kv) issue_tile(kv0 + (S - 1) * 64, (j + S - 1) % S);\n", "")
+    dq_none = mark(dq_none, "    else if (live) mbar_wait(bar + st, (j / S) & 1);  // tile j has landed",
+                   "    else if (live && j < S - 1) mbar_wait(bar + st, (j / S) & 1);")
     bwd = (CSRC / "flash_bwd_fused.cu").read_text()
     alone = mark(bwd, "    if (i > 0) {\n      cluster.barrier_wait();\n      reduce_tile(i - 1);\n    }\n", "")
     a = alone.index("    // push this thread's two rows of the share")
@@ -234,6 +275,7 @@ def what_if_sources() -> dict:
     alone = mark(alone, "  cluster.barrier_wait();\n  reduce_tile(n_tiles - 1);\n", "")
     return {"fwd": fwd, "fwd_same_tile": hot, "fwd_no_copies": none,
             "narrow_no_copies": narrow, "dkv": dkv, "dkv_no_copies": dkv_none,
+            "dq": dq, "dq_no_copies": dq_none,
             "bwd": bwd, "bwd_no_dq_exchange": alone}
 
 
@@ -304,10 +346,25 @@ def runners(torch) -> dict:
             assert err == 0, err
         return run
 
+    def dq(B, H, N, D):
+        q, k, v, do, o = (rand(B, H, N, D) for _ in range(5))
+        dq, di = torch.empty_like(q), torch.empty(B * H, N, device="cuda")
+        lse = torch.full((B * H, N), float(N), device="cuda").log()
+
+        def run(lib):
+            lib.flash_bwd_dq_wgmma.argtypes = [ptr] * 9 + [i32] * 6 + [f32, i32, ptr]
+            err = lib.flash_bwd_dq_wgmma(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), None, do.data_ptr(),
+                o.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+                1, B * H, H, N, N, D, D ** -0.5, 1, stream)
+            assert err == 0, err
+        return run
+
     return {"wide": (forward(8, 1, 6360, 512), 6360, 6360),
             "narrow": (forward(30, 16, 1590, 72), 1590, 1590),
             "fused": (fused(30, 16, 405, 72), 405, 405),
-            "dkv": (dkv(1, 16, 8160, 72), 8160, 8160)}
+            "dkv": (dkv(1, 16, 8160, 72), 8160, 8160),
+            "dq": (dq(1, 16, 8160, 72), 8160, 8160)}
 
 
 def what_if() -> int:
@@ -322,6 +379,7 @@ def what_if() -> int:
             ("wide_no_copies", "fwd_no_copies", "wide"),
             ("narrow", "fwd", "narrow"), ("narrow_no_copies", "narrow_no_copies", "narrow"),
             ("dkv", "dkv", "dkv"), ("dkv_no_copies", "dkv_no_copies", "dkv"),
+            ("dq", "dq", "dq"), ("dq_no_copies", "dq_no_copies", "dq"),
             ("fused", "bwd", "fused"), ("fused_no_dq_exchange", "bwd_no_dq_exchange", "fused")]
     out, libs = {}, {}
     with tempfile.TemporaryDirectory() as work:
@@ -377,7 +435,9 @@ def main() -> int:
                ("narrow", "narrow forward, spatial [30, 16, 1590, 1590, 72]",
                 timed_narrow_source, 64),
                ("dkv", "dk/dv kernel, 1080p row [1, 16, 8160, 8160, 72]",
-                timed_dkv_source, 64)]
+                timed_dkv_source, 64),
+               ("dq", "dq kernel, 1080p row [1, 16, 8160, 8160, 72]",
+                timed_dq_source, 64)]
     with tempfile.TemporaryDirectory() as work:
         for kernel, title, source, tile in clocked:
             text, names = source()
@@ -389,7 +449,7 @@ def main() -> int:
             fn(lib)
             torch.cuda.synchronize()
             # the loop walks the keys (forwards) or the q rows (backwards)
-            walked = keys if kernel in ("wide", "narrow") else rows
+            walked = keys if kernel in ("wide", "narrow", "dq") else rows
             report(f"{title}, one block", lib, names, -(-walked // tile))
             if kernel == "fused":
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
