@@ -20,12 +20,19 @@ Phases, each fatal on failure:
      D = 256, a head that is no multiple of 8);
   3. serve Open-Sora v1.2 text-to-video at full width (STDiT3-XL/2, depth
      28, hidden 1152; the full VAE) with random weights from a seed: one
-     480p 9:16 2 s video and one 144p 1:1 image, checking that every
-     attention call went through the kernel; then hold one full-width bf16
+     480p 9:16 2 s video and one 144p 1:1 image; the 480p request again
+     under the three PAB ladders of the JAX package's bench.py with an fp8
+     cache (timers, peak memory, cache bytes, PSNR against the dense video),
+     conditioned on a seeded pixel reference image (the VAE encoder), and
+     with loop=2; each request's kernel launches, counted from 0, must equal
+     the prediction from its shapes and PAB plans; compare the fp8 cast on
+     the card with the CPU's; then hold one full-width bf16
      STDiT3 forward at the 480p shapes against the same forward with the
-     plain attention in place of the kernel;
+     plain attention in place of the kernel (`--profile`: one dense step
+     and two PAB read steps by kernel);
   4. run a tiny configuration on the card and on the CPU (plain attention)
-     with the same weights and noise, and compare the latents and video;
+     with the same weights, noise and draws, and compare the latents and
+     video: dense, with PAB on, and conditioned on a reference image;
   5. hold the three backward kernels (flash_bwd_fused, flash_bwd_dq with
      the di = rowsum(dO * O) it writes, and flash_bwd_dkv fed that di) and
      the forward's log-sum-exp against their plain
@@ -320,40 +327,172 @@ def wide_forward_edges(fa) -> dict:
 
 
 def expected_launches(fa, pipe, num_frames: int, height: int, width: int,
-                      steps: int, text_len: int) -> dict:
-    """Kernel launches one request makes, by variant, from its shapes: per
-    denoise step each depth runs spatial (S x S tokens), temporal (T x T,
-    unless T = 1) and two cross attentions (S x the bucketed text length),
-    each on the variant its shape takes; the VAE runs its mid attention once
-    per frame micro-batch."""
+                      steps: int, text_len: int, plans=None, loop: int = 1,
+                      encoded=()) -> dict:
+    """Kernel launches one request makes, by variant, from its shapes and
+    PAB plans: per denoise step and loop each depth runs spatial (S x S
+    tokens), temporal (T x T, unless T = 1) and two cross attentions (S x
+    the bucketed text length), each on the variant its shape takes, less
+    what the step's plan reads from the cache (spatial, temporal, both
+    cross, or the whole pair); the VAE runs its mid attention once per frame
+    micro-batch: per temporal chunk when one clip is streamed to uint8, over
+    the whole clip per loop otherwise, and over each encoded clip of
+    `encoded` frames (a reference, a loop's previous clip)."""
     t_lat, h_lat, w_lat = pipe.vae.get_latent_size((num_frames, height, width))
     mc = pipe.model_config
     _, ph, pw = mc.patch_size
     S = -(-h_lat // ph) * -(-w_lat // pw)
     D = mc.hidden_size // mc.num_heads
-    calls = [(S, S), (S, text_len), (S, text_len)]
-    if t_lat > 1:
-        calls.append((t_lat, t_lat))
-    vae_cfg = pipe.vae.config
-    n_vae, remaining = 0, num_frames
-    for _ in range(0, t_lat, pipe.vae.micro_z_frame_size):
-        nf = min(vae_cfg.micro_frame_size, remaining)
-        n_vae += -(-nf // vae_cfg.micro_batch_size)
-        remaining -= vae_cfg.micro_frame_size
     want = {key: 0 for key in fa.LAUNCHES}
-    for Nq, Nk in calls:
-        want[fa.kernel_variant(pipe.dtype, Nq, Nk, D)] += steps * mc.depth
+    for plan in plans or [None] * steps:
+        calls = []
+        if plan is None or not (plan.spatial or plan.pair):
+            calls.append((S, S))
+        if plan is None or not (plan.cross or plan.pair):
+            calls += [(S, text_len)] * 2
+        if t_lat > 1 and (plan is None or not (plan.temporal or plan.pair)):
+            calls.append((t_lat, t_lat))
+        for Nq, Nk in calls:
+            want[fa.kernel_variant(pipe.dtype, Nq, Nk, D)] += mc.depth * loop
+    vae_cfg = pipe.vae.config
+    mbs = vae_cfg.micro_batch_size
+    if loop == 1:
+        n_vae, remaining = 0, num_frames
+        for _ in range(0, t_lat, pipe.vae.micro_z_frame_size):
+            nf = min(vae_cfg.micro_frame_size, remaining)
+            n_vae += -(-nf // mbs)
+            remaining -= vae_cfg.micro_frame_size
+    else:
+        n_vae = loop * -(-num_frames // mbs)
+    n_vae += sum(-(-n // mbs) for n in encoded)
     vae_mid_d = pipe.vae.spatial_vae.module.block_out_channels[-1]
-    n_mid = h_lat * w_lat  # a frame's positions at the VAE's mid block
+    n_mid = h_lat * w_lat  # a frame's positions at the VAE's mid blocks
     want[fa.kernel_variant(pipe.dtype, n_mid, n_mid, vae_mid_d)] += n_vae
     return want
+
+
+# the PAB ladders of the JAX package's bench.py:158-201, each with an fp8
+# cache: the reference's (spatial, temporal, cross and the MLP rows), the
+# heavy one, and the pair-delta ladder
+PAB_LEGS = {
+    "pab": {},
+    "pab_heavy": dict(spatial_range=3, temporal_range=6, cross_range=8),
+    "pab_pair3_wide": dict(pair_broadcast=True, pair_range=3,
+                           pair_threshold=(250, 950)),
+}
+
+
+def psnr_db(a, b) -> float:
+    import numpy as np
+
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return 10 * np.log10(255.0 ** 2 / max(mse, 1e-10))
+
+
+def serve_request(fa, engine, req: dict, seed: int, steps: int,
+                  plans=None, encoded=()) -> tuple:
+    """One `generate` with the launch counts set to 0 just before it and
+    read just after, held against the prediction; (record, video)."""
+    import numpy as np
+    import torch
+
+    from videosys_tpu_torch.pipelines.open_sora.data_process import (
+        get_image_size, get_num_frames)
+    from videosys_tpu_torch.pipelines.open_sora.mask_strategy import (
+        dframe_to_frame)
+
+    pipe = engine.pipeline
+    loop = req.get("loop", 1)
+    # the peak before each decode is the denoise phase's (a PAB cache is
+    # freed before the VAE runs, whose own peak is the request's)
+    denoise_peaks = []
+
+    def probed(name):
+        decode = getattr(pipe.vae, name)
+
+        def call(*args, **kwargs):
+            denoise_peaks.append(torch.cuda.max_memory_allocated())
+            return decode(*args, **kwargs)
+        return call
+
+    for name in ("decode", "decode_chunks_u8"):
+        setattr(pipe.vae, name, probed(name))
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        video = engine.generate(seed=seed, **req).video
+        wall = time.perf_counter() - t0
+    finally:
+        for name in ("decode", "decode_chunks_u8"):
+            delattr(pipe.vae, name)
+    launches = dict(fa.LAUNCHES)
+    h, w = get_image_size(req["resolution"], req["aspect_ratio"])
+    nf = get_num_frames(req["num_frames"])
+    want = expected_launches(fa, pipe, nf, h, w, steps, pipe.last_text_kv_len,
+                             plans, loop, encoded)
+    lat = pipe.last_latents
+    rec = {"request": {k: (list(v.shape) if k == "reference" else v)
+                       for k, v in req.items() if k != "prompt"},
+           "video_shape": list(video.shape), "video_dtype": str(video.dtype),
+           "latents_finite": bool(np.isfinite(lat).all()),
+           "latent_std": float(lat.std()), "video_mean": float(video.mean()),
+           "timings_s": pipe.last_timings, "wall_s": wall,
+           "denoise_step_s": pipe.last_timings["denoise"] / steps / loop,
+           "text_kv_len": pipe.last_text_kv_len,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "denoise_peak_mem_gib": max(denoise_peaks) / 2**30,
+           "launches": launches, "expected_launches": want}
+    _, h_lat, w_lat = pipe.vae.get_latent_size((nf, h, w))
+    sf = pipe.vae.patch_size[1]  # pixel sizes round down to the latent grid
+    frames = nf + (loop - 1) * (nf - dframe_to_frame(
+        req.get("condition_frame_length", 5)))
+    if video.shape != (1, frames, h_lat * sf, w_lat * sf, 3) \
+            or video.dtype != np.uint8:
+        raise AssertionError(f"bad video {video.shape} {video.dtype}")
+    if not rec["latents_finite"]:
+        raise AssertionError("non-finite latents")
+    if launches != want:
+        raise AssertionError(f"launches {launches} != expected {want}")
+    return rec, video
+
+
+def fp8_cast_check() -> dict:
+    """float8_e4m3fn casts on the card against the CPU, from fp32 and bf16,
+    over +-1e4 (the format's largest finite value is 448): whether the card
+    saturates out of range, as the CPU does, or gives NaN."""
+    import torch
+
+    x = torch.cat([torch.linspace(-1e4, 1e4, 40001),
+                   torch.tensor([448.0, 449.0, 460.0, 464.0, 500.0, 1e-3])])
+    probe = torch.tensor([460.0, 464.0, 500.0, 1e4, -1e4])
+    out = {}
+    for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        def cast(t, device):
+            return t.to(dt).to(device).to(torch.float8_e4m3fn).float().cpu()
+        cpu, cuda = cast(x, "cpu"), cast(x, "cuda")
+        out[name] = {
+            "cuda_equals_cpu": bool(torch.equal(cpu.nan_to_num(1e9),
+                                                cuda.nan_to_num(1e9))),
+            "nan_cpu": int(cpu.isnan().sum()),
+            "nan_cuda": int(cuda.isnan().sum()),
+            "probe": [float(v) for v in probe],
+            "probe_cpu": [repr(float(v)) for v in cast(probe, "cpu")],
+            "probe_cuda": [repr(float(v)) for v in cast(probe, "cuda")]}
+    out["cuda_saturates"] = all(
+        not out[n]["nan_cuda"] and out[n]["probe_cuda"][3] == "448.0"
+        for n in ("fp32", "bf16"))
+    log("fp8 cast (float8_e4m3fn, card vs CPU):", json.dumps(out))
+    return out
 
 
 def serve_phase(fa, steps: int, seed: int, profile: bool = False) -> dict:
     import numpy as np
     import torch
 
-    from videosys_tpu_torch import OpenSoraConfig, VideoSysEngine
+    from videosys_tpu_torch import (OpenSoraConfig, OpenSoraPABConfig,
+                                    VideoSysEngine)
+    from videosys_tpu_torch.core.pab import PABStepPlan, build_plans
     from videosys_tpu_torch.pipelines.open_sora.data_process import (
         get_image_size, get_num_frames)
 
@@ -365,55 +504,95 @@ def serve_phase(fa, steps: int, seed: int, profile: bool = False) -> dict:
     pipe.keep_latents = True
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in pipe.transformer.parameters())
+    # the VAE's encoders (both stages' encoder and quant_conv) stay on the
+    # card for every request, text-only ones included
+    vae_sd = pipe.vae.state_dict()
+    enc_bytes = sum(v.numel() * v.element_size() for k, v in vae_sd.items()
+                    if ".encoder." in k or ".quant_conv." in k)
     log(f"serve: STDiT3 depth={pipe.model_config.depth} "
         f"hidden={pipe.model_config.hidden_size} heads={pipe.model_config.num_heads} "
         f"params={n_params / 1e9:.3f}B dtype=bf16 steps={steps} "
-        f"init_s={time.perf_counter() - t0:.2f}")
+        f"init_s={time.perf_counter() - t0:.2f} "
+        f"vae_bytes_gib={sum(v.numel() * v.element_size() for v in vae_sd.values()) / 2**30:.4f} "
+        f"vae_encoder_bytes_gib={enc_bytes / 2**30:.4f}")
+    video_req = dict(
+        prompt="a drone shot of waves breaking on a rocky coast at sunset",
+        resolution="480p", aspect_ratio="9:16", num_frames="2s")
     requests = [
-        dict(prompt="a drone shot of waves breaking on a rocky coast at sunset",
-             resolution="480p", aspect_ratio="9:16", num_frames="2s"),
+        video_req,
         dict(prompt="a red fox sitting in fresh snow", resolution="144p",
              aspect_ratio="1:1", num_frames=1),
     ]
-    out = {"requests": []}
-    fa.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
+    out = {"requests": [], "launches": {k: 0 for k in fa.LAUNCHES}}
+
+    def served(label, rec):
+        log(f"serve {label}:", json.dumps(rec))
+        for k, v in rec["launches"].items():
+            out["launches"][k] += v
+
+    videos = []
     for i, req in enumerate(requests):
-        before = dict(fa.LAUNCHES)
-        t0 = time.perf_counter()
-        video = engine.generate(seed=seed + i, **req).video
-        wall = time.perf_counter() - t0
-        launches = {k: fa.LAUNCHES[k] - before[k] for k in before}
-        h, w = get_image_size(req["resolution"], req["aspect_ratio"])
-        nf = get_num_frames(req["num_frames"])
-        want = expected_launches(fa, pipe, nf, h, w, steps,
-                                 pipe.last_text_kv_len)
-        lat = pipe.last_latents
-        rec = {"request": {k: req[k] for k in req if k != "prompt"},
-               "video_shape": list(video.shape), "video_dtype": str(video.dtype),
-               "latents_finite": bool(np.isfinite(lat).all()),
-               "latent_std": float(lat.std()), "video_mean": float(video.mean()),
-               "timings_s": pipe.last_timings, "wall_s": wall,
-               "denoise_step_s": pipe.last_timings["denoise"] / steps,
-               "text_kv_len": pipe.last_text_kv_len,
-               "launches": launches, "expected_launches": want}
-        log("serve:", json.dumps(rec))
-        _, h_lat, w_lat = pipe.vae.get_latent_size((nf, h, w))
-        sf = pipe.vae.patch_size[1]  # pixel sizes round down to the latent grid
-        if video.shape != (1, nf, h_lat * sf, w_lat * sf, 3) \
-                or video.dtype != np.uint8:
-            raise AssertionError(f"bad video {video.shape} {video.dtype}")
-        if not rec["latents_finite"]:
-            raise AssertionError("non-finite latents")
-        if launches != want:
-            raise AssertionError(f"launches {launches} != expected {want}")
+        rec, video = serve_request(fa, engine, req, seed + i, steps)
+        served("dense", rec)
         out["requests"].append(rec)
-    out["launches"] = dict(fa.LAUNCHES)
-    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        videos.append(video)
+    out["peak_mem_gib"] = max(r["peak_mem_gib"] for r in out["requests"])
+
+    # PAB: the 480p request under each ladder, fp8 cache, the same weights
+    out["fp8_cast"] = fp8_cast_check()
+    h, w = get_image_size(video_req["resolution"], video_req["aspect_ratio"])
+    nf = get_num_frames(video_req["num_frames"])
+    ladder = pipe.scheduler.prepare_timesteps(h, w, nf)
+    dense = out["requests"][0]
+    out["pab"] = {}
+    for name, over in PAB_LEGS.items():
+        pab = OpenSoraPABConfig(cache_dtype="float8_e4m3fn", **over)
+        engine.config.enable_pab, engine.config.pab_config = True, pab
+        plans = build_plans(pab, ladder, pipe.model_config.depth, pipe.dtype)
+        rec, video = serve_request(fa, engine, video_req, seed, steps, plans)
+        rec.update(
+            cache_bytes=pipe.last_pab_cache_bytes,
+            cache_gib=pipe.last_pab_cache_bytes / 2**30,
+            peak_over_dense_gib=rec["peak_mem_gib"] - dense["peak_mem_gib"],
+            denoise_peak_over_dense_gib=rec["denoise_peak_mem_gib"]
+            - dense["denoise_peak_mem_gib"],
+            denoise_vs_dense=dense["timings_s"]["denoise"]
+            / rec["timings_s"]["denoise"],
+            psnr_vs_dense_db=psnr_db(video, videos[0]),
+            read_steps={k: sum(getattr(p, k) for p in plans)
+                        for k in ("spatial", "temporal", "cross", "pair")},
+            mlp_row_reads=sum(sum(p.mlp_spatial_use) + sum(p.mlp_temporal_use)
+                              for p in plans))
+        served(name, rec)
+        out["pab"][name] = rec
+    engine.config.enable_pab = False
+
+    # condition frames: a seeded pixel reference image (latent frame 0
+    # frozen), then two loops, the second conditioned on the first's end
+    ref = np.random.default_rng(seed).uniform(
+        -1, 1, (3, 1, h, w)).astype(np.float32)
+    rec, _ = serve_request(fa, engine, dict(video_req, reference=ref), seed,
+                           steps, encoded=(1,))
+    served("conditioned", rec)
+    out["conditioned"] = rec
+    rec, _ = serve_request(fa, engine, dict(video_req, loop=2), seed, steps,
+                           encoded=(nf,))
+    served("loop2", rec)
+    out["loop2"] = rec
     log(f"serve: launches={out['launches']} peak_mem_gib={out['peak_mem_gib']:.2f}")
     out["forward_check"] = forward_check(fa, pipe, requests[0], seed)
     if profile:
         out["profile"] = profile_step(pipe, requests[0])
+        # PAB read steps: spatial, temporal and cross from an fp8 cache;
+        # the whole pair from its residual
+        for label, plan, over in (
+                ("pab stc-read", PABStepPlan(spatial=True, temporal=True,
+                                             cross=True), {}),
+                ("pab pair-read", PABStepPlan(pair=True),
+                 PAB_LEGS["pab_pair3_wide"])):
+            out[f"profile_{label}"] = profile_step(
+                pipe, requests[0], label, plan,
+                OpenSoraPABConfig(cache_dtype="float8_e4m3fn", **over))
     del engine, pipe
     torch.cuda.empty_cache()
     return out
@@ -481,19 +660,26 @@ def forward_check(fa, pipe, req, seed: int) -> dict:
     return res
 
 
-def profile_step(pipe, req) -> dict:
+def profile_step(pipe, req, label: str = "dense", plan=None, pab=None) -> dict:
     """Device time of one 480p denoise step by kernel, from torch.profiler
-    (launches made here add to the kernel's counts after they are read)."""
+    (launches made here add to the kernel's counts after they are read);
+    with `plan` a PAB step on a cache made for `pab`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     a = step_inputs(pipe, req, 0)
+    cache = None
+    if plan is not None:
+        _, T, h, w = a["z"].shape[1:]
+        mc = pipe.model_config
+        cache = pipe.transformer.init_cache(
+            pab, 2, T, (h // mc.patch_size[1]) * (w // mc.patch_size[2]))
 
     def step():
         with torch.no_grad():
             pipe._step(a["z"], 500.0, 0.01, a["y_all"], a["m_all"], a["fps"],
-                       a["height"], a["width"], 7.0)
+                       a["height"], a["width"], 7.0, plan=plan, cache=cache)
 
     wall_ms = time_ms(step, 2)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -510,17 +696,20 @@ def profile_step(pipe, req) -> dict:
     res = {"step_wall_ms": wall_ms, "device_busy_ms": total / 1e3,
            "idle_share": max(0.0, 1 - total / 1e3 / wall_ms),
            "attention_share": attn / max(total, 1), "top": top}
-    log("profile (one 480p denoise step, CFG batch 2):", json.dumps(res))
+    log(f"profile {label} (one 480p denoise step, CFG batch 2):",
+        json.dumps(res))
     return res
 
 
 def tiny_parity_phase(seed: int) -> dict:
     """The tiny configuration on the card (kernel) and on the CPU (plain
-    attention), same weights and initial noise."""
+    attention), same weights, initial noise and draws: dense, with PAB on
+    (spatial, temporal and cross broadcast, the cache in fp32), and
+    conditioned on a pixel reference image."""
     import numpy as np
     import torch
 
-    from videosys_tpu_torch import OpenSoraConfig, VideoSysEngine
+    from videosys_tpu_torch import OpenSoraConfig, OpenSoraPABConfig, VideoSysEngine
     from videosys_tpu_torch.models.autoencoders import autoencoder_open_sora as A
     from videosys_tpu_torch.models.autoencoders.vae2d import AutoencoderKL2D
     from videosys_tpu_torch.models.autoencoders.vae_temporal import VAETemporal
@@ -553,17 +742,35 @@ def tiny_parity_phase(seed: int) -> dict:
     t_lat, h, w = pipe.vae.get_latent_size((18, 192, 192))
     z = torch.randn(1, 4, t_lat, h, w,
                     generator=torch.Generator().manual_seed(seed))
-    v_card = card.generate("waves at dusk", latents=z, **kw).video
-    v_cpu = cpu.generate("waves at dusk", latents=z, **kw).video
-    lat_err = float(np.abs(pipe.last_latents
-                           - cpu.pipeline.last_latents).max())
-    px_err = int(np.abs(v_card.astype(int) - v_cpu.astype(int)).max())
-    log(f"tiny parity (card kernel vs CPU plain, fp32, 144p 18 frames, 4 steps): "
-        f"latent max_abs_err={lat_err:.3e} (tol 2e-4) video max level "
-        f"diff={px_err} (tol 1)")
-    if not (lat_err <= 2e-4 and px_err <= 1):
-        raise AssertionError("card and CPU paths disagree on the tiny config")
-    return {"latent_max_abs_err": lat_err, "video_max_level_diff": px_err}
+    reference = np.random.default_rng(seed).uniform(
+        -1, 1, (3, 1, 192, 192)).astype(np.float32)
+    pab = OpenSoraPABConfig(spatial_threshold=(100, 950),
+                            temporal_threshold=(100, 950),
+                            cross_threshold=(100, 950), mlp_broadcast=False)
+    out = {}
+    for label, extra in (("dense", {}), ("pab", {}),
+                         ("conditioned", {"reference": reference})):
+        for eng in (card, cpu):
+            eng.config.enable_pab = label == "pab"
+            eng.config.pab_config = pab
+        videos = []
+        for eng in (card, cpu):
+            draws = torch.Generator().manual_seed(seed + 1)
+            noise = lambda name, shape, g=draws: torch.randn(shape, generator=g)
+            videos.append(eng.generate("waves at dusk", latents=z, noise=noise,
+                                       **extra, **kw).video)
+        lat_err = float(np.abs(pipe.last_latents
+                               - cpu.pipeline.last_latents).max())
+        px_err = int(np.abs(videos[0].astype(int) - videos[1].astype(int)).max())
+        log(f"tiny parity {label} (card kernel vs CPU plain, fp32, 144p 18 "
+            f"frames, 4 steps): latent max_abs_err={lat_err:.3e} (tol 2e-4) "
+            f"video max level diff={px_err} (tol 1)")
+        if not (lat_err <= 2e-4 and px_err <= 1):
+            raise AssertionError(f"card and CPU paths disagree on the tiny "
+                                 f"config ({label})")
+        out[label] = {"latent_max_abs_err": lat_err,
+                      "video_max_level_diff": px_err}
+    return out
 
 
 def ragged_mask(B: int, Nk: int, gen):
@@ -1137,8 +1344,9 @@ def main(argv=None) -> int:
                          "status line are printed only when all of them ran")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one full-width denoise step and one "
-                         "full-width training step")
+                    help="also profile one full-width denoise step (dense "
+                         "and two PAB read steps) and one full-width "
+                         "training step")
     args = ap.parse_args(argv)
 
     import torch

@@ -139,8 +139,12 @@ def test_generate_draws_seeded_noise(engines):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        videosys_tpu_torch.OpenSoraConfig(enable_pab=True)
+    # PAB is served; a cache dtype torch has no type for raises at config time
+    assert videosys_tpu_torch.OpenSoraConfig(enable_pab=True).enable_pab
+    with pytest.raises(ValueError, match="float8_e4m3"):
+        videosys_tpu_torch.OpenSoraConfig(
+            enable_pab=True, pab_config=videosys_tpu_torch.OpenSoraPABConfig(
+                cache_dtype="float8_e4m3"))
     cfg = videosys_tpu_torch.OpenSoraConfig(transformer=None, vae=None,
                                             text_encoder=None)
     if not torch.cuda.is_available():
@@ -162,7 +166,10 @@ def test_copies_equal_originals(mod_j, mod_p, extra):
 def test_port_imports_no_jax():
     code = ("import sys, videosys_tpu_torch, videosys_tpu_torch.utils.from_jax,"
             " videosys_tpu_torch.training.train, videosys_tpu_torch.training.ckpt,"
-            " videosys_tpu_torch.training.datasets;"
+            " videosys_tpu_torch.training.datasets, videosys_tpu_torch.core.pab,"
+            " videosys_tpu_torch.pipelines.open_sora.mask_strategy,"
+            " videosys_tpu_torch.models.autoencoders.vae2d,"
+            " videosys_tpu_torch.models.autoencoders.vae_temporal;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'videosys_tpu')];"
             "assert not bad, bad")

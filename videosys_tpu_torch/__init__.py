@@ -6,12 +6,14 @@ Same public surface, `VideoSysEngine(config).generate(prompt)` and
 """
 
 from videosys_tpu_torch.core.engine import VideoSysEngine
+from videosys_tpu_torch.core.pab import PABConfig
 from videosys_tpu_torch.pipelines.open_sora.pipeline_open_sora import (
     OpenSoraConfig,
+    OpenSoraPABConfig,
     OpenSoraPipeline,
 )
 
 from videosys_tpu_torch.training.train import TrainConfig, run_training
 
-__all__ = ["VideoSysEngine", "OpenSoraConfig", "OpenSoraPipeline",
-           "TrainConfig", "run_training"]
+__all__ = ["VideoSysEngine", "OpenSoraConfig", "OpenSoraPABConfig",
+           "OpenSoraPipeline", "PABConfig", "TrainConfig", "run_training"]

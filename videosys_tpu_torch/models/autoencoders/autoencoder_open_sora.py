@@ -1,16 +1,18 @@
-"""Open-Sora v1.2 video VAE, decode side: the causal temporal VAE (4x time)
-followed by the 2D spatial VAE (8x space), with 17-frame temporal chunks and
-a frame micro-batch for the spatial decoder.
+"""Open-Sora v1.2 video VAE: the 2D spatial VAE (8x space) and the causal
+temporal VAE (4x time), with 17-frame temporal chunks and a frame
+micro-batch for the spatial encoder and decoder.
 
 Port of `videosys_tpu/models/autoencoders/autoencoder_open_sora.py`. The
 state_dict keys follow the reference VideoAutoencoderPipeline
-(`spatial_vae.module.*`, `temporal_vae.*`).
+(`spatial_vae.module.*`, `temporal_vae.*`). `encode` samples both
+posteriors; its draws come from `noise(name, shape)`: "spatial", then
+"temporal/{i}" for the chunk starting at frame i.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -21,6 +23,9 @@ from videosys_tpu_torch.models.autoencoders.vae_temporal import VAETemporal
 SHIFT = (-0.10, 0.34, 0.27, 0.98)
 SCALE = (3.85, 2.32, 2.33, 3.06)
 SPATIAL_SCALING = 0.18215
+
+# noise(name, shape) -> a standard normal draw of that shape
+Noise = Callable[[str, Tuple[int, ...]], torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +79,42 @@ class OpenSoraVAE(nn.Module):
             if rem > 0:
                 t_lat += -(-rem // tdf)
         return [t_lat, H // sf if H else None, W // sf if W else None]
+
+    @staticmethod
+    def _draw(noise: Noise, name: str, like):
+        return noise(name, tuple(like.shape)).to(like.device, like.dtype)
+
+    def spatial_encode(self, x, noise: Noise):
+        """x: [B, 3, T, H, W] -> sampled 2D latents [B, 4, T, h, w] scaled
+        by 0.18215, frames in micro-batches."""
+        B, C, T, H, W = x.shape
+        frames = x.transpose(1, 2).reshape(B * T, C, H, W)
+        mbs = self.config.micro_batch_size or B * T
+        moments = torch.cat([self.spatial_vae.module.encode(frames[i:i + mbs])
+                             for i in range(0, B * T, mbs)], dim=0)
+        mean, logvar = moments.chunk(2, dim=1)
+        std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
+        z = (mean + std * self._draw(noise, "spatial", mean)
+             ) * SPATIAL_SCALING
+        return z.reshape(B, T, *z.shape[1:]).transpose(1, 2)
+
+    @torch.no_grad()
+    def encode(self, x, noise: Noise):
+        """x: [B, 3, T, H, W] pixels -> normalized latents
+        [B, 4, T_lat, h, w], each temporal chunk of `micro_frame_size`
+        frames encoded on its own."""
+        x_z = self.spatial_encode(x.to(self.dtype), noise)
+        T = x_z.shape[2]
+        mf = self.config.micro_frame_size or T
+        z_list = []
+        for i in range(0, T, mf):
+            mean, logvar = self.temporal_vae.encode_moments(x_z[:, :, i:i + mf])
+            eps = self._draw(noise, f"temporal/{i}", mean)
+            z_list.append(mean + torch.exp(0.5 * logvar) * eps)
+        z = torch.cat(z_list, dim=2)
+        shift = torch.tensor(SHIFT, dtype=z.dtype, device=z.device)
+        scale = torch.tensor(SCALE, dtype=z.dtype, device=z.device)
+        return (z - shift[:, None, None, None]) / scale[:, None, None, None]
 
     def spatial_decode(self, z):
         """z: [B, C, T, h, w] -> [B, 3, T, H, W], frames in micro-batches."""

@@ -1,9 +1,9 @@
-"""2D image VAE (SD AutoencoderKL architecture), decode side, channel-first.
+"""2D image VAE (SD AutoencoderKL architecture), channel-first.
 
-Port of the decoder of `videosys_tpu/models/autoencoders/vae2d.py`. Module
-names follow the diffusers AutoencoderKL state_dict (`mid_block.resnets.0`,
-`mid_block.attentions.0.to_out.0`, `up_blocks.{i}.upsamplers.0.conv`). The
-encoder is not ported yet.
+Port of `videosys_tpu/models/autoencoders/vae2d.py`. Module names follow
+the diffusers AutoencoderKL state_dict (`mid_block.resnets.0`,
+`mid_block.attentions.0.to_out.0`, `down_blocks.{i}.downsamplers.0.conv`,
+`up_blocks.{i}.upsamplers.0.conv`).
 """
 
 from __future__ import annotations
@@ -73,6 +73,64 @@ class MidBlock2D(nn.Module):
         return self.resnets[1](h)
 
 
+class Downsample2D(nn.Module):
+    """diffusers Downsample2D: asymmetric pad (0, 1, 0, 1), then a stride-2
+    3x3 convolution without padding."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2)
+
+    def forward(self, h):
+        return self.conv(F.pad(h, (0, 1, 0, 1)))
+
+
+class DownBlock2D(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, num_layers: int,
+                 num_groups: int, downsample: bool):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            ResnetBlock2D(in_channels if j == 0 else out_channels,
+                          out_channels, num_groups)
+            for j in range(num_layers))
+        self.downsamplers = nn.ModuleList(
+            [Downsample2D(out_channels)] if downsample else [])
+
+    def forward(self, h):
+        for res in self.resnets:
+            h = res(h)
+        for down in self.downsamplers:
+            h = down(h)
+        return h
+
+
+class Encoder2D(nn.Module):
+    """Pixels [B, in_channels, H, W] -> moments [B, 2 * latent, H / f, W / f],
+    f = 2^(len(block_out_channels) - 1)."""
+
+    def __init__(self, block_out_channels: Tuple[int, ...] = (128, 256, 512, 512),
+                 layers_per_block: int = 2, latent_channels: int = 4,
+                 in_channels: int = 3, num_groups: int = 32,
+                 mid_block_add_attention: bool = True):
+        super().__init__()
+        ch = tuple(block_out_channels)
+        self.conv_in = nn.Conv2d(in_channels, ch[0], 3, padding=1)
+        self.down_blocks = nn.ModuleList(
+            DownBlock2D(ch[max(i - 1, 0)], c, layers_per_block, num_groups,
+                        downsample=i < len(ch) - 1)
+            for i, c in enumerate(ch))
+        self.mid_block = MidBlock2D(ch[-1], num_groups, mid_block_add_attention)
+        self.conv_norm_out = GroupNorm(num_groups, ch[-1], eps=1e-6)
+        self.conv_out = nn.Conv2d(ch[-1], 2 * latent_channels, 3, padding=1)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for down in self.down_blocks:
+            h = down(h)
+        h = self.mid_block(h)
+        return self.conv_out(F.silu(self.conv_norm_out(h)))
+
+
 class Upsample2D(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
@@ -126,8 +184,9 @@ class Decoder2D(nn.Module):
 
 
 class AutoencoderKL2D(nn.Module):
-    """SD-style KL autoencoder, decode side: z [B, latent, h, w] ->
-    [B, 3, h * 2^(len(blocks) - 1), ...]."""
+    """SD-style KL autoencoder: encode(x [B, 3, H, W]) -> moments
+    [B, 2 * latent, H / f, W / f]; decode(z [B, latent, h, w]) ->
+    [B, 3, h * f, w * f], f = 2^(len(blocks) - 1)."""
 
     def __init__(self, block_out_channels: Tuple[int, ...] = (128, 256, 512, 512),
                  layers_per_block: int = 2, latent_channels: int = 4,
@@ -135,10 +194,17 @@ class AutoencoderKL2D(nn.Module):
                  mid_block_add_attention: bool = True):
         super().__init__()
         self.block_out_channels = tuple(block_out_channels)
+        self.encoder = Encoder2D(block_out_channels, layers_per_block,
+                                 latent_channels, out_channels, num_groups,
+                                 mid_block_add_attention)
         self.decoder = Decoder2D(block_out_channels, layers_per_block,
                                  latent_channels, out_channels, num_groups,
                                  mid_block_add_attention)
+        self.quant_conv = nn.Conv2d(2 * latent_channels, 2 * latent_channels, 1)
         self.post_quant_conv = nn.Conv2d(latent_channels, latent_channels, 1)
+
+    def encode(self, x):
+        return self.quant_conv(self.encoder(x))
 
     def decode(self, z):
         return self.decoder(self.post_quant_conv(z))

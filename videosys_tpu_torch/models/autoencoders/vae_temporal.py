@@ -1,9 +1,8 @@
-"""Causal temporal VAE (MAGVIT style), decode side, layout [B, C, T, H, W].
+"""Causal temporal VAE (MAGVIT style), layout [B, C, T, H, W].
 
-Port of the decoder of `videosys_tpu/models/autoencoders/vae_temporal.py`.
-Module names follow the reference VAE_Temporal state_dict (`res_blocks.j`,
-`block_res_blocks.i.j`, `conv_blocks.i.conv`). The encoder is not ported
-yet.
+Port of `videosys_tpu/models/autoencoders/vae_temporal.py`. Module names
+follow the reference VAE_Temporal state_dict (`res_blocks.j`,
+`block_res_blocks.i.j`, `conv_blocks.i.conv`).
 """
 
 from __future__ import annotations
@@ -18,16 +17,17 @@ from videosys_tpu_torch.models.modules.normalization import GroupNorm
 
 
 class CausalConv3d(nn.Module):
-    """Conv3d with front-only temporal padding (kt - 1 frames) and
-    symmetric spatial padding."""
+    """Conv3d with front-only temporal padding (kt - time_stride frames)
+    and symmetric spatial padding."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: Tuple[int, int, int] = (3, 3, 3),
-                 bias: bool = True):
+                 bias: bool = True, time_stride: int = 1):
         super().__init__()
         kt, kh, kw = kernel_size
-        self.pad = (kw // 2, kw // 2, kh // 2, kh // 2, kt - 1, 0)
-        self.conv = nn.Conv3d(in_channels, out_channels, kernel_size, bias=bias)
+        self.pad = (kw // 2, kw // 2, kh // 2, kh // 2, kt - time_stride, 0)
+        self.conv = nn.Conv3d(in_channels, out_channels, kernel_size,
+                              stride=(time_stride, 1, 1), bias=bias)
 
     def forward(self, x):
         return self.conv(F.pad(x, self.pad))
@@ -51,6 +51,47 @@ class ResBlock3D(nn.Module):
         if self.conv3 is not None:
             x = self.conv3(x)
         return x + h
+
+
+class EncoderTemporal(nn.Module):
+    """Encoder with stride-2 causal convolutions in time between the stages
+    `temporal_downsample` marks: [B, C, T, H, W] -> [B, latent_embed_dim,
+    T / 2^sum(temporal_downsample), H, W]."""
+
+    def __init__(self, in_out_channels: int = 4, latent_embed_dim: int = 8,
+                 filters: int = 128, num_res_blocks: int = 4,
+                 channel_multipliers: Tuple[int, ...] = (1, 2, 2, 4),
+                 temporal_downsample: Tuple[bool, ...] = (False, True, True),
+                 num_groups: int = 32):
+        super().__init__()
+        mult = tuple(channel_multipliers)
+        self.conv_in = CausalConv3d(in_out_channels, filters, bias=False)
+        self.block_res_blocks = nn.ModuleList()
+        self.conv_blocks = nn.ModuleDict()
+        prev = filters
+        for i, m in enumerate(mult):
+            f = filters * m
+            self.block_res_blocks.append(nn.ModuleList(
+                ResBlock3D(prev if j == 0 else f, f, num_groups)
+                for j in range(num_res_blocks)))
+            prev = f
+            if i < len(mult) - 1 and temporal_downsample[i]:
+                self.conv_blocks[str(i)] = CausalConv3d(f, f, time_stride=2)
+        self.res_blocks = nn.ModuleList(
+            ResBlock3D(prev, prev, num_groups) for _ in range(num_res_blocks))
+        self.norm1 = GroupNorm(num_groups, prev, eps=1e-5)
+        self.conv2 = CausalConv3d(prev, latent_embed_dim, (1, 1, 1))
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for i, blocks in enumerate(self.block_res_blocks):
+            for res in blocks:
+                h = res(h)
+            if str(i) in self.conv_blocks:
+                h = self.conv_blocks[str(i)](h)
+        for res in self.res_blocks:
+            h = res(h)
+        return self.conv2(F.silu(self.norm1(h)))
 
 
 class DecoderTemporal(nn.Module):
@@ -101,7 +142,7 @@ class DecoderTemporal(nn.Module):
 
 
 class VAETemporal(nn.Module):
-    """VAE_Temporal_SD, decode side: latent 4 channels, 4x time."""
+    """VAE_Temporal_SD: latent 4 channels, 4x time."""
 
     def __init__(self, in_out_channels: int = 4, latent_embed_dim: int = 4,
                  embed_dim: int = 4, filters: int = 128,
@@ -111,11 +152,26 @@ class VAETemporal(nn.Module):
                  num_groups: int = 32):
         super().__init__()
         self.time_downsample_factor = 2 ** sum(temporal_downsample)
+        self.encoder = EncoderTemporal(
+            in_out_channels, latent_embed_dim * 2, filters, num_res_blocks,
+            channel_multipliers, temporal_downsample, num_groups)
+        self.quant_conv = CausalConv3d(latent_embed_dim * 2, 2 * embed_dim,
+                                       (1, 1, 1))
         self.post_quant_conv = CausalConv3d(embed_dim, latent_embed_dim,
                                             (1, 1, 1))
         self.decoder = DecoderTemporal(
             latent_embed_dim, in_out_channels, filters, num_res_blocks,
             channel_multipliers, temporal_downsample, num_groups)
+
+    def encode_moments(self, x):
+        """x: [B, C, T, h, w], T front-padded with zeros to a multiple of
+        the downsample factor -> (mean, logvar clipped to [-30, 20]), each
+        [B, embed_dim, T_lat, h, w]."""
+        time_padding = (-x.shape[2]) % self.time_downsample_factor
+        if time_padding:
+            x = F.pad(x, (0, 0, 0, 0, time_padding, 0))
+        mean, logvar = self.quant_conv(self.encoder(x)).chunk(2, dim=1)
+        return mean, logvar.clamp(-30.0, 20.0)
 
     def decode(self, z, num_frames: int):
         """z: [B, C, T_lat, h, w] -> [B, C_out, num_frames, h, w]."""

@@ -1,19 +1,26 @@
-"""STDiT3 (Open-Sora v1.2), the spatio-temporal DiT: dense path.
+"""STDiT3 (Open-Sora v1.2), the spatio-temporal DiT.
 
-Port of `videosys_tpu/models/transformers/stdit3.py` without PAB caching
-or sharding. Activations are [B, T, S, C]; the depth pairs are a Python
-loop over `spatial_blocks` and `temporal_blocks`, named as in the reference
+Port of `videosys_tpu/models/transformers/stdit3.py` without sharding.
+Activations are [B, T, S, C]; the depth pairs are a Python loop over
+`spatial_blocks` and `temporal_blocks`, named as in the reference
 checkpoint's state_dict. For training, `remat` recomputes each
 spatial+temporal pair in the backward pass, and `compute_dtype` computes in
 another dtype than the parameters are held in (fp32 master weights, bf16
 matmuls and attention).
+
+PAB (Pyramid Attention Broadcast, `core/pab.py`): `forward(..., plan=,
+pab_cache=)` runs one sampling step under its `PABStepPlan`. A branch whose
+slot the plan reads is not computed (no attention, GEMM or norm for it) and
+its cached output is added instead; a branch whose slot the plan writes is
+computed and copied into `slot[depth]` in place. Without a cache the dense
+loop runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +31,12 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from videosys_tpu_torch.core.pab import (
+    PABConfig,
+    PABStepPlan,
+    cache_torch_dtype,
+    mlp_config_blocks,
+)
 from videosys_tpu_torch.models.modules.blocks import (
     MultiHeadCrossAttention,
     SelfAttention,
@@ -105,8 +118,15 @@ class STDiT3Block(nn.Module):
         self.cross_attn = MultiHeadCrossAttention(C, config.num_heads)
         self.mlp = Mlp(C, int(C * config.mlp_ratio), C)
 
-    def forward(self, x, y, t_mlp, t0_mlp=None, x_mask=None, kv_mask=None):
+    def forward(self, x, y, t_mlp, t0_mlp=None, x_mask=None, kv_mask=None,
+                read=None, write=None):
+        """`read` / `write`: PAB cache views of this block by slot ("attn",
+        "cross", "mlp"), each [B, T, S, C]. A slot in `read` replaces its
+        branch, which is not computed, by the cached output; a branch whose
+        slot is in `write` is computed and copied into it in place."""
         cfg = self.config
+        read = read or {}
+        write = write or {}
         B, T, S, C = x.shape
         (shift_msa, scale_msa, gate_msa,
          shift_mlp, scale_mlp, gate_mlp) = _modulations(
@@ -117,30 +137,43 @@ class STDiT3Block(nn.Module):
                 self.scale_shift_table, t0_mlp, x.dtype)
 
         # attention (spatial or temporal)
-        normed1 = layer_norm(x)
-        x_m = t2i_modulate(normed1, shift_msa, scale_msa)
-        if x_mask is not None:
-            x_m = t_mask_select(x_mask, x_m,
-                                t2i_modulate(normed1, shift_msa0, scale_msa0))
-        if self.temporal:
-            xa = x_m.permute(0, 2, 1, 3).reshape(B * S, T, C)
-            rope = rope_channel_tables(np.arange(T, dtype=np.float32),
-                                       rope_freqs(C // cfg.num_heads),
-                                       cfg.num_heads)
-            xa = self.attn(xa, rope_channel=rope)
-            x_m = xa.reshape(B, S, T, C).permute(0, 2, 1, 3)
+        if "attn" in read:
+            x_m_s = read["attn"].to(x.dtype)
         else:
-            x_m = self.attn(x_m.reshape(B * T, S, C)).reshape(B, T, S, C)
-        x_m_s = gate_msa * x_m
-        if x_mask is not None:
-            x_m_s = t_mask_select(x_mask, x_m_s, gate_msa0 * x_m)
+            normed1 = layer_norm(x)
+            x_m = t2i_modulate(normed1, shift_msa, scale_msa)
+            if x_mask is not None:
+                x_m = t_mask_select(x_mask, x_m,
+                                    t2i_modulate(normed1, shift_msa0, scale_msa0))
+            if self.temporal:
+                xa = x_m.permute(0, 2, 1, 3).reshape(B * S, T, C)
+                rope = rope_channel_tables(np.arange(T, dtype=np.float32),
+                                           rope_freqs(C // cfg.num_heads),
+                                           cfg.num_heads)
+                xa = self.attn(xa, rope_channel=rope)
+                x_m = xa.reshape(B, S, T, C).permute(0, 2, 1, 3)
+            else:
+                x_m = self.attn(x_m.reshape(B * T, S, C)).reshape(B, T, S, C)
+            x_m_s = gate_msa * x_m
+            if x_mask is not None:
+                x_m_s = t_mask_select(x_mask, x_m_s, gate_msa0 * x_m)
+            if "attn" in write:
+                write["attn"].copy_(x_m_s)
         x = x + x_m_s
 
         # cross attention, per frame
-        x_cross = self.cross_attn(x.reshape(B * T, S, C), y, kv_mask)
-        x = x + x_cross.reshape(B, T, S, C)
+        if "cross" in read:
+            x_cross = read["cross"].to(x.dtype)
+        else:
+            x_cross = self.cross_attn(x.reshape(B * T, S, C), y,
+                                      kv_mask).reshape(B, T, S, C)
+            if "cross" in write:
+                write["cross"].copy_(x_cross)
+        x = x + x_cross
 
         # MLP
+        if "mlp" in read:
+            return x + read["mlp"].to(x.dtype)
         normed2 = layer_norm(x)
         x_m = t2i_modulate(normed2, shift_mlp, scale_mlp)
         if x_mask is not None:
@@ -150,7 +183,45 @@ class STDiT3Block(nn.Module):
         x_m_s = gate_mlp * x_m
         if x_mask is not None:
             x_m_s = t_mask_select(x_mask, x_m_s, gate_mlp0 * x_m)
+        if "mlp" in write:
+            write["mlp"].copy_(x_m_s)
         return x + x_m_s
+
+
+@dataclasses.dataclass
+class PABCache:
+    """The PAB cache of one `generate` loop. `slots[branch][slot]` is a
+    [depth, B, T, S, C] tensor (branch "spatial" or "temporal" with slots
+    "attn", "cross", "mlp"; or branch "pair" with slot "delta"), except a
+    dict-mode MLP slot, which holds one row per configured block:
+    `mlp_rows` maps a depth to its row."""
+
+    slots: Dict[str, Dict[str, torch.Tensor]]
+    mlp_rows: Dict[int, int]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for slots in self.slots.values() for t in slots.values())
+
+    def views(self, plan: PABStepPlan, branch: str, depth: int):
+        """(read, write): this step's cache views of one block, by slot."""
+        read, write = {}, {}
+        for slot, tensor in self.slots.get(branch, {}).items():
+            mode = plan.slot_mode(branch, slot)
+            if mode == "readwrite":  # dict-mode MLP: per-depth flags
+                if depth not in self.mlp_rows:
+                    continue
+                row = tensor[self.mlp_rows[depth]]
+                if getattr(plan, f"mlp_{branch}_use")[depth]:
+                    read[slot] = row
+                elif getattr(plan, f"mlp_{branch}_save")[depth]:
+                    write[slot] = row
+            elif mode == "read":
+                read[slot] = tensor[depth]
+            elif mode == "write":
+                write[slot] = tensor[depth]
+        return read, write
 
 
 class FinalLayer(nn.Module):
@@ -206,14 +277,92 @@ class STDiT3(nn.Module):
         set_compute_dtype(self, compute_dtype)
 
     @staticmethod
+    def cache_keys(pab: Optional[PABConfig], temporal: bool) -> Tuple[str, ...]:
+        """The component slots a branch caches under `pab`."""
+        if pab is None or not pab.enabled or pab.pair_broadcast:
+            return ()
+        keys = []
+        if pab.temporal_broadcast if temporal else pab.spatial_broadcast:
+            keys.append("attn")
+        if pab.cross_broadcast:
+            keys.append("cross")
+        if pab.mlp_broadcast and (pab.mlp_range_mode or mlp_config_blocks(pab)):
+            keys.append("mlp")
+        return tuple(keys)
+
+    def init_cache(self, pab: PABConfig, B: int, T: int, S: int) -> PABCache:
+        """A zeroed PAB cache for B rows of T x S tokens on the model's
+        device, in `pab.cache_dtype` (None: the model's compute dtype)."""
+        cfg = self.config
+        weight = self.final_layer.linear.weight
+        dtype = (cache_torch_dtype(pab.cache_dtype) or self.compute_dtype
+                 or weight.dtype)
+        shape = (cfg.depth, B, T, S, cfg.hidden_size)
+
+        def zeros(shape):
+            return torch.zeros(shape, dtype=dtype, device=weight.device)
+
+        if pab.pair_broadcast:
+            return PABCache({"pair": {"delta": zeros(shape)}}, {})
+        blocks = mlp_config_blocks(pab)
+        mlp_shape = shape if pab.mlp_range_mode else (len(blocks),) + shape[1:]
+        slots = {}
+        for branch, temporal in (("spatial", False), ("temporal", True)):
+            keys = self.cache_keys(pab, temporal)
+            if keys:
+                slots[branch] = {k: zeros(mlp_shape if k == "mlp" else shape)
+                                 for k in keys}
+        return PABCache(slots, {b: r for r, b in enumerate(blocks)
+                                if b < cfg.depth})
+
+    @staticmethod
     def _pair(spatial, temporal, xe, y, t_mlp, t0_mlp, x_mask, kv_mask):
         xe = spatial(xe, y, t_mlp, t0_mlp, x_mask, kv_mask)
         return temporal(xe, y, t_mlp, t0_mlp, x_mask, kv_mask)
 
+    def _dense_pairs(self, xe, y, t_mlp, t0_mlp, x_mask, kv_mask):
+        recompute = (self.remat and self.remat_policy != "none"
+                     and torch.is_grad_enabled())
+        for spatial, temporal in zip(self.spatial_blocks, self.temporal_blocks):
+            if recompute:
+                context = {} if self.remat_policy == "full" else {
+                    "context_fn": functools.partial(
+                        create_selective_checkpoint_contexts, _save_matmuls)}
+                xe = checkpoint(self._pair, spatial, temporal, xe, y, t_mlp,
+                                t0_mlp, x_mask, kv_mask, use_reentrant=False,
+                                **context)
+            else:
+                xe = self._pair(spatial, temporal, xe, y, t_mlp, t0_mlp,
+                                x_mask, kv_mask)
+        return xe
+
+    def _pab_pairs(self, xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
+                   plan: PABStepPlan, cache: PABCache):
+        """The depth pairs of one PAB step: a pair-read step adds each
+        pair's cached residual and runs neither block."""
+        delta = cache.slots.get("pair", {}).get("delta")
+        for i, (spatial, temporal) in enumerate(
+                zip(self.spatial_blocks, self.temporal_blocks)):
+            if delta is not None and plan.pair:
+                xe = xe + delta[i].to(xe.dtype)
+                continue
+            x_in = xe
+            xe = spatial(xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
+                         *cache.views(plan, "spatial", i))
+            xe = temporal(xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
+                          *cache.views(plan, "temporal", i))
+            if delta is not None and plan.save_pair:
+                delta[i].copy_(xe - x_in)
+        return xe
+
     def forward(self, x, timestep, y, kv_mask: Optional[torch.Tensor] = None,
                 x_mask: Optional[torch.Tensor] = None,
                 fps: Optional[torch.Tensor] = None,
-                height: float = 0.0, width: float = 0.0):
+                height: float = 0.0, width: float = 0.0,
+                plan: Optional[PABStepPlan] = None,
+                pab_cache: Optional[PABCache] = None):
+        """`plan` and `pab_cache`: run one PAB sampling step (inference);
+        without a cache the dense loop runs."""
         cfg = self.config
         dtype = self.compute_dtype or self.final_layer.linear.weight.dtype
         device = x.device
@@ -245,19 +394,11 @@ class STDiT3(nn.Module):
         xe = self.x_embedder(x.to(dtype)).reshape(B, T, S, cfg.hidden_size)
         xe = xe + pos[None, None]
 
-        recompute = (self.remat and self.remat_policy != "none"
-                     and torch.is_grad_enabled())
-        for spatial, temporal in zip(self.spatial_blocks, self.temporal_blocks):
-            if recompute:
-                context = {} if self.remat_policy == "full" else {
-                    "context_fn": functools.partial(
-                        create_selective_checkpoint_contexts, _save_matmuls)}
-                xe = checkpoint(self._pair, spatial, temporal, xe, y, t_mlp,
-                                t0_mlp, x_mask, kv_mask, use_reentrant=False,
-                                **context)
-            else:
-                xe = self._pair(spatial, temporal, xe, y, t_mlp, t0_mlp,
-                                x_mask, kv_mask)
+        if pab_cache is not None:
+            xe = self._pab_pairs(xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
+                                 plan or PABStepPlan(), pab_cache)
+        else:
+            xe = self._dense_pairs(xe, y, t_mlp, t0_mlp, x_mask, kv_mask)
 
         table = self.final_layer.scale_shift_table.float()
         mods = (table[None] + t[:, None].float()).to(dtype)

@@ -1,24 +1,26 @@
 """Open-Sora v1.2 text-to-video pipeline.
 
-Port of `videosys_tpu/pipelines/open_sora/pipeline_open_sora.py`, plain
-text-to-video on one device: `OpenSoraConfig` -> `VideoSysEngine` ->
-`generate(prompt, resolution, aspect_ratio, num_frames, seed)` -> uint8
-video [B, T, H, W, 3]. Each denoise step runs the CFG-doubled STDiT3,
-combines the guidance and takes an Euler step, in a plain Python loop.
-Not ported yet: PAB (raises), condition frames (`reference`,
-`mask_strategy`), `loop > 1`, CPU offload, multi-device runs, checkpoint
-loading and the T5 encoder.
+Port of `videosys_tpu/pipelines/open_sora/pipeline_open_sora.py` on one
+device: `OpenSoraConfig` -> `VideoSysEngine` -> `generate(prompt,
+resolution, aspect_ratio, num_frames, seed)` -> uint8 video [B, T, H, W, 3].
+Each denoise step runs the CFG-doubled STDiT3, combines the guidance and
+takes an Euler step, in a plain Python loop. With `enable_pab` the steps run
+under the per-step plans of `core/pab.py` with one PAB cache per loop.
+Condition frames (`reference`, `mask_strategy`) and `loop > 1` clamp frames
+to VAE-encoded references (`mask_strategy.py`). Not ported yet: CPU
+offload, multi-device runs, checkpoint loading and the T5 encoder.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from videosys_tpu_torch.core.pab import PABConfig, build_plans
 from videosys_tpu_torch.core.pipeline import VideoSysPipeline, VideoSysPipelineOutput
 from videosys_tpu_torch.models.autoencoders.autoencoder_open_sora import (
     OpenSoraVAE,
@@ -27,6 +29,7 @@ from videosys_tpu_torch.models.autoencoders.autoencoder_open_sora import (
 from videosys_tpu_torch.models.text_encoders.t5 import StubTextEncoder
 from videosys_tpu_torch.models.transformers.stdit3 import STDiT3, STDiT3Config
 from videosys_tpu_torch.pipelines.common import bucket_text_kv
+from videosys_tpu_torch.pipelines.open_sora import mask_strategy as ms
 from videosys_tpu_torch.pipelines.open_sora.data_process import (
     append_score_to_prompts,
     extract_prompts_loop,
@@ -51,6 +54,25 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def OpenSoraPABConfig(**overrides) -> PABConfig:
+    """Default PAB thresholds for Open-Sora (pipeline_open_sora.py:32-69)."""
+    mlp_cfg = {
+        676: {"block": [0, 1, 2, 3, 4], "skip_count": 2},
+        788: {"block": [0, 1, 2, 3, 4], "skip_count": 2},
+        864: {"block": [0, 1, 2, 3, 4], "skip_count": 2},
+    }
+    defaults = dict(
+        spatial_broadcast=True, spatial_threshold=(450, 930), spatial_range=2,
+        temporal_broadcast=True, temporal_threshold=(450, 930), temporal_range=4,
+        cross_broadcast=True, cross_threshold=(450, 930), cross_range=6,
+        mlp_broadcast=True,
+        mlp_spatial_broadcast_config=mlp_cfg,
+        mlp_temporal_broadcast_config=dict(mlp_cfg),
+    )
+    defaults.update(overrides)
+    return PABConfig(**defaults)
+
+
 @dataclasses.dataclass
 class OpenSoraConfig:
     transformer: Optional[str] = "hpcai-tech/OpenSora-STDiT-v3"
@@ -63,15 +85,17 @@ class OpenSoraConfig:
     tiling_size: int = 8  # spatial-VAE frame micro-batch
     # ======== speedup ========
     text_kv_bucket: bool = True
+    # ======== pab ========
     enable_pab: bool = False
+    pab_config: Optional[PABConfig] = None
     dtype: str = "bf16"
     # random-init hooks: model sizes when no checkpoint is loaded
     transformer_config: Optional[STDiT3Config] = None
     vae_config: Optional[OpenSoraVAEConfig] = None
 
     def __post_init__(self):
-        if self.enable_pab:
-            raise NotImplementedError("PAB is not ported yet")
+        if self.pab_config is None:
+            self.pab_config = OpenSoraPABConfig()
         self.pipeline_cls = OpenSoraPipeline
 
 
@@ -137,17 +161,53 @@ class OpenSoraPipeline(VideoSysPipeline):
         return self.transformer.y_embedder.null_embedding(n)
 
     def _step(self, z, t_scalar, dt, y_all, kv_mask_all, fps, height, width,
-              guidance_scale):
-        """One CFG-doubled model eval, guidance combine and Euler step."""
+              guidance_scale, x_mask=None, plan=None, cache=None):
+        """One CFG-doubled model eval, guidance combine and Euler step;
+        `plan` and `cache`: the PAB step plan and cache."""
         B = z.shape[0]
         z_in = torch.cat([z, z]).to(self.dtype)
         t_in = torch.full((2 * B,), float(t_scalar), device=z.device)
         out = self.transformer(z_in, t_in, y_all, kv_mask=kv_mask_all,
-                               fps=torch.cat([fps, fps]),
-                               height=height, width=width)
+                               x_mask=x_mask, fps=torch.cat([fps, fps]),
+                               height=height, width=width, plan=plan,
+                               pab_cache=cache)
         pred = out[:, : self.model_config.in_channels]
         v = self.scheduler.apply_cfg(pred[:B], pred[B:], guidance_scale)
         return self.scheduler.step(z, v, dt)
+
+    def _masked_step(self, z, t_scalar, dt, y_all, kv_mask_all, fps, height,
+                     width, guidance_scale, mask, noise_added, eps,
+                     plan=None, cache=None):
+        """A step with condition frames (scheduling_rflow_open_sora.py
+        :226-257): frames whose edit threshold mask * T has not been passed
+        stay clamped to their reference x0; a frame crossing it is re-noised
+        with `eps` once. Returns (z, the frames noised so far)."""
+        B = z.shape[0]
+        t_b = torch.full((B,), float(t_scalar), device=z.device)
+        x0 = z
+        x_noise = self.scheduler.add_noise(x0, eps, t_b)
+        upper = mask * float(self.scheduler.config.num_timesteps) >= t_b[:, None]
+        add = (upper & ~noise_added)[:, None, :, None, None]
+        z = torch.where(add, x_noise, x0)
+        z = self._step(z, t_scalar, dt, y_all, kv_mask_all, fps, height,
+                       width, guidance_scale, x_mask=torch.cat([upper, upper]),
+                       plan=plan, cache=cache)
+        return torch.where(upper[:, None, :, None, None], z, x0), upper
+
+    def _encode_prompts(self, texts):
+        """(y_all, kv_mask_all) of the CFG-doubled batch; sets
+        last_text_kv_len."""
+        y, kv_mask = self.text_encoder.encode(texts)
+        y_all = torch.cat([y.to(self.device),
+                           self.null_embed(len(texts)).to(y.dtype)
+                           ]).to(self.dtype)
+        kv_mask = kv_mask.to(self.device)
+        kv_mask_all = torch.cat([kv_mask, kv_mask])
+        self.last_text_kv_len = y_all.shape[1]
+        if self._config.text_kv_bucket:
+            y_all, kv_mask_all, self.last_text_kv_len = bucket_text_kv(
+                y_all, kv_mask_all, self.model_config.model_max_length)
+        return y_all, kv_mask_all
 
     @torch.no_grad()
     def generate(self, prompt, resolution: str = "480p",
@@ -155,11 +215,29 @@ class OpenSoraPipeline(VideoSysPipeline):
                  guidance_scale: Optional[float] = None, aes: float = 6.5,
                  flow: Optional[float] = None,
                  camera_motion: Optional[float] = None, fps: int = 24,
-                 latents: Optional[torch.Tensor] = None,
+                 reference=None, mask_strategy: Optional[str] = None,
+                 loop: int = 1, condition_frame_length: int = 5,
+                 condition_frame_edit: float = 0.0, align: Optional[int] = 5,
+                 latents: Union[None, torch.Tensor,
+                                Sequence[torch.Tensor]] = None,
+                 noise: Optional[Callable[[str, Tuple[int, ...]],
+                                          torch.Tensor]] = None,
                  return_dict: bool = True):
         """Text to video. `prompt` may be a list (one batched denoise; row i
-        uses seed + i). `latents`: optional initial noise [B, 4, T_lat, h,
-        w]; drawn from a per-prompt seeded generator otherwise."""
+        uses seed + i).
+
+        Condition frames: `reference` is pixels [C, T, H, W] in [-1, 1]
+        (conditioned on its frame 0 unless `mask_strategy` says otherwise;
+        see mask_strategy.py); with `loop` > 1 each later loop is
+        conditioned on the last `condition_frame_length` latent frames of
+        the clip before, and the clips are stitched without those frames.
+
+        Draws: `latents`, the initial noise [B, 4, T_lat, h, w] (a list:
+        one per loop), drawn from a per-prompt seeded generator otherwise;
+        `noise(name, shape)`, the other draws: "reference/spatial",
+        "reference/temporal/{i}" and "loop{l}/..." (the VAE encodes, see
+        OpenSoraVAE.encode) and "mask/{l}/{step}" (a masked step's noise),
+        drawn from the first prompt's generator otherwise."""
         cfg = self._config
         height, width = get_image_size(resolution, aspect_ratio)
         num_frames = get_num_frames(num_frames)
@@ -174,6 +252,19 @@ class OpenSoraPipeline(VideoSysPipeline):
         else:
             base = int(seed) if seed >= 0 else np.random.randint(0, 2**31 - 1)
             seeds = [base + i for i in range(B)]
+        if isinstance(latents, torch.Tensor):
+            latents = [latents]
+        if latents is not None and len(latents) != loop:
+            raise ValueError(f"{len(latents)} latents for {loop} loops")
+        gens = [torch.Generator(self.device).manual_seed(s) for s in seeds]
+
+        def draw(name, shape):
+            if noise is None:
+                return torch.randn(shape, device=self.device, generator=gens[0])
+            return noise(name, shape).to(self.device, torch.float32)
+
+        def draws(prefix):
+            return lambda name, shape: draw(f"{prefix}/{name}", shape)
 
         # --- text ---------------------------------------------------------- #
         t0 = time.perf_counter()
@@ -184,51 +275,108 @@ class OpenSoraPipeline(VideoSysPipeline):
                                            camera_motion=camera_motion)
             merged.append(merge_prompt([text_preprocessing(s) for s in segs],
                                        loop_idx))
-        y, kv_mask = self.text_encoder.encode(extract_prompts_loop(merged, 0))
-        y_all = torch.cat([y.to(self.device), self.null_embed(B).to(y.dtype)
-                           ]).to(self.dtype)
-        kv_mask = kv_mask.to(self.device)
-        kv_mask_all = torch.cat([kv_mask, kv_mask])
-        self.last_text_kv_len = y_all.shape[1]
-        if cfg.text_kv_bucket:
-            y_all, kv_mask_all, self.last_text_kv_len = bucket_text_kv(
-                y_all, kv_mask_all, self.model_config.model_max_length)
+        texts = extract_prompts_loop(merged, 0)
+        y_all, kv_mask_all = self._encode_prompts(texts)
         self._sync()
         t_text = time.perf_counter() - t0
 
-        # --- denoise --------------------------------------------------------- #
+        # --- denoise, VAE: once per loop ------------------------------------ #
         t_lat, h_lat, w_lat = self.vae.get_latent_size((num_frames, height, width))
         shape = (B, self.vae.out_channels, t_lat, h_lat, w_lat)
-        if latents is not None:
-            if tuple(latents.shape) != shape:
-                raise ValueError(f"latents shape {tuple(latents.shape)} != {shape}")
-            z = latents.to(self.device, torch.float32)
-        else:
-            z = torch.cat([
-                torch.randn((1,) + shape[1:], device=self.device,
-                            generator=torch.Generator(self.device).manual_seed(s))
-                for s in seeds])
         timesteps = self.scheduler.prepare_timesteps(height, width, num_frames)
         dts = self.scheduler.prepare_dts(timesteps)
+        pab = cfg.pab_config if cfg.enable_pab else None
+        plans = build_plans(pab, timesteps, self.model_config.depth, self.dtype)
         fps_arr = torch.full((B,), float(fps), device=self.device)
+        # the VAE encodes of references and loop clips count as "vae"
         t0 = time.perf_counter()
-        for t_i, dt_i in zip(timesteps, dts):
-            z = self._step(z, t_i, dt_i, y_all, kv_mask_all, fps_arr,
-                           float(height), float(width), float(guidance_scale))
-        self._sync()
-        t_denoise = time.perf_counter() - t0
-        if getattr(self, "keep_latents", False):
-            self.last_latents = z.cpu().numpy()
-
-        # --- vae --------------------------------------------------------------- #
-        t0 = time.perf_counter()
-        chunks = self.vae.decode_chunks_u8(z, num_frames)
+        refs, strategies = [None] * B, [mask_strategy] * B
+        if reference is not None:
+            ref = ms.load_reference(reference, self.vae, self.device,
+                                    draws("reference"))
+            refs = [[ref]] * B
+            if mask_strategy is None:
+                strategies = ["0"] * B  # condition on the reference's frame 0
         self._sync()
         t_vae = time.perf_counter() - t0
+        clips = []
+        t_denoise = 0.0
+        for loop_i in range(loop):
+            if loop_i > 0:
+                t0 = time.perf_counter()
+                refs, strategies = ms.append_generated(
+                    self.vae, clips[-1], refs, strategies, loop_i,
+                    condition_frame_length, condition_frame_edit,
+                    draws(f"loop{loop_i}"))
+                self._sync()
+                t_vae += time.perf_counter() - t0
+                texts_i = extract_prompts_loop(merged, loop_i)
+                if texts_i != texts:  # per-loop prompt segments (|0| syntax)
+                    t0 = time.perf_counter()
+                    texts = texts_i
+                    y_all, kv_mask_all = self._encode_prompts(texts)
+                    self._sync()
+                    t_text += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            if latents is not None:
+                if tuple(latents[loop_i].shape) != shape:
+                    raise ValueError(f"latents shape "
+                                     f"{tuple(latents[loop_i].shape)} != {shape}")
+                z = latents[loop_i].to(self.device, torch.float32)
+            else:
+                z = torch.cat([torch.randn((1,) + shape[1:], device=self.device,
+                                           generator=g) for g in gens])
+            mask = None
+            if any(strategies) or any(refs):
+                z, mask = ms.apply_mask_strategy(z, refs, strategies, loop_i,
+                                                 align=align)
+            cache = None
+            if pab is not None:
+                mc = self.model_config
+                T_tok = -(-t_lat // mc.patch_size[0])
+                S_tok = (-(-h_lat // mc.patch_size[1])) * (
+                    -(-w_lat // mc.patch_size[2]))
+                cache = self.transformer.init_cache(pab, 2 * B, T_tok, S_tok)
+                self.last_pab_cache_bytes = cache.nbytes
+            args = (y_all, kv_mask_all, fps_arr, float(height), float(width),
+                    float(guidance_scale))
+            if mask is None:
+                for t_i, dt_i, plan in zip(timesteps, dts, plans):
+                    z = self._step(z, t_i, dt_i, *args, plan=plan, cache=cache)
+            else:
+                noise_added = mask >= 1.0
+                for i, (t_i, dt_i, plan) in enumerate(zip(timesteps, dts, plans)):
+                    eps = draw(f"mask/{loop_i}/{i}", shape)
+                    z, noise_added = self._masked_step(
+                        z, t_i, dt_i, *args, mask, noise_added, eps,
+                        plan=plan, cache=cache)
+            del cache  # free the PAB cache before the VAE runs
+            self._sync()
+            t_denoise += time.perf_counter() - t0
+            if getattr(self, "keep_latents", False):
+                self.last_latents = z.cpu().numpy()
+
+            t0 = time.perf_counter()
+            if loop == 1:
+                clips.append(self.vae.decode_chunks_u8(z, num_frames))
+            else:
+                clips.append(self.vae.decode(z, num_frames))
+            self._sync()
+            t_vae += time.perf_counter() - t0
 
         # --- postprocess ------------------------------------------------------- #
         t0 = time.perf_counter()
-        video = torch.cat(chunks, dim=1).cpu().numpy()
+        if loop == 1:
+            video = torch.cat(clips[0], dim=1)
+        else:
+            # stitch the loops, dropping each later clip's condition frames
+            dpix = ms.dframe_to_frame(condition_frame_length)
+            samples = torch.cat([clips[0]] + [c[:, :, dpix:] for c in clips[1:]],
+                                dim=2)
+            u8 = torch.clamp((torch.clamp(samples, -1, 1) + 1) / 2 * 255 + 0.5,
+                             0, 255)
+            video = u8.to(torch.uint8).permute(0, 2, 3, 4, 1)
+        video = video.cpu().numpy()
         self.last_timings = {"text": t_text, "denoise": t_denoise,
                              "vae": t_vae,
                              "postprocess": time.perf_counter() - t0}

@@ -92,6 +92,8 @@ def stdit3_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
 
 
 _VAE2D_RENAMES = (
+    (r"^down_(\d+)_res_(\d+)\.", r"down_blocks.\1.resnets.\2."),
+    (r"^down_(\d+)_downsample\.", r"down_blocks.\1.downsamplers.0.conv."),
     (r"^mid_res_(\d)\.", r"mid_block.resnets.\1."),
     (r"^mid_attn\.to_out\.", "mid_block.attentions.0.to_out.0."),
     (r"^mid_attn\.", "mid_block.attentions.0."),
@@ -100,7 +102,9 @@ _VAE2D_RENAMES = (
 )
 
 _VAE_TEMPORAL_RENAMES = (
-    (r"^first_res_(\d+)\.", r"res_blocks.\1."),
+    (r"^first_res_(\d+)\.", r"res_blocks.\1."),  # decoder
+    (r"^final_res_(\d+)\.", r"res_blocks.\1."),  # encoder
+    (r"^conv_down_(\d+)\.", r"conv_blocks.\1."),
     (r"^block_(\d+)_res_(\d+)\.", r"block_res_blocks.\1.\2."),
     (r"^conv_up_(\d+)\.", r"conv_blocks.\1."),
 )
@@ -108,15 +112,16 @@ _VAE_TEMPORAL_RENAMES = (
 
 def open_sora_vae_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
     """OpenSoraVAE Flax params {"spatial": ..., "temporal": ...} -> the
-    decode-side state_dict of `models.autoencoders.autoencoder_open_sora.
-    OpenSoraVAE` (encoder weights are dropped)."""
+    state_dict of `models.autoencoders.autoencoder_open_sora.OpenSoraVAE`:
+    encoder, decoder, quant_conv and post_quant_conv of both stages."""
     sd = {}
     for part, renames, prefix in (
             ("spatial", _VAE2D_RENAMES, "spatial_vae.module."),
             ("temporal", _VAE_TEMPORAL_RENAMES, "temporal_vae.")):
         p = _params(params[part])
-        sd.update({prefix + "decoder." + k: v
-                   for k, v in convert(p["decoder"], renames).items()})
-        sd.update({prefix + k: v for k, v in
-                   convert({"post_quant_conv": p["post_quant_conv"]}).items()})
+        for coder in ("encoder", "decoder"):
+            sd.update({f"{prefix}{coder}.{k}": v
+                       for k, v in convert(p[coder], renames).items()})
+        sd.update({prefix + k: v for k, v in convert(
+            {c: p[c] for c in ("quant_conv", "post_quant_conv")}).items()})
     return sd
