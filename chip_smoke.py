@@ -33,7 +33,20 @@ Phases, each fatal on failure:
   4. run a tiny configuration on the card and on the CPU (plain attention)
      with the same weights, noise and draws, and compare the latents and
      video: dense, with PAB on, and conditioned on a reference image;
-  5. hold the three backward kernels (flash_bwd_fused, flash_bwd_dq with
+  5. the T5-v1.1-XXL text encoder at full width with random weights from a
+     seed: bf16 against fp32 on the card over a batch of prompts (token ids
+     from a word-hashing tokenizer defined here), the encode time of one
+     300-token prompt against its bound, and a tiny T5 on the card against
+     the CPU in fp32;
+  6. the 480p 9:16 2 s request with the T5-XXL encoder served twice: every
+     module resident, then with cpu_offload=True and the STDiT3 loaded
+     from the first engine's weights written as a reference checkpoint
+     (fp32, two safetensors shards and an index); the first denoise step
+     and the video must agree, no module may be on the card outside its
+     phase, and the peak memory must fall by at least the T5's weights
+     (peaks per phase, fetch seconds and GiB, checkpoint write and load
+     seconds printed);
+  7. hold the three backward kernels (flash_bwd_fused, flash_bwd_dq with
      the di = rowsum(dO * O) it writes, and flash_bwd_dkv fed that di) and
      the forward's log-sum-exp against their plain
      versions at the training path's shapes (spatial 144p x 51 frames batch
@@ -48,14 +61,14 @@ Phases, each fatal on failure:
      its 128-key blocks, a fully masked row) and the dq kernel's (q rows
      around its 64- and 128-row blocks, a fully masked row), each giving
      bit-equal gradients twice;
-  6. train Open-Sora v1.2 at full width and depth (`run_training`: bf16
+  8. train Open-Sora v1.2 at full width and depth (`run_training`: bf16
      compute over fp32 parameters, recompute of every depth pair) for a few
      steps on the default buckets and one step on a 1080p image bucket,
      checking that losses and gradient norms are finite, that the step
      count and the EMA moved, and that every attention forward and
      backward went through the kernels, by launch counts predicted from
      the shapes;
-  7. train a tiny configuration for 3 steps in fp32 on the card (kernels)
+  9. train a tiny configuration for 3 steps in fp32 on the card (kernels)
      and on the CPU (plain versions) from the same weights and draws, and
      compare the losses.
 
@@ -85,7 +98,8 @@ ROOT = Path(__file__).resolve().parent
 # HBM3 bandwidth
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 PEAK_BYTES = 3.35e12
-PHASES = ("kernel", "serve", "tiny", "bwd_kernel", "train", "tiny_train")
+PHASES = ("kernel", "serve", "tiny", "bwd_kernel", "train", "tiny_train", "t5",
+          "offload")
 TRAIN_STEPS = 4  # on the default buckets: two video shapes and an image
 F32_TOL = 2e-5
 F32_GRAD_TOL = 1e-4
@@ -95,7 +109,11 @@ DI_TOL = 1e-5  # di against rowsum(dO * O), relative to its largest entry
 # version that drops one key per row read at least twice one of them
 BF16_LIMITS = {"spatial": (8e-3, 2e-2), "cross": (1e-2, 2e-2),
                "temporal": (1e-2, 2e-2), "vae_mid": (6.5e-3, 1.5e-2),
-               "stdit3_forward": (1.8e-2, 2.5e-2)}
+               "stdit3_forward": (1.8e-2, 2.5e-2),
+               # T5-v1.1-XXL bf16 against fp32 on the unmasked rows, read on
+               # an H100: 2.15e-2, 2.50e-2; without the relative bias 0.73,
+               # 0.84
+               "t5_xxl": (4.5e-2, 5e-2)}
 # the same for the gradients of the backward kernels (the largest of dq, dk,
 # dv): the kernels read at most a third of each limit (3.0e-4, 3.2e-3), the
 # one-key fault at least 10x one of them (1.1e-2, 1.0e-1 at the long row)
@@ -134,9 +152,11 @@ def drop_last_key(mask, B: int, Nk: int, device):
     return keep
 
 
-def check_bf16(name: str, got, want, fault, limits=None) -> dict:
+def check_bf16(name: str, got, want, fault, limits=None,
+               fault_name: str = "one key dropped") -> dict:
     """Hold a bf16 output (or a tuple of them: the worst counts) against
-    its reference at `limits` (default BF16_LIMITS[name])."""
+    its reference at `limits` (default BF16_LIMITS[name]); `fault`, the
+    output of a version with `fault_name`, must break them."""
     import torch
 
     def worst(outs):
@@ -151,13 +171,14 @@ def check_bf16(name: str, got, want, fault, limits=None) -> dict:
     finite = all(bool(torch.isfinite(o).all()) for o in
                  (got if isinstance(got, (tuple, list)) else (got,)))
     ok = l2 <= lim_l2 and mx <= lim_mx and finite
-    log(f"check {name:14s} bf16 rel_l2={l2:.3e} (limit {lim_l2:.1e}, one key "
-        f"dropped {f_l2:.3e}) rel_max={mx:.3e} (limit {lim_mx:.1e}, one key "
-        f"dropped {f_mx:.3e}) {'ok' if ok else 'FAIL'}")
+    log(f"check {name:14s} bf16 rel_l2={l2:.3e} (limit {lim_l2:.1e}, "
+        f"{fault_name} {f_l2:.3e}) rel_max={mx:.3e} (limit {lim_mx:.1e}, "
+        f"{fault_name} {f_mx:.3e}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{name}: kernel disagrees with plain in bf16")
+        raise AssertionError(f"{name}: bf16 disagrees with its reference")
     if f_l2 <= lim_l2 and f_mx <= lim_mx:
-        raise AssertionError(f"{name}: the bf16 limits let a one-key fault pass")
+        raise AssertionError(f"{name}: the bf16 limits let a fault "
+                             f"({fault_name}) pass")
     return {"rel_l2": l2, "rel_max": mx, "fault_rel_l2": f_l2,
             "fault_rel_max": f_mx}
 
@@ -773,6 +794,372 @@ def tiny_parity_phase(seed: int) -> dict:
     return out
 
 
+# T5-v1.1-XXL's published configuration (DeepFloyd/t5-v1_1-xxl config.json)
+T5_XXL = dict(vocab_size=32128, d_model=4096, d_kv=64, d_ff=10240,
+              num_layers=24, num_heads=64, relative_attention_num_buckets=32,
+              relative_attention_max_distance=128, layer_norm_epsilon=1e-6,
+              feed_forward_proj="gated-gelu")
+PROMPTS = ["a drone shot of waves breaking on a rocky coast at sunset",
+           "a red fox sitting in fresh snow, looking at the camera",
+           "time-lapse of clouds over a mountain lake, golden hour",
+           "a busy street market in the rain at night, neon signs"]
+
+
+class WordTokenizer:
+    """Stands in for T5's sentencepiece tokenizer, so that the script needs
+    no `transformers`: words hash to ids 2..vocab-1, then eos (1) and
+    padding (0), truncated to max_length; called as an HF tokenizer is."""
+
+    def __init__(self, vocab_size: int):
+        self.vocab_size = vocab_size
+
+    def __call__(self, texts, max_length, padding, truncation,
+                 return_attention_mask, add_special_tokens, return_tensors):
+        import zlib
+
+        import numpy as np
+
+        ids = np.zeros((len(texts), max_length), np.int64)
+        for i, text in enumerate(texts):
+            toks = [2 + zlib.crc32(w.encode()) % (self.vocab_size - 2)
+                    for w in text.split()[: max_length - 1]] + [1]
+            ids[i, : len(toks)] = toks
+        return {"input_ids": ids, "attention_mask": (ids > 0).astype(np.int64)}
+
+
+def t5_xxl(seed: int, dtype):
+    """T5-v1.1-XXL's encoder on the card, weights drawn from `seed` as HF
+    initializes them (in fp32, then cast to `dtype`), but the relative
+    position bias at std 1 instead of d_model^-0.5, so that the positions
+    weigh in the scores and dropping the bias is a fault a check can see."""
+    import torch
+
+    from videosys_tpu_torch.models.text_encoders.t5 import T5Config, T5EncoderModel
+
+    torch.manual_seed(seed)
+    with torch.device("cuda"):
+        model = T5EncoderModel(T5Config(**T5_XXL))
+        with torch.no_grad():
+            model.encoder.block[0].layer[0].SelfAttention \
+                .relative_attention_bias.weight.normal_(0.0, 1.0)
+    return model.to(dtype).eval().requires_grad_(False)
+
+
+def median_ms(fn, reps: int) -> float:
+    """Median of `reps` single calls timed by CUDA events, after a warm-up."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def device_busy(fn, wall_ms: float) -> dict:
+    """The card's busy time in one call of `fn` (torch.profiler, the sum of
+    the kernels' device time) and its idle share of `wall_ms`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return {"encode_device_busy_ms": busy,
+            "encode_idle_share": max(0.0, 1 - busy / wall_ms)}
+
+
+def t5_bound_ms(cfg: dict, L: int, weight_bytes: int) -> tuple:
+    """(bound ms, "bytes" or "operations") of one encode of L tokens in
+    bf16: the GEMMs and the two attention products over 989 TFLOP/s
+    against reading every weight but the embedding table once over 3.35
+    TB/s (the token ids, the L embedding rows and the output are
+    negligible beside them)."""
+    d, inner, ff = cfg["d_model"], cfg["num_heads"] * cfg["d_kv"], cfg["d_ff"]
+    gemm = 4 * d * inner + 3 * d * ff
+    flops = cfg["num_layers"] * (2 * L * gemm + 4 * L * L * inner)
+    ops_ms = flops / PEAK_FLOPS["bf16"] * 1e3
+    bytes_ms = weight_bytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def t5_phase(seed: int) -> dict:
+    """T5-v1.1-XXL at full width on the card: bf16 against fp32 on a batch
+    of prompts (relative measures on the unmasked rows, limits checked to
+    catch a dropped relative bias), the encode time of one 300-token prompt
+    against its bound; then a tiny T5 on the card against the CPU in fp32."""
+    import numpy as np
+    import torch
+
+    from videosys_tpu_torch.models.text_encoders.t5 import (
+        T5Config, T5EncoderModel, T5TextEncoder, encoder_state_dict)
+
+    t0 = time.perf_counter()
+    m32 = t5_xxl(seed, torch.float32)
+    with torch.device("meta"):
+        m16 = T5EncoderModel(m32.config)
+    m16.load_state_dict(encoder_state_dict(m32.state_dict(), torch.bfloat16),
+                        assign=True)
+    m16.eval()
+    n_params = sum(p.numel() for p in m16.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in m16.parameters())
+    tok = WordTokenizer(T5_XXL["vocab_size"])
+    batch = tok(PROMPTS, 300, "max_length", True, True, True, "np")
+    ids = torch.from_numpy(batch["input_ids"]).cuda()
+    mask = torch.from_numpy(batch["attention_mask"]).cuda().bool()
+    with torch.no_grad():
+        want = m32(ids, mask)[mask]
+        got = m16(ids, mask)[mask]
+        rel_bias = m16.encoder.block[0].layer[0].SelfAttention \
+            .relative_attention_bias.weight
+        kept = rel_bias.data
+        rel_bias.data = torch.zeros_like(kept)  # the fault: no position bias
+        fault = m16(ids, mask)[mask]
+        rel_bias.data = kept
+    res = {"params": n_params, "weight_bytes": weight_bytes,
+           "weight_gib": weight_bytes / 2**30,
+           "init_s": time.perf_counter() - t0,
+           "tokens": int(mask.sum()), "prompts": len(PROMPTS)}
+    res.update(check_bf16("t5_xxl", got, want, fault,
+                          fault_name="relative bias dropped"))
+    del m32, want, got, fault
+    torch.cuda.empty_cache()
+
+    enc = T5TextEncoder(max_length=300, dtype=torch.bfloat16, tokenizer=tok,
+                        model=m16)
+    one = tok(PROMPTS[:1], 300, "max_length", True, True, True, "np")
+    ids1 = torch.from_numpy(one["input_ids"]).cuda()
+    mask1 = torch.from_numpy(one["attention_mask"]).cuda().bool()
+    with torch.no_grad():
+        res["encode_ms"] = median_ms(lambda: m16(ids1, mask1), 20)
+        res["encode_batch4_ms"] = median_ms(lambda: m16(ids, mask), 10)
+        res.update(device_busy(lambda: m16(ids1, mask1), res["encode_ms"]))
+    res["bound_ms"], res["bound_by"] = t5_bound_ms(T5_XXL, 300, weight_bytes
+                                                   - m16.shared.weight.numel()
+                                                   * 2)
+    walls = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        enc.encode(PROMPTS[:1])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    res["text_encoder_encode_wall_ms"] = sorted(walls)[2] * 1e3
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del enc, m16
+    torch.cuda.empty_cache()
+
+    # tiny T5, card against CPU, fp32
+    tiny = T5Config(vocab_size=64, d_model=32, d_kv=8, d_ff=64, num_layers=2,
+                    num_heads=4)
+    torch.manual_seed(seed)
+    cpu = T5EncoderModel(tiny).eval()
+    card = T5EncoderModel(tiny).eval()
+    card.load_state_dict(cpu.state_dict())
+    card.cuda()
+    rng = np.random.default_rng(seed)
+    tids = torch.from_numpy(rng.integers(0, 64, (3, 40)))
+    lens = torch.tensor([40, 17, 1])
+    tmask = torch.arange(40)[None] < lens[:, None]
+    with torch.no_grad():
+        err = float((card(tids.cuda(), tmask.cuda()).cpu()
+                     - cpu(tids, tmask)).abs().max())
+    res["tiny_card_vs_cpu_max_abs_err"] = err
+    log(f"t5: T5-v1.1-XXL params={n_params / 1e9:.3f}B weights="
+        f"{res['weight_gib']:.3f} GiB bf16; encode of one 300-token prompt "
+        f"{res['encode_ms']:.3f} ms (median, CUDA events; bound "
+        f"{res['bound_ms']:.3f} ms by {res['bound_by']}; device busy "
+        f"{res['encode_device_busy_ms']:.3f} ms); tiny card vs CPU "
+        f"fp32 max_abs_err={err:.3e} (tol 2e-4)")
+    log("t5:", json.dumps(res))
+    if not err <= 2e-4:
+        raise AssertionError("tiny T5: card and CPU disagree")
+    return res
+
+
+def offload_request(fa, engine, req: dict, seed: int, steps: int,
+                    modules: dict) -> tuple:
+    """One `generate` with the launch counts and the peak memory set to 0
+    just before it; the peak read per phase (text, denoise, VAE) and for
+    the request, the first denoise step's output kept. Under cpu_offload
+    every fetch is logged and must find every other module on the host.
+    (record, video, first step)."""
+    import contextlib
+
+    import torch
+
+    from videosys_tpu_torch.core import pipeline as core_pipeline
+    from videosys_tpu_torch.pipelines.open_sora.data_process import (
+        get_image_size, get_num_frames)
+
+    pipe = engine.pipeline
+    peaks, first, fetches = {}, [], []
+    phase, step = pipe._phase, pipe._step
+
+    @contextlib.contextmanager
+    def probed_phase(timer, module=None, name=""):
+        torch.cuda.reset_peak_memory_stats()
+        with phase(timer, module, name):
+            yield
+        peaks[timer] = max(peaks.get(timer, 0),
+                           torch.cuda.max_memory_allocated())
+
+    def probed_step(*args, **kwargs):
+        z = step(*args, **kwargs)
+        if not first:
+            first.append(z.clone())
+        return z
+
+    def fetched(name, module, seconds, nbytes):
+        mine = {id(p) for p in module.parameters()}
+        stray = sorted({other for other, m in modules.items()
+                        for p in m.parameters()
+                        if id(p) not in mine and p.is_cuda})
+        if stray:
+            raise AssertionError(f"fetching {name}: {stray} still on the card")
+        fetches.append({"module": name, "seconds": seconds,
+                        "gib": nbytes / 2**30})
+
+    pipe._phase, pipe._step = probed_phase, probed_step
+    core_pipeline.FETCH_HOOKS.append(fetched)
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        video = engine.generate(seed=seed, **req).video
+        wall = time.perf_counter() - t0
+    finally:
+        del pipe._phase, pipe._step
+        core_pipeline.FETCH_HOOKS.remove(fetched)
+    peaks["request"] = max(max(peaks.values()),
+                           torch.cuda.max_memory_allocated())
+    h, w = get_image_size(req["resolution"], req["aspect_ratio"])
+    nf = get_num_frames(req["num_frames"])
+    want = expected_launches(fa, pipe, nf, h, w, steps, pipe.last_text_kv_len)
+    rec = {"wall_s": wall, "timings_s": pipe.last_timings,
+           "peak_mem_gib": {k: v / 2**30 for k, v in peaks.items()},
+           "fetches": fetches, "text_kv_len": pipe.last_text_kv_len,
+           "launches": dict(fa.LAUNCHES), "expected_launches": want,
+           "video_shape": list(video.shape)}
+    if rec["launches"] != want:
+        raise AssertionError(f"launches {rec['launches']} != expected {want}")
+    return rec, video, first[0]
+
+
+def offload_phase(fa, steps: int, seed: int) -> dict:
+    """The 480p 9:16 2 s request at full width and depth with T5-v1.1-XXL,
+    served twice with the same weights: (a) every module resident; (b)
+    cpu_offload=True with the STDiT3 loaded through
+    OpenSoraConfig(transformer=<dir>) from (a)'s weights written there in
+    the reference layout (fp32, two safetensors shards and an index). The
+    first denoise steps must be equal, the videos within one level, no
+    module on the card outside its phase in (b), and (b)'s peak below (a)'s
+    by at least the T5's weight bytes."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from videosys_tpu_torch import OpenSoraConfig, VideoSysEngine
+    from videosys_tpu_torch.models.text_encoders.t5 import T5TextEncoder
+    from videosys_tpu_torch.utils.safetensors_io import save_sharded
+
+    req = dict(prompt=PROMPTS[0], resolution="480p", aspect_ratio="9:16",
+               num_frames="2s")
+    tok = WordTokenizer(T5_XXL["vocab_size"])
+    model = t5_xxl(seed, torch.bfloat16)
+    t5_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    cfg = OpenSoraConfig(transformer=None, vae=None, text_encoder=None,
+                         dtype="bf16", num_sampling_steps=steps)
+    dense = VideoSysEngine(cfg, seed=seed, text_encoder=T5TextEncoder(
+        max_length=300, dtype=torch.bfloat16, tokenizer=tok, model=model))
+    pipe = dense.pipeline
+    pipe.text_encoder.encode(PROMPTS[:1])  # warm-up: time (a) warm as (b)
+    modules = {"text_encoder": model, "transformer": pipe.transformer,
+               "vae": pipe.vae}
+    rec_a, video_a, first_a = offload_request(fa, dense, req, seed, steps,
+                                              modules)
+    log("offload (a) dense, T5 resident:", json.dumps(rec_a))
+
+    out = {"t5_weight_gib": t5_bytes / 2**30, "dense": rec_a}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt:
+        t0 = time.perf_counter()
+        save_sharded({k: v.float() for k, v in
+                      pipe.transformer.state_dict().items()}, ckpt, shards=2)
+        out["checkpoint_write_s"] = time.perf_counter() - t0
+        out["checkpoint_gib"] = sum(
+            f.stat().st_size for f in Path(ckpt).iterdir()) / 2**30
+        vae = pipe.vae
+        del dense, pipe, modules
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        t5 = T5TextEncoder(max_length=300, dtype=torch.bfloat16, offload=True,
+                           tokenizer=tok, model=model)
+        out["t5_to_host_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        off = VideoSysEngine(
+            OpenSoraConfig(transformer=ckpt, vae=None, text_encoder=None,
+                           dtype="bf16", num_sampling_steps=steps,
+                           cpu_offload=True),
+            seed=seed, vae=vae, text_encoder=t5)
+        out["checkpoint_load_s"] = time.perf_counter() - t0
+    pipe = off.pipeline
+    modules = {"text_encoder": model, "transformer": pipe.transformer,
+               "vae": pipe.vae}
+    resident = [(name, n) for name, m in modules.items()
+                for n, p in m.named_parameters()
+                if p.is_cuda or not p.is_pinned()]
+    if resident:
+        raise AssertionError(f"cpu_offload: not in pinned host memory: "
+                             f"{resident[:3]}")
+    rec_b, video_b, first_b = offload_request(fa, off, req, seed, steps,
+                                              modules)
+    log("offload (b) cpu_offload, checkpoint-loaded:", json.dumps(rec_b))
+    on_card = [name for name, m in modules.items()
+               if any(p.is_cuda for p in m.parameters())]
+    level = int(np.abs(video_a.astype(int) - video_b.astype(int)).max())
+    out.update(
+        offload=rec_b, first_step_equal=bool(torch.equal(first_a, first_b)),
+        first_step_max_abs_diff=float((first_a - first_b).abs().max()),
+        video_max_level_diff=level,
+        peak_saving_gib=rec_a["peak_mem_gib"]["request"]
+        - rec_b["peak_mem_gib"]["request"])
+    log(f"offload: write {out['checkpoint_write_s']:.2f} s "
+        f"({out['checkpoint_gib']:.3f} GiB fp32, 2 shards), load "
+        f"{out['checkpoint_load_s']:.2f} s, T5 to pinned host "
+        f"{out['t5_to_host_s']:.2f} s; peak (a) "
+        f"{rec_a['peak_mem_gib']['request']:.3f} GiB, (b) "
+        f"{rec_b['peak_mem_gib']['request']:.3f} GiB (saving "
+        f"{out['peak_saving_gib']:.3f}, T5 {out['t5_weight_gib']:.3f}); first "
+        f"step equal={out['first_step_equal']}; video max level diff={level}")
+    log("offload:", json.dumps({k: v for k, v in out.items()
+                                if k not in ("dense", "offload")}))
+    if on_card:
+        raise AssertionError(f"cpu_offload: {on_card} left on the card")
+    if not out["first_step_equal"]:
+        raise AssertionError("cpu_offload: the first denoise step differs")
+    if level > 1:
+        raise AssertionError("cpu_offload: the video differs from dense")
+    if out["peak_saving_gib"] < out["t5_weight_gib"]:
+        raise AssertionError("cpu_offload: the peak fell by less than the "
+                             "T5's weights")
+    if rec_b["launches"] != rec_a["launches"]:
+        raise AssertionError("cpu_offload changed the kernel launches")
+    del off, pipe, modules, model, t5, vae
+    torch.cuda.empty_cache()
+    return out
+
+
 def ragged_mask(B: int, Nk: int, gen):
     """[B, Nk] key mask of ragged real lengths, the longest filling Nk."""
     import torch
@@ -1334,7 +1721,8 @@ def tiny_train_parity_phase(fa, seed: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=30,
-                    help="rflow sampling steps of the full-width requests")
+                    help="rflow sampling steps of the full-width requests "
+                         "(serve and offload)")
     ap.add_argument("--remat-policy", default="full",
                     choices=("full", "dots", "none"),
                     help="activation recompute of the training phase")
@@ -1392,12 +1780,16 @@ def main(argv=None) -> int:
         served = serve_phase(fa, args.steps, args.seed, args.profile)
     if "tiny" in phases:  # phase 4: tiny configuration, card against CPU
         tiny_parity_phase(args.seed)
-    if "bwd_kernel" in phases:  # phase 5: backward kernels against plain
+    if "t5" in phases:  # phase 5: the T5-XXL text encoder
+        t5_phase(args.seed)
+    if "offload" in phases:  # phase 6: T5, checkpoint loading, cpu_offload
+        offload_phase(fa, args.steps, args.seed)
+    if "bwd_kernel" in phases:  # phase 7: backward kernels against plain
         bwd_shapes = backward_kernel_phase(fa)
-    if "train" in phases:  # phase 6: the training path
+    if "train" in phases:  # phase 8: the training path
         trained = train_phase(fa, TRAIN_STEPS, args.seed, args.profile,
                               args.remat_policy)
-    if "tiny_train" in phases:  # phase 7: tiny training, card against CPU
+    if "tiny_train" in phases:  # phase 9: tiny training, card against CPU
         tiny_train_parity_phase(fa, args.seed)
     if set(phases) != set(PHASES):
         log(f"partial run ({args.phases}) total_s="

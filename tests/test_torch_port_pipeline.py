@@ -164,14 +164,21 @@ def test_copies_equal_originals(mod_j, mod_p, extra):
 
 
 def test_port_imports_no_jax():
+    """The port imports no JAX and nothing of the JAX package; the modules
+    that read weights import neither transformers nor safetensors, so the
+    port runs where neither is installed."""
     code = ("import sys, videosys_tpu_torch, videosys_tpu_torch.utils.from_jax,"
             " videosys_tpu_torch.training.train, videosys_tpu_torch.training.ckpt,"
             " videosys_tpu_torch.training.datasets, videosys_tpu_torch.core.pab,"
             " videosys_tpu_torch.pipelines.open_sora.mask_strategy,"
             " videosys_tpu_torch.models.autoencoders.vae2d,"
-            " videosys_tpu_torch.models.autoencoders.vae_temporal;"
+            " videosys_tpu_torch.models.autoencoders.vae_temporal,"
+            " videosys_tpu_torch.models.text_encoders.t5,"
+            " videosys_tpu_torch.utils.checkpoint,"
+            " videosys_tpu_torch.utils.safetensors_io;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'videosys_tpu')];"
+            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'videosys_tpu',"
+            " 'transformers', 'safetensors', 'tokenizers')];"
             "assert not bad, bad")
     root = Path(__file__).resolve().parents[1]
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True)

@@ -1,11 +1,11 @@
 """videosys_tpu_torch: the PyTorch/CUDA port of videosys_tpu.
 
-Same public surface, `VideoSysEngine(config).generate(prompt)` and
-`run_training(TrainConfig(...))`, on one NVIDIA card (or the CPU with
+Same public surface, `initialize`, `VideoSysEngine(config).generate(prompt)`
+and `run_training(TrainConfig(...))`, on one NVIDIA card (or the CPU with
 `device="cpu"`). Imports torch only; the CUDA kernels build at first use.
 """
 
-from videosys_tpu_torch.core.engine import VideoSysEngine
+from videosys_tpu_torch.core.engine import VideoSysEngine, initialize
 from videosys_tpu_torch.core.pab import PABConfig
 from videosys_tpu_torch.pipelines.open_sora.pipeline_open_sora import (
     OpenSoraConfig,
@@ -15,5 +15,5 @@ from videosys_tpu_torch.pipelines.open_sora.pipeline_open_sora import (
 
 from videosys_tpu_torch.training.train import TrainConfig, run_training
 
-__all__ = ["VideoSysEngine", "OpenSoraConfig", "OpenSoraPABConfig",
+__all__ = ["VideoSysEngine", "initialize", "OpenSoraConfig", "OpenSoraPABConfig",
            "OpenSoraPipeline", "PABConfig", "TrainConfig", "run_training"]

@@ -1,9 +1,88 @@
-"""Pipeline base classes."""
+"""Pipeline base classes, device choice and the low-memory helpers.
+
+`cpu_offload` (the reference's low-memory mode; JAX `core/pipeline.py`
+`_offload_params_to_host`, `_exec_put`): a module's weights live on the host,
+in pinned memory when the card is the target (`offload_to_host`), and a
+phase fetches the module onto the card for its span only (`on_device`).
+Inference never changes the weights, so the host tensors are kept and only
+each parameter's (and buffer's) `.data` is swapped: dropping the device copy
+moves nothing back.
+"""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any
+import time
+from typing import Any, Callable, List, Optional
+
+import torch
+import torch.nn as nn
+
+# called as hook(name, module, seconds, nbytes) after each fetch, with the
+# module on the card
+FETCH_HOOKS: List[Callable[[str, nn.Module, float, int], None]] = []
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the card when None; a CUDA device without a card
+    raises instead of falling back to the CPU."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available; pass device='cpu' to "
+                           "run on the CPU")
+    return dev
+
+
+def _tensors(module: nn.Module) -> List[torch.Tensor]:
+    return list(module.parameters()) + list(module.buffers())
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def offload_to_host(module: nn.Module, pin: bool,
+                    dtype: Optional[torch.dtype] = None) -> nn.Module:
+    """Move the module's weights into one host buffer, pinned when `pin`
+    (the card's copies are fast only from pinned memory; one buffer is one
+    pinning instead of one per tensor), casting floating ones to `dtype` on
+    the way."""
+    tensors = _tensors(module)
+    dtypes = [dtype if dtype is not None and t.is_floating_point()
+              else t.dtype for t in tensors]
+    offsets, total = [], 0
+    for t, dt in zip(tensors, dtypes):
+        offsets.append(total)
+        total += -(-t.numel() * dt.itemsize // 64) * 64
+    buf = torch.empty(total, dtype=torch.uint8, pin_memory=pin)
+    for t, dt, off in zip(tensors, dtypes, offsets):
+        host = buf[off: off + t.numel() * dt.itemsize].view(dt).view(t.shape)
+        host.copy_(t.data)
+        t.data = host
+    return module
+
+
+@contextlib.contextmanager
+def on_device(module: nn.Module, device: torch.device, name: str = ""):
+    """Fetch a host-resident module onto `device` for the with-block and
+    drop the device copy at its end. The copy is made even on the CPU, so
+    a CPU run takes the same steps."""
+    host = [(t, t.data) for t in _tensors(module)]
+    t0 = time.perf_counter()
+    try:
+        for t, data in host:
+            t.data = data.to(device, non_blocking=True, copy=True)
+        _sync(device)
+        nbytes = sum(d.numel() * d.element_size() for _, d in host)
+        for hook in FETCH_HOOKS:
+            hook(name, module, time.perf_counter() - t0, nbytes)
+        yield module
+    finally:
+        _sync(device)
+        for t, data in host:
+            t.data = data
 
 
 @dataclasses.dataclass
@@ -21,3 +100,10 @@ class VideoSysPipeline:
 
     def __call__(self, *args, **kwargs) -> VideoSysPipelineOutput:
         return self.generate(*args, **kwargs)
+
+    def _on_device(self, module: Optional[nn.Module], name: str = ""):
+        """`on_device` under the config's `cpu_offload`; otherwise (or with
+        no module) this does nothing: the module is resident."""
+        if module is None or not getattr(self._config, "cpu_offload", False):
+            return contextlib.nullcontext(module)
+        return on_device(module, self.device, name)

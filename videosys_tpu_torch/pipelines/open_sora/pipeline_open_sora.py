@@ -7,12 +7,19 @@ Each denoise step runs the CFG-doubled STDiT3, combines the guidance and
 takes an Euler step, in a plain Python loop. With `enable_pab` the steps run
 under the per-step plans of `core/pab.py` with one PAB cache per loop.
 Condition frames (`reference`, `mask_strategy`) and `loop > 1` clamp frames
-to VAE-encoded references (`mask_strategy.py`). Not ported yet: CPU
-offload, multi-device runs, checkpoint loading and the T5 encoder.
+to VAE-encoded references (`mask_strategy.py`).
+
+Weights come from local directories (`utils/checkpoint.py`): the
+transformer from a reference snapshot or, with the VAE, from this
+package's `save_params` directory; the T5 encoder and its tokenizer from a
+local HF snapshot. `cpu_offload` keeps every module on the host and fetches
+each onto the card for its phase only (text, denoise, VAE). Not ported
+yet: multi-device runs (`num_gpus > 1`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Optional, Sequence, Tuple, Union
@@ -21,12 +28,17 @@ import numpy as np
 import torch
 
 from videosys_tpu_torch.core.pab import PABConfig, build_plans
-from videosys_tpu_torch.core.pipeline import VideoSysPipeline, VideoSysPipelineOutput
+from videosys_tpu_torch.core.pipeline import (
+    VideoSysPipeline,
+    VideoSysPipelineOutput,
+    offload_to_host,
+    resolve_device,
+)
 from videosys_tpu_torch.models.autoencoders.autoencoder_open_sora import (
     OpenSoraVAE,
     OpenSoraVAEConfig,
 )
-from videosys_tpu_torch.models.text_encoders.t5 import StubTextEncoder
+from videosys_tpu_torch.models.text_encoders.t5 import StubTextEncoder, T5TextEncoder
 from videosys_tpu_torch.models.transformers.stdit3 import STDiT3, STDiT3Config
 from videosys_tpu_torch.pipelines.common import bucket_text_kv
 from videosys_tpu_torch.pipelines.open_sora import mask_strategy as ms
@@ -40,18 +52,9 @@ from videosys_tpu_torch.pipelines.open_sora.data_process import (
     text_preprocessing,
 )
 from videosys_tpu_torch.schedulers.rflow import RFlowConfig, RFlowScheduler
+from videosys_tpu_torch.utils.checkpoint import require_weights, try_load_params
 
 _DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
-
-
-def resolve_device(device=None) -> torch.device:
-    """`device`, or the card when None; a CUDA device without a card
-    raises instead of falling back to the CPU."""
-    dev = torch.device(device if device is not None else "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device available; pass device='cpu' to "
-                           "run on the CPU")
-    return dev
 
 
 def OpenSoraPABConfig(**overrides) -> PABConfig:
@@ -75,15 +78,28 @@ def OpenSoraPABConfig(**overrides) -> PABConfig:
 
 @dataclasses.dataclass
 class OpenSoraConfig:
+    """`transformer`: a local reference STDiT3 snapshot or a `save_params`
+    directory; `text_encoder`: a local HF T5 snapshot with its tokenizer;
+    None for either (with `transformer_config`, `vae_config`) runs random
+    weights and the stub encoder. See utils/checkpoint.py."""
+
     transformer: Optional[str] = "hpcai-tech/OpenSora-STDiT-v3"
     vae: Optional[str] = "hpcai-tech/OpenSora-VAE-v1.2"
     text_encoder: Optional[str] = "DeepFloyd/t5-v1_1-xxl"
+    # ======== distributed ========
+    num_gpus: int = 1  # > 1 is not ported yet
+    # low-memory mode: the modules stay on the host and each phase fetches
+    # the one it runs (text encoder, transformer, VAE) onto the card
+    cpu_offload: bool = False
+    enable_cp: bool = False  # no effect on one card, as in the JAX package
     # ======== scheduler ========
     num_sampling_steps: int = 30
     cfg_scale: float = 7.0
     # ======== vae ========
     tiling_size: int = 8  # spatial-VAE frame micro-batch
     # ======== speedup ========
+    # every CUDA tensor goes to the flash kernels: False raises on the card
+    enable_flash_attn: bool = True
     text_kv_bucket: bool = True
     # ======== pab ========
     enable_pab: bool = False
@@ -104,37 +120,42 @@ class OpenSoraPipeline(VideoSysPipeline):
                  vae: Optional[OpenSoraVAE] = None,
                  params: Optional[dict] = None, seed: int = 42, device=None):
         """`params`: optional {"transformer": state_dict, "vae": state_dict}
-        in this package's key names (see utils/from_jax.py); modules are
-        random-initialized from `seed` otherwise."""
+        (tensors or numpy arrays, this package's key names; see
+        utils/from_jax.py); a module not in it is loaded from the config's
+        paths, or random-initialized from `seed` under the random-init
+        hooks. Under `cpu_offload` the modules are built and kept on the
+        host."""
         self._config = config
         self.device = resolve_device(device)
         self.dtype = _DTYPES[config.dtype]
-        params = params or {}
-        if "transformer" not in params and config.transformer \
-                and config.transformer_config is None:
-            raise FileNotFoundError(
-                f"checkpoint loading ({config.transformer!r}) is not ported "
-                f"yet; set transformer=None for random-init weights")
-        if "vae" not in params and config.vae and config.vae_config is None \
-                and vae is None:
-            raise FileNotFoundError(
-                f"checkpoint loading ({config.vae!r}) is not ported yet; set "
-                f"vae=None for random-init weights")
-        if config.text_encoder:
+        if config.num_gpus > 1:
             raise NotImplementedError(
-                "the T5 text encoder is not ported yet; set text_encoder=None "
-                "for the offline stub")
-
+                "num_gpus > 1 is not ported yet (ROADMAP Queue 1 item 6, "
+                "parallelism); run on one card")
+        if not config.enable_flash_attn and self.device.type == "cuda":
+            raise ValueError(
+                "enable_flash_attn=False: on the card every attention runs "
+                "the flash kernels; the plain attention runs only on the CPU")
         self.model_config = config.transformer_config or STDiT3Config(
             dtype=self.dtype)
+        self.text_encoder = text_encoder or self._load_text_encoder(config)
+
+        params = dict(params or {})
+        if not {"transformer", "vae"} <= set(params):
+            loaded = try_load_params(config) or {}
+            params = {**loaded, **params}
+            require_weights(params, config)
+        home = torch.device("cpu") if config.cpu_offload else self.device
         cuda = [self.device] if self.device.type == "cuda" else []
-        with torch.random.fork_rng(devices=cuda), torch.device(self.device):
+        with torch.random.fork_rng(devices=cuda):
             torch.manual_seed(seed)
-            self.transformer = STDiT3(self.model_config)
-            self.vae = vae or OpenSoraVAE(
-                config.vae_config
-                or OpenSoraVAEConfig(micro_batch_size=config.tiling_size))
-        self.vae.to(self.device)
+            # a module that is loaded is built without drawing its weights
+            with torch.device("meta" if "transformer" in params else home):
+                self.transformer = STDiT3(self.model_config)
+            with torch.device("meta" if "vae" in params else home):
+                self.vae = vae or OpenSoraVAE(
+                    config.vae_config
+                    or OpenSoraVAEConfig(micro_batch_size=config.tiling_size))
         # inference weights are held in the half dtype, like the reference's
         # torch_dtype; the transformer computes in its config's dtype
         for name, module, dtype in (
@@ -142,19 +163,49 @@ class OpenSoraPipeline(VideoSysPipeline):
                 ("vae", self.vae, self.dtype)):
             if name in params:
                 module.load_state_dict(
-                    {k: torch.tensor(np.asarray(v))
-                     for k, v in params[name].items()})
-            module.to(dtype).eval().requires_grad_(False)
-        self.text_encoder = text_encoder or StubTextEncoder(
-            output_dim=self.model_config.caption_channels,
-            max_length=self.model_config.model_max_length, device=self.device)
+                    {k: v if torch.is_tensor(v) else torch.tensor(np.asarray(v))
+                     for k, v in params[name].items()}, assign=True)
+            if config.cpu_offload:
+                offload_to_host(module, self.device.type == "cuda", dtype)
+            else:
+                module.to(self.device, dtype)
+            module.eval().requires_grad_(False)
         self.scheduler = RFlowScheduler(RFlowConfig(
             num_sampling_steps=config.num_sampling_steps,
             cfg_scale=config.cfg_scale, use_timestep_transform=True))
 
+    def _load_text_encoder(self, config: OpenSoraConfig):
+        if config.text_encoder:
+            try:
+                return T5TextEncoder(
+                    config.text_encoder,
+                    max_length=self.model_config.model_max_length,
+                    dtype=self.dtype, offload=config.cpu_offload,
+                    device=self.device)
+            except Exception as e:
+                # the reference fails in from_pretrained; a configured encoder
+                # is never replaced by the stub
+                raise RuntimeError(
+                    f"text encoder {config.text_encoder!r} could not be "
+                    f"loaded ({e}); pass text_encoder=None for the offline "
+                    f"stub, or a local HF snapshot path") from e
+        return StubTextEncoder(
+            output_dim=self.model_config.caption_channels,
+            max_length=self.model_config.model_max_length, device=self.device)
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    @contextlib.contextmanager
+    def _phase(self, timer: str, module=None, name: str = ""):
+        """Add the with-block's time to `last_timings[timer]`; under
+        cpu_offload `module` is on the card for the block only."""
+        t0 = time.perf_counter()
+        with self._on_device(module, name):
+            yield
+            self._sync()
+        self.last_timings[timer] += time.perf_counter() - t0
 
     def null_embed(self, n: int):
         """Uncond caption features for classifier-free guidance."""
@@ -198,9 +249,11 @@ class OpenSoraPipeline(VideoSysPipeline):
         """(y_all, kv_mask_all) of the CFG-doubled batch; sets
         last_text_kv_len."""
         y, kv_mask = self.text_encoder.encode(texts)
-        y_all = torch.cat([y.to(self.device),
-                           self.null_embed(len(texts)).to(y.dtype)
-                           ]).to(self.dtype)
+        # the null caption is the transformer's: fetch that part alone
+        with self._on_device(self.transformer.y_embedder, "y_embedder"):
+            y_all = torch.cat([y.to(self.device),
+                               self.null_embed(len(texts)).to(y.dtype)
+                               ]).to(self.dtype)
         kv_mask = kv_mask.to(self.device)
         kv_mask_all = torch.cat([kv_mask, kv_mask])
         self.last_text_kv_len = y_all.shape[1]
@@ -267,18 +320,18 @@ class OpenSoraPipeline(VideoSysPipeline):
             return lambda name, shape: draw(f"{prefix}/{name}", shape)
 
         # --- text ---------------------------------------------------------- #
-        t0 = time.perf_counter()
-        merged = []
-        for p in prompts:
-            segs, loop_idx = split_prompt(p)
-            segs = append_score_to_prompts(segs, aes=aes, flow=flow,
-                                           camera_motion=camera_motion)
-            merged.append(merge_prompt([text_preprocessing(s) for s in segs],
-                                       loop_idx))
-        texts = extract_prompts_loop(merged, 0)
-        y_all, kv_mask_all = self._encode_prompts(texts)
-        self._sync()
-        t_text = time.perf_counter() - t0
+        self.last_timings = dict.fromkeys(
+            ("text", "denoise", "vae", "postprocess"), 0.0)
+        with self._phase("text"):
+            merged = []
+            for p in prompts:
+                segs, loop_idx = split_prompt(p)
+                segs = append_score_to_prompts(segs, aes=aes, flow=flow,
+                                               camera_motion=camera_motion)
+                merged.append(merge_prompt(
+                    [text_preprocessing(s) for s in segs], loop_idx))
+            texts = extract_prompts_loop(merged, 0)
+            y_all, kv_mask_all = self._encode_prompts(texts)
 
         # --- denoise, VAE: once per loop ------------------------------------ #
         t_lat, h_lat, w_lat = self.vae.get_latent_size((num_frames, height, width))
@@ -289,80 +342,74 @@ class OpenSoraPipeline(VideoSysPipeline):
         plans = build_plans(pab, timesteps, self.model_config.depth, self.dtype)
         fps_arr = torch.full((B,), float(fps), device=self.device)
         # the VAE encodes of references and loop clips count as "vae"
-        t0 = time.perf_counter()
         refs, strategies = [None] * B, [mask_strategy] * B
         if reference is not None:
-            ref = ms.load_reference(reference, self.vae, self.device,
-                                    draws("reference"))
+            with self._phase("vae", self.vae, "vae"):
+                ref = ms.load_reference(reference, self.vae, self.device,
+                                        draws("reference"))
             refs = [[ref]] * B
             if mask_strategy is None:
                 strategies = ["0"] * B  # condition on the reference's frame 0
-        self._sync()
-        t_vae = time.perf_counter() - t0
         clips = []
-        t_denoise = 0.0
         for loop_i in range(loop):
             if loop_i > 0:
-                t0 = time.perf_counter()
-                refs, strategies = ms.append_generated(
-                    self.vae, clips[-1], refs, strategies, loop_i,
-                    condition_frame_length, condition_frame_edit,
-                    draws(f"loop{loop_i}"))
-                self._sync()
-                t_vae += time.perf_counter() - t0
+                with self._phase("vae", self.vae, "vae"):
+                    refs, strategies = ms.append_generated(
+                        self.vae, clips[-1], refs, strategies, loop_i,
+                        condition_frame_length, condition_frame_edit,
+                        draws(f"loop{loop_i}"))
                 texts_i = extract_prompts_loop(merged, loop_i)
                 if texts_i != texts:  # per-loop prompt segments (|0| syntax)
-                    t0 = time.perf_counter()
-                    texts = texts_i
-                    y_all, kv_mask_all = self._encode_prompts(texts)
-                    self._sync()
-                    t_text += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            if latents is not None:
-                if tuple(latents[loop_i].shape) != shape:
-                    raise ValueError(f"latents shape "
-                                     f"{tuple(latents[loop_i].shape)} != {shape}")
-                z = latents[loop_i].to(self.device, torch.float32)
-            else:
-                z = torch.cat([torch.randn((1,) + shape[1:], device=self.device,
-                                           generator=g) for g in gens])
-            mask = None
-            if any(strategies) or any(refs):
-                z, mask = ms.apply_mask_strategy(z, refs, strategies, loop_i,
-                                                 align=align)
-            cache = None
-            if pab is not None:
-                mc = self.model_config
-                T_tok = -(-t_lat // mc.patch_size[0])
-                S_tok = (-(-h_lat // mc.patch_size[1])) * (
-                    -(-w_lat // mc.patch_size[2]))
-                cache = self.transformer.init_cache(pab, 2 * B, T_tok, S_tok)
-                self.last_pab_cache_bytes = cache.nbytes
-            args = (y_all, kv_mask_all, fps_arr, float(height), float(width),
-                    float(guidance_scale))
-            if mask is None:
-                for t_i, dt_i, plan in zip(timesteps, dts, plans):
-                    z = self._step(z, t_i, dt_i, *args, plan=plan, cache=cache)
-            else:
-                noise_added = mask >= 1.0
-                for i, (t_i, dt_i, plan) in enumerate(zip(timesteps, dts, plans)):
-                    eps = draw(f"mask/{loop_i}/{i}", shape)
-                    z, noise_added = self._masked_step(
-                        z, t_i, dt_i, *args, mask, noise_added, eps,
-                        plan=plan, cache=cache)
-            del cache  # free the PAB cache before the VAE runs
-            self._sync()
-            t_denoise += time.perf_counter() - t0
+                    with self._phase("text"):
+                        texts = texts_i
+                        y_all, kv_mask_all = self._encode_prompts(texts)
+            with self._phase("denoise", self.transformer, "transformer"):
+                if latents is not None:
+                    if tuple(latents[loop_i].shape) != shape:
+                        raise ValueError(
+                            f"latents shape {tuple(latents[loop_i].shape)} "
+                            f"!= {shape}")
+                    z = latents[loop_i].to(self.device, torch.float32)
+                else:
+                    z = torch.cat([torch.randn((1,) + shape[1:],
+                                               device=self.device, generator=g)
+                                   for g in gens])
+                mask = None
+                if any(strategies) or any(refs):
+                    z, mask = ms.apply_mask_strategy(z, refs, strategies,
+                                                     loop_i, align=align)
+                cache = None
+                if pab is not None:  # on the card with the transformer
+                    mc = self.model_config
+                    T_tok = -(-t_lat // mc.patch_size[0])
+                    S_tok = (-(-h_lat // mc.patch_size[1])) * (
+                        -(-w_lat // mc.patch_size[2]))
+                    cache = self.transformer.init_cache(pab, 2 * B, T_tok,
+                                                        S_tok)
+                    self.last_pab_cache_bytes = cache.nbytes
+                args = (y_all, kv_mask_all, fps_arr, float(height),
+                        float(width), float(guidance_scale))
+                if mask is None:
+                    for t_i, dt_i, plan in zip(timesteps, dts, plans):
+                        z = self._step(z, t_i, dt_i, *args, plan=plan,
+                                       cache=cache)
+                else:
+                    noise_added = mask >= 1.0
+                    for i, (t_i, dt_i, plan) in enumerate(
+                            zip(timesteps, dts, plans)):
+                        eps = draw(f"mask/{loop_i}/{i}", shape)
+                        z, noise_added = self._masked_step(
+                            z, t_i, dt_i, *args, mask, noise_added, eps,
+                            plan=plan, cache=cache)
+                del cache  # free the PAB cache before the VAE runs
             if getattr(self, "keep_latents", False):
                 self.last_latents = z.cpu().numpy()
 
-            t0 = time.perf_counter()
-            if loop == 1:
-                clips.append(self.vae.decode_chunks_u8(z, num_frames))
-            else:
-                clips.append(self.vae.decode(z, num_frames))
-            self._sync()
-            t_vae += time.perf_counter() - t0
+            with self._phase("vae", self.vae, "vae"):
+                if loop == 1:
+                    clips.append(self.vae.decode_chunks_u8(z, num_frames))
+                else:
+                    clips.append(self.vae.decode(z, num_frames))
 
         # --- postprocess ------------------------------------------------------- #
         t0 = time.perf_counter()
@@ -377,9 +424,7 @@ class OpenSoraPipeline(VideoSysPipeline):
                              0, 255)
             video = u8.to(torch.uint8).permute(0, 2, 3, 4, 1)
         video = video.cpu().numpy()
-        self.last_timings = {"text": t_text, "denoise": t_denoise,
-                             "vae": t_vae,
-                             "postprocess": time.perf_counter() - t0}
+        self.last_timings["postprocess"] = time.perf_counter() - t0
         if not return_dict:
             return (video,)
         return VideoSysPipelineOutput(video=video)

@@ -21,8 +21,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from videosys_tpu_torch.core.pipeline import resolve_device
 from videosys_tpu_torch.models.transformers.stdit3 import STDiT3, STDiT3Config
-from videosys_tpu_torch.pipelines.open_sora.pipeline_open_sora import resolve_device
 from videosys_tpu_torch.schedulers.rflow import RFlowConfig, RFlowScheduler
 from videosys_tpu_torch.training import ckpt as ckpt_io
 from videosys_tpu_torch.training.buckets import Bucket

@@ -1,0 +1,108 @@
+"""Checkpoint loading and saving for the pipelines.
+
+Port of `videosys_tpu/utils/checkpoint.py`. This package keeps the
+reference checkpoint's `state_dict` key names, so a reference snapshot
+directory (`hpcai-tech/OpenSora-STDiT-v3`: safetensors, possibly sharded,
+or `pytorch_model*.bin`) loads with no conversion. In place of the JAX
+package's `path/orbax`, `save_params` writes this package's own
+`path/torch_params/{module}.safetensors`; `try_load_params` reads either
+layout from `config.transformer` and refuses an orbax directory, which
+only the JAX package reads. Tensors stay on the host; the pipeline casts
+and places them.
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from videosys_tpu_torch.models.modules.embeddings import rope_freqs
+from videosys_tpu_torch.utils import safetensors_io
+
+PARAMS_DIR = "torch_params"  # this package's counterpart of `path/orbax`
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _drop_computed(sd: StateDict) -> StateDict:
+    """The reference STDiT3 stores its rotary frequencies (`rope.freqs`, a
+    parameter that never trains); this package computes them. Drop the key
+    after checking that it holds the same table."""
+    freqs = sd.pop("rope.freqs", None)
+    if freqs is not None:
+        want = rope_freqs(2 * freqs.numel())
+        if not np.allclose(freqs.float().numpy(), want, rtol=1e-6, atol=0):
+            raise ValueError("checkpoint key 'rope.freqs' differs from the "
+                             "rotary frequencies this package computes")
+    return sd
+
+
+def load_torch_checkpoint(path: str, family: str = "stdit3"
+                          ) -> Optional[StateDict]:
+    """The state_dict of a local reference checkpoint directory, on the
+    host in its stored dtype; None when the directory holds no weights."""
+    if family != "stdit3":
+        raise NotImplementedError(
+            f"model family {family!r} is not ported yet (ROADMAP Queue 1 "
+            f"item 7); only 'stdit3' loads")
+    sd = safetensors_io.load_dir(path)
+    return None if sd is None else _drop_computed(sd)
+
+
+def try_load_params(config, family: str = "stdit3"
+                    ) -> Optional[Dict[str, StateDict]]:
+    """{module: state_dict} from the local directory `config.transformer`:
+    this package's `save_params` output ({"transformer", "vae"}) or a
+    reference checkpoint ({"transformer"}); None when the path is unset,
+    not a directory, or holds neither."""
+    path = getattr(config, "transformer", None)
+    if not path or not os.path.isdir(str(path)):
+        return None
+    path = str(path)
+    if os.path.isdir(os.path.join(path, "orbax")):
+        raise ValueError(
+            f"{path!r} holds an orbax checkpoint, the JAX package's format "
+            f"(videosys_tpu.utils.checkpoint.save_params); this package reads "
+            f"its own {PARAMS_DIR}/ directory (save_params here) or a "
+            f"reference safetensors / pytorch_model.bin snapshot")
+    own = os.path.join(path, PARAMS_DIR)
+    if os.path.isdir(own):
+        return {os.path.basename(f)[: -len(".safetensors")]:
+                safetensors_io.load_file(f)
+                for f in sorted(glob.glob(os.path.join(own, "*.safetensors")))}
+    sd = load_torch_checkpoint(path, family)
+    return None if sd is None else {"transformer": sd}
+
+
+def require_weights(loaded: Mapping, config) -> None:
+    """Raise when a configured model path did not resolve to weights and no
+    random-init hook (`transformer_config`, `vae_config`) is set, as the
+    reference's from_pretrained fails instead of generating noise."""
+    if "transformer" not in loaded and config.transformer and \
+            config.transformer_config is None:
+        raise FileNotFoundError(
+            f"transformer weights not found at {config.transformer!r} (need a "
+            f"local {PARAMS_DIR}/ dir or HF safetensors snapshot); set "
+            f"transformer=None with transformer_config=... for random-init "
+            f"testing")
+    if "vae" not in loaded and config.vae and config.vae_config is None:
+        raise FileNotFoundError(
+            f"VAE weights not found at {config.vae!r}; set vae=None with "
+            f"vae_config=... for random-init testing")
+
+
+def save_params(params: Mapping[str, Mapping], path: str) -> str:
+    """Write {module: state_dict} (tensors or numpy arrays) to
+    `path/torch_params/{module}.safetensors`; returns that directory."""
+    own = os.path.join(os.path.abspath(path), PARAMS_DIR)
+    os.makedirs(own, exist_ok=True)
+    for name, sd in params.items():
+        safetensors_io.save_file(
+            {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+             for k, v in sd.items()},
+            os.path.join(own, f"{name}.safetensors"), {"format": "pt"})
+    return own

@@ -1,11 +1,12 @@
 """Carry the JAX package's Flax parameters over to this package.
 
-`stdit3_from_jax` and `open_sora_vae_from_jax` take a Flax param tree as
-numpy arrays (nested dicts) and return a state_dict for the modules here:
+`stdit3_from_jax`, `open_sora_vae_from_jax` and `t5_from_jax` take a Flax
+param tree as numpy arrays (nested dicts) and return a state_dict for the
+modules here:
 
 * a Dense kernel [in, out] becomes a Linear weight [out, in];
 * a Conv kernel HWIO / THWIO becomes OIHW / OITHW;
-* GroupNorm `scale` becomes `weight`;
+* GroupNorm `scale` and an Embed `embedding` become `weight`;
 * the `nn.scan`-stacked `blocks` axis 0 becomes one module per layer;
 * module names are mapped onto the reference checkpoint's names, which this
   package uses.
@@ -124,4 +125,13 @@ def open_sora_vae_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
                        for k, v in convert(p[coder], renames).items()})
         sd.update({prefix + k: v for k, v in convert(
             {c: p[c] for c in ("quant_conv", "post_quant_conv")}).items()})
+    return sd
+
+
+def t5_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
+    """FlaxT5EncoderModel params -> the state_dict of
+    `models.text_encoders.t5.T5EncoderModel` (HF's names: Flax's module
+    paths are the same), the tied embedding under both of its names."""
+    sd = convert(_params(params), ((r"\.embedding$", ".weight"),))
+    sd["encoder.embed_tokens.weight"] = sd["shared.weight"]
     return sd
