@@ -32,7 +32,9 @@ Phases, each fatal on failure:
      and two PAB read steps by kernel);
   4. run a tiny configuration on the card and on the CPU (plain attention)
      with the same weights, noise and draws, and compare the latents and
-     video: dense, with PAB on, and conditioned on a reference image;
+     video: dense, with PAB on, and conditioned on a reference image; then
+     a tiny CogVideoX (the 5b's RoPE) the same way in fp32 (DDIM dense, DPM
+     with PAB) and in bf16 (DDIM, latents held at COG_TINY_BF16_LIMITS);
   5. the T5-v1.1-XXL text encoder at full width with random weights from a
      seed: bf16 against fp32 on the card over a batch of prompts (token ids
      from a word-hashing tokenizer defined here), the encode time of one
@@ -70,7 +72,17 @@ Phases, each fatal on failure:
      the shapes;
   9. train a tiny configuration for 3 steps in fp32 on the card (kernels)
      and on the CPU (plain versions) from the same weights and draws, and
-     compare the losses.
+     compare the losses;
+ 10. serve CogVideoX text-to-video (49 x 480 x 720) at its published
+     widths and full depth with random weights from a seed and the stub
+     text encoder: the 2b (30 layers, 30 heads of 64, 3D sincos) over 50
+     DDIM steps, dense and with PAB (timers, peak memory per phase, launches
+     against the plans), the 5b (42 layers, 48 heads, 3D RoPE) with DPM and
+     dynamic CFG over `--cog5b-steps`; then hold the narrow forward at both
+     joint-attention shapes, [2, 30 | 48, 17776, 17776, 64] bf16, against
+     its plain version computed in 1024-row chunks over sampled heads, and
+     time it beside the chunked plain version and torch's SDPA
+     (`--profile`: one 2b transformer step by kernel, attention's share).
 
 bf16 outputs are held by two relative measures, rel_l2 = |got - want|_2 /
 |want|_2 and rel_max = max|got - want| / max|want|, at limits set per shape
@@ -99,7 +111,7 @@ ROOT = Path(__file__).resolve().parent
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 PEAK_BYTES = 3.35e12
 PHASES = ("kernel", "serve", "tiny", "bwd_kernel", "train", "tiny_train", "t5",
-          "offload")
+          "offload", "cogvideox")
 TRAIN_STEPS = 4  # on the default buckets: two video shapes and an image
 F32_TOL = 2e-5
 F32_GRAD_TOL = 1e-4
@@ -113,7 +125,12 @@ BF16_LIMITS = {"spatial": (8e-3, 2e-2), "cross": (1e-2, 2e-2),
                # T5-v1.1-XXL bf16 against fp32 on the unmasked rows, read on
                # an H100: 2.15e-2, 2.50e-2; without the relative bias 0.73,
                # 0.84
-               "t5_xxl": (4.5e-2, 5e-2)}
+               "t5_xxl": (4.5e-2, 5e-2),
+               # CogVideoX's joint attention, 17,776 keys at D = 64, read
+               # on an H100: kernel 3.11e-3, 5.88e-3 (2b) and 3.17e-3,
+               # 6.21e-3 (5b); one key dropped 7.28e-3, 4.19e-2 and
+               # 8.84e-3, 1.69e-1
+               "cog2b": (6.5e-3, 1.5e-2), "cog5b": (6.5e-3, 1.5e-2)}
 # the same for the gradients of the backward kernels (the largest of dq, dk,
 # dv): the kernels read at most a third of each limit (3.0e-4, 3.2e-3), the
 # one-key fault at least 10x one of them (1.1e-2, 1.0e-1 at the long row)
@@ -791,6 +808,7 @@ def tiny_parity_phase(seed: int) -> dict:
                                  f"config ({label})")
         out[label] = {"latent_max_abs_err": lat_err,
                       "video_max_level_diff": px_err}
+    out["cogvideox"] = tiny_cogvideox_parity(seed)
     return out
 
 
@@ -1718,11 +1736,366 @@ def tiny_train_parity_phase(fa, seed: int) -> dict:
     return {"loss_max_abs_diff": loss_err, "grad_norm_max_rel_diff": norm_err}
 
 
+# CogVideoX's published widths (the JAX package's pipeline_cogvideox.py
+# :83-89): layers, heads of 64; the 2b serves with DDIM, the 5b with DPM
+COG_WIDTHS = {"2b": (30, 30), "5b": (42, 48)}
+COG_REQUEST = dict(prompt="a golden retriever running through a field of "
+                   "sunflowers at sunset, cinematic", num_frames=49,
+                   height=480, width=720)
+COG_STEPS = 50  # the repo's default request (examples/inference/cogvideox)
+# the 5b's DPM steps in a default run: 50 took 108.3 s of denoise on an
+# H100 (2.17 s a step); 30 keep the whole script under 600 s
+COG_5B_STEPS = 30
+# query rows of one plain reference chunk at 17,776 keys (fp32 scores of
+# one chunk: 73 MB a (batch, head) pair)
+COG_CHUNK = 1024
+
+
+def cog_kernel_phase(fa) -> dict:
+    """`flash_fwd_narrow` at the joint attention of a 49 x 480 x 720
+    request, [2, H, 17776, 17776, 64] bf16 (226 text + 13 * 30 * 45 video
+    tokens, CFG batch 2), for the 2b (H = 30) and 5b (H = 48) widths:
+    against the plain version in COG_CHUNK-row chunks over a sample of
+    (batch, head) pairs that includes the last, held by check_bf16 with a
+    plain version that drops the last key as the fault; timed beside the
+    chunked plain version over the whole shape and torch's
+    scaled_dot_product_attention (a yardstick the port never calls)."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator("cuda").manual_seed(8)
+    out = {}
+    for name, (_, H) in COG_WIDTHS.items():
+        B, N, D = 2, 17776, 64
+        q, k, v = (torch.randn(B, H, N, D, device="cuda", generator=gen)
+                   .bfloat16() for _ in range(3))
+        variant = fa.kernel_variant(q.dtype, N, N, D)
+        if variant != "narrow":
+            raise AssertionError(f"cog{name}: dispatch says {variant}")
+        got = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        drop = drop_last_key(None, 1, N, "cuda")
+        pairs = [(0, 0), (0, H // 2), (1, H - 1)]
+        outs, wants, faults = [], [], []
+        for b, h in pairs:
+            qs, ks, vs = (t[b:b + 1, h:h + 1] for t in (q, k, v))
+            for r0 in range(0, N, COG_CHUNK):
+                qc = qs[:, :, r0:r0 + COG_CHUNK]
+                wants.append(fa.flash_attention_plain(qc, ks, vs))
+                faults.append(fa.flash_attention_plain(qc, ks, vs,
+                                                       kv_mask=drop))
+            outs.append(got[b:b + 1, h:h + 1])
+        want = torch.cat(wants, dim=2).reshape(-1, D)
+        fault = torch.cat(faults, dim=2).reshape(-1, D)
+        sampled = torch.cat(outs, dim=2).reshape(-1, D)
+        row = {"shape": [B, H, N, N, D], "variant": variant,
+               "pairs": pairs, "max_abs_err": (sampled.float() - want.float())
+               .abs().max().item()}
+        row["bf16_check"] = check_bf16(f"cog{name}", sampled, want, fault)
+        del wants, faults, want, fault, sampled, outs
+
+        def plain_chunked():
+            for r0 in range(0, N, COG_CHUNK):
+                fa.flash_attention_plain(q[:, :, r0:r0 + COG_CHUNK], k, v)
+
+        row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v), 5)
+        row["plain_ms"] = time_ms(plain_chunked, 1)
+        row["library_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v), 5)
+        flops = 4.0 * B * H * N * N * D
+        nbytes = 2.0 * B * H * 4 * N * D
+        t_ops, t_bytes = flops / PEAK_FLOPS["bf16"], nbytes / PEAK_BYTES
+        row["bound_ms"] = max(t_ops, t_bytes) * 1e3
+        row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        row["tflops"] = flops / row["ms"] / 1e9
+        log(f"kernel cog{name} bf16 shape={row['shape']} ms={row['ms']:.4f} "
+            f"plain_ms={row['plain_ms']:.4f} (chunked) library_ms="
+            f"{row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+            f"({row['bound_by']}) achieved={row['tflops']:.1f} TFLOP/s "
+            f"max_abs_err={row['max_abs_err']:.3e}")
+        out[name] = row
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_peaks(pipe) -> dict:
+    """Record the peak card memory of each of the pipeline's phases (text,
+    denoise, vae) into the returned dict: the peak is reset as a phase
+    starts and read as it ends. `del pipe._phase` undoes it."""
+    import contextlib
+
+    import torch
+
+    peaks = {}
+    phase = pipe._phase
+
+    @contextlib.contextmanager
+    def probed(timer, module=None, name=""):
+        torch.cuda.reset_peak_memory_stats()
+        with phase(timer, module, name):
+            yield
+        peaks[timer] = max(peaks.get(timer, 0.0),
+                           torch.cuda.max_memory_allocated() / 2**30)
+
+    pipe._phase = probed
+    return peaks
+
+
+def cog_request(fa, engine, label: str, steps: int, seed: int, plans=None,
+                **extra) -> dict:
+    """One `generate` of the 49 x 480 x 720 request with the launch counts
+    set to 0 just before it and read just after, held against the plans:
+    one joint attention a layer and step, less the steps whose plan reads
+    it from the PAB cache, all on `narrow`; the VAE has no attention."""
+    import numpy as np
+    import torch
+
+    pipe = engine.pipeline
+    mc = pipe.model_config
+    peaks = phase_peaks(pipe)
+    fa.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        video = engine.generate(seed=seed, num_inference_steps=steps,
+                                **COG_REQUEST, **extra).video
+        wall = time.perf_counter() - t0
+    finally:
+        del pipe._phase
+    launches = dict(fa.LAUNCHES)
+    want = {key: 0 for key in fa.LAUNCHES}
+    _, F_lat, _, h, w = pipe.latent_shape(COG_REQUEST["num_frames"],
+                                          COG_REQUEST["height"],
+                                          COG_REQUEST["width"])
+    p = mc.patch_size
+    N = mc.max_text_seq_length + F_lat * (h // p) * (w // p)
+    computed = sum(not plan.spatial for plan in plans) if plans else steps
+    want[fa.kernel_variant(pipe.dtype, N, N, mc.head_dim)] = \
+        mc.num_layers * computed
+    lat = pipe.last_latents
+    rec = {"label": label, "layers": mc.num_layers, "heads": mc.num_heads,
+           "scheduler": engine.config.scheduler, "steps": steps,
+           "video_shape": list(video.shape), "video_dtype": str(video.dtype),
+           "latents_finite": bool(np.isfinite(lat).all()),
+           "latent_std": float(lat.std()), "video_mean": float(video.mean()),
+           "timings_s": pipe.last_timings, "wall_s": wall,
+           "denoise_step_s": pipe.last_timings["denoise"] / steps,
+           "peak_mem_gib_by_phase": peaks, "launches": launches,
+           "expected_launches": want, **{k: v for k, v in extra.items()}}
+    log(f"cogvideox {label}:", json.dumps(rec))
+    frames, height, width = (COG_REQUEST[k] for k in ("num_frames", "height",
+                                                      "width"))
+    if video.shape != (1, frames, height, width, 3) or video.dtype != np.uint8:
+        raise AssertionError(f"cogvideox {label}: bad video {video.shape} "
+                             f"{video.dtype}")
+    if not rec["latents_finite"]:
+        raise AssertionError(f"cogvideox {label}: non-finite latents")
+    if launches != want:
+        raise AssertionError(f"cogvideox {label}: launches {launches} != "
+                             f"expected {want}")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def profile_cog_step(pipe, seed: int) -> dict:
+    """Device time of one CFG-doubled 2b transformer step at the request's
+    shapes by kernel (torch.profiler), and attention's share of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    shape = pipe.latent_shape(COG_REQUEST["num_frames"], COG_REQUEST["height"],
+                              COG_REQUEST["width"], 2)
+    g = torch.Generator("cuda").manual_seed(seed)
+    z = torch.randn(shape, device="cuda", generator=g).to(pipe.dtype)
+    enc = torch.randn(2, 226, pipe.model_config.text_embed_dim, device="cuda",
+                      generator=g).to(pipe.dtype)
+    t = torch.full((2,), 500.0, device="cuda")
+
+    def step():
+        with torch.no_grad():
+            pipe.transformer(z, enc, t)
+
+    wall_ms = time_ms(step, 2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events)
+    rows = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    attn = sum(e.self_device_time_total for e in events
+               if "flash_fwd" in e.key)
+    res = {"step_wall_ms": wall_ms, "device_busy_ms": total / 1e3,
+           "idle_share": max(0.0, 1 - total / 1e3 / wall_ms),
+           "attention_ms": attn / 1e3,
+           "attention_share": attn / max(total, 1),
+           "top": [{"name": e.key[:90], "calls": e.count,
+                    "ms": e.self_device_time_total / 1e3,
+                    "share": e.self_device_time_total / max(total, 1)}
+                   for e in rows]}
+    log("profile cogvideox-2b (one 49 x 480 x 720 transformer step, CFG "
+        "batch 2):", json.dumps(res))
+    return res
+
+
+def cogvideox_phase(fa, seed: int, steps_5b: int,
+                    profile: bool = False) -> dict:
+    """CogVideoX text-to-video at its published widths and full depth,
+    random weights from `seed`, the stub text encoder (226 tokens): the 2b
+    over 50 DDIM steps, dense and with PAB; the 5b with DPM and dynamic CFG
+    over `steps_5b` steps; then the narrow forward at both joint-attention
+    shapes against its plain version (`cog_kernel_phase`)."""
+    import numpy as np
+    import torch
+
+    from videosys_tpu_torch import (CogVideoXConfig, CogVideoXPABConfig,
+                                    VideoSysEngine)
+    from videosys_tpu_torch.core.pab import build_plans
+    from videosys_tpu_torch.models.transformers.cogvideox import (
+        CogVideoXConfig as ModelConfig)
+
+    out = {}
+    launches = {}
+    for name, (layers, heads) in COG_WIDTHS.items():
+        t0 = time.perf_counter()
+        five = name == "5b"
+        engine = VideoSysEngine(CogVideoXConfig(
+            model_path=None, dtype="bf16", scheduler="dpm" if five else "ddim",
+            transformer_config=ModelConfig(
+                num_layers=layers, num_heads=heads,
+                use_rotary_positional_embeddings=five)), seed=seed)
+        pipe = engine.pipeline
+        pipe.keep_latents = True
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in pipe.transformer.parameters())
+        log(f"cogvideox-{name}: layers={layers} heads={heads} hidden="
+            f"{pipe.model_config.hidden_size} params={n_params / 1e9:.3f}B "
+            f"weights_gib={n_params * 2 / 2**30:.2f} dtype=bf16 "
+            f"init_s={time.perf_counter() - t0:.2f}")
+        if not five:
+            dense = cog_request(fa, engine, "2b dense", COG_STEPS, seed)
+            pab = CogVideoXPABConfig()
+            engine.config.enable_pab, engine.config.pab_config = True, pab
+            plans = build_plans(pab, pipe.scheduler.set_timesteps(
+                COG_STEPS).astype(np.float32), layers)
+            rec = cog_request(fa, engine, "2b pab", COG_STEPS, seed, plans)
+            rec.update(cache_gib=pipe.last_pab_cache_bytes / 2**30,
+                       read_steps=sum(p.spatial for p in plans),
+                       denoise_vs_dense=dense["timings_s"]["denoise"]
+                       / rec["timings_s"]["denoise"])
+            log(f"cogvideox 2b pab: cache_gib={rec['cache_gib']:.3f} "
+                f"read_steps={rec['read_steps']} denoise_vs_dense="
+                f"{rec['denoise_vs_dense']:.3f}")
+            engine.config.enable_pab = False
+            out["2b"] = {"dense": dense, "pab": rec}
+            launches["2b"] = dense["launches"]
+            if profile:
+                out["profile_2b"] = profile_cog_step(pipe, seed)
+        else:
+            log(f"cogvideox-5b: {steps_5b} of the request's {COG_STEPS} DPM "
+                f"steps (cut to keep the script inside its time; width, "
+                f"depth and shapes are the published ones)")
+            out["5b"] = cog_request(fa, engine, "5b dpm", steps_5b, seed,
+                                    use_dynamic_cfg=True)
+            launches["5b"] = out["5b"]["launches"]
+        del engine, pipe
+        torch.cuda.empty_cache()
+    out["kernel"] = cog_kernel_phase(fa)
+    out["launches"] = launches
+    return out
+
+
+# bf16 tiny CogVideoX, card (narrow kernel) against the CPU (plain): the
+# final latents' (rel_l2, rel_max) after 4 steps, read on an H100 at
+# 2.17e-2, 1.92e-2 (bf16 rounding compounds over the steps)
+COG_TINY_BF16_LIMITS = (5e-2, 5e-2)
+
+
+def tiny_cogvideox_parity(seed: int) -> dict:
+    """A tiny CogVideoX (two layers, the 5b's RoPE) on the card and on the
+    CPU with the same weights, latents and draws: fp32 with DDIM dense and
+    with DPM + PAB (latents 2e-4, video one level), and bf16 with DDIM
+    (latents held at COG_TINY_BF16_LIMITS)."""
+    import numpy as np
+    import torch
+
+    from videosys_tpu_torch import (CogVideoXConfig, CogVideoXPABConfig,
+                                    VideoSysEngine)
+    from videosys_tpu_torch.models.autoencoders.autoencoder_cogvideox import (
+        CogVideoXVAEConfig)
+    from videosys_tpu_torch.models.transformers.cogvideox import (
+        CogVideoXConfig as ModelConfig)
+
+    def engine(device, dtype, scheduler, pab, params=None):
+        cfg = CogVideoXConfig(
+            model_path=None, dtype=dtype, scheduler=scheduler,
+            enable_pab=pab, vae_tiling=False,
+            pab_config=CogVideoXPABConfig(),
+            transformer_config=ModelConfig(
+                num_layers=2, num_heads=2, head_dim=16, in_channels=4,
+                out_channels=4, time_embed_dim=16, text_embed_dim=16,
+                max_text_seq_length=8, use_rotary_positional_embeddings=True),
+            vae_config=CogVideoXVAEConfig(
+                latent_channels=4, block_out_channels=(8, 8, 16, 16),
+                layers_per_block=1, norm_num_groups=4))
+        eng = VideoSysEngine(cfg, device=device, params=params, seed=seed)
+        eng.pipeline.keep_latents = True
+        return eng
+
+    out = {}
+    for label, dtype, scheduler, pab in (("fp32 ddim", "fp32", "ddim", False),
+                                         ("fp32 dpm pab", "fp32", "dpm", True),
+                                         ("bf16 ddim", "bf16", "ddim", False)):
+        card = engine("cuda", dtype, scheduler, pab)
+        params = {name: {k: v.float().cpu().numpy()
+                         for k, v in m.state_dict().items()}
+                  for name, m in (("transformer", card.pipeline.transformer),
+                                  ("vae", card.pipeline.vae))}
+        cpu = engine("cpu", dtype, scheduler, pab, params)
+        shape = card.pipeline.latent_shape(9, 32, 32)
+        z = torch.randn(shape, generator=torch.Generator().manual_seed(seed))
+        videos, lats = [], []
+        for eng in (card, cpu):
+            draws = torch.Generator().manual_seed(seed + 1)
+            noise = lambda name, s, g=draws: torch.randn(s, generator=g)
+            videos.append(eng.generate("waves at dusk", latents=z, noise=noise,
+                                       num_inference_steps=4, num_frames=9,
+                                       height=32, width=32, seed=seed).video)
+            lats.append(torch.from_numpy(eng.pipeline.last_latents))
+        px_err = int(np.abs(videos[0].astype(int)
+                            - videos[1].astype(int)).max())
+        if dtype == "fp32":
+            lat_err = float((lats[0] - lats[1]).abs().max())
+            ok = lat_err <= 2e-4 and px_err <= 1
+            res = {"latent_max_abs_err": lat_err, "video_max_level_diff": px_err}
+            msg = f"latent max_abs_err={lat_err:.3e} (tol 2e-4) video max " \
+                  f"level diff={px_err} (tol 1)"
+        else:
+            l2, mx = rel_errors(lats[0], lats[1])
+            ok = l2 <= COG_TINY_BF16_LIMITS[0] and mx <= COG_TINY_BF16_LIMITS[1]
+            res = {"latent_rel_l2": l2, "latent_rel_max": mx,
+                   "video_max_level_diff": px_err}
+            msg = f"latent rel_l2={l2:.3e} rel_max={mx:.3e} (limits " \
+                  f"{COG_TINY_BF16_LIMITS}) video max level diff={px_err}"
+        log(f"tiny parity cogvideox {label} (card kernel vs CPU plain, 9 x 32 "
+            f"x 32, 4 steps): {msg}")
+        if not ok:
+            raise AssertionError(f"card and CPU paths disagree on the tiny "
+                                 f"CogVideoX ({label})")
+        out[label] = res
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=30,
                     help="rflow sampling steps of the full-width requests "
                          "(serve and offload)")
+    ap.add_argument("--cog5b-steps", type=int, default=COG_5B_STEPS,
+                    help="DPM steps of the CogVideoX-5b request (the 2b "
+                         f"runs the request's {COG_STEPS})")
     ap.add_argument("--remat-policy", default="full",
                     choices=("full", "dots", "none"),
                     help="activation recompute of the training phase")
@@ -1791,6 +2164,8 @@ def main(argv=None) -> int:
                               args.remat_policy)
     if "tiny_train" in phases:  # phase 9: tiny training, card against CPU
         tiny_train_parity_phase(fa, args.seed)
+    if "cogvideox" in phases:  # phase 10: CogVideoX serving, its kernel shapes
+        cog = cogvideox_phase(fa, args.seed, args.cog5b_steps, args.profile)
     if set(phases) != set(PHASES):
         log(f"partial run ({args.phases}) total_s="
             f"{time.perf_counter() - t_start:.1f}: no kernel report")
@@ -1812,7 +2187,25 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": served["launches"][key],
             "max_abs_err": r["max_abs_err_bf16"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": r["shape"]})
+    # the narrow forward at CogVideoX's joint attention (the TPU takes it
+    # to the blocked kernel: more than 4096 keys), launches from each
+    # width's request
+    for name in COG_WIDTHS:
+        r = cog["kernel"][name]
+        n = cog["launches"][name]["narrow"]
+        if n <= 0:
+            raise AssertionError(f"CogVideoX-{name} never launched "
+                                 f"flash_fwd_narrow")
+        kernels.append({
+            "name": "flash_fwd_narrow", "route": "cuda",
+            "source": "videosys_tpu_torch/csrc/flash_fwd.cu",
+            "replaces": "videosys_tpu/ops/flash_attention.py:49",
+            "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": r["shape"]})
     # the backward kernels, launches from the training path (bf16)
     fused_src = "videosys_tpu_torch/csrc/flash_bwd_fused.cu"
     dkv_src = "videosys_tpu_torch/csrc/flash_bwd_dkv.cu"
@@ -1834,7 +2227,8 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": trained["launches"][key],
             "max_abs_err": r["max_abs_err_bf16"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": bwd_shapes[shape]["shape"]})
     log(f"total_s={time.perf_counter() - t_start:.1f}")
     print(card)
     print(json.dumps({"kernels": kernels}))

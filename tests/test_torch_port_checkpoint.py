@@ -3,7 +3,9 @@ package: safetensors files both ways (F32, F16, BF16, I64, I32, BOOL),
 sharded directories and pytorch_model.bin; a tiny STDiT3 written in the
 reference layout and served by both packages' engines from that directory
 (same VAE weights, same initial noise; latents at 2e-4, video one level);
-the `save_params` / `try_load_params` round trip; the raises."""
+a tiny diffusers-layout CogVideoX snapshot (a sharded `transformer/` and a
+`vae/`) loaded and served; the `save_params` / `try_load_params` round
+trip; the raises."""
 
 import json
 import os
@@ -25,7 +27,14 @@ from videosys_tpu.models.transformers.stdit3 import STDiT3Config as JCfg
 from videosys_tpu_torch.models.autoencoders import autoencoder_open_sora as PA
 from videosys_tpu_torch.models.autoencoders.vae2d import AutoencoderKL2D as PKL
 from videosys_tpu_torch.models.autoencoders.vae_temporal import VAETemporal as PT
+from videosys_tpu_torch.models.autoencoders.autoencoder_cogvideox import (
+    CogVideoXVAEConfig,
+)
 from videosys_tpu_torch.models.modules.embeddings import rope_freqs
+from videosys_tpu_torch.models.text_encoders.t5 import StubTextEncoder
+from videosys_tpu_torch.models.transformers.cogvideox import (
+    CogVideoXConfig as CogModelConfig,
+)
 from videosys_tpu_torch.models.transformers.stdit3 import STDiT3
 from videosys_tpu_torch.models.transformers.stdit3 import STDiT3Config as PCfg
 from videosys_tpu_torch.utils import safetensors_io as io
@@ -245,3 +254,67 @@ def test_unresolvable_weights_raise():
         text_encoder=None, dtype="fp32", transformer_config=PCfg(**SIZES))
     with pytest.raises(FileNotFoundError, match="VAE weights"):
         videosys_tpu_torch.VideoSysEngine(cfg2, device="cpu")
+
+
+COG_SIZES = dict(num_layers=2, num_heads=2, head_dim=16, in_channels=4,
+                 out_channels=4, time_embed_dim=16, text_embed_dim=16,
+                 max_text_seq_length=8)
+COG_VAE = dict(latent_channels=4, block_out_channels=(8, 8, 16, 16),
+               layers_per_block=1, norm_num_groups=4)
+
+
+def cogvideox_config(model_path, **kw):
+    kw = {"transformer_config": CogModelConfig(**COG_SIZES),
+          "vae_config": CogVideoXVAEConfig(**COG_VAE), **kw}
+    return videosys_tpu_torch.CogVideoXConfig(
+        model_path=model_path, dtype="fp32", vae_tiling=False, **kw)
+
+
+def cogvideox_snapshot(path, seed: int = 0):
+    """A tiny CogVideoX in the diffusers layout, written by the
+    `safetensors` package: `transformer/` in two shards with an index,
+    `vae/` in one file. Returns the pipeline the weights came from."""
+    pipe = videosys_tpu_torch.CogVideoXPipeline(cogvideox_config(""),
+                                                device="cpu", seed=seed)
+    sd = pipe.transformer.state_dict()
+    names = sorted(sd)
+    shards = {f"diffusion_pytorch_model-0000{i + 1}-of-00002.safetensors":
+              names[i::2] for i in range(2)}
+    os.makedirs(path / "transformer")
+    for fname, keys in shards.items():
+        st_save({k: sd[k] for k in keys}, str(path / "transformer" / fname))
+    with open(path / "transformer" /
+              "diffusion_pytorch_model.safetensors.index.json", "w") as f:
+        json.dump({"metadata": {}, "weight_map": {
+            k: fname for fname, keys in shards.items() for k in keys}}, f)
+    os.makedirs(path / "vae")
+    st_save(dict(pipe.vae.state_dict()),
+            str(path / "vae" / "diffusion_pytorch_model.safetensors"))
+    return pipe
+
+
+def test_cogvideox_snapshot_loaded_and_served(tmp_path):
+    snap = tmp_path / "CogVideoX-tiny"
+    pipe = cogvideox_snapshot(snap)
+    loaded = load_torch_checkpoint(str(snap), family="cogvideox")
+    assert set(loaded) == {"transformer", "vae"}
+    assert_same(loaded["transformer"], pipe.transformer.state_dict())
+    assert_same(loaded["vae"], pipe.vae.state_dict())
+    # served from the snapshot (another init seed, so every weight must
+    # come from the files) the video equals the original pipeline's
+    stub = StubTextEncoder(16, 8, device="cpu")
+    served = videosys_tpu_torch.VideoSysEngine(
+        cogvideox_config(str(snap)), text_encoder=stub, device="cpu", seed=9)
+    kw = dict(num_inference_steps=2, num_frames=9, height=32, width=32,
+              seed=4)
+    np.testing.assert_array_equal(served.generate("a cat", **kw).video,
+                                  pipe.generate("a cat", **kw).video)
+    # a snapshot without vae/ and no random-init hook for it raises
+    os.rename(snap / "vae", tmp_path / "vae_elsewhere")
+    assert set(load_torch_checkpoint(str(snap), family="cogvideox")) == {
+        "transformer"}
+    with pytest.raises(FileNotFoundError, match="VAE weights"):
+        videosys_tpu_torch.CogVideoXPipeline(
+            cogvideox_config(str(snap), vae_config=None), text_encoder=stub,
+            device="cpu")
+    assert load_torch_checkpoint(str(tmp_path / "none"), "cogvideox") is None

@@ -173,6 +173,11 @@ def test_port_imports_no_jax():
             " videosys_tpu_torch.pipelines.open_sora.mask_strategy,"
             " videosys_tpu_torch.models.autoencoders.vae2d,"
             " videosys_tpu_torch.models.autoencoders.vae_temporal,"
+            " videosys_tpu_torch.models.autoencoders.autoencoder_cogvideox,"
+            " videosys_tpu_torch.models.transformers.cogvideox,"
+            " videosys_tpu_torch.pipelines.cogvideox.pipeline_cogvideox,"
+            " videosys_tpu_torch.schedulers.ddim,"
+            " videosys_tpu_torch.schedulers.dpm_cogvideox,"
             " videosys_tpu_torch.models.text_encoders.t5,"
             " videosys_tpu_torch.utils.checkpoint,"
             " videosys_tpu_torch.utils.safetensors_io;"

@@ -1,12 +1,18 @@
 """videosys_tpu_torch: the PyTorch/CUDA port of videosys_tpu.
 
 Same public surface, `initialize`, `VideoSysEngine(config).generate(prompt)`
-and `run_training(TrainConfig(...))`, on one NVIDIA card (or the CPU with
-`device="cpu"`). Imports torch only; the CUDA kernels build at first use.
+(Open-Sora v1.2 and CogVideoX configs) and `run_training(TrainConfig(...))`,
+on one NVIDIA card (or the CPU with `device="cpu"`). Imports torch only;
+the CUDA kernels build at first use.
 """
 
 from videosys_tpu_torch.core.engine import VideoSysEngine, initialize
 from videosys_tpu_torch.core.pab import PABConfig
+from videosys_tpu_torch.pipelines.cogvideox.pipeline_cogvideox import (
+    CogVideoXConfig,
+    CogVideoXPABConfig,
+    CogVideoXPipeline,
+)
 from videosys_tpu_torch.pipelines.open_sora.pipeline_open_sora import (
     OpenSoraConfig,
     OpenSoraPABConfig,
@@ -15,5 +21,7 @@ from videosys_tpu_torch.pipelines.open_sora.pipeline_open_sora import (
 
 from videosys_tpu_torch.training.train import TrainConfig, run_training
 
-__all__ = ["VideoSysEngine", "initialize", "OpenSoraConfig", "OpenSoraPABConfig",
-           "OpenSoraPipeline", "PABConfig", "TrainConfig", "run_training"]
+__all__ = ["VideoSysEngine", "initialize", "CogVideoXConfig",
+           "CogVideoXPABConfig", "CogVideoXPipeline", "OpenSoraConfig",
+           "OpenSoraPABConfig", "OpenSoraPipeline", "PABConfig", "TrainConfig",
+           "run_training"]

@@ -5,14 +5,14 @@ function of the timestep ladder, so `build_plans` replays the reference's
 counter logic (`videosys/core/pab/pab_mgr.py`, PABManager :54-174) once per
 `generate` call and gives one `PABStepPlan` per sampling step. Each cache
 slot then has a fixed mode per step, absent | read | write (| readwrite for
-the dict-driven MLP rows): STDiT3 skips what a read step reads from the
-cache and copies into the cache in place on a write step.
+the dict-driven MLP rows): the models skip what a read step reads from the
+cache (`PABCache`) and copy into the cache in place on a write step.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -250,3 +250,41 @@ def mlp_config_blocks(config: Optional[PABConfig]) -> tuple[int, ...]:
 def num_step_variants(plans: Sequence[PABStepPlan]) -> int:
     """Distinct plans in a plan list."""
     return len(set(plans))
+
+
+@dataclasses.dataclass
+class PABCache:
+    """The PAB cache of one `generate` loop. `slots[branch][slot]` holds
+    one row per depth. STDiT3: [depth, B, T, S, C] (branch "spatial" or
+    "temporal" with slots "attn", "cross", "mlp"; or branch "pair" with
+    slot "delta"), except a dict-mode MLP slot, which holds one row per
+    configured block: `mlp_rows` maps a depth to its row. CogVideoX: the
+    joint attention's output [depth, B, L + N, C] in slot "attn" of branch
+    "spatial"."""
+
+    slots: Dict[str, Dict[str, torch.Tensor]]
+    mlp_rows: Dict[int, int]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for slots in self.slots.values() for t in slots.values())
+
+    def views(self, plan: PABStepPlan, branch: str, depth: int):
+        """(read, write): this step's cache views of one block, by slot."""
+        read, write = {}, {}
+        for slot, tensor in self.slots.get(branch, {}).items():
+            mode = plan.slot_mode(branch, slot)
+            if mode == "readwrite":  # dict-mode MLP: per-depth flags
+                if depth not in self.mlp_rows:
+                    continue
+                row = tensor[self.mlp_rows[depth]]
+                if getattr(plan, f"mlp_{branch}_use")[depth]:
+                    read[slot] = row
+                elif getattr(plan, f"mlp_{branch}_save")[depth]:
+                    write[slot] = row
+            elif mode == "read":
+                read[slot] = tensor[depth]
+            elif mode == "write":
+                write[slot] = tensor[depth]
+        return read, write

@@ -93,7 +93,8 @@ class VideoSysPipelineOutput:
 
 
 class VideoSysPipeline:
-    """Subclasses implement generate(...) -> VideoSysPipelineOutput."""
+    """Subclasses implement generate(...) -> VideoSysPipelineOutput and set
+    `_config` and `device`."""
 
     def generate(self, *args, **kwargs) -> VideoSysPipelineOutput:
         raise NotImplementedError
@@ -107,3 +108,15 @@ class VideoSysPipeline:
         if module is None or not getattr(self._config, "cpu_offload", False):
             return contextlib.nullcontext(module)
         return on_device(module, self.device, name)
+
+    @contextlib.contextmanager
+    def _phase(self, timer: str, module: Optional[nn.Module] = None,
+               name: str = ""):
+        """Add the with-block's time, to the end of its device work, to
+        `last_timings[timer]`; under cpu_offload `module` is on the card
+        for the block only."""
+        t0 = time.perf_counter()
+        with self._on_device(module, name):
+            yield
+            _sync(self.device)
+        self.last_timings[timer] += time.perf_counter() - t0

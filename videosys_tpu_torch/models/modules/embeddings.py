@@ -1,7 +1,8 @@
-"""Embedders used by STDiT3: timestep/size/caption/patch, the 2D sincos
-position table and interleaved-pair rotary embedding.
+"""Embedders used by STDiT3 and CogVideoX: timestep/size/caption/patch, the
+2D sincos position table and interleaved-pair rotary embedding.
 
-Port of the STDiT3 subset of `videosys_tpu/models/modules/embeddings.py`.
+Port of the STDiT3 and CogVideoX subset of
+`videosys_tpu/models/modules/embeddings.py`.
 Module attribute names follow the reference checkpoint's state_dict keys
 (`mlp.0`/`mlp.2`, `y_proj.fc1`, `proj`).
 """
@@ -168,3 +169,14 @@ def apply_rope_channel(x: torch.Tensor, cos, sin) -> torch.Tensor:
     pairs = xd.unflatten(-1, (-1, 2))
     swapped = torch.stack([-pairs[..., 1], pairs[..., 0]], dim=-1).flatten(-2)
     return (xd * cos + swapped * sin).to(x.dtype)
+
+
+def rotate_interleaved_pairs(x: torch.Tensor, cos: torch.Tensor,
+                             sin: torch.Tensor) -> torch.Tensor:
+    """Rotate adjacent channel pairs of x [..., D] in fp32, then cast back
+    to x's dtype: (x0, x1) -> (x0*cos - x1*sin, x1*cos + x0*sin). cos and
+    sin: [..., D] fp32, each frequency on its channel pair."""
+    xf = x.float()
+    pairs = xf.unflatten(-1, (-1, 2))
+    swapped = torch.stack([-pairs[..., 1], pairs[..., 0]], dim=-1).flatten(-2)
+    return (xf * cos + swapped * sin).to(x.dtype)

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +32,7 @@ from torch.utils.checkpoint import (
 )
 
 from videosys_tpu_torch.core.pab import (
+    PABCache,
     PABConfig,
     PABStepPlan,
     cache_torch_dtype,
@@ -186,42 +187,6 @@ class STDiT3Block(nn.Module):
         if "mlp" in write:
             write["mlp"].copy_(x_m_s)
         return x + x_m_s
-
-
-@dataclasses.dataclass
-class PABCache:
-    """The PAB cache of one `generate` loop. `slots[branch][slot]` is a
-    [depth, B, T, S, C] tensor (branch "spatial" or "temporal" with slots
-    "attn", "cross", "mlp"; or branch "pair" with slot "delta"), except a
-    dict-mode MLP slot, which holds one row per configured block:
-    `mlp_rows` maps a depth to its row."""
-
-    slots: Dict[str, Dict[str, torch.Tensor]]
-    mlp_rows: Dict[int, int]
-
-    @property
-    def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size()
-                   for slots in self.slots.values() for t in slots.values())
-
-    def views(self, plan: PABStepPlan, branch: str, depth: int):
-        """(read, write): this step's cache views of one block, by slot."""
-        read, write = {}, {}
-        for slot, tensor in self.slots.get(branch, {}).items():
-            mode = plan.slot_mode(branch, slot)
-            if mode == "readwrite":  # dict-mode MLP: per-depth flags
-                if depth not in self.mlp_rows:
-                    continue
-                row = tensor[self.mlp_rows[depth]]
-                if getattr(plan, f"mlp_{branch}_use")[depth]:
-                    read[slot] = row
-                elif getattr(plan, f"mlp_{branch}_save")[depth]:
-                    write[slot] = row
-            elif mode == "read":
-                read[slot] = tensor[depth]
-            elif mode == "write":
-                write[slot] = tensor[depth]
-        return read, write
 
 
 class FinalLayer(nn.Module):

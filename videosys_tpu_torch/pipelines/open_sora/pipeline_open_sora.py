@@ -19,7 +19,6 @@ yet: multi-device runs (`num_gpus > 1`).
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 from typing import Callable, Optional, Sequence, Tuple, Union
@@ -192,20 +191,6 @@ class OpenSoraPipeline(VideoSysPipeline):
         return StubTextEncoder(
             output_dim=self.model_config.caption_channels,
             max_length=self.model_config.model_max_length, device=self.device)
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    @contextlib.contextmanager
-    def _phase(self, timer: str, module=None, name: str = ""):
-        """Add the with-block's time to `last_timings[timer]`; under
-        cpu_offload `module` is on the card for the block only."""
-        t0 = time.perf_counter()
-        with self._on_device(module, name):
-            yield
-            self._sync()
-        self.last_timings[timer] += time.perf_counter() - t0
 
     def null_embed(self, n: int):
         """Uncond caption features for classifier-free guidance."""

@@ -2,13 +2,16 @@
 
 Port of `videosys_tpu/utils/checkpoint.py`. This package keeps the
 reference checkpoint's `state_dict` key names, so a reference snapshot
-directory (`hpcai-tech/OpenSora-STDiT-v3`: safetensors, possibly sharded,
-or `pytorch_model*.bin`) loads with no conversion. In place of the JAX
-package's `path/orbax`, `save_params` writes this package's own
-`path/torch_params/{module}.safetensors`; `try_load_params` reads either
-layout from `config.transformer` and refuses an orbax directory, which
-only the JAX package reads. Tensors stay on the host; the pipeline casts
-and places them.
+directory loads with no conversion: an STDiT3 snapshot
+(`hpcai-tech/OpenSora-STDiT-v3`: safetensors, possibly sharded, or
+`pytorch_model*.bin`), or a diffusers-layout CogVideoX snapshot
+(`THUDM/CogVideoX-2b`: the same files under `transformer/` and `vae/`). In
+place of the JAX package's `path/orbax`, `save_params` writes this
+package's own `path/torch_params/{module}.safetensors`; `try_load_params`
+reads either layout from `config.transformer` (Open-Sora) or
+`config.model_path` (CogVideoX) and refuses an orbax directory, which only
+the JAX package reads. Tensors stay on the host; the pipeline casts and
+places them.
 """
 
 from __future__ import annotations
@@ -41,25 +44,45 @@ def _drop_computed(sd: StateDict) -> StateDict:
     return sd
 
 
-def load_torch_checkpoint(path: str, family: str = "stdit3"
-                          ) -> Optional[StateDict]:
-    """The state_dict of a local reference checkpoint directory, on the
-    host in its stored dtype; None when the directory holds no weights."""
-    if family != "stdit3":
+FAMILIES = ("stdit3", "cogvideox")
+# the diffusers snapshot's folder of each module a CogVideoX pipeline loads
+COGVIDEOX_MODULES = ("transformer", "vae")
+
+
+def load_torch_checkpoint(path: str, family: str = "stdit3"):
+    """A local reference checkpoint directory on the host, in its stored
+    dtype. "stdit3": the state_dict of the snapshot, None when it holds no
+    weights. "cogvideox": {module: state_dict} of the diffusers snapshot's
+    `transformer/` and `vae/` folders that hold weights, None when
+    neither does."""
+    if family not in FAMILIES:
         raise NotImplementedError(
             f"model family {family!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 7); only 'stdit3' loads")
+            f"item 7); {', '.join(repr(f) for f in FAMILIES)} load")
+    if family == "cogvideox":
+        loaded = {name: safetensors_io.load_dir(os.path.join(path, name))
+                  for name in COGVIDEOX_MODULES}
+        loaded = {k: v for k, v in loaded.items() if v is not None}
+        return loaded or None
     sd = safetensors_io.load_dir(path)
     return None if sd is None else _drop_computed(sd)
 
 
+def _weights_path(config) -> Optional[str]:
+    """Where a pipeline's weights live: `config.transformer` (Open-Sora) or
+    `config.model_path` (CogVideoX)."""
+    return getattr(config, "transformer", None) or getattr(
+        config, "model_path", None)
+
+
 def try_load_params(config, family: str = "stdit3"
                     ) -> Optional[Dict[str, StateDict]]:
-    """{module: state_dict} from the local directory `config.transformer`:
-    this package's `save_params` output ({"transformer", "vae"}) or a
-    reference checkpoint ({"transformer"}); None when the path is unset,
-    not a directory, or holds neither."""
-    path = getattr(config, "transformer", None)
+    """{module: state_dict} from the local directory of the config's
+    weights: this package's `save_params` output ({"transformer", "vae"})
+    or a reference checkpoint ({"transformer"} of an STDiT3 snapshot; the
+    modules of a CogVideoX snapshot); None when the path is unset, not a
+    directory, or holds neither."""
+    path = _weights_path(config)
     if not path or not os.path.isdir(str(path)):
         return None
     path = str(path)
@@ -75,24 +98,30 @@ def try_load_params(config, family: str = "stdit3"
                 safetensors_io.load_file(f)
                 for f in sorted(glob.glob(os.path.join(own, "*.safetensors")))}
     sd = load_torch_checkpoint(path, family)
-    return None if sd is None else {"transformer": sd}
+    if family == "cogvideox" or sd is None:
+        return sd
+    return {"transformer": sd}
 
 
 def require_weights(loaded: Mapping, config) -> None:
     """Raise when a configured model path did not resolve to weights and no
     random-init hook (`transformer_config`, `vae_config`) is set, as the
-    reference's from_pretrained fails instead of generating noise."""
-    if "transformer" not in loaded and config.transformer and \
+    reference's from_pretrained fails instead of generating noise. The VAE
+    path is `config.vae` (Open-Sora) or the snapshot at `model_path`
+    (CogVideoX)."""
+    path = _weights_path(config)
+    if "transformer" not in loaded and path and \
             config.transformer_config is None:
         raise FileNotFoundError(
-            f"transformer weights not found at {config.transformer!r} (need a "
-            f"local {PARAMS_DIR}/ dir or HF safetensors snapshot); set "
-            f"transformer=None with transformer_config=... for random-init "
-            f"testing")
-    if "vae" not in loaded and config.vae and config.vae_config is None:
+            f"transformer weights not found at {path!r} (need a local "
+            f"{PARAMS_DIR}/ dir or HF safetensors snapshot); set the path to "
+            f"None with transformer_config=... for random-init testing")
+    vae_path = getattr(config, "vae", None) or getattr(config, "model_path",
+                                                       None)
+    if "vae" not in loaded and vae_path and config.vae_config is None:
         raise FileNotFoundError(
-            f"VAE weights not found at {config.vae!r}; set vae=None with "
-            f"vae_config=... for random-init testing")
+            f"VAE weights not found at {vae_path!r}; set the path to None "
+            f"with vae_config=... for random-init testing")
 
 
 def save_params(params: Mapping[str, Mapping], path: str) -> str:

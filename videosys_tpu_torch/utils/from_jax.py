@@ -1,8 +1,8 @@
 """Carry the JAX package's Flax parameters over to this package.
 
-`stdit3_from_jax`, `open_sora_vae_from_jax` and `t5_from_jax` take a Flax
-param tree as numpy arrays (nested dicts) and return a state_dict for the
-modules here:
+`stdit3_from_jax`, `open_sora_vae_from_jax`, `t5_from_jax`,
+`cogvideox_from_jax` and `cogvideox_vae_from_jax` take a Flax param tree as
+numpy arrays (nested dicts) and return a state_dict for the modules here:
 
 * a Dense kernel [in, out] becomes a Linear weight [out, in];
 * a Conv kernel HWIO / THWIO becomes OIHW / OITHW;
@@ -134,4 +134,54 @@ def t5_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
     paths are the same), the tied embedding under both of its names."""
     sd = convert(_params(params), ((r"\.embedding$", ".weight"),))
     sd["encoder.embed_tokens.weight"] = sd["shared.weight"]
+    return sd
+
+
+_COGVIDEOX_RENAMES = (
+    (r"^patch_proj\.", "patch_embed.proj."),
+    (r"^text_proj\.", "patch_embed.text_proj."),
+    (r"^time_embedding\.mlp_0\.", "time_embedding.linear_1."),
+    (r"^time_embedding\.mlp_2\.", "time_embedding.linear_2."),
+    (r"^norm_out_linear\.", "norm_out.linear."),
+    (r"^norm_out_norm\.", "norm_out.norm."),
+)
+
+_COGVIDEOX_BLOCK_RENAMES = (
+    (r"^attn1\.to_out\.", "attn1.to_out.0."),
+    (r"^ff_in\.", "ff.net.0.proj."),
+    (r"^ff_out\.", "ff.net.2."),
+)
+
+
+def cogvideox_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
+    """CogVideoXTransformer3D Flax params ({"params": ...} or the inner
+    tree) -> state_dict of `models.transformers.cogvideox`, the
+    scan-stacked `blocks.block` axis 0 becoming `transformer_blocks.{i}`."""
+    p = dict(_params(params))
+    stacked = flatten(p.pop("blocks")["block"])
+    sd = convert(p, _COGVIDEOX_RENAMES)
+    depth = next(iter(stacked.values())).shape[0]
+    for i in range(depth):
+        layer = convert({k: v[i] for k, v in stacked.items()},
+                        _COGVIDEOX_BLOCK_RENAMES)
+        sd.update({f"transformer_blocks.{i}.{k}": v for k, v in layer.items()})
+    return sd
+
+
+_COGVIDEOX_VAE_RENAMES = (
+    (r"^down_(\d+)_res_(\d+)\.", r"down_blocks.\1.resnets.\2."),
+    (r"^down_(\d+)_downsample\.", r"down_blocks.\1.downsamplers.0."),
+    (r"^mid_res_(\d)\.", r"mid_block.resnets.\1."),
+    (r"^up_(\d+)_res_(\d+)\.", r"up_blocks.\1.resnets.\2."),
+    (r"^up_(\d+)_upsample\.", r"up_blocks.\1.upsamplers.0."),
+)
+
+
+def cogvideox_vae_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
+    """AutoencoderKLCogVideoX Flax params {"encoder": ..., "decoder": ...}
+    -> state_dict of `models.autoencoders.autoencoder_cogvideox`."""
+    sd = {}
+    for coder in ("encoder", "decoder"):
+        sd.update({f"{coder}.{k}": v for k, v in convert(
+            _params(params[coder]), _COGVIDEOX_VAE_RENAMES).items()})
     return sd
