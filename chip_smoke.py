@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`videosys_tpu_torch`) on one NVIDIA
 card (an H100 is the target).
 
-    python3 chip_smoke.py [--steps N]
+    python3 chip_smoke.py [--steps N] [--phases dcp,raw_video]
 
 Phases, each fatal on failure:
   1. build the flash-attention kernels from csrc/ (forward, fp32 backward,
@@ -83,6 +83,27 @@ Phases, each fatal on failure:
      its plain version computed in 1024-row chunks over sampled heads, and
      time it beside the chunked plain version and torch's SDPA
      (`--profile`: one 2b transformer step by kernel, attention's share).
+ 11. train Open-Sora at full width and depth with the DCP profile phase
+     (`run_training(dynamic_profile=True, dynamic_recompute=True)` on the
+     144p and 240p 51-frame buckets, 4 steps): print each profiled
+     candidate (policy, batch, peak reserved memory against the budget,
+     step seconds, FLOPs, fit, launches), the failures (only running out
+     of memory is allowed, and recovered from), the planner's (bs, gas,
+     policy) and the trained steps; check that the profile left the
+     weights as a run without it starts from, that every fitting candidate
+     and the trained steps stay within the budget, and that the launches
+     of every candidate that ran and of the trained steps equal the
+     prediction from their shapes; then hold the blocked backward pair
+     against its plain version at the largest spatial shape trained;
+ 12. train from raw video: `flash_fwd_wide` at the VAE encoder's mid
+     attention shapes ([4, 1, 576, 576, 512] at 144p, [4, 1, 1590, 1590,
+     512] at 240p) against its plain version and timed; `run_training` with
+     the full bf16 VAE on seeded 60-frame clips (180 x 320 and 270 x 480,
+     resize-cropped to both buckets) for 4 steps, each step's launches
+     equal to its train step's plus one wide launch per 4 frames encoded;
+     then `preprocess` of the 144p clips (stub text encoder), the latents
+     read back bit-equal by `PreprocessedLatentDataset`, and 2 steps from
+     them.
 
 bf16 outputs are held by two relative measures, rel_l2 = |got - want|_2 /
 |want|_2 and rel_max = max|got - want| / max|want|, at limits set per shape
@@ -111,7 +132,7 @@ ROOT = Path(__file__).resolve().parent
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 PEAK_BYTES = 3.35e12
 PHASES = ("kernel", "serve", "tiny", "bwd_kernel", "train", "tiny_train", "t5",
-          "offload", "cogvideox")
+          "offload", "cogvideox", "dcp", "raw_video")
 TRAIN_STEPS = 4  # on the default buckets: two video shapes and an image
 F32_TOL = 2e-5
 F32_GRAD_TOL = 1e-4
@@ -130,12 +151,16 @@ BF16_LIMITS = {"spatial": (8e-3, 2e-2), "cross": (1e-2, 2e-2),
                # on an H100: kernel 3.11e-3, 5.88e-3 (2b) and 3.17e-3,
                # 6.21e-3 (5b); one key dropped 7.28e-3, 4.19e-2 and
                # 8.84e-3, 1.69e-1
-               "cog2b": (6.5e-3, 1.5e-2), "cog5b": (6.5e-3, 1.5e-2)}
+               "cog2b": (6.5e-3, 1.5e-2), "cog5b": (6.5e-3, 1.5e-2),
+               # the VAE encoder's mid attention at training buckets: the
+               # wide kernel of "vae_mid", held at its limits
+               "vae_enc144": (6.5e-3, 1.5e-2), "vae_enc240": (6.5e-3, 1.5e-2)}
 # the same for the gradients of the backward kernels (the largest of dq, dk,
 # dv): the kernels read at most a third of each limit (3.0e-4, 3.2e-3), the
 # one-key fault at least 10x one of them (1.1e-2, 1.0e-1 at the long row)
 BWD_BF16_LIMITS = {name: (1e-3, 1e-2) for name in (
-    "spatial144", "spatial", "temporal", "cross8", "cross300", "long_row")}
+    "spatial144", "spatial", "temporal", "cross8", "cross300", "long_row",
+    "dcp_spatial")}
 
 
 def log(*a):
@@ -217,16 +242,27 @@ def time_ms(fn, iters: int) -> float:
 
 def kernel_phase(fa, text_len: int) -> dict:
     """Kernel against its plain version at the main path's shapes."""
+    # (name, B, H, Nq, Nk, D, masked); B*T = 30 (CFG x 15 latent frames),
+    # B*S = 3180 temporal rows, 8 frames per VAE micro-batch
+    results = forward_shapes(fa, [
+        ("spatial", 30, 16, 1590, 1590, 72, False),
+        ("cross", 30, 16, 1590, text_len, 72, True),
+        ("temporal", 3180, 16, 15, 15, 72, False),
+        ("vae_mid", 8, 1, 6360, 6360, 512, False)], seed=0)
+    results["narrow_edges"] = narrow_forward_edges(fa)
+    results["wgmma_edges"] = wide_forward_edges(fa)
+    return results
+
+
+def forward_shapes(fa, shapes, seed: int, dtypes=("bf16", "fp32")) -> dict:
+    """Each forward shape (name, B, H, Nq, Nk, D, masked) in `dtypes` against
+    the plain version (bf16 at BF16_LIMITS[name] with the one-key fault,
+    fp32 at F32_TOL), then timed in bf16 beside the plain version and torch's
+    SDPA, with its bound."""
     import torch
     import torch.nn.functional as F
 
-    gen = torch.Generator("cuda").manual_seed(0)
-    # (name, B, H, Nq, Nk, D, masked); B*T = 30 (CFG x 15 latent frames),
-    # B*S = 3180 temporal rows, 8 frames per VAE micro-batch
-    shapes = [("spatial", 30, 16, 1590, 1590, 72, False),
-              ("cross", 30, 16, 1590, text_len, 72, True),
-              ("temporal", 3180, 16, 15, 15, 72, False),
-              ("vae_mid", 8, 1, 6360, 6360, 512, False)]
+    gen = torch.Generator("cuda").manual_seed(seed)
     results = {}
     for name, B, H, Nq, Nk, D, masked in shapes:
         q = torch.randn(B, H, Nq, D, device="cuda", generator=gen)
@@ -239,6 +275,8 @@ def kernel_phase(fa, text_len: int) -> dict:
             mask = torch.arange(Nk, device="cuda")[None] < lens[:, None]
         row = {"shape": [B, H, Nq, Nk, D], "masked": masked}
         for dt, tdt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            if dt not in dtypes:
+                continue
             qt, kt, vt = q.to(tdt), k.to(tdt), v.to(tdt)
             got = fa.flash_attention(qt, kt, vt, kv_mask=mask)
             want = fa.flash_attention_plain(qt, kt, vt, kv_mask=mask)
@@ -277,8 +315,6 @@ def kernel_phase(fa, text_len: int) -> dict:
         results[name] = row
         del q, k, v, qb, kb, vb
         torch.cuda.empty_cache()
-    results["narrow_edges"] = narrow_forward_edges(fa)
-    results["wgmma_edges"] = wide_forward_edges(fa)
     return results
 
 
@@ -1335,24 +1371,29 @@ def dq_edges(fa) -> dict:
     return out
 
 
-def backward_kernel_phase(fa) -> dict:
-    """The three backward kernels, and the forward's log-sum-exp, against
-    their plain versions at the training path's shapes."""
-    import torch
-    import torch.nn.functional as F
-
-    gen = torch.Generator("cuda").manual_seed(1)
-    # (name, B, H, Nq, Nk, D, masked, backward): 144p x 51 frames batch 4 is
-    # B*T = 60 rows of S = 144 tokens; 240p x 51 frames batch 2 is B*T = 30
-    # rows of S = 405 tokens and B*S = 810 rows of T = 15; the dummy text has
-    # 8 tokens, real captions up to 300; a 1080p image is one row of 8160
-    # tokens. Rows of more than 8 keys take the blocked pair.
-    shapes = [("spatial144", 60, 16, 144, 144, 72, False, "blocked"),
+# (name, B, H, Nq, Nk, D, masked, backward): 144p x 51 frames batch 4 is
+# B*T = 60 rows of S = 144 tokens; 240p x 51 frames batch 2 is B*T = 30 rows
+# of S = 405 tokens and B*S = 810 rows of T = 15; the dummy text has 8
+# tokens, real captions up to 300; a 1080p image is one row of 8160 tokens.
+# Rows of more than 8 keys take the blocked pair.
+BWD_SHAPES = [("spatial144", 60, 16, 144, 144, 72, False, "blocked"),
               ("spatial", 30, 16, 405, 405, 72, False, "blocked"),
               ("temporal", 810, 16, 15, 15, 72, False, "fused"),
               ("cross8", 30, 16, 405, 8, 72, True, "fused"),
               ("cross300", 30, 16, 405, 300, 72, True, "blocked"),
               ("long_row", 1, 16, 8160, 8160, 72, False, "blocked")]
+
+
+def backward_kernel_phase(fa, shapes=None) -> dict:
+    """The three backward kernels, and the forward's log-sum-exp, against
+    their plain versions at the training path's shapes (`BWD_SHAPES`, then
+    each kernel's edges), or at `shapes` alone."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator("cuda").manual_seed(1)
+    edges = shapes is None
+    shapes = BWD_SHAPES if shapes is None else shapes
     products = {"fused": 5, "dkv": 4, "dq": 3}
     results = {}
     for name, B, H, Nq, Nk, D, masked, variant in shapes:
@@ -1491,40 +1532,55 @@ def backward_kernel_phase(fa) -> dict:
         results[name] = row
         del q, k, v, do, qb, kb, vb, dob, out, lse, di, ql, kl, vl, lib_out
         torch.cuda.empty_cache()
-    results["fused_edges"] = fused_backward_edges(fa)
-    results["dkv_edges"] = dkv_edges(fa)
-    results["dq_edges"] = dq_edges(fa)
+    if edges:
+        results["fused_edges"] = fused_backward_edges(fa)
+        results["dkv_edges"] = dkv_edges(fa)
+        results["dq_edges"] = dq_edges(fa)
     return results
 
 
-def expected_train_launches(fa, cfg, history) -> dict:
-    """Kernel launches of the logged training steps, by `LAUNCHES` key, from
-    their shapes: per depth pair and micro-batch one spatial, one temporal
-    (unless T = 1) and two cross attentions; under recompute every forward
-    runs twice; every backward is `backward_variant`'s choice."""
-    mc = cfg.model
+def step_launches(fa, mc, thw, B: int, gas: int, policy: str,
+                  text_len: int = 8) -> dict:
+    """Kernel launches of one training step, by `LAUNCHES` key, from its
+    shapes: per depth pair and micro-batch one spatial, one temporal
+    (unless T = 1) and two cross attentions (to `text_len` keys: run_
+    training's synthetic captions have 8); under recompute ("full" or
+    "dots") every forward runs twice; every backward is
+    `backward_variant`'s choice."""
     D = mc.hidden_size // mc.num_heads
-    H = mc.num_heads
     _, ph, pw = mc.patch_size
-    recompute = cfg.remat_policy != "none"
+    T, Hpx, Wpx = thw
+    t_lat = max(1, T // 17 * 5) if T > 1 else 1
+    S = -(-(Hpx // 8) // ph) * -(-(Wpx // 8) // pw)
+    calls = [(B * t_lat, S, S), (B * t_lat, S, text_len),
+             (B * t_lat, S, text_len)]
+    if t_lat > 1:
+        calls.append((B * S, t_lat, t_lat))
+    want = {key: 0 for key in fa.LAUNCHES}
+    for rows, Nq, Nk in calls:
+        n = mc.depth * gas
+        want[fa.kernel_variant(mc.dtype, Nq, Nk, D)] += \
+            n * (2 if policy != "none" else 1)
+        variant = fa.backward_variant(rows, mc.num_heads, Nq, Nk, D, mc.dtype)
+        for key in fa.backward_launch_keys(variant, mc.dtype, Nq, Nk):
+            want[key] += n
+    return want
+
+
+def add_launches(total: dict, more: dict, times: int = 1) -> dict:
+    for key, n in more.items():
+        total[key] = total.get(key, 0) + n * times
+    return total
+
+
+def expected_train_launches(fa, cfg, history, text_len: int = 8) -> dict:
+    """Kernel launches of the logged training steps, by `LAUNCHES` key, from
+    their shapes and recompute policies (`step_launches`)."""
     want = {key: 0 for key in fa.LAUNCHES}
     for entry in history:
-        T, Hpx, Wpx = entry["thw"]
-        t_lat = max(1, T // 17 * 5) if T > 1 else 1
-        S = -(-(Hpx // 8) // ph) * -(-(Wpx // 8) // pw)
-        B = entry["batch"]
-        text_len = 8  # run_training's synthetic captions
-        calls = [(B * t_lat, S, S), (B * t_lat, S, text_len),
-                 (B * t_lat, S, text_len)]
-        if t_lat > 1:
-            calls.append((B * S, t_lat, t_lat))
-        for rows, Nq, Nk in calls:
-            n = mc.depth * entry["gas"]
-            want[fa.kernel_variant(mc.dtype, Nq, Nk, D)] += \
-                n * (2 if recompute else 1)
-            variant = fa.backward_variant(rows, H, Nq, Nk, D, mc.dtype)
-            for key in fa.backward_launch_keys(variant, mc.dtype, Nq, Nk):
-                want[key] += n
+        add_launches(want, step_launches(
+            fa, cfg.model, entry["thw"], entry["batch"], entry["gas"],
+            entry.get("remat_policy", cfg.remat_policy), text_len))
     return want
 
 
@@ -2088,6 +2144,405 @@ def tiny_cogvideox_parity(seed: int) -> dict:
     return out
 
 
+# the buckets of the DCP and raw-video phases: the default configuration's
+# two 51-frame video shapes with its batch sizes
+DCP_BUCKETS = {"144p": {51: (1.0, 4)}, "240p": {51: (1.0, 2)}}
+DCP_STEPS = 4
+DEVICE = "cuda"  # of the training phases (a rehearsal on the CPU sets "cpu")
+
+
+def seeded_build(seed: int):
+    """Context: modules made inside are made on DEVICE with weights drawn
+    from `seed`; the global generators are left as they were."""
+    import contextlib
+
+    import torch
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.random.fork_rng(
+        devices=[DEVICE] if DEVICE != "cpu" else []))
+    stack.enter_context(torch.device(DEVICE))
+    torch.manual_seed(seed)
+    return stack
+
+
+def weights_checksum(model) -> int:
+    """Sum of the fp32 parameters' bit patterns read as int32 (exact)."""
+    import torch
+
+    return sum(int(p.detach().view(torch.int32).sum(dtype=torch.int64))
+               for p in model.parameters())
+
+
+class profiled:
+    """While open, `run_training`'s `Profiler` is a subclass that keeps
+    itself in `self.made`, reads the model's weights checksum when it is
+    made (before any candidate) and when its planner is asked for (after
+    the weights were copied back), counts the kernel launches of each
+    candidate it runs, and resets the card's peak memory when the profile
+    is over, so that the peak read after `run_training` is the trained
+    steps'."""
+
+    def __init__(self, fa):
+        self.fa = fa
+        self.made = []
+
+    def __enter__(self):
+        import inspect
+
+        import torch
+
+        from videosys_tpu_torch.core.dcp import Profiler
+        from videosys_tpu_torch.training import train as train_mod
+
+        fa, made = self.fa, self.made
+
+        class Recording(Profiler):
+            def __init__(self, bucket, step_builder, **kw):
+                super().__init__(bucket, step_builder, **kw)
+                self.model = inspect.getclosurevars(
+                    step_builder).nonlocals["model"]
+                self.checksum_before = weights_checksum(self.model)
+                self.launches = []
+                made.append(self)
+
+            def _run(self, fn, args, thw, bs, sp, policy):
+                before = dict(fa.LAUNCHES)
+                try:
+                    return super()._run(fn, args, thw, bs, sp, policy)
+                finally:
+                    self.launches.append({k: fa.LAUNCHES[k] - before[k]
+                                          for k in before})
+
+            def make_planner(self):
+                self.checksum_after = weights_checksum(self.model)
+                self.model = None
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                self.planner = super().make_planner()
+                return self.planner
+
+        self.module, self.saved = train_mod, train_mod.Profiler
+        train_mod.Profiler = Recording
+        return self
+
+    def __exit__(self, *exc):
+        self.module.Profiler = self.saved
+        return False
+
+
+def dcp_phase(fa, seed: int) -> dict:
+    """`run_training` at full width and depth with the DCP profile phase
+    (each bucket's recompute policy and batch ladder, gas from the step
+    times), then the blocked backward pair against its plain version at
+    the largest spatial shape a trained step ran."""
+    import math
+
+    import torch
+
+    from videosys_tpu_torch import TrainConfig, run_training
+    from videosys_tpu_torch.models.transformers.stdit3 import STDiT3
+    from videosys_tpu_torch.training.datasets import DummyVariableVideoTextDataset
+
+    t0 = time.perf_counter()
+    log(f"dcp: {torch.cuda.memory_allocated() / 2**30:.2f} GiB held by "
+        f"earlier phases")
+    cfg = TrainConfig(bucket_config=DCP_BUCKETS, dynamic_profile=True,
+                      dynamic_recompute=True, max_steps=DCP_STEPS, log_every=1,
+                      warmup_steps=2, seed=seed)
+    # rows enough for a plan of each bucket at any batch the ladder picks
+    dataset = DummyVariableVideoTextDataset(
+        size=1024, seed=seed, distribution="uniform", frames_choices=(51,),
+        resolution_choices=((144, 256), (240, 426)))
+    # the weights a run without the profile starts from
+    with seeded_build(cfg.seed):
+        fresh = STDiT3(cfg.model)
+    fresh_sum = weights_checksum(fresh.float())
+    del fresh
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    with profiled(fa) as rec, no_fallback(fa):
+        state, ema, history = run_training(cfg, dataset=dataset, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    (prof,) = rec.made
+    launches = dict(fa.LAUNCHES)
+    trained_peak = torch.cuda.max_memory_allocated()
+    trained_reserved = torch.cuda.max_memory_reserved()
+    budget = prof.memory_budget
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    mc = cfg.model
+    log(f"dcp: budget {budget / 2**30:.2f} GiB (0.92 of {card_bytes / 2**30:.2f}); "
+        f"profile and {len(history)} trained steps in {wall:.1f} s")
+    log("dcp profile: bucket | policy | bs | peak reserved GiB (budget) | "
+        "step s | fits | launches")
+    profiled_launches = {key: 0 for key in fa.LAUNCHES}
+    trials = []
+    for t, got in zip(prof.trials, prof.launches):
+        add_launches(profiled_launches, got)
+        one = step_launches(fa, mc, prof.bucket.get_thw(t.bucket_id), t.bs, 1,
+                            t.remat_policy)
+        if math.isfinite(t.time):  # ran: a warm and a timed step
+            if got != add_launches({}, one, 2):
+                raise AssertionError(f"profile {t.bucket_id} bs {t.bs} "
+                                     f"{t.remat_policy}: launches {got}, "
+                                     f"predicted twice {one}")
+        elif any(got[k] > 2 * one[k] for k in got):
+            raise AssertionError(f"a failed profile run launched {got}, more "
+                                 f"than two steps' {one}")
+        if t.fits and t.memory_bytes > budget:
+            raise AssertionError(f"a fitting rung read {t.memory_bytes} B, "
+                                 f"over the budget {budget}")
+        row = {"bucket": f"{t.bucket_id[0]}x{t.bucket_id[1]}",
+               "thw": list(prof.bucket.get_thw(t.bucket_id)),
+               "policy": t.remat_policy, "bs": t.bs,
+               "peak_reserved_gib": t.memory_bytes / 2**30, "step_s": t.time,
+               "fits": t.fits,
+               "launches": {k: v for k, v in got.items() if v}}
+        trials.append(row)
+        log(f"  {row['bucket']} | {t.remat_policy:4s} | {t.bs:3d} | "
+            f"{row['peak_reserved_gib']:.2f} ({budget / 2**30:.2f}) | "
+            f"{t.time:.3f} | {t.fits} | {row['launches']}")
+    for f in prof.failures:
+        log(f"  failure: {dict(f, error=f['error'][:160])}")
+        if f.get("phase") != "execute" or "OutOfMemoryError" not in f["error"]:
+            raise AssertionError(f"a profile candidate failed other than by "
+                                 f"running out of memory: {f}")
+    if not all(p.fits for p in prof.results.values()):
+        raise AssertionError("a bucket found no candidate that fits the card")
+    planned = {}
+    for bid in prof.results:
+        sp, gas = prof.planner.plan(bid)
+        planned[f"{bid[0]}x{bid[1]}"] = {
+            "bs": prof.planner.bs(bid), "gas": gas, "sp": sp,
+            "policy": prof.planner.remat_policy(bid)}
+    log(f"dcp planner (target {prof.planner.target_time:.3f} s): {planned}")
+    log(f"dcp weights checksum: fresh model {fresh_sum}, before the profile "
+        f"{prof.checksum_before}, after it {prof.checksum_after}; optimizer "
+        f"updates {state.tx.count} of {len(history)} steps")
+    if not fresh_sum == prof.checksum_before == prof.checksum_after:
+        raise AssertionError("the profile changed the weights")
+    if state.tx.count != DCP_STEPS or state.step != DCP_STEPS:
+        raise AssertionError(f"{state.tx.count} updates, {state.step} steps")
+    for h in history:
+        log("dcp train:", json.dumps(h))
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            raise AssertionError(f"bad loss or grad norm in {h}")
+    log(f"dcp trained steps: peak allocated {trained_peak / 2**30:.2f} GiB, "
+        f"reserved {trained_reserved / 2**30:.2f} GiB (budget "
+        f"{budget / 2**30:.2f})")
+    if trained_peak > budget:
+        raise AssertionError("the trained steps went over the budget")
+    trained_got = {k: launches[k] - profiled_launches[k] for k in launches}
+    trained_want = expected_train_launches(fa, cfg, history)
+    log(f"dcp launches: profile {profiled_launches}; trained {trained_got}, "
+        f"predicted {trained_want}")
+    if trained_got != trained_want:
+        raise AssertionError("the trained steps' launches differ from the "
+                             "prediction")
+    del state, ema
+    torch.cuda.empty_cache()
+    # the largest spatial attention a trained step ran, on the blocked pair
+    D = mc.hidden_size // mc.num_heads
+
+    def spatial(h):
+        T, H, W = h["thw"]
+        t_lat = max(1, T // 17 * 5)
+        S = -(-(H // 8) // 2) * -(-(W // 8) // 2)
+        return h["batch"] * t_lat, S
+
+    rows, S = max((spatial(h) for h in history), key=lambda r: r[0] * r[1] ** 2)
+    variant = fa.backward_variant(rows, mc.num_heads, S, S, D, torch.bfloat16)
+    bwd = backward_kernel_phase(fa, [("dcp_spatial", rows, mc.num_heads, S, S,
+                                      D, False, variant)])["dcp_spatial"]
+    return {"trials": trials, "failures": prof.failures, "planner": planned,
+            "history": history, "launches": launches,
+            "trained_peak_gib": trained_peak / 2**30,
+            "trained_reserved_gib": trained_reserved / 2**30,
+            "budget_gib": budget / 2**30, "wall_s": wall, "bwd": bwd}
+
+
+def seeded_clips(path: Path, sizes, frames: int, seed: int):
+    """A `VariableVideoTextDataset` over a CSV of `sizes` whose decode
+    (`read_frames`, its only override) reads seeded uint8 clips of `frames`
+    frames from memory; `host_seconds` sums the time its `load_video`
+    (temporal crop, resize-crop, normalize) took on the host."""
+    import csv
+
+    import numpy as np
+
+    from videosys_tpu_torch.training.datasets import VariableVideoTextDataset
+
+    class SeededClips(VariableVideoTextDataset):
+        def __init__(self, csv_path, clips):
+            super().__init__(csv_path)
+            self.clips = clips
+
+        def read_frames(self, i, keep):
+            return self.clips[i][keep]
+
+    rng = np.random.default_rng(seed)
+    clips = [rng.integers(0, 256, (frames, h, w, 3), dtype=np.uint8)
+             for h, w in sizes]
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["path", "text", "num_frames", "height", "width"])
+        for i, (h, w) in enumerate(sizes):
+            writer.writerow([f"clip{i}", f"seeded clip number {i}", frames, h, w])
+    ds = SeededClips(str(path), clips)
+    ds.host_seconds = 0.0
+    load = ds.load_video
+
+    def timed_load(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return load(*a, **kw)
+        finally:
+            ds.host_seconds += time.perf_counter() - t0
+
+    ds.load_video = timed_load
+    return ds
+
+
+def raw_video_phase(fa, seed: int) -> dict:
+    """Open-Sora training from raw clips through the full VAE encoder (bf16,
+    random weights): `flash_fwd_wide` at the encoder's mid-attention shapes
+    against its plain version, `run_training` on both 51-frame buckets from
+    seeded 60-frame clips (launches per step from the shapes: the train
+    step's and one wide launch per 4 frames of the micro-batch), then
+    `preprocess` of the 144p clips and 2 steps from the latents it wrote."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from videosys_tpu_torch import (
+        PreprocessedLatentDataset,
+        TrainConfig,
+        preprocess,
+        run_training,
+    )
+    from videosys_tpu_torch.models.autoencoders.autoencoder_open_sora import (
+        OpenSoraVAE,
+    )
+    from videosys_tpu_torch.models.text_encoders.t5 import StubTextEncoder
+
+    out = {}
+    # the encoder's mid attention: micro-batches of 4 frames, one head of
+    # 512 over an h x w latent (18 x 32 at 144p, 30 x 53 at 240p)
+    if fa.kernel_variant(torch.bfloat16, 576, 576, 512) != "wgmma":
+        raise AssertionError("the encoder's mid attention is not on the wide kernel")
+    out["kernel"] = forward_shapes(fa, [
+        ("vae_enc144", 4, 1, 576, 576, 512, False),
+        ("vae_enc240", 4, 1, 1590, 1590, 512, False)], seed=5, dtypes=("bf16",))
+    with seeded_build(seed + 7):
+        vae = OpenSoraVAE().to(torch.bfloat16).eval()
+    mbs = vae.config.micro_batch_size
+    with tempfile.TemporaryDirectory() as tmp:
+        # 8 clips of 180 x 320 (the 144p bucket) and 4 of 270 x 480 (240p):
+        # two plans of each at the buckets' batch sizes
+        sizes = [(180, 320)] * 8 + [(270, 480)] * 4
+        ds = seeded_clips(Path(tmp) / "clips.csv", sizes, 60, seed)
+        after_step = []
+        cfg = TrainConfig(bucket_config=DCP_BUCKETS, max_steps=4, log_every=1,
+                          warmup_steps=2, seed=seed,
+                          tracker=lambda rec: after_step.append(dict(fa.LAUNCHES)))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        with no_fallback(fa):
+            state, ema, history = run_training(cfg, dataset=ds, vae=vae,
+                                               device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        prev = {k: 0 for k in fa.LAUNCHES}
+        wide = {}
+        for h, snap in zip(history, after_step):
+            got = {k: snap[k] - prev[k] for k in snap}
+            prev = snap
+            T, B = h["thw"][0], h["batch"]
+            want = add_launches(
+                {"wgmma": h["gas"] * -(-B * T // mbs)},
+                step_launches(fa, cfg.model, h["thw"], B, h["gas"],
+                              h["remat_policy"]))
+            want = {k: want.get(k, 0) for k in got}
+            log(f"raw video step {h['step']} {h['bucket']} batch {B}: loss "
+                f"{h['loss']:.4f} step {h['seconds']:.3f} s, reads + encode "
+                f"{h['data_seconds']:.3f} s; launches "
+                f"{ {k: v for k, v in got.items() if v} }")
+            if got != want:
+                raise AssertionError(f"raw-video step launches {got} != {want}")
+            if not math.isfinite(h["loss"]):
+                raise AssertionError(f"bad loss in {h}")
+            wide[h["bucket"]] = wide.get(h["bucket"], 0) + got["wgmma"]
+        buckets = {h["bucket"] for h in history}
+        if len(buckets) != 2 or state.step != 4:
+            raise AssertionError(f"raw-video run: {state.step} steps over "
+                                 f"{buckets}")
+        log(f"raw video: {len(history)} steps in {wall:.1f} s, peak "
+            f"{peak:.2f} GiB; host load_video {ds.host_seconds:.2f} s, reads "
+            f"+ encodes {sum(h['data_seconds'] for h in history):.2f} s, "
+            f"steps {sum(h['seconds'] for h in history):.2f} s; wide launches "
+            f"by bucket {wide}")
+        out.update(history=history, wall_s=wall, peak_gib=peak,
+                   host_load_s=ds.host_seconds, wide_launches=wide)
+        del state, ema
+        torch.cuda.empty_cache()
+
+        # preprocess the 144p clips, then train 2 steps from their latents
+        small = seeded_clips(Path(tmp) / "small.csv", sizes[:8], 60, seed)
+        written = []
+        encode = vae.encode
+        vae.encode = lambda x, noise: written.append(encode(x, noise)) or written[-1]
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            out_csv = preprocess(small, vae, StubTextEncoder(device=DEVICE),
+                                 (51, 144, 256), str(Path(tmp) / "latents"),
+                                 seed=seed, device=DEVICE)
+        finally:
+            del vae.encode
+        pre_s = time.perf_counter() - t0
+        pre_launches = dict(fa.LAUNCHES)
+        if pre_launches["wgmma"] != len(sizes[:8]) * -(-51 // mbs):
+            raise AssertionError(f"preprocess launched {pre_launches}")
+        lat = PreprocessedLatentDataset(out_csv)
+        for i, z in enumerate(written):
+            want = z[0].float().cpu().numpy().astype(np.float16).astype(np.float32)
+            if not np.array_equal(lat.load_latents([i], want.shape[1:])[0], want):
+                raise AssertionError(f"latent {i} read back differs")
+        prefetched = []
+        prefetch = lat.prefetch
+        lat.prefetch = lambda idx: prefetched.append(list(idx)) or prefetch(idx)
+        cfg2 = TrainConfig(bucket_config={"144p": {51: (1.0, 4)}}, max_steps=2,
+                           log_every=1, warmup_steps=2, seed=seed)
+        fa.reset_launches()
+        with no_fallback(fa):
+            state, ema, hist2 = run_training(cfg2, dataset=lat, vae=vae,
+                                             text_embed_fn=lat.text_embeds,
+                                             device=DEVICE)
+        lat.close()
+        got = dict(fa.LAUNCHES)
+        want = expected_train_launches(fa, cfg2, hist2, text_len=300)
+        log(f"preprocess: 8 clips in {pre_s:.2f} s, launches "
+            f"{ {k: v for k, v in pre_launches.items() if v} }; latents read "
+            f"back bit-equal; 2 steps from them (prefetched "
+            f"{[len(p) for p in prefetched]} rows), losses "
+            f"{[round(h['loss'], 4) for h in hist2]}, launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+        if state.step != 2 or got != want or not prefetched:
+            raise AssertionError(f"training from preprocessed latents: "
+                                 f"{state.step} steps, launches {got} != {want}")
+        out.update(preprocess_s=pre_s, latent_history=hist2)
+        del state, ema, vae
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=30,
@@ -2166,6 +2621,14 @@ def main(argv=None) -> int:
         tiny_train_parity_phase(fa, args.seed)
     if "cogvideox" in phases:  # phase 10: CogVideoX serving, its kernel shapes
         cog = cogvideox_phase(fa, args.seed, args.cog5b_steps, args.profile)
+    if "dcp" in phases:  # phase 11: training with the DCP profile phase
+        t0 = time.perf_counter()
+        dcp = dcp_phase(fa, args.seed)
+        log(f"dcp phase: {time.perf_counter() - t0:.1f} s")
+    if "raw_video" in phases:  # phase 12: raw video, preprocess, latents
+        t0 = time.perf_counter()
+        raw = raw_video_phase(fa, args.seed)
+        log(f"raw_video phase: {time.perf_counter() - t0:.1f} s")
     if set(phases) != set(PHASES):
         log(f"partial run ({args.phases}) total_s="
             f"{time.perf_counter() - t_start:.1f}: no kernel report")
@@ -2229,6 +2692,37 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": bwd_shapes[shape]["shape"]})
+    # the blocked backward pair at the largest spatial shape the DCP run
+    # trained, launches from that run (profile steps included)
+    r = dcp["bwd"]
+    for key, kern, source, replaces in (
+            ("bwd_dkv", "dkv", dkv_src, "videosys_tpu/ops/flash_attention.py:522"),
+            ("bwd_dq", "dq", dq_src, "videosys_tpu/ops/flash_attention.py:594")):
+        if dcp["launches"][key] <= 0:
+            raise AssertionError(f"the DCP run never launched flash_{key}")
+        kernels.append({
+            "name": f"flash_{key}", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": dcp["launches"][key],
+            "max_abs_err": r[kern]["max_abs_err_bf16"], "ms": r[kern]["ms"],
+            "plain_ms": r[kern]["plain_ms"], "bound_ms": r[kern]["bound_ms"],
+            "bound_by": r[kern]["bound_by"], "library_ms": r[kern]["library_ms"],
+            "shape": r["shape"]})
+    # the wide forward at the VAE encoder's shapes, launches from the
+    # raw-video run's steps of each bucket
+    for shape, res in (("vae_enc144", "144p"), ("vae_enc240", "240p")):
+        r = raw["kernel"][shape]
+        n = sum(v for b, v in raw["wide_launches"].items() if res in b)
+        if n <= 0:
+            raise AssertionError(f"raw-video training never launched "
+                                 f"flash_fwd_wide at {res}")
+        kernels.append({
+            "name": "flash_fwd_wide", "route": "cuda",
+            "source": "videosys_tpu_torch/csrc/flash_fwd.cu",
+            "replaces": "videosys_tpu/ops/flash_attention.py:49",
+            "launches": n, "max_abs_err": r["max_abs_err_bf16"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": r["shape"]})
     log(f"total_s={time.perf_counter() - t_start:.1f}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,11 +1,13 @@
 """videosys_tpu_torch: the PyTorch/CUDA port of videosys_tpu.
 
 Same public surface, `initialize`, `VideoSysEngine(config).generate(prompt)`
-(Open-Sora v1.2 and CogVideoX configs) and `run_training(TrainConfig(...))`,
+(Open-Sora v1.2 and CogVideoX configs), `run_training(TrainConfig(...))`
+with the DCP `Profiler`, and `preprocess`,
 on one NVIDIA card (or the CPU with `device="cpu"`). Imports torch only;
 the CUDA kernels build at first use.
 """
 
+from videosys_tpu_torch.core.dcp import BucketProfile, Profiler
 from videosys_tpu_torch.core.engine import VideoSysEngine, initialize
 from videosys_tpu_torch.core.pab import PABConfig
 from videosys_tpu_torch.pipelines.cogvideox.pipeline_cogvideox import (
@@ -19,9 +21,12 @@ from videosys_tpu_torch.pipelines.open_sora.pipeline_open_sora import (
     OpenSoraPipeline,
 )
 
+from videosys_tpu_torch.training.datasets import PreprocessedLatentDataset
+from videosys_tpu_torch.training.preprocess import preprocess
 from videosys_tpu_torch.training.train import TrainConfig, run_training
 
-__all__ = ["VideoSysEngine", "initialize", "CogVideoXConfig",
+__all__ = ["VideoSysEngine", "initialize", "BucketProfile", "CogVideoXConfig",
            "CogVideoXPABConfig", "CogVideoXPipeline", "OpenSoraConfig",
-           "OpenSoraPABConfig", "OpenSoraPipeline", "PABConfig", "TrainConfig",
+           "OpenSoraPABConfig", "OpenSoraPipeline", "PABConfig",
+           "PreprocessedLatentDataset", "Profiler", "TrainConfig", "preprocess",
            "run_training"]

@@ -1,19 +1,24 @@
-"""Training datasets (numpy only; a copy of
-`videosys_tpu/training/datasets.py` without the raw-video transforms and
-the native read pool, which are not ported yet).
+"""Training datasets (numpy; CSVs read with the standard `csv` module).
 
-Behavioral reference: `videosys/training/datasets/open_sora/datasets.py`
-(VariableVideoTextDataset :131-228, DummyVariableVideoTextDataset :229-448
-with zipf/uniform synthetic size distributions, preprocessed-latents mode)
-and `utils.py:239-336` (MaskGenerator).
+Port of `videosys_tpu/training/datasets.py`. Behavioral reference:
+`videosys/training/datasets/open_sora/datasets.py` (VariableVideoTextDataset
+:131-228, DummyVariableVideoTextDataset :229-448 with zipf/uniform synthetic
+size distributions, preprocessed-latents mode) and `utils.py:239-336`
+(MaskGenerator). The JAX package reads its CSVs with pandas and its
+preprocessed latents on a native read pool; here the rows are dicts of
+strings from `csv.DictReader` and the reads run on a thread pool.
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
-from typing import List, Optional, Tuple
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from videosys_tpu_torch.training.video_transforms import get_transforms_video
 
 
 @dataclasses.dataclass
@@ -26,39 +31,91 @@ class Sample:
     path: Optional[str] = None
 
 
-class VariableVideoTextDataset:
-    """CSV-driven dataset: columns (path, text, num_frames, height, width)
-    (datasets.py:131-228). Video pixels are loaded lazily per item; when only
-    shapes are needed (bucketing/profiling) no IO happens."""
+def read_csv(path: str) -> List[Dict[str, str]]:
+    """The rows of a CSV file with a header line, as dicts of strings."""
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
 
-    def __init__(self, csv_path: str, transform=None):
-        import pandas as pd
 
-        self.df = pd.read_csv(csv_path)
-        self.transform = transform
+class _CsvRows:
+    """Rows of a CSV with the pixel shape columns num_frames, height,
+    width; `path_column` names the file a `Sample` points at."""
+
+    path_column = "path"
+
+    def __init__(self, csv_path: str):
+        self.rows = read_csv(csv_path)
 
     def __len__(self):
-        return len(self.df)
+        return len(self.rows)
 
     def shape_of(self, i: int) -> Tuple[int, int, int]:
-        row = self.df.iloc[i]
+        row = self.rows[i]
         return int(row["num_frames"]), int(row["height"]), int(row["width"])
 
     def shapes(self) -> List[Tuple[int, int, int]]:
         return [self.shape_of(i) for i in range(len(self))]
 
     def __getitem__(self, i: int) -> Sample:
-        row = self.df.iloc[i]
-        return Sample(i, int(row["num_frames"]), int(row["height"]),
-                      int(row["width"]), str(row.get("text", "")),
-                      row.get("path"))
+        row = self.rows[i]
+        return Sample(i, *self.shape_of(i), row.get("text", ""),
+                      row.get(self.path_column))
+
+
+class VariableVideoTextDataset(_CsvRows):
+    """CSV-driven dataset: columns (path, text, num_frames, height, width)
+    (datasets.py:131-228). Video pixels are loaded lazily per item; when only
+    shapes are needed (bucketing/profiling) no IO happens."""
+
+    def __init__(self, csv_path: str, transform=None):
+        super().__init__(csv_path)
+        self.transform = transform
+
+    def read_frames(self, i: int, keep: np.ndarray) -> np.ndarray:
+        """Decode frames `keep` (ascending indices) of row i's video ->
+        uint8 [len(keep), H, W, 3] RGB, read with OpenCV as the JAX package
+        does (read_video.py read_video_cv2 :213-248); a video shorter than
+        `keep` repeats its last frame. A dataset whose frames come from
+        elsewhere overrides this method only."""
+        try:
+            import cv2
+        except ImportError as e:
+            raise ImportError("decoding video files needs OpenCV (cv2), as "
+                              "in the JAX package; it is not installed") from e
+        path = self[i].path
+        cap = cv2.VideoCapture(path)
+        want = set(keep.tolist())
+        frames, idx = [], 0
+        while idx <= int(keep[-1]) and len(frames) < len(keep):
+            ok, frame = cap.read()
+            if not ok:
+                break
+            if idx in want:
+                frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+            idx += 1
+        cap.release()
+        if not frames:
+            raise IOError(f"cannot read {path}")
+        frames += frames[-1:] * (len(keep) - len(frames))
+        return np.stack(frames)
 
     def load_video(self, i: int, target_thw: Tuple[int, int, int],
                    frame_interval: int = 1, seed: int = 0) -> np.ndarray:
-        """Read + transform to the bucket shape -> [C, T, H, W] in [-1, 1]."""
-        raise NotImplementedError(
-            "raw-video loading (the video transforms) is not ported yet; "
-            "train from pre-encoded latents (PreprocessedLatentDataset)")
+        """Read + transform to the bucket shape -> [C, T, H, W] in [-1, 1]
+        (datasets.py:54-88): a random window of T frames strided by
+        `frame_interval` (temporal_random_crop, utils.py:76-86, seeded by
+        seed + i) over the row's num_frames, its decode, then the transform
+        (default "resize_crop" to (H, W)). The JAX package takes the clip
+        length from the video container and falls back to num_frames; here
+        num_frames is the clip length, so the decode can be replaced."""
+        T, H, W = target_thw
+        keep = temporal_random_crop(self.shape_of(i)[0], T, frame_interval,
+                                    seed + i)
+        clip = self.read_frames(i, keep)
+        if len(clip) < T:  # a clip shorter than T repeats its last frame
+            clip = np.concatenate([clip, np.repeat(clip[-1:], T - len(clip), 0)])
+        tfm = self.transform or get_transforms_video("resize_crop", (H, W))
+        return np.ascontiguousarray(np.transpose(tfm(clip), (3, 0, 1, 2)))
 
 
 def temporal_random_crop(total: int, num_frames: int, frame_interval: int,
@@ -190,37 +247,49 @@ def prepare_dataloader(dataset, bucket_config: dict, batch_multiplier: int = 1,
     return sampler, bucket
 
 
-class PreprocessedLatentDataset:
-    """Pre-encoded training data: latent_{i}.npy + text_{i}.npz files and a
-    preprocessed.csv with the original pixel shapes for bucketing (columns
-    num_frames, height, width, latent_path, text_path). Files are read with
-    numpy; the JAX package's native read pool is not ported."""
+class PreprocessedLatentDataset(_CsvRows):
+    """Pre-encoded training data, as `training/preprocess.py` writes it:
+    latent_{i}.npy + text_{i}.npz files and a preprocessed.csv with the
+    original pixel shapes for bucketing (columns num_frames, height, width,
+    latent_path, text_path).
 
-    def __init__(self, csv_path: str):
-        import pandas as pd
+    The counterpart of the JAX package's native read pool
+    (`videosys_tpu/native`): the latent files are read by a pool of
+    `num_workers` threads (numpy's file reads release the interpreter
+    lock). `load_latents` submits every file of a micro-batch before it
+    waits on any, and `prefetch` lets the training loop queue a whole
+    plan's reads behind the current step. `close()` stops the pool."""
 
-        self.df = pd.read_csv(csv_path)
+    path_column = "latent_path"
 
-    def __len__(self):
-        return len(self.df)
+    def __init__(self, csv_path: str, num_workers: int = 4):
+        super().__init__(csv_path)
+        if num_workers < 1:
+            raise ValueError("num_workers must be at least 1")
+        self._pool = ThreadPoolExecutor(num_workers,
+                                        thread_name_prefix="latent-read")
+        self._pending: Dict[int, Future] = {}
 
-    def shape_of(self, i: int) -> Tuple[int, int, int]:
-        row = self.df.iloc[i]
-        return int(row["num_frames"]), int(row["height"]), int(row["width"])
+    def _submit(self, i: int) -> None:
+        if i not in self._pending:
+            self._pending[i] = self._pool.submit(
+                np.load, self.rows[i]["latent_path"])
 
-    def shapes(self) -> List[Tuple[int, int, int]]:
-        return [self.shape_of(i) for i in range(len(self))]
+    def _read(self, i: int) -> np.ndarray:
+        self._submit(i)  # a row asked for twice is read twice
+        return self._pending.pop(i).result()
 
-    def __getitem__(self, i: int) -> Sample:
-        row = self.df.iloc[i]
-        return Sample(i, int(row["num_frames"]), int(row["height"]),
-                      int(row["width"]), str(row.get("text", "")),
-                      row.get("latent_path"))
+    def prefetch(self, indices) -> None:
+        """Queue the latent reads of `indices`; indices already in flight
+        are left as they are."""
+        for i in indices:
+            self._submit(int(i))
 
     def load_latents(self, indices, latent_thw, rng_seed: int = 0) -> np.ndarray:
-        """[B, C, t, h, w] float32."""
-        lat = np.stack([np.load(str(self.df.iloc[int(i)]["latent_path"]))
-                        for i in indices])
+        """[B, C, t, h, w] float32. Submits all of `indices` before waiting on
+        any, so a micro-batch's files stream concurrently."""
+        self.prefetch(indices)
+        lat = np.stack([self._read(int(i)) for i in indices])
         if tuple(lat.shape[2:]) != tuple(latent_thw):
             raise ValueError(
                 f"preprocessed latents are {lat.shape[2:]}, bucket wants "
@@ -233,7 +302,12 @@ class PreprocessedLatentDataset:
         the `text_embed_fn` of `run_training`."""
         ys, masks = [], []
         for i in indices:
-            with np.load(str(self.df.iloc[int(i)]["text_path"])) as z:
+            with np.load(self.rows[int(i)]["text_path"]) as z:
                 ys.append(np.asarray(z["y"], np.float32))
                 masks.append(np.asarray(z["mask"], bool))
         return np.stack(ys), np.stack(masks)
+
+    def close(self) -> None:
+        """Stop the read pool; reads not yet waited on are dropped."""
+        self._pool.shutdown(wait=True, cancel_futures=True)
+        self._pending.clear()

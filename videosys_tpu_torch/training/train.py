@@ -1,14 +1,16 @@
-"""Open-Sora training loop on one device.
+"""Open-Sora training loop on one device, with DCP profiling.
 
 Port of `videosys_tpu/training/train.py`: `run_training(TrainConfig)`
-trains STDiT3 with the rflow loss over bucketized batches of pre-encoded (or
-synthetic) latents: caption dropout, frame masks, gradient accumulation,
-AdamW with warmup, cosine decay and clipping, activation recompute, EMA and
-checkpoints. Parameters are held in fp32 and the model computes in
-`cfg.model.dtype` (bf16 by default). Not ported yet: the DCP profile phase
-(`dynamic_profile`, `dynamic_recompute`), multi-device meshes (`dp_size`,
-`sp_size`, `dynamic_sp`, `sp_balance`, `zero3`) and raw-video mode (`vae=`);
-a `planner` built elsewhere can be passed in.
+trains STDiT3 with the rflow loss over bucketized batches of pre-encoded,
+synthetic or raw-video latents (raw clips through the VAE encoder): caption
+dropout, frame masks, gradient accumulation, AdamW with warmup, cosine
+decay and clipping, activation recompute, EMA and checkpoints. With
+`dynamic_profile` the DCP profile phase (`core/dcp.py`) picks each bucket's
+batch size, gradient accumulation and (`dynamic_recompute`) recompute
+policy; `sp_balance` runs the packed-step loop. Parameters are held in fp32
+and the model computes in `cfg.model.dtype` (bf16 by default). Not ported:
+multi-device meshes (`dp_size`, `sp_size` > 1, `dynamic_sp`, `zero3` raise;
+ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from videosys_tpu_torch.core.dcp import Profiler
 from videosys_tpu_torch.core.pipeline import resolve_device
 from videosys_tpu_torch.models.transformers.stdit3 import STDiT3, STDiT3Config
 from videosys_tpu_torch.schedulers.rflow import RFlowConfig, RFlowScheduler
@@ -31,9 +34,15 @@ from videosys_tpu_torch.training.datasets import (
     MaskGenerator,
 )
 from videosys_tpu_torch.training.ema import init_ema, update_ema
-from videosys_tpu_torch.training.sampler import VariableVideoBatchSampler
+from videosys_tpu_torch.training.sampler import (
+    DCPPlanner,
+    VariableVideoBatchSampler,
+    pack_global_steps,
+)
 from videosys_tpu_torch.training.train_step import (
     create_train_state,
+    make_apply_step,
+    make_grad_step,
     make_optimizer,
     make_train_step,
 )
@@ -69,22 +78,62 @@ class TrainConfig:
     max_steps: Optional[int] = None
     seed: int = 42
     dataset_size: int = 64
+    # dynamic sequence parallelism: multi-device (raises, Queue 1 item 6)
+    dynamic_sp: bool = False
+    # sp-balance: pack plans of differing sp into GlobalSteps (sampler.py
+    # :576-871); each packed step accumulates gradients across its plans
+    # and the optimizer updates once. On one device a packed step holds one
+    # plan.
+    sp_balance: bool = False
+    # DCP profile phase: per bucket the largest batch that fits the card,
+    # and gas to balance step times (core/dcp.py)
+    dynamic_profile: bool = False
     # activation recompute policy for the depth pairs: "full" | "dots" |
-    # "none" (STDiT3's `remat_policy`); a planner may override it per bucket
+    # "none" (STDiT3's `remat_policy`); with dynamic_recompute the profile
+    # escalates none -> dots -> full per bucket and keeps the least
+    # recompute that fits (the reference's dynamic_recompute,
+    # core/dcp/profiler.py:584-622); a planner may override it per bucket
     remat_policy: str = "full"
+    dynamic_recompute: bool = False
     ckpt_every: Optional[int] = None
     ckpt_dir: str = "./checkpoints"
     log_every: int = 10
+    # multi-device meshes: > 1 raises (Queue 1 item 6)
+    dp_size: int = 1
+    sp_size: int = 1
     # caption dropout: trains y_embedder.y_embedding, the uncond branch of
     # classifier-free guidance
     class_dropout_prob: float = 0.1
-    # experiment tracker: any callable(dict), called at every step with
-    # step, loss, avg_loss (running mean) and lr (of the next update)
+    # experiment tracker: set wandb_project to log loss/avg_loss/lr per step
+    # through wandb (imported only then), or pass any callable(dict) as
+    # `tracker`, called at every step with step, loss, avg_loss (running
+    # mean) and lr (of the next update)
+    wandb_project: Optional[str] = None
     tracker: Optional[Any] = None
+    # ZeRO-3 parameter sharding: multi-device (raises, Queue 1 item 6)
+    zero3: bool = False
     # cosine decay to lr * lr_min_ratio over lr_decay_steps after warmup
     # (None = warmup, then constant)
     lr_decay_steps: Optional[int] = None
     lr_min_ratio: float = 0.1
+
+
+def _check_config(cfg: TrainConfig) -> None:
+    if cfg.zero3 and cfg.sp_balance:
+        raise ValueError(
+            "zero3 shards params per-mesh; sp_balance accumulates grads "
+            "across pool meshes via the replicated pin — use one or the "
+            "other")
+    if cfg.dynamic_recompute and not cfg.dynamic_profile:
+        raise ValueError(
+            "dynamic_recompute picks the remat policy during the DCP "
+            "profile phase; set dynamic_profile=True as well (or set a "
+            "fixed remat_policy instead)")
+    if cfg.dp_size > 1 or cfg.sp_size > 1 or cfg.dynamic_sp or cfg.zero3:
+        raise NotImplementedError(
+            "dp_size / sp_size > 1, dynamic_sp and zero3 need several "
+            "devices, which the port does not run yet (ROADMAP Queue 1 "
+            "item 6)")
 
 
 def latent_size(thw) -> tuple:
@@ -95,21 +144,111 @@ def latent_size(thw) -> tuple:
     return (t_lat, H // 8, W // 8)
 
 
+
+
+def encode_noise(seed: int, micro_seed: int):
+    """`noise(name, shape)` for the VAE encode of one raw-video micro-batch:
+    standard normal draws, in the order the encode asks for them, from a
+    CPU generator seeded by (seed, micro_seed)."""
+    gen = torch.Generator().manual_seed(
+        int(np.random.SeedSequence([seed, micro_seed]).generate_state(1)[0]))
+    return lambda name, shape: torch.randn(shape, generator=gen)
+
+
+def profile_buckets(cfg: TrainConfig, model: STDiT3, scheduler, bucket: Bucket,
+                    lat_shape, masked: bool, device: torch.device) -> DCPPlanner:
+    """The DCP profile phase (JAX train.py :170-195) over the run's own
+    model: each candidate is a whole train step (forward, backward, clipped
+    AdamW) on a zero batch of the bucket's shape, with the recompute policy
+    switched on the model. It leaves no trace: the steps update a throwaway
+    optimizer, whose moments are allocated before the first candidate so
+    that every peak counts them as a real step's does; the weights are
+    copied to the host before and back after; the run's optimizer, EMA and
+    generators are never touched, and the global RNG is restored."""
+    saved = {n: p.detach().to("cpu", copy=True)
+             for n, p in model.named_parameters()}
+    run_policy = model.remat_policy
+    ptx = make_optimizer(model.parameters(), cfg.lr, cfg.weight_decay,
+                         cfg.warmup_steps, cfg.grad_clip,
+                         decay_steps=cfg.lr_decay_steps,
+                         lr_min_ratio=cfg.lr_min_ratio)
+    for p in ptx.params:
+        p.grad = torch.zeros_like(p)
+    ptx.update()  # allocates the moments
+    pstate = create_train_state(model, ptx)
+    pgen = torch.Generator().manual_seed(cfg.seed)
+    mc = cfg.model
+
+    def step_builder(thw, bs, sp, policy=cfg.remat_policy):
+        T, H, W = thw
+        t_lat, h, w = lat_shape(thw)
+        batch = {"x": torch.zeros(bs, mc.in_channels, t_lat, h, w, device=device),
+                 "y": torch.zeros(bs, 8, mc.caption_channels, device=device),
+                 "kv_mask": torch.ones(bs, 8, dtype=torch.bool, device=device),
+                 "fps": torch.full((bs,), 24.0, device=device)}
+        if masked and t_lat > 1:  # a frame mask runs the t0 branch
+            batch["mask"] = torch.ones(bs, t_lat, dtype=torch.bool,
+                                       device=device)
+        step = make_train_step(model, scheduler, ptx, float(H), float(W),
+                               num_frames=int(T),
+                               class_dropout_prob=cfg.class_dropout_prob)
+
+        def run():
+            model.remat_policy = policy
+            try:
+                step(pstate, pgen, batch)
+            finally:  # a step that failed part-way leaves gradients behind
+                for p in model.parameters():
+                    p.grad = None
+        return run, ()
+
+    cuda = [device] if device.type == "cuda" else []
+    try:
+        with torch.random.fork_rng(devices=cuda):
+            profiler = Profiler(
+                bucket, step_builder, sp_candidates=(cfg.sp_size,),
+                remat_candidates=(("none", "dots", "full")
+                                  if cfg.dynamic_recompute
+                                  else (cfg.remat_policy,)))
+            profiler.profile_all()
+    finally:
+        ptx.opt.state.clear()
+        model.remat_policy = run_policy
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(saved[n])
+    logger.info("DCP profile: %s", profiler.dump())
+    return profiler.make_planner()
+
+
 def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
-                 planner=None, device=None, params: Optional[dict] = None):
+                 planner=None, device=None, params: Optional[dict] = None,
+                 vae=None, vae_params: Optional[dict] = None):
     """Train STDiT3 with the rflow loss over bucketized variable-length
     batches. Returns (train_state, ema_params, metrics_history).
 
     `dataset` exposes `shapes()` and `load_latents(indices, latent_thw,
-    rng_seed=)` (default: `DummyVariableVideoTextDataset`); `text_embed_fn(
-    indices) -> (y, kv_mask)` supplies caption features (default: random
-    features of 8 tokens); `params` an initial state_dict of the model in
-    this package's key names (random weights from `cfg.seed` otherwise).
-    The model is built and trained on the card unless
-    `device="cpu"` is passed; without a card and without `device` this
-    raises. Every random draw (initial weights aside) comes from CPU
-    generators seeded by `cfg.seed`, so a run draws the same captions,
-    dropout flags, timesteps, noise and masks on every device."""
+    rng_seed=)` (default: `DummyVariableVideoTextDataset`), and may expose
+    `prefetch(indices)`, called with a whole plan's rows before its first
+    micro-batch; `text_embed_fn(indices) -> (y, kv_mask)` supplies caption
+    features (default: random features of 8 tokens); `params` an initial
+    state_dict of the model in this package's key names (random weights
+    from `cfg.seed` otherwise); `planner` a DCP planner made elsewhere
+    (`dynamic_profile` makes one).
+
+    Raw-video mode: given a `vae` (an `OpenSoraVAE`, with `vae_params` its
+    state_dict if not already loaded) and a dataset with `load_video(i,
+    (T, H, W), seed=)`, each micro-batch is read, resize-cropped to the
+    bucket shape and encoded to latents under no_grad in the VAE's dtype
+    (JAX train.py :219-237), its noise from `encode_noise(cfg.seed,
+    micro_seed)`; latent shapes come from `vae.get_latent_size`.
+
+    The model is built and trained on the card unless `device="cpu"` is
+    passed; without a card and without `device` this raises. Every random
+    draw (initial weights aside) comes from CPU generators seeded by
+    `cfg.seed`, so a run draws the same captions, dropout flags, timesteps,
+    noise and masks on every device."""
+    _check_config(cfg)
     device = resolve_device(device)
     cuda = [device] if device.type == "cuda" else []
     with torch.random.fork_rng(devices=cuda), torch.device(device):
@@ -133,29 +272,60 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
                                                 seed=cfg.seed)
     bucket = Bucket(cfg.bucket_config)
     mask_gen = MaskGenerator(cfg.mask_ratios) if cfg.mask_ratios else None
-    sampler = VariableVideoBatchSampler(
-        bucket, dataset.shapes(), seed=cfg.seed, planner=planner)
+    raw_video = vae is not None and hasattr(dataset, "load_video")
+    if vae is not None:
+        if vae_params is not None:
+            vae.load_state_dict({
+                k: v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+                for k, v in vae_params.items()})
+        vae.to(device).eval().requires_grad_(False)
+
+    def lat_shape(thw) -> tuple:
+        return tuple(vae.get_latent_size(thw)) if vae is not None \
+            else latent_size(thw)
 
     state = create_train_state(model, tx)
     ema_params = init_ema(model)
+    if cfg.dynamic_profile:
+        planner = profile_buckets(cfg, model, scheduler, bucket, lat_shape,
+                                  mask_gen is not None, device)
+    sampler = VariableVideoBatchSampler(
+        bucket, dataset.shapes(), seed=cfg.seed, planner=planner)
     generator = torch.Generator().manual_seed(cfg.seed)
 
-    step_fns: dict = {}
     metrics_history = []
     global_step = 0
     loss_sum = 0.0
 
-    def _build_batch(plan, lat_shape, step_seed):
+    def _sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def _load_micro_x(micro_idx, thw, lat, micro_seed):
+        """Latents of one micro-batch: pre-encoded or synthetic, or raw
+        clips through the VAE encoder."""
+        if not raw_video:
+            return torch.from_numpy(np.asarray(dataset.load_latents(
+                micro_idx, lat, rng_seed=micro_seed), np.float32))
+        clips = np.stack([dataset.load_video(int(i), thw, seed=micro_seed)
+                          for i in micro_idx])
+        return vae.encode(torch.from_numpy(clips).to(device),
+                          encode_noise(cfg.seed, micro_seed)).float()
+
+    def _build_batch(plan, step_seed):
         """gas micro-batches of distinct samples, stacked on a leading gas
         axis when gas > 1, on the training device."""
         micro_batches = plan.micro_batches()
+        if hasattr(dataset, "prefetch"):
+            # queue the whole plan's reads so that later micro-batches
+            # stream in while earlier ones are encoded and stepped
+            dataset.prefetch([int(i) for mb in micro_batches for i in mb])
         gas = len(micro_batches)
-        t_lat = lat_shape[0]
+        lat = lat_shape(plan.thw)
         micros = []
         for k, micro_idx in enumerate(micro_batches):
             micro_seed = step_seed * gas + k
-            x = torch.from_numpy(np.asarray(dataset.load_latents(
-                micro_idx, lat_shape, rng_seed=micro_seed), np.float32))
+            x = _load_micro_x(micro_idx, plan.thw, lat, micro_seed)
             if text_embed_fn is not None:
                 y, kv_mask = text_embed_fn(micro_idx)
                 y = torch.as_tensor(np.asarray(y, np.float32))
@@ -168,31 +338,48 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
                 kv_mask = torch.ones(len(micro_idx), 8, dtype=torch.bool)
             mb = {"x": x, "y": y, "kv_mask": kv_mask,
                   "fps": torch.full((x.shape[0],), 24.0)}
-            if mask_gen is not None and t_lat > 1:
+            if mask_gen is not None and lat[0] > 1:
                 mb["mask"] = torch.from_numpy(mask_gen(
-                    x.shape[0], t_lat, seed=cfg.seed + micro_seed))
-            micros.append(mb)
+                    x.shape[0], lat[0], seed=cfg.seed + micro_seed))
+            micros.append({k: v.to(device) for k, v in mb.items()})
         batch = micros[0] if gas == 1 else {
             k: torch.stack([mb[k] for mb in micros]) for k in micros[0]}
-        return {k: v.to(device) for k, v in batch.items()}, gas
+        return batch, gas
 
-    def _log_and_ckpt(epoch, plan, metrics, seconds):
+    # experiment tracker (reference wandb per-step loss/avg_loss/lr,
+    # train.py:390-401)
+    tracker = cfg.tracker
+    if tracker is None and cfg.wandb_project:
+        try:
+            import wandb
+
+            wandb.init(project=cfg.wandb_project)
+            tracker = lambda rec: wandb.log(rec, step=rec["step"])  # noqa: E731
+        except Exception as e:  # not installed, or offline
+            logger.warning("wandb tracker disabled: %s", e)
+
+    def _policy(plan) -> str:
+        return (planner.remat_policy(plan.bucket_id, cfg.remat_policy)
+                if planner is not None else cfg.remat_policy)
+
+    def _log_and_ckpt(epoch, plan, metrics, seconds, extra):
         nonlocal global_step, loss_sum
         global_step += 1
         logged = global_step % cfg.log_every == 0
-        if logged or cfg.tracker is not None:
+        if logged or tracker is not None:
             loss = float(metrics["loss"])
-        if cfg.tracker is not None:
+        if tracker is not None:
             loss_sum += loss
-            cfg.tracker({"step": global_step, "loss": loss,
-                         "avg_loss": loss_sum / global_step, "lr": tx.lr})
+            tracker({"step": global_step, "loss": loss,
+                     "avg_loss": loss_sum / global_step, "lr": tx.lr})
         if logged:
             entry = {"step": global_step, "loss": loss,
                      "grad_norm": float(metrics["grad_norm"]),
                      "bucket": str(plan.bucket_id), "sp": plan.sp_size,
                      "thw": list(plan.thw), "gas": plan.gas,
                      "batch": len(plan.indices) // plan.gas,
-                     "seconds": seconds}
+                     "remat_policy": _policy(plan), "seconds": seconds,
+                     **extra}
             metrics_history.append(entry)
             logger.info("step %d bucket=%s loss=%.4f grad_norm=%.4f",
                         global_step, plan.bucket_id, loss, entry["grad_norm"])
@@ -201,6 +388,63 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
                          sampler_state=sampler.state_dict(global_step))
         return bool(cfg.max_steps and global_step >= cfg.max_steps)
 
+    def _timed_batch(plan, step_seed, logged):
+        """The plan's batch, and the seconds its reads (and encodes) took:
+        measured, with the device waited for, on logged steps only."""
+        t0 = time.perf_counter()
+        batch, gas = _build_batch(plan, step_seed)
+        if logged:
+            _sync()
+        return batch, gas, time.perf_counter() - t0
+
+    if cfg.sp_balance:
+        # packed steps (JAX train.py :352-430): gradients accumulate over
+        # the plans of a GlobalStep, then one update; one device holds one
+        # plan a step
+        grad_fns: dict = {}
+        apply_fn = make_apply_step(tx)
+        profile = planner.profile if planner is not None else None
+        for epoch in range(cfg.epochs):
+            sampler.set_epoch(epoch)
+            for gstep in pack_global_steps(list(sampler), 1, profile):
+                t0 = time.perf_counter()
+                logged = (global_step + 1) % cfg.log_every == 0
+                grads_acc, losses, data_s = None, [], 0.0
+                for plan in gstep.plans:
+                    T, H, W = plan.thw
+                    if plan.bucket_id not in grad_fns:
+                        grad_fns[plan.bucket_id] = (_policy(plan), make_grad_step(
+                            model, scheduler, float(H), float(W),
+                            num_frames=int(T),
+                            class_dropout_prob=cfg.class_dropout_prob))
+                    model.remat_policy, gfn = grad_fns[plan.bucket_id]
+                    batch, gas, seconds = _timed_batch(
+                        plan, global_step + len(losses), logged)
+                    data_s += seconds
+                    micros = [batch] if gas == 1 else [
+                        {k: v[i] for k, v in batch.items()} for i in range(gas)]
+                    for mb in micros:
+                        loss, grads = gfn(generator, mb)
+                        losses.append(loss)
+                        if grads_acc is None:
+                            grads_acc = grads
+                        else:
+                            torch._foreach_add_(list(grads_acc.values()),
+                                                [grads[k] for k in grads_acc])
+                state, metrics = apply_fn(state, grads_acc, len(losses))
+                metrics["loss"] = torch.stack(losses).mean()
+                update_ema(ema_params, model, cfg.ema_decay)
+                if logged:
+                    float(metrics["loss"])
+                if _log_and_ckpt(epoch, gstep.plans[0], metrics,
+                                 time.perf_counter() - t0,
+                                 {"data_seconds": data_s,
+                                  "packed_plans": len(gstep.plans),
+                                  "imbalance": gstep.imbalance}):
+                    return state, ema_params, metrics_history
+        return state, ema_params, metrics_history
+
+    step_fns: dict = {}
     for epoch in range(cfg.epochs):
         sampler.set_epoch(epoch)
         for plan in sampler:
@@ -208,21 +452,21 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
             gas = len(plan.micro_batches())
             key = (plan.bucket_id, gas)
             if key not in step_fns:
-                pol = (planner.remat_policy(plan.bucket_id, cfg.remat_policy)
-                       if planner is not None else cfg.remat_policy)
-                step_fns[key] = (pol, make_train_step(
+                step_fns[key] = (_policy(plan), make_train_step(
                     model, scheduler, tx, float(H), float(W),
                     num_frames=int(T), gas=gas,
                     class_dropout_prob=cfg.class_dropout_prob))
             model.remat_policy, fn = step_fns[key]
             t0 = time.perf_counter()
-            batch, gas = _build_batch(plan, latent_size(plan.thw), global_step)
-            state, metrics = fn(state, generator, batch)
-            update_ema(ema_params, model, cfg.ema_decay)
             # the step's wall time is read only when it is logged (the loss
             # read synchronizes); otherwise steps are queued back to back
-            if (global_step + 1) % cfg.log_every == 0:
+            logged = (global_step + 1) % cfg.log_every == 0
+            batch, gas, data_s = _timed_batch(plan, global_step, logged)
+            state, metrics = fn(state, generator, batch)
+            update_ema(ema_params, model, cfg.ema_decay)
+            if logged:
                 float(metrics["loss"])
-            if _log_and_ckpt(epoch, plan, metrics, time.perf_counter() - t0):
+            if _log_and_ckpt(epoch, plan, metrics, time.perf_counter() - t0,
+                             {"data_seconds": data_s}):
                 return state, ema_params, metrics_history
     return state, ema_params, metrics_history

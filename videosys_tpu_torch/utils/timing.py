@@ -1,0 +1,82 @@
+"""Timers (reference `videosys/utils/training.py:71-156` Timer/GroupTimer).
+
+Port of `videosys_tpu/utils/timing.py`. The reference's Timer is
+`torch.cuda.synchronize` around wall time plus the CUDA allocator's
+counters; here a Timer on the card times with CUDA events and reads the
+allocator, and on the CPU it reads `time.perf_counter`. GroupTimer's
+cross-device barrier belongs to the multi-device slice (ROADMAP Queue 1
+item 6); on one device it is a plain Timer.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from videosys_tpu_torch.core.pipeline import resolve_device
+
+
+def device_memory_stats(device=None) -> dict:
+    """{bytes_in_use, peak_bytes_in_use, bytes_limit} of the card's caching
+    allocator (allocated bytes now and at their peak since the last
+    `torch.cuda.reset_peak_memory_stats`, and the card's memory); {} for the
+    CPU, which has no such allocator."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return {}
+    stats = torch.cuda.memory_stats(dev)
+    return {"bytes_in_use": stats["allocated_bytes.all.current"],
+            "peak_bytes_in_use": stats["allocated_bytes.all.peak"],
+            "bytes_limit": torch.cuda.mem_get_info(dev)[1]}
+
+
+class Timer:
+    """`with Timer("fwd", log=True) as t: ...` -> `t.elapsed` seconds and
+    `t.memory` (`device_memory_stats` at exit). On the card (`device` None
+    or CUDA) the time is that of the device's stream between two CUDA
+    events, waited for at exit; on the CPU the host clock."""
+
+    def __init__(self, name: str, log: bool = False, device=None):
+        self.name = name
+        self.log = log
+        self.device = resolve_device(device)
+        self.elapsed = 0.0
+        self.memory: dict = {}
+
+    def __enter__(self):
+        if self.device.type == "cuda":
+            self._events = [torch.cuda.Event(enable_timing=True)
+                            for _ in range(2)]
+            self._events[0].record(torch.cuda.current_stream(self.device))
+        else:
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.device.type == "cuda":
+            start, end = self._events
+            end.record(torch.cuda.current_stream(self.device))
+            end.synchronize()
+            self.elapsed = start.elapsed_time(end) / 1e3
+        else:
+            self.elapsed = time.perf_counter() - self._t0
+        self.memory = device_memory_stats(self.device)
+        if self.log:
+            mem = self.memory.get("peak_bytes_in_use")
+            extra = f" peak={mem / 2**30:.2f}GiB" if mem else ""
+            print(f"[timer] {self.name}: {self.elapsed:.3f}s{extra}")
+        return False
+
+
+class GroupTimer(Timer):
+    """Timer whose exit would also wait for every device of `mesh` (the
+    reference's all-reduce, utils/training.py:120-148). Only one device is
+    ported: a mesh raises."""
+
+    def __init__(self, name: str, mesh=None, log: bool = False, device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "GroupTimer over a mesh needs the multi-device slice "
+                "(ROADMAP Queue 1 item 6)")
+        super().__init__(name, log=log, device=device)
