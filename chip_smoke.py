@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`videosys_tpu_torch`) on one NVIDIA
 card (an H100 is the target).
 
-    python3 chip_smoke.py [--steps N] [--phases dcp,raw_video]
+    python3 chip_smoke.py [--steps N] [--phases latte,open_sora_plan]
 
 Phases, each fatal on failure:
   1. build the flash-attention kernels from csrc/ (forward, fp32 backward,
@@ -104,6 +104,26 @@ Phases, each fatal on failure:
      then `preprocess` of the 144p clips (stub text encoder), the latents
      read back bit-equal by `PreprocessedLatentDataset`, and 2 steps from
      them.
+ 13. serve Latte-1 (28 pairs, 16 heads of 72, the SD VAE) at full width
+     and depth with random weights from a seed and the stub text encoder:
+     the default request (16 x 512 x 512, 50 DDIM steps, guidance 7.5)
+     dense and under LattePABConfig() (spatial, temporal, cross and the
+     MLP rows), timers, peaks per phase, launches against the plans, PAB's
+     read steps and speed-up; the wide forward at the VAE's mid attention
+     [16, 1, 4096, 4096, 512] against its plain version; a tiny Latte with
+     PAB on the card against the CPU (fp32);
+ 14. serve Open-Sora-Plan the same way: v1.2 (32 layers, 24 heads of 96,
+     3D RoPE, Euler-Ancestral over OSP_V120_STEPS) at 29 x 480p dense and
+     under OpenSoraPlanV120PABConfig(), at 93 x 480p (28,800 tokens) for
+     one step and its whole tiled decode of 93 frames, and v1.1 (28 pairs
+     with RoPE, PNDM over OSP_V110_STEPS) at 65 x 512 x 512 with its pre-fix
+     VAE attention, each tiled causal-VAE decode's launches counted tile by
+     tile; then the narrow forward at head_dim 96 ([2, 24, 9600 | 28800,
+     same, 96], in 1024-row chunks over sampled heads, and the
+     cross-attention), at the 17-key temporal rows, and the wide forward
+     at the causal VAE's tile rows, each against its plain version and
+     timed beside torch's SDPA; tiny v1.1 and v1.2 pipelines on the card
+     against the CPU (fp32).
 
 bf16 outputs are held by two relative measures, rel_l2 = |got - want|_2 /
 |want|_2 and rel_max = max|got - want| / max|want|, at limits set per shape
@@ -132,7 +152,7 @@ ROOT = Path(__file__).resolve().parent
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 PEAK_BYTES = 3.35e12
 PHASES = ("kernel", "serve", "tiny", "bwd_kernel", "train", "tiny_train", "t5",
-          "offload", "cogvideox", "dcp", "raw_video")
+          "offload", "cogvideox", "dcp", "raw_video", "latte", "open_sora_plan")
 TRAIN_STEPS = 4  # on the default buckets: two video shapes and an image
 F32_TOL = 2e-5
 F32_GRAD_TOL = 1e-4
@@ -154,7 +174,30 @@ BF16_LIMITS = {"spatial": (8e-3, 2e-2), "cross": (1e-2, 2e-2),
                "cog2b": (6.5e-3, 1.5e-2), "cog5b": (6.5e-3, 1.5e-2),
                # the VAE encoder's mid attention at training buckets: the
                # wide kernel of "vae_mid", held at its limits
-               "vae_enc144": (6.5e-3, 1.5e-2), "vae_enc240": (6.5e-3, 1.5e-2)}
+               "vae_enc144": (6.5e-3, 1.5e-2), "vae_enc240": (6.5e-3, 1.5e-2),
+               # Latte and Open-Sora-Plan, read on an H100 (kernel; one key
+               # dropped): narrow at head_dim 96, 9,600 keys 3.16e-3,
+               # 5.41e-3 (1.09e-2, 0.100), 28,800 keys 3.66e-3, 4.27e-3
+               # (6.55e-3, 0.136), the cross-attention 2.94e-3, 4.83e-3
+               # (0.230, 0.873); the 17-key temporal rows 2.94e-3, 4.79e-3
+               # (0.257, 0.891); the wide forward at the causal VAE's
+               # tiles 3.05e-3, 4.10e-3 (3.14e-2, 0.139) and its v1.1 rows
+               # 3.05e-3, 4.53e-3 (3.05e-2, 0.169), at Latte's VAE mid
+               # 3.10e-3, 5.38e-3 (1.59e-2, 0.290)
+               "osp480": (6.5e-3, 1.5e-2), "osp93": (7.5e-3, 1.5e-2),
+               "osp_cross": (6.5e-3, 1.5e-2), "temporal17": (6.5e-3, 1.5e-2),
+               "cvae_tile": (6.5e-3, 1.5e-2), "cvae_legacy": (6.5e-3, 1.5e-2),
+               "latte_vae_mid": (6.5e-3, 1.5e-2),
+               # LatteT2V's rows at head_dim 72 (Latte-1 and v1.1), read on
+               # an H100 (kernel; one key dropped): spatial [32 | 34, 16,
+               # 1024, 1024] 3.05e-3, 7.69e-3 (3.19e-2, 0.530) and 3.06e-3,
+               # 3.97e-3 (3.19e-2, 0.180), cross 2.53e-3, 4.20e-3 (0.609,
+               # 1.31) and 2.40e-3, 3.79e-3 (0.670, 1.10), the 16-frame
+               # temporal rows on `short` 2.93e-3, 4.76e-3 (0.266, 0.889):
+               # the limits of the Open-Sora rows of the same kind
+               "latte_spatial": (8e-3, 2e-2), "latte_cross": (1e-2, 2e-2),
+               "latte_temporal16": (1e-2, 2e-2),
+               "osp110_spatial": (8e-3, 2e-2), "osp110_cross": (1e-2, 2e-2)}
 # the same for the gradients of the backward kernels (the largest of dq, dk,
 # dv): the kernels read at most a third of each limit (3.0e-4, 3.2e-3), the
 # one-key fault at least 10x one of them (1.1e-2, 1.0e-1 at the long row)
@@ -1807,72 +1850,76 @@ COG_5B_STEPS = 30
 COG_CHUNK = 1024
 
 
-def cog_kernel_phase(fa) -> dict:
-    """`flash_fwd_narrow` at the joint attention of a 49 x 480 x 720
-    request, [2, H, 17776, 17776, 64] bf16 (226 text + 13 * 30 * 45 video
-    tokens, CFG batch 2), for the 2b (H = 30) and 5b (H = 48) widths:
-    against the plain version in COG_CHUNK-row chunks over a sample of
-    (batch, head) pairs that includes the last, held by check_bf16 with a
-    plain version that drops the last key as the fault; timed beside the
-    chunked plain version over the whole shape and torch's
-    scaled_dot_product_attention (a yardstick the port never calls)."""
+def long_row(fa, name: str, B: int, H: int, N: int, D: int, gen) -> dict:
+    """`flash_fwd_narrow` on one self-attention of N keys, [B, H, N, N, D]
+    bf16: against the plain version in COG_CHUNK-row chunks over a sample
+    of (batch, head) pairs that includes the last, held by check_bf16
+    (BF16_LIMITS[name]) with a plain version that drops the last key as the
+    fault; timed beside the chunked plain version over the whole shape and
+    torch's scaled_dot_product_attention (a yardstick the port never
+    calls)."""
     import torch
     import torch.nn.functional as F
 
+    q, k, v = (torch.randn(B, H, N, D, device="cuda", generator=gen)
+               .bfloat16() for _ in range(3))
+    variant = fa.kernel_variant(q.dtype, N, N, D)
+    if variant != "narrow":
+        raise AssertionError(f"{name}: dispatch says {variant}")
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    drop = drop_last_key(None, 1, N, "cuda")
+    pairs = [(0, 0), (0, H // 2), (B - 1, H - 1)]
+    outs, wants, faults = [], [], []
+    for b, h in pairs:
+        qs, ks, vs = (t[b:b + 1, h:h + 1] for t in (q, k, v))
+        for r0 in range(0, N, COG_CHUNK):
+            qc = qs[:, :, r0:r0 + COG_CHUNK]
+            wants.append(fa.flash_attention_plain(qc, ks, vs))
+            faults.append(fa.flash_attention_plain(qc, ks, vs, kv_mask=drop))
+        outs.append(got[b:b + 1, h:h + 1])
+    want = torch.cat(wants, dim=2).reshape(-1, D)
+    fault = torch.cat(faults, dim=2).reshape(-1, D)
+    sampled = torch.cat(outs, dim=2).reshape(-1, D)
+    row = {"shape": [B, H, N, N, D], "variant": variant, "pairs": pairs,
+           "max_abs_err": (sampled.float() - want.float()).abs().max().item()}
+    row["bf16_check"] = check_bf16(name, sampled, want, fault)
+    del wants, faults, want, fault, sampled, outs
+
+    def plain_chunked():
+        for r0 in range(0, N, COG_CHUNK):
+            fa.flash_attention_plain(q[:, :, r0:r0 + COG_CHUNK], k, v)
+
+    row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v), 5)
+    row["plain_ms"] = time_ms(plain_chunked, 1)
+    row["library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v), 5)
+    flops = 4.0 * B * H * N * N * D
+    nbytes = 2.0 * B * H * 4 * N * D
+    t_ops, t_bytes = flops / PEAK_FLOPS["bf16"], nbytes / PEAK_BYTES
+    row["bound_ms"] = max(t_ops, t_bytes) * 1e3
+    row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    row["tflops"] = flops / row["ms"] / 1e9
+    log(f"kernel {name} bf16 shape={row['shape']} ms={row['ms']:.4f} "
+        f"plain_ms={row['plain_ms']:.4f} (chunked) library_ms="
+        f"{row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+        f"({row['bound_by']}) achieved={row['tflops']:.1f} TFLOP/s "
+        f"max_abs_err={row['max_abs_err']:.3e}")
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    return row
+
+
+def cog_kernel_phase(fa) -> dict:
+    """`flash_fwd_narrow` at the joint attention of a 49 x 480 x 720
+    request, [2, H, 17776, 17776, 64] bf16 (226 text + 13 * 30 * 45 video
+    tokens, CFG batch 2), for the 2b (H = 30) and 5b (H = 48) widths
+    (`long_row`)."""
+    import torch
+
     gen = torch.Generator("cuda").manual_seed(8)
-    out = {}
-    for name, (_, H) in COG_WIDTHS.items():
-        B, N, D = 2, 17776, 64
-        q, k, v = (torch.randn(B, H, N, D, device="cuda", generator=gen)
-                   .bfloat16() for _ in range(3))
-        variant = fa.kernel_variant(q.dtype, N, N, D)
-        if variant != "narrow":
-            raise AssertionError(f"cog{name}: dispatch says {variant}")
-        got = fa.flash_attention(q, k, v)
-        torch.cuda.synchronize()
-        drop = drop_last_key(None, 1, N, "cuda")
-        pairs = [(0, 0), (0, H // 2), (1, H - 1)]
-        outs, wants, faults = [], [], []
-        for b, h in pairs:
-            qs, ks, vs = (t[b:b + 1, h:h + 1] for t in (q, k, v))
-            for r0 in range(0, N, COG_CHUNK):
-                qc = qs[:, :, r0:r0 + COG_CHUNK]
-                wants.append(fa.flash_attention_plain(qc, ks, vs))
-                faults.append(fa.flash_attention_plain(qc, ks, vs,
-                                                       kv_mask=drop))
-            outs.append(got[b:b + 1, h:h + 1])
-        want = torch.cat(wants, dim=2).reshape(-1, D)
-        fault = torch.cat(faults, dim=2).reshape(-1, D)
-        sampled = torch.cat(outs, dim=2).reshape(-1, D)
-        row = {"shape": [B, H, N, N, D], "variant": variant,
-               "pairs": pairs, "max_abs_err": (sampled.float() - want.float())
-               .abs().max().item()}
-        row["bf16_check"] = check_bf16(f"cog{name}", sampled, want, fault)
-        del wants, faults, want, fault, sampled, outs
-
-        def plain_chunked():
-            for r0 in range(0, N, COG_CHUNK):
-                fa.flash_attention_plain(q[:, :, r0:r0 + COG_CHUNK], k, v)
-
-        row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v), 5)
-        row["plain_ms"] = time_ms(plain_chunked, 1)
-        row["library_ms"] = time_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v), 5)
-        flops = 4.0 * B * H * N * N * D
-        nbytes = 2.0 * B * H * 4 * N * D
-        t_ops, t_bytes = flops / PEAK_FLOPS["bf16"], nbytes / PEAK_BYTES
-        row["bound_ms"] = max(t_ops, t_bytes) * 1e3
-        row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-        row["tflops"] = flops / row["ms"] / 1e9
-        log(f"kernel cog{name} bf16 shape={row['shape']} ms={row['ms']:.4f} "
-            f"plain_ms={row['plain_ms']:.4f} (chunked) library_ms="
-            f"{row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
-            f"({row['bound_by']}) achieved={row['tflops']:.1f} TFLOP/s "
-            f"max_abs_err={row['max_abs_err']:.3e}")
-        out[name] = row
-        del q, k, v, got
-        torch.cuda.empty_cache()
-    return out
+    return {name: long_row(fa, f"cog{name}", 2, H, 17776, 64, gen)
+            for name, (_, H) in COG_WIDTHS.items()}
 
 
 def phase_peaks(pipe) -> dict:
@@ -1955,10 +2002,8 @@ def cog_request(fa, engine, label: str, steps: int, seed: int, plans=None,
 
 def profile_cog_step(pipe, seed: int) -> dict:
     """Device time of one CFG-doubled 2b transformer step at the request's
-    shapes by kernel (torch.profiler), and attention's share of it."""
+    shapes by kernel (`device_profile`)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     shape = pipe.latent_shape(COG_REQUEST["num_frames"], COG_REQUEST["height"],
                               COG_REQUEST["width"], 2)
@@ -1971,6 +2016,18 @@ def profile_cog_step(pipe, seed: int) -> dict:
     def step():
         with torch.no_grad():
             pipe.transformer(z, enc, t)
+
+    return device_profile("cogvideox-2b (one 49 x 480 x 720 transformer step, "
+                          "CFG batch 2)", step)
+
+
+def device_profile(label: str, step) -> dict:
+    """The wall time of `step` (CUDA events) and its device time by kernel
+    (torch.profiler): busy time, idle share, attention's share, the top
+    kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     wall_ms = time_ms(step, 2)
     with profile(activities=[ProfilerActivity.CPU,
@@ -1991,8 +2048,60 @@ def profile_cog_step(pipe, seed: int) -> dict:
                     "ms": e.self_device_time_total / 1e3,
                     "share": e.self_device_time_total / max(total, 1)}
                    for e in rows]}
-    log("profile cogvideox-2b (one 49 x 480 x 720 transformer step, CFG "
-        "batch 2):", json.dumps(res))
+    log(f"profile {label}:", json.dumps(res))
+    return res
+
+
+def t2v_step(pipe, seed: int, text_len: int):
+    """One CFG-doubled transformer call of a Latte or Open-Sora-Plan
+    pipeline at its request's latent shape (`latent_shape(2)` for
+    Open-Sora-Plan, Latte's default request otherwise), on seeded inputs
+    with `text_len` caption tokens."""
+    import torch
+
+    if hasattr(pipe, "version"):
+        shape, v110 = pipe.latent_shape(2), pipe.version == "v110"
+    else:
+        shape, v110 = pipe.latent_shape(
+            LATTE_REQUEST["video_length"], LATTE_REQUEST["height"],
+            LATTE_REQUEST["width"], 2), True
+    dev = pipe.device
+    g = torch.Generator(dev).manual_seed(seed)
+    z = torch.randn(shape, device=dev, generator=g).to(pipe.dtype)
+    y = torch.randn(2, text_len, pipe.model_config.caption_channels,
+                    device=dev, generator=g).to(pipe.dtype)
+    t = torch.full((2,), 500.0, device=dev)
+
+    def step():
+        with torch.no_grad():
+            if v110:  # LatteT2V: (x, t, y)
+                pipe.transformer(z, t, y)
+            else:
+                pipe.transformer(z, y, t)
+    return step
+
+
+def host_tables_ab(label: str, pipe, step) -> dict:
+    """`step` of Open-Sora-Plan v1.2 with its 3D RoPE tables held on the
+    card against the same step with them on the host (copied to the card
+    at every use, for q and k in every layer), timed A B B A in this
+    process."""
+    import numpy as np
+
+    step()  # fills the table cache for the step's shape
+    tables = pipe.transformer._tables
+    device = dict(tables)
+    host = {k: tuple(np.asarray(a.cpu()) for a in v) for k, v in device.items()}
+    times = {"device": [], "host": []}
+    for which in ("device", "host", "host", "device"):
+        tables.clear()
+        tables.update(device if which == "device" else host)
+        times[which].append(time_ms(step, 3))
+    tables.clear()
+    tables.update(device)
+    res = {k: sum(v) / len(v) for k, v in times.items()}
+    res["host_over_device"] = res["host"] / res["device"]
+    log(f"rope tables {label} (ms a step, A B B A):", json.dumps(res))
     return res
 
 
@@ -2141,6 +2250,527 @@ def tiny_cogvideox_parity(seed: int) -> dict:
             raise AssertionError(f"card and CPU paths disagree on the tiny "
                                  f"CogVideoX ({label})")
         out[label] = res
+    return out
+
+
+# Latte-1's default request (examples/inference/latte): 16 x 512 x 512,
+# 50 DDIM steps, guidance 7.5
+LATTE_REQUEST = dict(prompt="a panda playing a guitar on a mossy rock in a "
+                     "bamboo forest, cinematic", video_length=16, height=512,
+                     width=512, guidance_scale=7.5, num_inference_steps=50)
+OSP_PROMPT = "a red sports car driving along a coastal road at sunset"
+# Euler-Ancestral steps of the v1.2 29 x 480p requests and PNDM steps of the
+# v1.1 65 x 512 x 512 request (the pipeline's default is 100 for both: 100
+# Euler calls of 0.535 s and 109 PNDM calls of 0.508 s on an H100); the
+# 93 x 480p request runs one step and its whole tiled decode
+OSP_V120_STEPS = 50
+OSP_V120_93_STEPS = 1
+OSP_V110_STEPS = 20
+
+
+def latte_launches(fa, pipe, steps: int, T: int, S: int, text_len: int,
+                   plans=None) -> dict:
+    """Kernel launches of a LatteT2V denoise loop by variant: per step and
+    depth a spatial (S x S), a cross (S x the bucketed text) and a temporal
+    (T x T) attention, less what the step's plan reads from the PAB cache
+    (MLP reads launch nothing either way)."""
+    mc = pipe.model_config
+    want = {key: 0 for key in fa.LAUNCHES}
+    for plan in plans or [None] * steps:
+        calls = []
+        if plan is None or not plan.spatial:
+            calls.append((S, S))
+        if plan is None or not plan.cross:
+            calls.append((S, text_len))
+        if T > 1 and (plan is None or not plan.temporal):
+            calls.append((T, T))
+        for nq, nk in calls:
+            want[fa.kernel_variant(pipe.dtype, nq, nk, mc.head_dim)] += mc.depth
+    return want
+
+
+def osp_v120_launches(fa, pipe, steps: int, N: int, text_len: int,
+                      plans=None) -> dict:
+    """The same for OpenSoraT2V: per step and layer a self-attention over N
+    tokens and a cross-attention to the text, less the plan's reads."""
+    mc = pipe.model_config
+    want = {key: 0 for key in fa.LAUNCHES}
+    for plan in plans or [None] * steps:
+        calls = [] if plan is not None and plan.spatial else [(N, N)]
+        if plan is None or not plan.cross:
+            calls.append((N, text_len))
+        for nq, nk in calls:
+            want[fa.kernel_variant(pipe.dtype, nq, nk, mc.head_dim)] += mc.depth
+    return want
+
+
+def vae_width(pipe) -> int:
+    """The causal VAE's mid width: its mid attention's head_dim."""
+    cfg = pipe.vae.config
+    return cfg.hidden_size * cfg.hidden_size_mult[-1]
+
+
+def causal_vae_tiles(vae, T: int, H: int, W: int) -> list:
+    """The latent blocks [t, h, w] the causal VAE's decode runs its decoder
+    on, one mid attention each: the temporal chunks, each cut into the 2D
+    tiles, or the whole latent when tiling is off or it fits one tile."""
+    lat, lat_t = vae.tile_latent_min_size, vae.tile_latent_min_size_t
+    if not vae.use_tiling or (H <= lat and W <= lat and T <= lat_t):
+        return [(T, H, W)]
+    step = int(lat * (1 - vae.tile_overlap_factor))
+    tiles = []
+    for s, e in vae._t_chunks(T, lat_t):
+        if H <= lat and W <= lat:
+            tiles.append((e - s, H, W))
+            continue
+        tiles += [(e - s, min(lat, H - i), min(lat, W - j))
+                  for i in range(0, H, step) for j in range(0, W, step)]
+    return tiles
+
+
+def t2v_request(fa, engine, label: str, expected, frames: int, seed: int,
+                **gen) -> dict:
+    """One `generate` with the launch counts set to 0 just before it and
+    read just after, held against `expected(pipe)`; timers, the peak of
+    each phase, the video's shape (`frames` x H x W) and finite latents."""
+    import numpy as np
+    import torch
+
+    pipe = engine.pipeline
+    calls = len(pipe.scheduler.set_timesteps(gen["num_inference_steps"]))
+    peaks = phase_peaks(pipe)
+    fa.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        video = engine.generate(seed=seed, **gen).video
+        wall = time.perf_counter() - t0
+    finally:
+        del pipe._phase
+    launches = dict(fa.LAUNCHES)
+    want = expected(pipe)
+    lat = pipe.last_latents
+    rec = {"label": label, "steps": gen["num_inference_steps"],
+           "model_calls": calls, "video_shape": list(video.shape),
+           "video_dtype": str(video.dtype),
+           "latents_finite": bool(np.isfinite(lat).all()),
+           "latent_std": float(lat.std()), "video_mean": float(video.mean()),
+           "timings_s": pipe.last_timings, "wall_s": wall,
+           "denoise_call_s": pipe.last_timings["denoise"] / calls,
+           "text_kv_len": pipe.last_text_kv_len,
+           "peak_mem_gib_by_phase": peaks, "launches": launches,
+           "expected_launches": want}
+    log(f"{label}:", json.dumps(rec))
+    if video.dtype != np.uint8 or video.shape[:2] != (1, frames) \
+            or video.shape[-1] != 3:
+        raise AssertionError(f"{label}: bad video {video.shape} {video.dtype}")
+    if not rec["latents_finite"]:
+        raise AssertionError(f"{label}: non-finite latents")
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches} != expected {want}")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def pab_summary(label: str, plans, dense: dict, rec: dict, pipe) -> dict:
+    """Read steps by branch (the MLP rows too) and the denoise speed-up of
+    a PAB request against the dense one on the same weights."""
+    mlp = sum(sum(p.mlp_spatial_use) + sum(p.mlp_temporal_use) for p in plans)
+    out = {"read_steps": {b: sum(getattr(p, b) for p in plans)
+                          for b in ("spatial", "temporal", "cross")},
+           "mlp_row_reads": mlp,
+           "mlp_read_steps": sum(any(p.mlp_spatial_use) or
+                                 any(p.mlp_temporal_use) for p in plans),
+           "cache_gib": pipe.last_pab_cache_bytes / 2**30,
+           "denoise_vs_dense": dense["timings_s"]["denoise"]
+           / rec["timings_s"]["denoise"]}
+    log(f"{label}: {json.dumps(out)}")
+    return out
+
+
+def model_line(name: str, pipe, t0: float) -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    mc = pipe.model_config
+    n = sum(p.numel() for p in pipe.transformer.parameters())
+    log(f"{name}: layers={mc.num_layers} heads={mc.num_heads}x{mc.head_dim} "
+        f"hidden={mc.hidden_size} params={n / 1e9:.3f}B weights_gib="
+        f"{n * 2 / 2**30:.2f} dtype=bf16 init_s={time.perf_counter() - t0:.2f}")
+
+
+def latte_phase(fa, seed: int, profile: bool = False) -> dict:
+    """Latte-1 text-to-video at full width and depth (28 pairs, 16 heads x
+    72, the SD VAE), random weights from `seed`, the stub text encoder (120
+    tokens): the default request dense and under LattePABConfig(), then
+    the kernels at the transformer's spatial, cross and temporal rows and
+    at the VAE's mid attention against their plain versions, then a tiny
+    Latte with PAB on the card against the CPU. `profile`: one
+    transformer step by kernel."""
+    import numpy as np
+    import torch
+
+    from videosys_tpu_torch import LatteConfig, LattePABConfig, VideoSysEngine
+    from videosys_tpu_torch.core.pab import build_plans
+
+    t0 = time.perf_counter()
+    engine = VideoSysEngine(LatteConfig(model_path=None, dtype="bf16"),
+                            seed=seed)
+    pipe = engine.pipeline
+    pipe.keep_latents = True
+    model_line("latte-1", pipe, t0)
+    req = dict(LATTE_REQUEST)
+    T = req["video_length"]
+    shape = pipe.latent_shape(T, req["height"], req["width"])
+    p = pipe.model_config.patch_size
+    S = (shape[3] // p) * (shape[4] // p)
+    n_mid, d_mid = shape[3] * shape[4], pipe.vae.block_out_channels[-1]
+    steps = req["num_inference_steps"]
+
+    def expected(plans):
+        def fn(pipe):
+            want = latte_launches(fa, pipe, steps, T, S, pipe.last_text_kv_len,
+                                  plans)
+            # the VAE decodes the B x T frames in one call
+            want[fa.kernel_variant(pipe.dtype, n_mid, n_mid, d_mid)] += 1
+            return want
+        return fn
+
+    dense = t2v_request(fa, engine, "latte dense", expected(None), T, seed,
+                        **req)
+    pab = LattePABConfig()
+    engine.config.enable_pab, engine.config.pab_config = True, pab
+    plans = build_plans(pab, pipe.scheduler.set_timesteps(steps).astype(
+        np.float32), pipe.model_config.depth)
+    rec = t2v_request(fa, engine, "latte pab", expected(plans), T, seed, **req)
+    rec.update(pab_summary("latte pab", plans, dense, rec, pipe))
+    engine.config.enable_pab = False
+    prof = None
+    if profile:
+        prof = device_profile("latte-1 (one 16 x 512 x 512 transformer step, "
+                              "CFG batch 2)",
+                              t2v_step(pipe, seed, dense["text_kv_len"]))
+    pipe_heads = pipe.model_config.num_heads, pipe.model_config.head_dim
+    del engine, pipe
+    torch.cuda.empty_cache()
+    # the transformer's rows (CFG batch 2): spatial over the S patches of
+    # each frame, cross to the bucketed text, temporal over the T frames of
+    # each patch; then the VAE's mid attention
+    H, D = pipe_heads
+    kernel = forward_shapes(fa, [
+        ("latte_spatial", 2 * T, H, S, S, D, False),
+        ("latte_cross", 2 * T, H, S, dense["text_kv_len"], D, True),
+        ("latte_temporal16", 2 * S, H, T, T, D, False),
+        ("latte_vae_mid", T, 1, n_mid, n_mid, d_mid, False)], seed=12,
+        dtypes=("bf16",))
+    return {"dense": dense, "pab": rec, "kernel": kernel, "profile": prof,
+            "tiny": tiny_latte_parity(seed)}
+
+
+def open_sora_plan_phase(fa, seed: int, profile: bool = False) -> dict:
+    """Open-Sora-Plan text-to-video at full width and depth, random weights
+    from `seed`, the stub text encoder: v1.2 (32 layers, 24 heads x 96, 3D
+    RoPE, Euler-Ancestral) at 29 x 480p dense and under
+    OpenSoraPlanV120PABConfig(), and at 93 x 480p (28,800 tokens) for
+    OSP_V120_93_STEPS with the whole tiled decode of 93 frames; v1.1
+    (28 pairs with RoPE, PNDM) at 65 x 512 x 512 with its pre-fix VAE
+    attention, dense and under OpenSoraPlanV110PABConfig() (MLP rows
+    read); then the kernels at the new shapes against their plain
+    versions, and tiny v1.1 and v1.2 pipelines on the card against the
+    CPU. `profile`: one 29 x 480p transformer step by kernel, and that step
+    with the RoPE tables on the host against the card."""
+    import numpy as np
+    import torch
+
+    from videosys_tpu_torch import (OpenSoraPlanConfig,
+                                    OpenSoraPlanV110PABConfig,
+                                    OpenSoraPlanV120PABConfig, VideoSysEngine)
+    from videosys_tpu_torch.core.pab import build_plans
+    from videosys_tpu_torch.models.transformers.open_sora_plan_v110 import (
+        OpenSoraPlanV110Config)
+
+    out = {}
+    for ttype, steps in (("29x480p", OSP_V120_STEPS),
+                         ("93x480p", OSP_V120_93_STEPS)):
+        t0 = time.perf_counter()
+        engine = VideoSysEngine(OpenSoraPlanConfig(
+            version="v120", transformer_type=ttype, dtype="bf16"), seed=seed)
+        pipe = engine.pipeline
+        pipe.keep_latents = True
+        model_line(f"open-sora-plan v1.2 {ttype}", pipe, t0)
+        log(f"open-sora-plan v1.2 {ttype}: {steps} of the pipeline's 100 "
+            f"Euler-Ancestral steps (cut to keep the script inside its time; "
+            f"widths, depth and shapes are the published ones)")
+        _, _, T, h, w = pipe.latent_shape()
+        N = T * pipe._tokens(pipe.latent_shape())
+        tiles = causal_vae_tiles(pipe.vae, T, h, w)
+
+        def expected(plans, steps=steps, N=N, tiles=tiles):
+            def fn(pipe):
+                want = osp_v120_launches(fa, pipe, steps, N,
+                                         pipe.last_text_kv_len, plans)
+                for _, th, tw in tiles:
+                    want[fa.kernel_variant(pipe.dtype, th * tw, th * tw,
+                                           vae_width(pipe))] += 1
+                return want
+            return fn
+
+        frames = engine.config.num_frames
+        dense = t2v_request(fa, engine, f"osp v1.2 {ttype} dense",
+                            expected(None), frames, seed, prompt=OSP_PROMPT,
+                            num_inference_steps=steps)
+        dense["tokens"], dense["vae_tiles"] = N, tiles
+        out[ttype] = {"dense": dense}
+        if ttype == "29x480p":
+            pab = OpenSoraPlanV120PABConfig()
+            engine.config.enable_pab, engine.config.pab_config = True, pab
+            plans = build_plans(pab, np.asarray(pipe.scheduler.set_timesteps(
+                steps), np.float32), pipe.model_config.depth)
+            rec = t2v_request(fa, engine, f"osp v1.2 {ttype} pab",
+                              expected(plans), frames, seed, prompt=OSP_PROMPT,
+                              num_inference_steps=steps)
+            rec.update(pab_summary(f"osp v1.2 {ttype} pab", plans, dense, rec,
+                                   pipe))
+            out[ttype]["pab"] = rec
+            engine.config.enable_pab = False
+            if profile:
+                step = t2v_step(pipe, seed, dense["text_kv_len"])
+                out[ttype]["profile"] = device_profile(
+                    f"open-sora-plan v1.2 (one {ttype} transformer step, CFG "
+                    f"batch 2)", step)
+                out[ttype]["rope_tables"] = host_tables_ab(ttype, pipe, step)
+                del step
+        del engine, pipe
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    engine = VideoSysEngine(OpenSoraPlanConfig(
+        version="v110", transformer_type="65x512x512", dtype="bf16",
+        transformer_config=OpenSoraPlanV110Config(
+            "65x512x512", use_rope=True, dtype=torch.bfloat16)), seed=seed)
+    pipe = engine.pipeline
+    pipe.keep_latents = True
+    model_line("open-sora-plan v1.1 65x512x512", pipe, t0)
+    log(f"open-sora-plan v1.1 65x512x512: {OSP_V110_STEPS} of the pipeline's "
+        f"100 PNDM steps (cut to keep the script inside its time; widths, "
+        f"depth and shapes are the published ones)")
+    _, _, T, h, w = pipe.latent_shape()
+    S = pipe._tokens(pipe.latent_shape())
+    tiles = causal_vae_tiles(pipe.vae, T, h, w)
+
+    def expected110(plans):
+        def fn(pipe):
+            want = latte_launches(fa, pipe, len(pipe.scheduler.timesteps), T,
+                                  S, pipe.last_text_kv_len, plans)
+            for _, th, tw in tiles:
+                want[fa.kernel_variant(pipe.dtype, th * tw, th * tw,
+                                       vae_width(pipe))] += 1
+            return want
+        return fn
+
+    frames = engine.config.num_frames
+    dense = t2v_request(fa, engine, "osp v1.1 65x512x512 dense",
+                        expected110(None), frames, seed, prompt=OSP_PROMPT,
+                        num_inference_steps=OSP_V110_STEPS)
+    dense["vae_tiles"] = tiles
+    pab = OpenSoraPlanV110PABConfig()
+    engine.config.enable_pab, engine.config.pab_config = True, pab
+    plans = build_plans(pab, np.asarray(pipe.scheduler.set_timesteps(
+        OSP_V110_STEPS), np.float32), pipe.model_config.depth)
+    rec = t2v_request(fa, engine, "osp v1.1 65x512x512 pab", expected110(plans),
+                      frames, seed, prompt=OSP_PROMPT,
+                      num_inference_steps=OSP_V110_STEPS)
+    rec.update(pab_summary("osp v1.1 65x512x512 pab", plans, dense, rec, pipe))
+    engine.config.enable_pab = False
+    out["65x512x512"] = {"dense": dense, "pab": rec}
+    text_len110 = pipe.last_text_kv_len
+    H110, D110 = pipe.model_config.num_heads, pipe.model_config.head_dim
+    del engine, pipe
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator("cuda").manual_seed(13)
+    out["kernel"] = {"osp480": long_row(fa, "osp480", 2, 24, 9600, 96, gen),
+                     "osp93": long_row(fa, "osp93", 2, 24, 28800, 96, gen)}
+    out["kernel"].update(forward_shapes(fa, [
+        ("osp_cross", 2, 24, 9600, out["29x480p"]["dense"]["text_kv_len"],
+         96, True),
+        ("temporal17", 2 * S, H110, T, T, D110, False),
+        ("osp110_spatial", 2 * T, H110, S, S, D110, False),
+        ("osp110_cross", 2 * T, H110, S, text_len110, D110, True),
+        ("cvae_tile", 9, 1, 1024, 1024, 512, False),
+        ("cvae_legacy", 17, 1, 1024, 1024, 512, False)], seed=14,
+        dtypes=("bf16",)))
+    out["tiny"] = tiny_osp_parity(seed)
+    return out
+
+
+def one_key_dropped():
+    """A context in which every attention of the transformer blocks drops
+    the last attended key of each row (a planted fault; on the card it
+    still runs the kernel)."""
+    import contextlib
+
+    from videosys_tpu_torch.models.modules import blocks
+
+    sdpa = blocks.scaled_dot_product_attention
+
+    def faulty(q, k, v, scale=None, kv_mask=None, force_flash=None):
+        B, Nk = q.shape[0], k.shape[2]
+        return sdpa(q, k, v, scale=scale, force_flash=force_flash,
+                    kv_mask=drop_last_key(kv_mask, B, Nk, q.device))
+
+    @contextlib.contextmanager
+    def ctx():
+        blocks.scaled_dot_product_attention = faulty
+        try:
+            yield
+        finally:
+            blocks.scaled_dot_product_attention = sdpa
+    return ctx()
+
+
+def tiny_parity(label: str, make, generate, seed: int) -> dict:
+    """A tiny fp32 pipeline on the card (kernels) and on the CPU (plain
+    attention) with the same weights, latents and draws: the first model
+    output within 2e-4, the final latents within 2e-4 of their largest
+    magnitude (random weights drive them to 80-800, so an absolute 2e-4
+    would hold fp32 rounding grown by the sampler), the video within one
+    uint8 level. A card run whose attentions drop one key per row must
+    break both numeric limits."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    card = make("cuda", None)
+    params = {name: {k: v.cpu().numpy() for k, v in
+                     getattr(card.pipeline, name).state_dict().items()}
+              for name in ("transformer", "vae")}
+    cpu = make("cpu", params)
+    runs = []
+    for eng, fault in ((card, False), (cpu, False), (card, True)):
+        eng.pipeline.keep_latents = True
+        outs = []
+        hook = eng.pipeline.transformer.register_forward_hook(
+            lambda m, a, o, outs=outs: outs.append(o.detach().float().cpu()))
+        try:
+            with one_key_dropped() if fault else contextlib.nullcontext():
+                video = generate(eng)
+        finally:
+            hook.remove()
+        runs.append((video, eng.pipeline.last_latents, outs[0].numpy()))
+
+    def errors(got, want):
+        return (float(np.abs(got[2] - want[2]).max()),
+                float(np.abs(got[1] - want[1]).max()),
+                int(np.abs(got[0].astype(int) - want[0].astype(int)).max()))
+
+    out_err, lat_err, px_err = errors(runs[0], runs[1])
+    f_out, f_lat, f_px = errors(runs[2], runs[1])
+    scale = float(np.abs(runs[1][1]).max())
+    log(f"tiny parity {label} (card kernel vs CPU plain, fp32): first model "
+        f"output max_abs_err={out_err:.3e} (tol 2e-4, one key dropped "
+        f"{f_out:.3e}) latent max_abs_err={lat_err:.3e} of max |latent| "
+        f"{scale:.1f} (tol 2e-4 x {scale:.1f}, one key dropped {f_lat:.3e}) "
+        f"video max level diff={px_err} (tol 1, one key dropped {f_px})")
+    if not (out_err <= 2e-4 and lat_err <= 2e-4 * scale and px_err <= 1
+            and runs[0][0].shape == runs[1][0].shape):
+        raise AssertionError(f"card and CPU paths disagree on the tiny "
+                             f"{label}")
+    if f_out <= 2e-4 or f_lat <= 2e-4 * scale:
+        raise AssertionError(f"tiny {label}: a limit lets a card run that "
+                             f"drops one key pass")
+    torch.cuda.empty_cache()
+    return {"first_output_max_abs_err": out_err, "latent_max_abs_err": lat_err,
+            "latent_max_abs": scale, "video_max_level_diff": px_err,
+            "fault_first_output_max_abs_err": f_out,
+            "fault_latent_max_abs_err": f_lat, "fault_video_max_level_diff":
+            f_px}
+
+
+def tiny_latte_parity(seed: int) -> dict:
+    """Tiny Latte (two pairs, the SD VAE at two levels) under a PAB ladder
+    that reads every slot kind, 5 DDIM steps."""
+    import torch
+
+    from videosys_tpu_torch import LatteConfig, LattePABConfig, VideoSysEngine
+    from videosys_tpu_torch.models.transformers.latte import LatteConfig as MC
+
+    pab = LattePABConfig(
+        mlp_spatial_broadcast_config={800: {"block": [0, 1], "skip_count": 2}},
+        mlp_temporal_broadcast_config={800: {"block": [1], "skip_count": 1}})
+
+    def make(device, params):
+        return VideoSysEngine(LatteConfig(
+            model_path=None, dtype="fp32", enable_pab=True, pab_config=pab,
+            transformer_config=MC(num_layers=2, num_heads=2, head_dim=16,
+                                  caption_channels=16, video_length=4,
+                                  sample_size=8),
+            vae_config=dict(block_out_channels=(8, 16), layers_per_block=1,
+                            num_groups=4)),
+            device=device, params=params, seed=seed)
+
+    z = torch.randn(1, 4, 4, 8, 8, generator=torch.Generator().manual_seed(seed))
+    return tiny_parity("latte pab", make, lambda eng: eng.generate(
+        "a cat playing piano", num_inference_steps=5, video_length=4,
+        height=16, width=16, seed=seed, latents=z).video, seed)
+
+
+def tiny_osp_parity(seed: int) -> dict:
+    """Tiny Open-Sora-Plan pipelines (two layers, a two-level causal VAE):
+    v1.1 with RoPE and PNDM over 4 steps, its pre-fix VAE attention; v1.2
+    with Euler-Ancestral and PAB over 6 steps, the draws from one seeded
+    CPU generator for both devices."""
+    import torch
+
+    from videosys_tpu_torch import (OpenSoraPlanConfig,
+                                    OpenSoraPlanV120PABConfig, VideoSysEngine)
+    from videosys_tpu_torch.models.autoencoders.autoencoder_causal_vae import (
+        CausalVAEConfig)
+    from videosys_tpu_torch.models.transformers.open_sora_plan_v110 import (
+        OpenSoraPlanV110Config)
+    from videosys_tpu_torch.models.transformers.open_sora_plan_v120 import (
+        OpenSoraPlanV120Config)
+
+    vae = dict(hidden_size=8, hidden_size_mult=(1, 2), num_res_blocks=1,
+               encoder_resnet_blocks=("ResnetBlock3D",) * 2,
+               decoder_resnet_blocks=("ResnetBlock3D",) * 2,
+               encoder_spatial_downsample=("SpatialDownsample2x", ""),
+               encoder_temporal_downsample=("TimeDownsample2x", ""),
+               decoder_spatial_upsample=("", "SpatialUpsample2x"),
+               decoder_temporal_upsample=("", "TimeUpsample2x"))
+    out = {}
+    for version, ttype, tcfg, vcfg, steps in (
+            ("v110", "65x512x512", OpenSoraPlanV110Config(
+                num_layers=2, num_heads=2, head_dim=24, caption_channels=32,
+                sample_size=16, video_length=3, use_rope=True),
+             CausalVAEConfig(**vae), 4),
+            ("v120", "29x480p", OpenSoraPlanV120Config(
+                num_layers=2, num_heads=2, head_dim=24, caption_channels=32,
+                sample_size=(8, 8), sample_size_t=3),
+             CausalVAEConfig(**dict(vae, encoder_attention="AttnBlock3DFix",
+                                    decoder_attention="AttnBlock3DFix")), 6)):
+        def make(device, params, version=version, ttype=ttype, tcfg=tcfg,
+                 vcfg=vcfg):
+            return VideoSysEngine(OpenSoraPlanConfig(
+                version=version, transformer_type=ttype, dtype="fp32",
+                enable_tiling=False, enable_pab=version == "v120",
+                pab_config=(OpenSoraPlanV120PABConfig() if version == "v120"
+                            else None),
+                transformer_config=tcfg, vae_config=vcfg),
+                device=device, params=params, seed=seed)
+
+        shape = make("cpu", None).pipeline.latent_shape()
+        z = torch.randn(shape, generator=torch.Generator().manual_seed(seed))
+
+        def generate(eng, steps=steps, z=z):
+            draws = torch.Generator().manual_seed(seed + 1)
+            return eng.generate(
+                "waves at dusk", num_inference_steps=steps, seed=seed,
+                latents=z, draw=lambda name, s, g=draws: torch.randn(
+                    s, generator=g)).video
+
+        out[version] = tiny_parity(f"open-sora-plan {version}", make, generate,
+                                   seed)
     return out
 
 
@@ -2561,8 +3191,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also profile one full-width denoise step (dense "
-                         "and two PAB read steps) and one full-width "
-                         "training step")
+                         "and two PAB read steps), one full-width "
+                         "training step, and one transformer step of "
+                         "CogVideoX-2b, Latte-1 and Open-Sora-Plan v1.2 (the "
+                         "last also with its RoPE tables on the host)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2629,6 +3261,14 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         raw = raw_video_phase(fa, args.seed)
         log(f"raw_video phase: {time.perf_counter() - t0:.1f} s")
+    if "latte" in phases:  # phase 13: Latte-1 serving, its kernel shapes
+        t0 = time.perf_counter()
+        latte = latte_phase(fa, args.seed, args.profile)
+        log(f"latte phase: {time.perf_counter() - t0:.1f} s")
+    if "open_sora_plan" in phases:  # phase 14: Open-Sora-Plan v1.1 and v1.2
+        t0 = time.perf_counter()
+        osp = open_sora_plan_phase(fa, args.seed, args.profile)
+        log(f"open_sora_plan phase: {time.perf_counter() - t0:.1f} s")
     if set(phases) != set(PHASES):
         log(f"partial run ({args.phases}) total_s="
             f"{time.perf_counter() - t_start:.1f}: no kernel report")
@@ -2721,6 +3361,43 @@ def main(argv=None) -> int:
             "replaces": "videosys_tpu/ops/flash_attention.py:49",
             "launches": n, "max_abs_err": r["max_abs_err_bf16"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": r["shape"]})
+    # the new shapes of Latte and Open-Sora-Plan, launches from the request
+    # that runs them: the narrow forward at head_dim 96 (more than 4096 keys
+    # go to the blocked kernel on the TPU), at the 17-key temporal rows and
+    # the cross-attention, and at the LatteT2V rows of Latte-1 and v1.1; the
+    # short forward at Latte's 16-frame temporal rows; the wide forward at
+    # the VAEs' mid attention
+    for r, request, key, replaces in (
+            (latte["kernel"]["latte_vae_mid"], latte["dense"], "wgmma", 49),
+            (osp["kernel"]["osp480"], osp["29x480p"]["dense"], "narrow", 49),
+            (osp["kernel"]["osp93"], osp["93x480p"]["dense"], "narrow", 49),
+            (osp["kernel"]["osp_cross"], osp["29x480p"]["dense"], "narrow", 125),
+            (osp["kernel"]["temporal17"], osp["65x512x512"]["dense"], "narrow",
+             125),
+            (latte["kernel"]["latte_spatial"], latte["dense"], "narrow", 125),
+            (latte["kernel"]["latte_cross"], latte["dense"], "narrow", 125),
+            (latte["kernel"]["latte_temporal16"], latte["dense"], "short", 125),
+            (osp["kernel"]["osp110_spatial"], osp["65x512x512"]["dense"],
+             "narrow", 125),
+            (osp["kernel"]["osp110_cross"], osp["65x512x512"]["dense"],
+             "narrow", 125),
+            (osp["kernel"]["cvae_tile"], osp["93x480p"]["dense"], "wgmma", 49),
+            (osp["kernel"]["cvae_legacy"], osp["65x512x512"]["dense"], "wgmma",
+             49)):
+        n = request["launches"][key]
+        if n <= 0:
+            raise AssertionError(f"{request['label']} never launched "
+                                 f"flash_fwd_{key}")
+        kernels.append({
+            "name": {"wgmma": "flash_fwd_wide", "narrow": "flash_fwd_narrow",
+                     "short": "flash_fwd_short"}[key],
+            "route": "cuda", "source": "videosys_tpu_torch/csrc/flash_fwd.cu",
+            "replaces": f"videosys_tpu/ops/flash_attention.py:{replaces}",
+            "launches": n, "max_abs_err": r.get("max_abs_err",
+                                                r.get("max_abs_err_bf16")),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"]})
     log(f"total_s={time.perf_counter() - t_start:.1f}")

@@ -136,8 +136,8 @@ def test_rope_freqs_key_is_checked_and_dropped(tmp_path):
     st_save(sd, str(tmp_path / "model.safetensors"))
     with pytest.raises(ValueError, match="rope.freqs"):
         load_torch_checkpoint(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="latte"):
-        load_torch_checkpoint(str(tmp_path), family="latte")
+    with pytest.raises(NotImplementedError, match="vchitect"):
+        load_torch_checkpoint(str(tmp_path), family="vchitect")
 
 
 def reference_snapshot(path, seed: int = 0) -> dict:

@@ -178,6 +178,14 @@ def test_port_imports_no_jax():
             " videosys_tpu_torch.pipelines.cogvideox.pipeline_cogvideox,"
             " videosys_tpu_torch.schedulers.ddim,"
             " videosys_tpu_torch.schedulers.dpm_cogvideox,"
+            " videosys_tpu_torch.models.transformers.latte,"
+            " videosys_tpu_torch.models.transformers.open_sora_plan_v110,"
+            " videosys_tpu_torch.models.transformers.open_sora_plan_v120,"
+            " videosys_tpu_torch.models.autoencoders.autoencoder_causal_vae,"
+            " videosys_tpu_torch.pipelines.latte.pipeline_latte,"
+            " videosys_tpu_torch.pipelines.open_sora_plan.pipeline_open_sora_plan,"
+            " videosys_tpu_torch.schedulers.pndm,"
+            " videosys_tpu_torch.schedulers.euler_ancestral,"
             " videosys_tpu_torch.models.text_encoders.t5,"
             " videosys_tpu_torch.utils.checkpoint,"
             " videosys_tpu_torch.utils.safetensors_io;"

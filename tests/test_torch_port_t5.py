@@ -147,3 +147,34 @@ def test_configured_encoder_that_does_not_load_raises(tmp_path):
         transformer=None, vae=None, text_encoder=str(tmp_path / "missing"))
     with pytest.raises(RuntimeError, match="could not be loaded"):
         videosys_tpu_torch.OpenSoraPipeline(cfg, device="cpu")
+
+
+def test_mt5_snapshot_loads(tmp_path):
+    """An mT5 snapshot (Open-Sora-Plan v1.2's captions): its config.json
+    (model_type "mt5", untied embeddings, gated-gelu) and weights written
+    here from transformers' torch MT5EncoderModel load into the port's
+    encoder, which gives the same hidden states; another model type
+    raises."""
+    from transformers import MT5Config, MT5EncoderModel
+
+    torch.manual_seed(0)
+    hf_cfg = MT5Config(**TINY, feed_forward_proj="gated-gelu",
+                       tie_word_embeddings=False, dropout_rate=0.0)
+    hf = MT5EncoderModel(hf_cfg).eval()
+    hf_cfg.save_pretrained(str(tmp_path))
+    save_file({k: v.clone() for k, v in hf.state_dict().items()},
+              str(tmp_path / "model.safetensors"), {"format": "pt"})
+    cfg = T5Config.from_json(str(tmp_path / "config.json"))
+    assert (cfg.model_type, cfg.vocab_size, cfg.feed_forward_proj) == (
+        "mt5", TINY["vocab_size"], "gated-gelu")
+    assert T5Config(vocab_size=250112, model_type="mt5").vocab_size == 250112
+    pm = T5EncoderModel.from_pretrained(str(tmp_path)).eval()
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(rng.integers(0, TINY["vocab_size"], (2, 12)))
+    mask = torch.from_numpy(ragged_mask(rng, 2, 12))
+    with torch.no_grad():
+        want = hf(input_ids=ids, attention_mask=mask).last_hidden_state
+        got = pm(ids, mask)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL, rtol=TOL)
+    with pytest.raises(ValueError, match="model_type 'umt5'"):
+        T5Config(model_type="umt5")

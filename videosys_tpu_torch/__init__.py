@@ -1,7 +1,8 @@
 """videosys_tpu_torch: the PyTorch/CUDA port of videosys_tpu.
 
 Same public surface, `initialize`, `VideoSysEngine(config).generate(prompt)`
-(Open-Sora v1.2 and CogVideoX configs), `run_training(TrainConfig(...))`
+(Open-Sora v1.2, CogVideoX, Latte and Open-Sora-Plan v1.1 / v1.2 configs),
+`run_training(TrainConfig(...))`
 with the DCP `Profiler`, and `preprocess`,
 on one NVIDIA card (or the CPU with `device="cpu"`). Imports torch only;
 the CUDA kernels build at first use.
@@ -15,10 +16,21 @@ from videosys_tpu_torch.pipelines.cogvideox.pipeline_cogvideox import (
     CogVideoXPABConfig,
     CogVideoXPipeline,
 )
+from videosys_tpu_torch.pipelines.latte.pipeline_latte import (
+    LatteConfig,
+    LattePABConfig,
+    LattePipeline,
+)
 from videosys_tpu_torch.pipelines.open_sora.pipeline_open_sora import (
     OpenSoraConfig,
     OpenSoraPABConfig,
     OpenSoraPipeline,
+)
+from videosys_tpu_torch.pipelines.open_sora_plan.pipeline_open_sora_plan import (
+    OpenSoraPlanConfig,
+    OpenSoraPlanPipeline,
+    OpenSoraPlanV110PABConfig,
+    OpenSoraPlanV120PABConfig,
 )
 
 from videosys_tpu_torch.training.datasets import PreprocessedLatentDataset
@@ -26,7 +38,10 @@ from videosys_tpu_torch.training.preprocess import preprocess
 from videosys_tpu_torch.training.train import TrainConfig, run_training
 
 __all__ = ["VideoSysEngine", "initialize", "BucketProfile", "CogVideoXConfig",
-           "CogVideoXPABConfig", "CogVideoXPipeline", "OpenSoraConfig",
-           "OpenSoraPABConfig", "OpenSoraPipeline", "PABConfig",
+           "CogVideoXPABConfig", "CogVideoXPipeline", "LatteConfig",
+           "LattePABConfig", "LattePipeline", "OpenSoraConfig",
+           "OpenSoraPABConfig", "OpenSoraPipeline", "OpenSoraPlanConfig",
+           "OpenSoraPlanPipeline", "OpenSoraPlanV110PABConfig",
+           "OpenSoraPlanV120PABConfig", "PABConfig",
            "PreprocessedLatentDataset", "Profiler", "TrainConfig", "preprocess",
            "run_training"]

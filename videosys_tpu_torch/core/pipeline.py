@@ -14,8 +14,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -62,6 +63,39 @@ def offload_to_host(module: nn.Module, pin: bool,
         host.copy_(t.data)
         t.data = host
     return module
+
+
+def build_modules(factories: Mapping[str, Callable[[], nn.Module]],
+                  params: Mapping[str, Mapping], seed: int,
+                  device: torch.device,
+                  dtype: Union[torch.dtype, Mapping[str, torch.dtype]],
+                  offload: bool) -> Dict[str, nn.Module]:
+    """Make each module with its factory, in order, with weights drawn
+    from `seed` (a module `params` holds a state_dict for is built on the
+    meta device and its tensors or numpy arrays assigned: strictly, so
+    missing and unexpected keys raise, named); then hold it on `device` in
+    `dtype` (one for all, or one per module name), or under `offload` in
+    one pinned host buffer, in eval mode without gradients."""
+    home = torch.device("cpu") if offload else device
+    cuda = [device] if device.type == "cuda" else []
+    modules = {}
+    with torch.random.fork_rng(devices=cuda):
+        torch.manual_seed(seed)
+        for name, make in factories.items():
+            with torch.device("meta" if name in params else home):
+                modules[name] = make()
+    for name, module in modules.items():
+        dt = dtype[name] if isinstance(dtype, Mapping) else dtype
+        if name in params:
+            module.load_state_dict(
+                {k: v if torch.is_tensor(v) else torch.tensor(np.asarray(v))
+                 for k, v in params[name].items()}, assign=True)
+        if offload:
+            offload_to_host(module, device.type == "cuda", dt)
+        else:
+            module.to(device, dt)
+        module.eval().requires_grad_(False)
+    return modules
 
 
 @contextlib.contextmanager

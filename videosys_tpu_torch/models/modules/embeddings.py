@@ -1,10 +1,13 @@
-"""Embedders used by STDiT3 and CogVideoX: timestep/size/caption/patch, the
-2D sincos position table and interleaved-pair rotary embedding.
+"""Embedders used by STDiT3, CogVideoX, Latte and Open-Sora-Plan:
+timestep/size/caption/patch, PixArt's adaLN-single and caption projection,
+the 1D and 2D sincos position tables and rotary embeddings (interleaved
+pairs; rotate-half per axis).
 
-Port of the STDiT3 and CogVideoX subset of
-`videosys_tpu/models/modules/embeddings.py`.
+Port of `videosys_tpu/models/modules/embeddings.py` (and of the adaLN-single
+and the 1D table of the Latte and Open-Sora-Plan transformers).
 Module attribute names follow the reference checkpoint's state_dict keys
-(`mlp.0`/`mlp.2`, `y_proj.fc1`, `proj`).
+(`mlp.0`/`mlp.2`, `y_proj.fc1`, `proj`; diffusers' `linear_1`/`linear_2`,
+`emb.timestep_embedder`).
 """
 
 from __future__ import annotations
@@ -180,3 +183,91 @@ def rotate_interleaved_pairs(x: torch.Tensor, cos: torch.Tensor,
     pairs = xf.unflatten(-1, (-1, 2))
     swapped = torch.stack([-pairs[..., 1], pairs[..., 0]], dim=-1).flatten(-2)
     return (xf * cos + swapped * sin).to(x.dtype)
+
+
+def rope_axis_tables(dim: int, length: int, scale: float = 1.0,
+                     theta: float = 10000.0) -> tuple[np.ndarray, np.ndarray]:
+    """1D rotate-half RoPE (cos, sin) tables [length, dim] with duplicated
+    halves ([freqs, freqs]); positions divided by `scale`."""
+    inv_freq = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
+    t = np.arange(length, dtype=np.float32) / scale
+    freqs = np.outer(t, inv_freq)
+    freqs = np.concatenate([freqs, freqs], axis=-1)
+    return np.cos(freqs), np.sin(freqs)
+
+
+def apply_rope_multiaxis(x: torch.Tensor, cos, sin, n_axes: int) -> torch.Tensor:
+    """Split the head dim of x [..., N, D] into `n_axes` equal chunks and
+    rotate each (rotate-half) with its axis's columns of cos / sin
+    ([N, D], the axes' tables side by side), in fp32; the result in x's
+    dtype."""
+    D = x.shape[-1] // n_axes
+    cos = torch.as_tensor(cos, device=x.device).float()
+    sin = torch.as_tensor(sin, device=x.device).float()
+    xf = x.float()
+    parts = []
+    for i in range(n_axes):
+        tok = xf[..., i * D:(i + 1) * D]
+        x1, x2 = tok[..., : D // 2], tok[..., D // 2:]
+        rot = torch.cat([-x2, x1], dim=-1)
+        parts.append(tok * cos[..., i * D:(i + 1) * D]
+                     + rot * sin[..., i * D:(i + 1) * D])
+    return torch.cat(parts, dim=-1).to(x.dtype)
+
+
+def pos_embed_1d(dim: int, length: int, scale: float = 1.0) -> np.ndarray:
+    """1D sincos table [length, dim] (numpy fp32): [sin, cos] of
+    position / scale over dim / 2 frequencies."""
+    pos = np.arange(length, dtype=np.float32) / scale
+    omega = 1.0 / 10000 ** (np.arange(dim // 2, dtype=np.float32) / (dim / 2.0))
+    ang = np.outer(pos, omega)
+    return np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+
+
+class TimestepEmbedding(nn.Module):
+    """diffusers' TimestepEmbedding over sinusoid(t) (cos first, 256
+    channels): linear_1, SiLU, linear_2."""
+
+    def __init__(self, hidden_size: int, freq_embed_size: int = 256):
+        super().__init__()
+        self.freq_embed_size = freq_embed_size
+        self.linear_1 = Linear(freq_embed_size, hidden_size)
+        self.linear_2 = Linear(hidden_size, hidden_size)
+
+    def forward(self, t):
+        x = timestep_embedding(t, self.freq_embed_size)
+        x = x.to(compute_dtype_of(self.linear_1))
+        return self.linear_2(F.silu(self.linear_1(x)))
+
+
+class _Emb(nn.Module):
+    def __init__(self, hidden_size: int):
+        super().__init__()
+        self.timestep_embedder = TimestepEmbedding(hidden_size)
+
+
+class AdaLayerNormSingle(nn.Module):
+    """PixArt-Alpha's shared adaLN: forward(t [B]) -> (mods [B, 6 C], the
+    embedded timestep [B, C]); mods = linear(silu(emb)). The caller rounds
+    t to the dtype its model keys the sinusoid on."""
+
+    def __init__(self, hidden_size: int):
+        super().__init__()
+        self.emb = _Emb(hidden_size)
+        self.linear = Linear(hidden_size, 6 * hidden_size)
+
+    def forward(self, t):
+        emb = self.emb.timestep_embedder(t)
+        return self.linear(F.silu(emb)), emb
+
+
+class PixArtAlphaTextProjection(nn.Module):
+    """Caption projection: linear_1, tanh-approximated GELU, linear_2."""
+
+    def __init__(self, in_features: int, hidden_size: int):
+        super().__init__()
+        self.linear_1 = Linear(in_features, hidden_size)
+        self.linear_2 = Linear(hidden_size, hidden_size)
+
+    def forward(self, y):
+        return self.linear_2(F.gelu(self.linear_1(y), approximate="tanh"))

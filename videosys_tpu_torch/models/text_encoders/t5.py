@@ -3,7 +3,8 @@
 Port of `videosys_tpu/models/text_encoders/t5.py`. `T5EncoderModel` is the
 T5 encoder stack written here in PyTorch, with Hugging Face's `state_dict`
 key names, so a local HF T5 snapshot (`DeepFloyd/t5-v1_1-xxl`: v1.1, XXL,
-gated-gelu) loads into it as it is. `T5TextEncoder` wraps it with the
+gated-gelu) loads into it as it is. mT5 snapshots (`google/mt5-xxl`, Open-Sora-Plan
+v1.2's captions) load the same way. `T5TextEncoder` wraps it with the
 snapshot's tokenizer: `encode(texts)` -> (last_hidden_state [B, L, d_model],
 mask [B, L]), padded and truncated to `max_length` (the reference's
 get_text_embeddings, max_length 300). `StubTextEncoder` hashes words to
@@ -42,9 +43,14 @@ _ACTS = {"relu": F.relu,
 
 @dataclasses.dataclass(frozen=True)
 class T5Config:
-    """The fields of an HF T5 `config.json` the encoder reads; the defaults
-    are T5-v1.1-XXL's. `feed_forward_proj`: "gated-gelu" (v1.1, the tanh
-    gelu on wi_0 times wi_1) or "relu" (v1.0)."""
+    """The fields of an HF T5 or mT5 `config.json` the encoder reads; the
+    defaults are T5-v1.1-XXL's. `feed_forward_proj`: "gated-gelu" (v1.1 and
+    mT5, the tanh gelu on wi_0 times wi_1) or "relu" (v1.0). mT5 differs
+    only in its vocabulary (250112) and in untied input and output
+    embeddings, which an encoder does not see: its input embedding is
+    `shared` either way."""
+
+    MODEL_TYPES = ("t5", "mt5")
 
     vocab_size: int = 32128
     d_model: int = 4096
@@ -56,6 +62,7 @@ class T5Config:
     relative_attention_max_distance: int = 128
     layer_norm_epsilon: float = 1e-6
     feed_forward_proj: str = "gated-gelu"
+    model_type: str = "t5"
 
     @classmethod
     def from_json(cls, path: str) -> "T5Config":
@@ -65,6 +72,9 @@ class T5Config:
         return cls(**{k: v for k, v in raw.items() if k in names})
 
     def __post_init__(self):
+        if self.model_type not in self.MODEL_TYPES:
+            raise ValueError(f"model_type {self.model_type!r} is not one of "
+                             f"{self.MODEL_TYPES}")
         if self.feed_forward_proj not in _ACTS:
             raise ValueError(f"feed_forward_proj {self.feed_forward_proj!r} "
                              f"is not one of {sorted(_ACTS)}")

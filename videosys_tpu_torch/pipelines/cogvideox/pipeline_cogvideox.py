@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import os
 import time
 from typing import Callable, Optional, Tuple
 
@@ -33,22 +32,19 @@ from videosys_tpu_torch.core.pab import PABConfig, build_plans
 from videosys_tpu_torch.core.pipeline import (
     VideoSysPipeline,
     VideoSysPipelineOutput,
-    offload_to_host,
+    build_modules,
     resolve_device,
 )
 from videosys_tpu_torch.models.autoencoders.autoencoder_cogvideox import (
     AutoencoderKLCogVideoX,
     CogVideoXVAEConfig,
 )
-from videosys_tpu_torch.models.text_encoders.t5 import (
-    StubTextEncoder,
-    T5EncoderModel,
-    T5TextEncoder,
-)
+from videosys_tpu_torch.models.text_encoders.t5 import StubTextEncoder
 from videosys_tpu_torch.models.transformers.cogvideox import (
     CogVideoXConfig as CogModelConfig,
 )
 from videosys_tpu_torch.models.transformers.cogvideox import CogVideoXTransformer3D
+from videosys_tpu_torch.pipelines.common import snapshot_text_encoder
 from videosys_tpu_torch.schedulers.ddim import DDIMConfig, DDIMScheduler
 from videosys_tpu_torch.schedulers.dpm_cogvideox import (
     CogVideoXDPMConfig,
@@ -127,29 +123,14 @@ class CogVideoXPipeline(VideoSysPipeline):
             loaded = try_load_params(config, family="cogvideox") or {}
             params = {**loaded, **params}
             require_weights(params, config)
-        home = torch.device("cpu") if config.cpu_offload else self.device
-        cuda = [self.device] if self.device.type == "cuda" else []
-        with torch.random.fork_rng(devices=cuda):
-            torch.manual_seed(seed)
-            # a module that is loaded is built without drawing its weights
-            with torch.device("meta" if "transformer" in params else home):
-                self.transformer = CogVideoXTransformer3D(self.model_config)
-            with torch.device("meta" if "vae" in params else home):
-                self.vae = vae or AutoencoderKLCogVideoX(
-                    config.vae_config or CogVideoXVAEConfig())
         # inference weights are held in the pipeline dtype, as the
         # reference's torch_dtype and the JAX package's cast_float_params
-        for name, module in (("transformer", self.transformer),
-                             ("vae", self.vae)):
-            if name in params:
-                module.load_state_dict(
-                    {k: v if torch.is_tensor(v) else torch.tensor(np.asarray(v))
-                     for k, v in params[name].items()}, assign=True)
-            if config.cpu_offload:
-                offload_to_host(module, self.device.type == "cuda", self.dtype)
-            else:
-                module.to(self.device, self.dtype)
-            module.eval().requires_grad_(False)
+        modules = build_modules(
+            {"transformer": lambda: CogVideoXTransformer3D(self.model_config),
+             "vae": lambda: vae or AutoencoderKLCogVideoX(
+                 config.vae_config or CogVideoXVAEConfig())},
+            params, seed, self.device, self.dtype, config.cpu_offload)
+        self.transformer, self.vae = modules["transformer"], modules["vae"]
         if config.vae_tiling:
             self.vae.enable_tiling()
 
@@ -168,30 +149,10 @@ class CogVideoXPipeline(VideoSysPipeline):
             return StubTextEncoder(output_dim=mc.text_embed_dim,
                                    max_length=mc.max_text_seq_length,
                                    device=self.device)
-        path = str(config.model_path)
-        try:
-            if not os.path.isdir(path):
-                raise FileNotFoundError(f"no local directory {path!r}")
-            # a diffusers snapshot keeps the T5 and its tokenizer apart
-            from transformers import AutoTokenizer
-
-            tok_dir = os.path.join(path, "tokenizer")
-            enc_dir = os.path.join(path, "text_encoder")
-            tokenizer = AutoTokenizer.from_pretrained(
-                tok_dir if os.path.isdir(tok_dir) else path,
-                local_files_only=True)
-            model = T5EncoderModel.from_pretrained(
-                enc_dir if os.path.isdir(enc_dir) else path, self.dtype)
-            return T5TextEncoder(max_length=mc.max_text_seq_length,
-                                 dtype=self.dtype, offload=config.cpu_offload,
-                                 device=self.device, tokenizer=tokenizer,
-                                 model=model)
-        except Exception as e:
-            # a configured encoder is never replaced by the stub
-            raise RuntimeError(
-                f"text encoder for {path!r} could not be loaded ({e}); pass "
-                f"model_path=None for the offline stub, or a local "
-                f"diffusers snapshot path") from e
+        return snapshot_text_encoder(str(config.model_path),
+                                     mc.max_text_seq_length, self.dtype,
+                                     config.cpu_offload, self.device,
+                                     "model_path")
 
     def latent_shape(self, num_frames: int, height: int, width: int,
                      batch: int = 1) -> Tuple[int, ...]:

@@ -30,7 +30,7 @@ from videosys_tpu_torch.core.pab import PABConfig, build_plans
 from videosys_tpu_torch.core.pipeline import (
     VideoSysPipeline,
     VideoSysPipelineOutput,
-    offload_to_host,
+    build_modules,
     resolve_device,
 )
 from videosys_tpu_torch.models.autoencoders.autoencoder_open_sora import (
@@ -144,31 +144,17 @@ class OpenSoraPipeline(VideoSysPipeline):
             loaded = try_load_params(config) or {}
             params = {**loaded, **params}
             require_weights(params, config)
-        home = torch.device("cpu") if config.cpu_offload else self.device
-        cuda = [self.device] if self.device.type == "cuda" else []
-        with torch.random.fork_rng(devices=cuda):
-            torch.manual_seed(seed)
-            # a module that is loaded is built without drawing its weights
-            with torch.device("meta" if "transformer" in params else home):
-                self.transformer = STDiT3(self.model_config)
-            with torch.device("meta" if "vae" in params else home):
-                self.vae = vae or OpenSoraVAE(
-                    config.vae_config
-                    or OpenSoraVAEConfig(micro_batch_size=config.tiling_size))
         # inference weights are held in the half dtype, like the reference's
         # torch_dtype; the transformer computes in its config's dtype
-        for name, module, dtype in (
-                ("transformer", self.transformer, self.model_config.dtype),
-                ("vae", self.vae, self.dtype)):
-            if name in params:
-                module.load_state_dict(
-                    {k: v if torch.is_tensor(v) else torch.tensor(np.asarray(v))
-                     for k, v in params[name].items()}, assign=True)
-            if config.cpu_offload:
-                offload_to_host(module, self.device.type == "cuda", dtype)
-            else:
-                module.to(self.device, dtype)
-            module.eval().requires_grad_(False)
+        modules = build_modules(
+            {"transformer": lambda: STDiT3(self.model_config),
+             "vae": lambda: vae or OpenSoraVAE(
+                 config.vae_config
+                 or OpenSoraVAEConfig(micro_batch_size=config.tiling_size))},
+            params, seed, self.device,
+            {"transformer": self.model_config.dtype, "vae": self.dtype},
+            config.cpu_offload)
+        self.transformer, self.vae = modules["transformer"], modules["vae"]
         self.scheduler = RFlowScheduler(RFlowConfig(
             num_sampling_steps=config.num_sampling_steps,
             cfg_scale=config.cfg_scale, use_timestep_transform=True))

@@ -4,14 +4,17 @@ Port of `videosys_tpu/utils/checkpoint.py`. This package keeps the
 reference checkpoint's `state_dict` key names, so a reference snapshot
 directory loads with no conversion: an STDiT3 snapshot
 (`hpcai-tech/OpenSora-STDiT-v3`: safetensors, possibly sharded, or
-`pytorch_model*.bin`), or a diffusers-layout CogVideoX snapshot
-(`THUDM/CogVideoX-2b`: the same files under `transformer/` and `vae/`). In
-place of the JAX package's `path/orbax`, `save_params` writes this
-package's own `path/torch_params/{module}.safetensors`; `try_load_params`
-reads either layout from `config.transformer` (Open-Sora) or
-`config.model_path` (CogVideoX) and refuses an orbax directory, which only
-the JAX package reads. Tensors stay on the host; the pipeline casts and
-places them.
+`pytorch_model*.bin`), a diffusers-layout CogVideoX or Latte snapshot
+(`THUDM/CogVideoX-2b`, `maxin-cn/Latte-1`: the same files under
+`transformer/` and `vae/`), or an Open-Sora-Plan snapshot
+(`LanguageBind/Open-Sora-Plan-v1.1.0` / `-v1.2.0`: one folder per
+transformer type, `65x512x512/`, `29x480p/`, ..., and the causal VAE under
+`vae/`). In place of the JAX package's `path/orbax`, `save_params` writes
+this package's own `path/torch_params/{module}.safetensors`;
+`try_load_params` reads either layout from `config.transformer`
+(Open-Sora, Open-Sora-Plan) or `config.model_path` (CogVideoX, Latte) and
+refuses an orbax directory, which only the JAX package reads. Tensors stay
+on the host; the pipeline casts and places them.
 """
 
 from __future__ import annotations
@@ -44,33 +47,38 @@ def _drop_computed(sd: StateDict) -> StateDict:
     return sd
 
 
-FAMILIES = ("stdit3", "cogvideox")
-# the diffusers snapshot's folder of each module a CogVideoX pipeline loads
-COGVIDEOX_MODULES = ("transformer", "vae")
+FAMILIES = ("stdit3", "cogvideox", "latte", "osp_v110", "osp_v120",
+            "causal_vae")
+# the diffusers snapshot's folder of each module a pipeline loads
+SNAPSHOT_MODULES = ("transformer", "vae")
 
 
 def load_torch_checkpoint(path: str, family: str = "stdit3"):
     """A local reference checkpoint directory on the host, in its stored
-    dtype. "stdit3": the state_dict of the snapshot, None when it holds no
-    weights. "cogvideox": {module: state_dict} of the diffusers snapshot's
-    `transformer/` and `vae/` folders that hold weights, None when
-    neither does."""
+    dtype. "stdit3", "osp_v110" / "osp_v120" (an Open-Sora-Plan transformer
+    folder, `65x512x512/`, `29x480p/`, ...) and "causal_vae" (its `vae/`
+    folder): the directory's state_dict, None when it holds no weights.
+    "cogvideox" and "latte": {module: state_dict} of the diffusers
+    snapshot's `transformer/` and `vae/` folders that hold weights, None
+    when neither does."""
     if family not in FAMILIES:
         raise NotImplementedError(
             f"model family {family!r} is not ported yet (ROADMAP Queue 1 "
             f"item 7); {', '.join(repr(f) for f in FAMILIES)} load")
-    if family == "cogvideox":
+    if family in ("cogvideox", "latte"):
         loaded = {name: safetensors_io.load_dir(os.path.join(path, name))
-                  for name in COGVIDEOX_MODULES}
+                  for name in SNAPSHOT_MODULES}
         loaded = {k: v for k, v in loaded.items() if v is not None}
         return loaded or None
     sd = safetensors_io.load_dir(path)
-    return None if sd is None else _drop_computed(sd)
+    if sd is None or family != "stdit3":
+        return sd
+    return _drop_computed(sd)
 
 
 def _weights_path(config) -> Optional[str]:
-    """Where a pipeline's weights live: `config.transformer` (Open-Sora) or
-    `config.model_path` (CogVideoX)."""
+    """Where a pipeline's weights live: `config.transformer` (Open-Sora,
+    Open-Sora-Plan) or `config.model_path` (CogVideoX, Latte)."""
     return getattr(config, "transformer", None) or getattr(
         config, "model_path", None)
 
@@ -80,8 +88,10 @@ def try_load_params(config, family: str = "stdit3"
     """{module: state_dict} from the local directory of the config's
     weights: this package's `save_params` output ({"transformer", "vae"})
     or a reference checkpoint ({"transformer"} of an STDiT3 snapshot; the
-    modules of a CogVideoX snapshot); None when the path is unset, not a
-    directory, or holds neither."""
+    modules of a CogVideoX or Latte snapshot; for family "osp", an
+    Open-Sora-Plan snapshot's `config.transformer_type` folder and its
+    `vae/`); None when the path is unset, not a directory, or holds
+    neither."""
     path = _weights_path(config)
     if not path or not os.path.isdir(str(path)):
         return None
@@ -97,8 +107,15 @@ def try_load_params(config, family: str = "stdit3"
         return {os.path.basename(f)[: -len(".safetensors")]:
                 safetensors_io.load_file(f)
                 for f in sorted(glob.glob(os.path.join(own, "*.safetensors")))}
+    if family == "osp":
+        loaded = {"transformer": load_torch_checkpoint(
+            os.path.join(path, config.transformer_type),
+            f"osp_{config.version}"),
+            "vae": load_torch_checkpoint(os.path.join(path, "vae"),
+                                         "causal_vae")}
+        return {k: v for k, v in loaded.items() if v is not None} or None
     sd = load_torch_checkpoint(path, family)
-    if family == "cogvideox" or sd is None:
+    if family in ("cogvideox", "latte") or sd is None:
         return sd
     return {"transformer": sd}
 

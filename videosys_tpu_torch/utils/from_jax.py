@@ -1,13 +1,16 @@
 """Carry the JAX package's Flax parameters over to this package.
 
 `stdit3_from_jax`, `open_sora_vae_from_jax`, `t5_from_jax`,
-`cogvideox_from_jax` and `cogvideox_vae_from_jax` take a Flax param tree as
-numpy arrays (nested dicts) and return a state_dict for the modules here:
+`cogvideox_from_jax`, `cogvideox_vae_from_jax`, `latte_from_jax`,
+`osp_v120_from_jax`, `vae2d_from_jax` and `causal_vae_from_jax` take a Flax
+param tree as numpy arrays (nested dicts) and return a state_dict for the
+modules here:
 
 * a Dense kernel [in, out] becomes a Linear weight [out, in];
 * a Conv kernel HWIO / THWIO becomes OIHW / OITHW;
 * GroupNorm `scale` and an Embed `embedding` become `weight`;
 * the `nn.scan`-stacked `blocks` axis 0 becomes one module per layer;
+* a fused qkv (or kv) Dense is split into the reference's to_q, to_k, to_v;
 * module names are mapped onto the reference checkpoint's names, which this
   package uses.
 """
@@ -115,16 +118,26 @@ def open_sora_vae_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
     """OpenSoraVAE Flax params {"spatial": ..., "temporal": ...} -> the
     state_dict of `models.autoencoders.autoencoder_open_sora.OpenSoraVAE`:
     encoder, decoder, quant_conv and post_quant_conv of both stages."""
+    sd = {f"spatial_vae.module.{k}": v
+          for k, v in vae2d_from_jax(params["spatial"]).items()}
+    p = _params(params["temporal"])
+    for coder in ("encoder", "decoder"):
+        sd.update({f"temporal_vae.{coder}.{k}": v for k, v in
+                   convert(p[coder], _VAE_TEMPORAL_RENAMES).items()})
+    sd.update({f"temporal_vae.{k}": v for k, v in convert(
+        {c: p[c] for c in ("quant_conv", "post_quant_conv")}).items()})
+    return sd
+
+
+def vae2d_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
+    """AutoencoderKL2D Flax params -> the state_dict of
+    `models.autoencoders.vae2d.AutoencoderKL2D` (diffusers' names)."""
+    p = _params(params)
     sd = {}
-    for part, renames, prefix in (
-            ("spatial", _VAE2D_RENAMES, "spatial_vae.module."),
-            ("temporal", _VAE_TEMPORAL_RENAMES, "temporal_vae.")):
-        p = _params(params[part])
-        for coder in ("encoder", "decoder"):
-            sd.update({f"{prefix}{coder}.{k}": v
-                       for k, v in convert(p[coder], renames).items()})
-        sd.update({prefix + k: v for k, v in convert(
-            {c: p[c] for c in ("quant_conv", "post_quant_conv")}).items()})
+    for coder in ("encoder", "decoder"):
+        sd.update({f"{coder}.{k}": v for k, v in
+                   convert(p[coder], _VAE2D_RENAMES).items()})
+    sd.update(convert({c: p[c] for c in ("quant_conv", "post_quant_conv")}))
     return sd
 
 
@@ -184,4 +197,163 @@ def cogvideox_vae_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
     for coder in ("encoder", "decoder"):
         sd.update({f"{coder}.{k}": v for k, v in convert(
             _params(params[coder]), _COGVIDEOX_VAE_RENAMES).items()})
+    return sd
+
+
+def _stacked_layers(stacked: Mapping):
+    """The per-layer {name: array} trees of a scan-stacked subtree."""
+    flat = flatten(stacked)
+    depth = next(iter(flat.values())).shape[0]
+    return [{k: v[i] for k, v in flat.items()} for i in range(depth)]
+
+
+def _split_dense(layer: Mapping, fused: str, names) -> Dict[str, np.ndarray]:
+    """A fused Dense's kernel and bias split on the output axis into one
+    torch Linear per name (rows in `names` order)."""
+    out = {}
+    n = len(names)
+    kernel = layer[f"{fused}.kernel"]
+    for name, w in zip(names, np.split(kernel, n, axis=-1)):
+        out[f"{name}.weight"] = np.ascontiguousarray(w.T)
+    if f"{fused}.bias" in layer:
+        for name, b in zip(names, np.split(layer[f"{fused}.bias"], n)):
+            out[f"{name}.bias"] = b
+    return out
+
+
+_LATTE_RENAMES = (
+    (r"^pos_embed_proj\.", "pos_embed.proj."),
+    (r"^adaln_single_emb\.mlp_0\.", "adaln_single.emb.timestep_embedder.linear_1."),
+    (r"^adaln_single_emb\.mlp_2\.", "adaln_single.emb.timestep_embedder.linear_2."),
+    (r"^adaln_single_linear\.", "adaln_single.linear."),
+    (r"^caption_projection\.fc1\.", "caption_projection.linear_1."),
+    (r"^caption_projection\.fc2\.", "caption_projection.linear_2."),
+    (r"^final_scale_shift_table$", "scale_shift_table"),
+)
+
+_LATTE_BLOCK_RENAMES = (
+    (r"^attn1\.proj\.", "attn1.to_out.0."),
+    (r"^attn2\.q_linear\.", "attn2.to_q."),
+    (r"^attn2\.proj\.", "attn2.to_out.0."),
+    (r"^ff\.proj_in\.", "ff.net.0.proj."),
+    (r"^ff\.proj_out\.", "ff.net.2."),
+)
+
+
+def latte_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
+    """LatteT2V Flax params ({"params": ...} or the inner tree) -> the
+    state_dict of `models.transformers.latte.LatteT2V` (the reference's
+    names): the fused attn1 qkv and attn2 kv split into to_q / to_k / to_v,
+    the stacked blocks into `transformer_blocks.{i}` and
+    `temporal_transformer_blocks.{i}`."""
+    p = dict(_params(params))
+    blocks = p.pop("blocks")
+    sd = convert(p, _LATTE_RENAMES)
+    for branch, prefix in (("spatial", "transformer_blocks"),
+                           ("temporal", "temporal_transformer_blocks")):
+        for i, layer in enumerate(_stacked_layers(blocks[branch])):
+            out = _split_dense(layer, "attn1.qkv",
+                               ("attn1.to_q", "attn1.to_k", "attn1.to_v"))
+            if "attn2.kv_linear.kernel" in layer:
+                out.update(_split_dense(layer, "attn2.kv_linear",
+                                        ("attn2.to_k", "attn2.to_v")))
+            rest = {k: v for k, v in layer.items()
+                    if not k.startswith(("attn1.qkv.", "attn2.kv_linear."))}
+            out.update(convert(rest, _LATTE_BLOCK_RENAMES))
+            sd.update({f"{prefix}.{i}.{k}": v for k, v in out.items()})
+    return sd
+
+
+_OSP_V120_RENAMES = (
+    (r"^patch_proj\.", "pos_embed.proj."),
+    (r"^adaln_single\.emb\.mlp_0\.", "adaln_single.emb.timestep_embedder.linear_1."),
+    (r"^adaln_single\.emb\.mlp_2\.", "adaln_single.emb.timestep_embedder.linear_2."),
+    (r"^caption_in\.", "caption_projection.linear_1."),
+    (r"^caption_out\.", "caption_projection.linear_2."),
+)
+
+_OSP_V120_BLOCK_RENAMES = (
+    (r"^(attn\d)\.to_out\.", r"\1.to_out.0."),
+    (r"^ff_in\.", "ff.net.0.proj."),
+    (r"^ff_out\.", "ff.net.2."),
+)
+
+
+def osp_v120_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
+    """OpenSoraPlanV120Transformer Flax params -> the state_dict of
+    `models.transformers.open_sora_plan_v120` (the reference's names)."""
+    p = dict(_params(params))
+    stacked = p.pop("blocks")["block"]
+    sd = convert(p, _OSP_V120_RENAMES)
+    for i, layer in enumerate(_stacked_layers(stacked)):
+        sd.update({f"transformer_blocks.{i}.{k}": v for k, v in
+                   convert(layer, _OSP_V120_BLOCK_RENAMES).items()})
+    return sd
+
+
+# module names of the causal VAE's coders: Flax -> the reference's
+_CAUSAL_VAE_RENAMES = (
+    (r"^(down|up)(\d+)_block(\d+)\.", r"\1.\2.block.\3."),
+    (r"^(down|up)(\d+)_attn(\d+)\.", r"\1.\2.attn.\3."),
+    (r"^(down|up)(\d+)_(time_downsample|downsample|time_upsample|upsample)\.",
+     r"\1.\2.\3."),
+    (r"^mid_block(\d)\.", r"mid.block_\1."),
+    (r"^mid_attn\.", "mid.attn_1."),
+)
+# ops whose Flax and torch modules nest their convolutions differently
+_CAUSAL_VAE_OP_RENAMES = {
+    "Conv2d": ((r"conv\.(kernel|bias)$", r"\1"),),
+    "ResnetBlock2D": ((r"(conv\d|nin_shortcut)\.conv\.", r"\1."),),
+    "SpatialDownsample2x": ((r"conv\.(kernel|bias)$", r"conv.conv.\1"),),
+    "SpatialUpsample2x": ((r"conv\.(kernel|bias)$", r"conv.conv.\1"),),
+}
+
+
+def _causal_vae_ops(config) -> Dict[str, str]:
+    """Flax module name -> registry op of each coder module that holds
+    weights."""
+    cfg = config
+    n = len(cfg.hidden_size_mult)
+    ops = {}
+    for coder, spatial, temporal, res_blocks, blocks in (
+            ("encoder", cfg.encoder_spatial_downsample,
+             cfg.encoder_temporal_downsample, cfg.encoder_resnet_blocks,
+             cfg.num_res_blocks),
+            ("decoder", cfg.decoder_spatial_upsample,
+             cfg.decoder_temporal_upsample, cfg.decoder_resnet_blocks,
+             cfg.num_res_blocks + 1)):
+        kind = "down" if coder == "encoder" else "up"
+        attn = getattr(cfg, f"{coder}_attention")
+        ops.update({f"{coder}.conv_in": getattr(cfg, f"{coder}_conv_in"),
+                    f"{coder}.conv_out": getattr(cfg, f"{coder}_conv_out"),
+                    f"{coder}.mid_block1": getattr(cfg, f"{coder}_mid_resnet"),
+                    f"{coder}.mid_block2": getattr(cfg, f"{coder}_mid_resnet"),
+                    f"{coder}.mid_attn": attn})
+        for i in range(n):
+            for j in range(blocks):
+                ops[f"{coder}.{kind}{i}_block{j}"] = res_blocks[i]
+                ops[f"{coder}.{kind}{i}_attn{j}"] = attn
+            ops[f"{coder}.{kind}{i}_{'downsample' if kind == 'down' else 'upsample'}"] = spatial[i]
+            ops[f"{coder}.{kind}{i}_time_{'downsample' if kind == 'down' else 'upsample'}"] = temporal[i]
+    return ops
+
+
+def causal_vae_from_jax(params: Mapping, config) -> Dict[str, np.ndarray]:
+    """CausalVAEModule Flax params -> the state_dict of
+    `models.autoencoders.autoencoder_causal_vae.CausalVAE` (the reference's
+    names), driven by the registry config both were built from."""
+    ops = _causal_vae_ops(config)
+    sd = {}
+    for name, value in flatten(_params(params)).items():
+        coder, _, rest = name.partition(".")
+        if coder in ("encoder", "decoder"):
+            module = rest.split(".")[0]
+            for pat, rep in _CAUSAL_VAE_OP_RENAMES.get(
+                    ops.get(f"{coder}.{module}"), ()):
+                rest = module + "." + re.sub(pat, rep, rest[len(module) + 1:])
+            for pat, rep in _CAUSAL_VAE_RENAMES:
+                rest = re.sub(pat, rep, rest)
+            name = f"{coder}.{rest}"
+        key, val = to_torch_leaf(name, value)
+        sd[key] = val
     return sd
