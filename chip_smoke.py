@@ -124,6 +124,21 @@ Phases, each fatal on failure:
      at the causal VAE's tile rows, each against its plain version and
      timed beside torch's SDPA; tiny v1.1 and v1.2 pipelines on the card
      against the CPU (fp32).
+ 15. serve Vchitect-2.0 (18 joint blocks, 18 heads of 64, the 16-channel SD3
+     VAE) at full width and depth with random weights from a seed and the
+     word-hash stub encoder: the reference request (40 x 288 x 480,
+     `--vchitect-steps` flow-match Euler steps, guidance 7.5 with the
+     cosine-dynamic scale, uncond and cond forwards) dense and under
+     VchitectPABConfig(), timers, peaks per phase, launches against the
+     plans, read steps, cache bytes and speed-up, and the PAB video scored
+     against the dense one by `eval.metrics.evaluate_pair` (PSNR, SSIM);
+     then the narrow forward at the joint spatial rows [40, 18, 873, 873,
+     64], the 34,920-query cross-attention and the 40-frame temporal rows,
+     and the wide forward at the VAE's mid attention over 40 frames, each
+     against its plain version and timed beside torch's SDPA; the CLIP-L +
+     CLIP-bigG + T5-XXL trio at its published widths, bf16 against fp32,
+     packed as SD3 packs it; tiny pipelines, dense and with PAB, on the
+     card against the CPU (fp32).
 
 bf16 outputs are held by two relative measures, rel_l2 = |got - want|_2 /
 |want|_2 and rel_max = max|got - want| / max|want|, at limits set per shape
@@ -152,7 +167,8 @@ ROOT = Path(__file__).resolve().parent
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 PEAK_BYTES = 3.35e12
 PHASES = ("kernel", "serve", "tiny", "bwd_kernel", "train", "tiny_train", "t5",
-          "offload", "cogvideox", "dcp", "raw_video", "latte", "open_sora_plan")
+          "offload", "cogvideox", "dcp", "raw_video", "latte", "open_sora_plan",
+          "vchitect")
 TRAIN_STEPS = 4  # on the default buckets: two video shapes and an image
 F32_TOL = 2e-5
 F32_GRAD_TOL = 1e-4
@@ -197,7 +213,23 @@ BF16_LIMITS = {"spatial": (8e-3, 2e-2), "cross": (1e-2, 2e-2),
                # the limits of the Open-Sora rows of the same kind
                "latte_spatial": (8e-3, 2e-2), "latte_cross": (1e-2, 2e-2),
                "latte_temporal16": (1e-2, 2e-2),
-               "osp110_spatial": (8e-3, 2e-2), "osp110_cross": (1e-2, 2e-2)}
+               "osp110_spatial": (8e-3, 2e-2), "osp110_cross": (1e-2, 2e-2),
+               # Vchitect-2.0's rows at head_dim 64 and its VAE's mid
+               # attention over 40 frames: the limits of the Open-Sora rows
+               # of the same kind; read on an H100 (kernel; one key
+               # dropped): spatial [40, 18, 873, 873] 3.05e-3, 3.47e-3
+               # (3.38e-2, 0.162), cross [1, 18, 34920, 333] 3.01e-3,
+               # 3.91e-3 (5.91e-2, 0.366), the 40-frame rows 2.97e-3,
+               # 5.88e-3 (0.163, 0.754), VAE mid 3.08e-3, 3.50e-3
+               # (2.15e-2, 0.221)
+               "vchitect_spatial": (8e-3, 2e-2), "vchitect_cross": (1e-2, 2e-2),
+               "vchitect_temporal40": (1e-2, 2e-2),
+               "vchitect_vae_mid": (6.5e-3, 1.5e-2),
+               # the CLIP-L and CLIP-bigG text towers (hidden_states[-2] and
+               # the projected pooled vector) bf16 against fp32, read on an
+               # H100: 1.14e-2, 1.49e-2 and 1.51e-2, 2.33e-2; with the
+               # causal mask dropped 1.08, 1.22 and 1.22, 1.14
+               "clip_l": (4.5e-2, 5e-2), "clip_g": (4.5e-2, 5e-2)}
 # the same for the gradients of the backward kernels (the largest of dq, dk,
 # dv): the kernels read at most a third of each limit (3.0e-4, 3.2e-3), the
 # one-key fault at least 10x one of them (1.1e-2, 1.0e-1 at the long row)
@@ -556,7 +588,7 @@ def serve_request(fa, engine, req: dict, seed: int, steps: int,
            "latent_std": float(lat.std()), "video_mean": float(video.mean()),
            "timings_s": pipe.last_timings, "wall_s": wall,
            "denoise_step_s": pipe.last_timings["denoise"] / steps / loop,
-           "text_kv_len": pipe.last_text_kv_len,
+           "text_kv_len": getattr(pipe, "last_text_kv_len", None),
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
            "denoise_peak_mem_gib": max(denoise_peaks) / 2**30,
            "launches": launches, "expected_launches": want}
@@ -2328,11 +2360,12 @@ def causal_vae_tiles(vae, T: int, H: int, W: int) -> list:
     return tiles
 
 
-def t2v_request(fa, engine, label: str, expected, frames: int, seed: int,
-                **gen) -> dict:
+def t2v_request(fa, engine, label: str, expected, n_frames: int, seed: int,
+                videos=None, **gen) -> dict:
     """One `generate` with the launch counts set to 0 just before it and
     read just after, held against `expected(pipe)`; timers, the peak of
-    each phase, the video's shape (`frames` x H x W) and finite latents."""
+    each phase, the video's shape (`n_frames` x H x W) and finite latents.
+    The video is appended to `videos` when given."""
     import numpy as np
     import torch
 
@@ -2348,6 +2381,8 @@ def t2v_request(fa, engine, label: str, expected, frames: int, seed: int,
         del pipe._phase
     launches = dict(fa.LAUNCHES)
     want = expected(pipe)
+    if videos is not None:
+        videos.append(video)
     lat = pipe.last_latents
     rec = {"label": label, "steps": gen["num_inference_steps"],
            "model_calls": calls, "video_shape": list(video.shape),
@@ -2356,11 +2391,11 @@ def t2v_request(fa, engine, label: str, expected, frames: int, seed: int,
            "latent_std": float(lat.std()), "video_mean": float(video.mean()),
            "timings_s": pipe.last_timings, "wall_s": wall,
            "denoise_call_s": pipe.last_timings["denoise"] / calls,
-           "text_kv_len": pipe.last_text_kv_len,
+           "text_kv_len": getattr(pipe, "last_text_kv_len", None),
            "peak_mem_gib_by_phase": peaks, "launches": launches,
            "expected_launches": want}
     log(f"{label}:", json.dumps(rec))
-    if video.dtype != np.uint8 or video.shape[:2] != (1, frames) \
+    if video.dtype != np.uint8 or video.shape[:2] != (1, n_frames) \
             or video.shape[-1] != 3:
         raise AssertionError(f"{label}: bad video {video.shape} {video.dtype}")
     if not rec["latents_finite"]:
@@ -2603,15 +2638,17 @@ def open_sora_plan_phase(fa, seed: int, profile: bool = False) -> dict:
     return out
 
 
-def one_key_dropped():
-    """A context in which every attention of the transformer blocks drops
-    the last attended key of each row (a planted fault; on the card it
-    still runs the kernel)."""
+def one_key_dropped(module=None):
+    """A context in which every attention of the transformer blocks (those
+    that call `module.scaled_dot_product_attention`; default
+    `models.modules.blocks`) drops the last attended key of each row (a
+    planted fault; on the card it still runs the kernel)."""
     import contextlib
 
-    from videosys_tpu_torch.models.modules import blocks
+    if module is None:
+        from videosys_tpu_torch.models.modules import blocks as module
 
-    sdpa = blocks.scaled_dot_product_attention
+    sdpa = module.scaled_dot_product_attention
 
     def faulty(q, k, v, scale=None, kv_mask=None, force_flash=None):
         B, Nk = q.shape[0], k.shape[2]
@@ -2620,22 +2657,23 @@ def one_key_dropped():
 
     @contextlib.contextmanager
     def ctx():
-        blocks.scaled_dot_product_attention = faulty
+        module.scaled_dot_product_attention = faulty
         try:
             yield
         finally:
-            blocks.scaled_dot_product_attention = sdpa
+            module.scaled_dot_product_attention = sdpa
     return ctx()
 
 
-def tiny_parity(label: str, make, generate, seed: int) -> dict:
+def tiny_parity(label: str, make, generate, seed: int,
+                fault_module=None) -> dict:
     """A tiny fp32 pipeline on the card (kernels) and on the CPU (plain
     attention) with the same weights, latents and draws: the first model
     output within 2e-4, the final latents within 2e-4 of their largest
     magnitude (random weights drive them to 80-800, so an absolute 2e-4
     would hold fp32 rounding grown by the sampler), the video within one
-    uint8 level. A card run whose attentions drop one key per row must
-    break both numeric limits."""
+    uint8 level. A card run whose attentions drop one key per row
+    (`one_key_dropped(fault_module)`) must break both numeric limits."""
     import contextlib
 
     import numpy as np
@@ -2653,7 +2691,8 @@ def tiny_parity(label: str, make, generate, seed: int) -> dict:
         hook = eng.pipeline.transformer.register_forward_hook(
             lambda m, a, o, outs=outs: outs.append(o.detach().float().cpu()))
         try:
-            with one_key_dropped() if fault else contextlib.nullcontext():
+            with (one_key_dropped(fault_module) if fault
+                  else contextlib.nullcontext()):
                 video = generate(eng)
         finally:
             hook.remove()
@@ -2771,6 +2810,352 @@ def tiny_osp_parity(seed: int) -> dict:
 
         out[version] = tiny_parity(f"open-sora-plan {version}", make, generate,
                                    seed)
+    return out
+
+
+VCHITECT_REQUEST = dict(prompt="Sunset over the sea.", frames=40, height=288,
+                        width=480, guidance_scale=7.5)
+# the reference request's flow-match Euler steps
+# (examples/inference/vchitect/sample.py)
+VCHITECT_STEPS = 100
+# the text towers of Vchitect-2.0's trio at their published widths (SD3's
+# text_encoder and text_encoder_2 config.json); CLIP's vocabulary and 77
+# positions are the CLIPTextConfig defaults
+CLIP_L = dict(hidden_size=768, intermediate_size=3072, projection_dim=768,
+              num_hidden_layers=12, num_attention_heads=12,
+              hidden_act="quick_gelu")
+CLIP_G = dict(hidden_size=1280, intermediate_size=5120, projection_dim=1280,
+              num_hidden_layers=32, num_attention_heads=20, hidden_act="gelu")
+
+
+def vchitect_launches(fa, pipe, steps: int, F: int, S: int, L: int,
+                      plans=None) -> dict:
+    """Kernel launches of a Vchitect denoise loop by variant: per step two
+    forwards (uncond, cond), per block a spatial (S + L tokens of each
+    frame), a cross (the F (S + L) tokens against the L context tokens of
+    frame 0) and, with more than one frame, a temporal (the F frames of
+    each token) attention, less what the step's plan reads from the PAB
+    cache in every block but the last, which runs dense."""
+    mc = pipe.model_config
+    N = S + L
+    want = {key: 0 for key in fa.LAUNCHES}
+    for plan in plans or [None] * steps:
+        for cached, blocks in ((True, mc.depth - 1), (False, 1)):
+            def reads(branch):
+                return cached and plan is not None and getattr(plan, branch)
+            calls = [] if reads("spatial") else [(N, N)]
+            if not reads("cross"):
+                calls.append((F * N, L))
+            if F > 1 and not reads("temporal"):
+                calls.append((F, F))
+            for nq, nk in calls:
+                want[fa.kernel_variant(pipe.dtype, nq, nk, mc.head_dim)] += \
+                    2 * blocks
+    return want
+
+
+class ClipWordTokenizer:
+    """Stands in for CLIP's BPE tokenizer, so that the script needs no
+    `transformers`: bos (vocab - 2), the words hashed to 1..vocab - 3, eos
+    (vocab - 1), then `pad_id` (CLIP-L pads with its eos, CLIP-bigG with
+    0), truncated to max_length with the eos kept; called as an HF
+    tokenizer is."""
+
+    def __init__(self, vocab_size: int, pad_id: int):
+        self.vocab_size, self.pad_id = vocab_size, pad_id
+
+    def __call__(self, texts, padding, max_length, truncation,
+                 return_tensors):
+        import zlib
+
+        import numpy as np
+
+        V = self.vocab_size
+        ids = np.full((len(texts), max_length), self.pad_id, np.int64)
+        for i, text in enumerate(texts):
+            toks = [V - 2] + [1 + zlib.crc32(w.encode()) % (V - 3) for w in
+                              text.split()[: max_length - 2]] + [V - 1]
+            ids[i, : len(toks)] = toks
+        return {"input_ids": ids}
+
+
+def clip_text(seed: int, widths: dict):
+    """A CLIP text tower on the card in fp32, weights drawn from `seed` as
+    HF initializes them."""
+    import torch
+
+    from videosys_tpu_torch.models.text_encoders.clip import (
+        CLIPTextConfig, CLIPTextModelWithProjection)
+
+    torch.manual_seed(seed)
+    with torch.device("cuda"):
+        model = CLIPTextModelWithProjection(CLIPTextConfig(**widths))
+    return model.eval().requires_grad_(False)
+
+
+def cast_copy(model, make, dtype):
+    """A copy of `model` in `dtype` (built on the meta device by `make`,
+    its tensors cast one at a time)."""
+    import torch
+
+    with torch.device("meta"):
+        copy = make(model.config)
+    copy.load_state_dict({k: v.to(dtype) for k, v in model.state_dict().items()},
+                         assign=True)
+    return copy.eval()
+
+
+def no_causal_mask():
+    """A context in which CLIP's attention sees every token (its causal
+    mask dropped: the fault the CLIP limits must catch)."""
+    import contextlib
+
+    import torch
+
+    from videosys_tpu_torch.models.text_encoders import clip
+
+    forward = clip.CLIPAttention.forward
+
+    def unmasked(self, x):
+        B, L, C = x.shape
+        H = self.num_heads
+
+        def heads(t):
+            return t.reshape(B, L, H, C // H).transpose(1, 2)
+
+        q = heads(self.q_proj(x) * (C // H) ** -0.5)
+        k, v = heads(self.k_proj(x)), heads(self.v_proj(x))
+        p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)).float(),
+                          dim=-1).to(x.dtype)
+        return self.out_proj(torch.matmul(p, v).transpose(1, 2).reshape(
+            B, L, C))
+
+    @contextlib.contextmanager
+    def ctx():
+        clip.CLIPAttention.forward = unmasked
+        try:
+            yield
+        finally:
+            clip.CLIPAttention.forward = forward
+    return ctx()
+
+
+def vchitect_text_phase(seed: int) -> dict:
+    """Vchitect-2.0's CLIP-L + CLIP-bigG + T5-v1.1-XXL trio at its published
+    widths, random weights from `seed`: the packed embeddings of a batch of
+    prompts in bf16 against fp32 on the card (the CLIP rows with their
+    pooled vectors, held at BF16_LIMITS["clip_l"] / ["clip_g"] with the
+    causal mask dropped as the fault; the T5 rows of real tokens at
+    ["t5_xxl"] with the relative bias dropped), the packed shapes, and the
+    encode time of one prompt."""
+    import torch
+
+    from videosys_tpu_torch.models.text_encoders.clip import (
+        CLIPTextModelWithProjection, ClipTextEncoder, VchitectTripleTextEncoder)
+    from videosys_tpu_torch.models.text_encoders.t5 import (
+        T5EncoderModel, T5TextEncoder)
+
+    t0 = time.perf_counter()
+    fp32 = {"clip_l": clip_text(seed, CLIP_L), "clip_g": clip_text(seed + 1, CLIP_G),
+            "t5": t5_xxl(seed + 2, torch.float32)}
+    bf16 = {k: cast_copy(m, T5EncoderModel if k == "t5" else
+                         CLIPTextModelWithProjection, torch.bfloat16)
+            for k, m in fp32.items()}
+    V = fp32["clip_l"].config.vocab_size
+    t5_tok = WordTokenizer(T5_XXL["vocab_size"])
+
+    def trio(models, dtype):
+        return VchitectTripleTextEncoder(
+            clip_l=ClipTextEncoder(tokenizer=ClipWordTokenizer(V, V - 1),
+                                   model=models["clip_l"], dtype=dtype),
+            clip_g=ClipTextEncoder(tokenizer=ClipWordTokenizer(V, 0),
+                                   model=models["clip_g"], dtype=dtype),
+            t5=T5TextEncoder(max_length=256, dtype=dtype, tokenizer=t5_tok,
+                             model=models["t5"]))
+
+    enc32, enc16 = trio(fp32, torch.float32), trio(bf16, torch.bfloat16)
+    init_s = time.perf_counter() - t0
+    mask = torch.from_numpy(t5_tok(PROMPTS, 256, "max_length", True, True,
+                                   True, "np")["attention_mask"]).cuda().bool()
+    dl = CLIP_L["hidden_size"]
+    dg = dl + CLIP_G["hidden_size"]
+
+    def parts(out):
+        emb, pooled = out
+        return {"clip_l": (emb[:, :77, :dl], pooled[:, :CLIP_L["projection_dim"]]),
+                "clip_g": (emb[:, :77, dl:dg], pooled[:, CLIP_L["projection_dim"]:]),
+                "t5": emb[:, 77:][mask]}
+
+    want, got = enc32.encode_dual(PROMPTS), enc16.encode_dual(PROMPTS)
+    shapes = [list(t.shape) for t in got]
+    if shapes != [[len(PROMPTS), 77 + 256, T5_XXL["d_model"]],
+                  [len(PROMPTS), CLIP_L["projection_dim"]
+                   + CLIP_G["projection_dim"]]]:
+        raise AssertionError(f"vchitect text: packed shapes {shapes}")
+    if got[0][:, :77, dg:].any():
+        raise AssertionError("vchitect text: the CLIP rows are not zero-padded")
+    with no_causal_mask():
+        fault_clip = parts(enc16.encode_dual(PROMPTS))
+    rel_bias = bf16["t5"].encoder.block[0].layer[0].SelfAttention \
+        .relative_attention_bias.weight
+    kept = rel_bias.data
+    rel_bias.data = torch.zeros_like(kept)
+    fault_t5 = parts(enc16.encode_dual(PROMPTS))
+    rel_bias.data = kept
+    want, got = parts(want), parts(got)
+    res = {"init_s": init_s, "packed_shapes": shapes,
+           "params": {k: sum(p.numel() for p in m.parameters())
+                      for k, m in bf16.items()}}
+    for name in ("clip_l", "clip_g"):
+        res[name] = check_bf16(name, got[name], want[name], fault_clip[name],
+                               fault_name="causal mask dropped")
+    res["t5"] = check_bf16("t5_xxl", got["t5"], want["t5"], fault_t5["t5"],
+                           fault_name="relative bias dropped")
+    del enc32, fp32, want, fault_clip, fault_t5
+    torch.cuda.empty_cache()
+    res["encode_one_prompt_ms"] = median_ms(
+        lambda: enc16.encode_dual([VCHITECT_REQUEST["prompt"]]), 5)
+    log("vchitect text:", json.dumps(res))
+    del enc16, bf16
+    torch.cuda.empty_cache()
+    return res
+
+
+def vchitect_step(pipe, seed: int, F: int, h: int, w: int, L: int):
+    """One transformer forward of the Vchitect request (batch 1: the
+    pipeline runs uncond and cond apart) on seeded inputs."""
+    import torch
+
+    mc = pipe.model_config
+    dev = pipe.device
+    g = torch.Generator(dev).manual_seed(seed)
+    z = torch.randn(1, F, mc.in_channels, h, w, device=dev,
+                    generator=g).to(pipe.dtype)
+    y = torch.randn(1, L, mc.joint_attention_dim, device=dev,
+                    generator=g).to(pipe.dtype)
+    pooled = torch.randn(1, mc.pooled_projection_dim, device=dev, generator=g)
+    t = torch.full((1,), 500.0, device=dev)
+
+    def step():
+        with torch.no_grad():
+            pipe.transformer(z, y, pooled, t)
+    return step
+
+
+def vchitect_phase(fa, seed: int, steps: int, profile: bool = False) -> dict:
+    """Vchitect-2.0 text-to-video at full width and depth (18 joint blocks,
+    18 heads x 64, the 16-channel SD3 VAE), random weights from `seed`, the
+    stub encoder (77 + 256 tokens): the reference request dense and under
+    VchitectPABConfig(), the PAB video scored against the dense one; then
+    the kernels at the transformer's spatial, cross and temporal rows and
+    at the VAE's mid attention against their plain versions, the text
+    trio at its published widths, and tiny pipelines on the card against
+    the CPU. `profile`: one transformer forward by kernel."""
+    import numpy as np
+    import torch
+
+    from videosys_tpu_torch import VchitectConfig, VchitectPABConfig, VideoSysEngine
+    from videosys_tpu_torch.core.pab import build_plans
+    from videosys_tpu_torch.eval.metrics import evaluate_pair
+    from videosys_tpu_torch.models.transformers.vchitect import VchitectModelConfig
+
+    t0 = time.perf_counter()
+    engine = VideoSysEngine(VchitectConfig(
+        model_path=None, dtype="bf16",
+        transformer_config=VchitectModelConfig(dtype=torch.bfloat16)),
+        seed=seed)
+    pipe = engine.pipeline
+    pipe.keep_latents = True
+    model_line("vchitect-2.0", pipe, t0)
+    if steps != VCHITECT_STEPS:
+        log(f"vchitect-2.0: {steps} of the request's {VCHITECT_STEPS} "
+            f"flow-match Euler steps (cut to keep the script inside its "
+            f"time; widths, depth and shapes are the published ones)")
+    mc = pipe.model_config
+    req = dict(VCHITECT_REQUEST, num_inference_steps=steps)
+    F = req["frames"]
+    _, _, _, h, w = pipe.latent_shape(F, req["height"], req["width"])
+    S = (h // mc.patch_size) * (w // mc.patch_size)
+    L = pipe.text_encoder.clip_len + pipe.text_encoder.t5_len
+    d_mid = pipe.vae.block_out_channels[-1]
+
+    def expected(plans):
+        def fn(pipe):
+            want = vchitect_launches(fa, pipe, steps, F, S, L, plans)
+            # the VAE decodes the F frames in one call
+            want[fa.kernel_variant(pipe.dtype, h * w, h * w, d_mid)] += 1
+            return want
+        return fn
+
+    videos = []
+    dense = t2v_request(fa, engine, "vchitect dense", expected(None), F, seed,
+                        videos, **req)
+    pab = VchitectPABConfig()
+    engine.config.enable_pab, engine.config.pab_config = True, pab
+    plans = build_plans(pab, np.asarray(pipe.scheduler.set_timesteps(steps),
+                                        np.float32), mc.depth)
+    rec = t2v_request(fa, engine, "vchitect pab", expected(plans), F, seed,
+                      videos, **req)
+    rec.update(pab_summary("vchitect pab", plans, dense, rec, pipe))
+    engine.config.enable_pab = False
+    t1 = time.perf_counter()
+    quality = evaluate_pair(videos[1], videos[0])
+    rec["quality"] = {"psnr_db": quality["psnr"]["value"],
+                      "ssim": quality["ssim"]["value"],
+                      "score_s": time.perf_counter() - t1}
+    log("vchitect pab against dense (eval.metrics.evaluate_pair, random "
+        "weights):", json.dumps(rec["quality"]))
+    if not np.isfinite([rec["quality"]["psnr_db"], rec["quality"]["ssim"]]).all():
+        raise AssertionError("vchitect: PAB quality is not finite")
+    prof = None
+    if profile:
+        prof = device_profile(
+            f"vchitect-2.0 (one {F} x {req['height']} x {req['width']} "
+            f"transformer forward, batch 1)", vchitect_step(pipe, seed, F, h,
+                                                            w, L))
+    H, D = mc.num_heads, mc.head_dim
+    del engine, pipe, videos
+    torch.cuda.empty_cache()
+    N = S + L
+    kernel = forward_shapes(fa, [
+        ("vchitect_spatial", F, H, N, N, D, False),
+        ("vchitect_cross", 1, H, F * N, L, D, False),
+        ("vchitect_temporal40", N, H, F, F, D, False),
+        ("vchitect_vae_mid", F, 1, h * w, h * w, d_mid, False)], seed=15,
+        dtypes=("bf16",))
+    return {"dense": dense, "pab": rec, "kernel": kernel, "profile": prof,
+            "text": vchitect_text_phase(seed), "tiny": tiny_vchitect_parity(seed)}
+
+
+def tiny_vchitect_parity(seed: int) -> dict:
+    """Tiny Vchitect pipelines (three blocks, the 2D VAE at two levels),
+    8 flow-match steps on four frames, dense and under VchitectPABConfig()
+    (every branch read on some step)."""
+    import torch
+
+    from videosys_tpu_torch import VchitectConfig, VideoSysEngine
+    from videosys_tpu_torch.models.transformers import vchitect
+    from videosys_tpu_torch.models.transformers.vchitect import VchitectModelConfig
+
+    z = torch.randn(1, 4, 16, 16, 16,
+                    generator=torch.Generator().manual_seed(seed))
+    out = {}
+    for label, pab in (("dense", False), ("pab", True)):
+        def make(device, params, pab=pab):
+            return VideoSysEngine(VchitectConfig(
+                model_path=None, dtype="fp32", enable_pab=pab,
+                transformer_config=VchitectModelConfig(
+                    num_layers=3, num_heads=2, head_dim=16,
+                    joint_attention_dim=32, pooled_projection_dim=24,
+                    sample_size=8, pos_embed_max_size=12),
+                vae_config=dict(block_out_channels=(8, 16), layers_per_block=1,
+                                num_groups=4)),
+                device=device, params=params, seed=seed)
+
+        out[label] = tiny_parity(f"vchitect {label}", make, lambda eng: eng.generate(
+            "a ship sailing at dawn", num_inference_steps=8, width=32,
+            height=32, frames=4, seed=seed, latents=z).video, seed,
+            fault_module=vchitect)
     return out
 
 
@@ -3181,6 +3566,9 @@ def main(argv=None) -> int:
     ap.add_argument("--cog5b-steps", type=int, default=COG_5B_STEPS,
                     help="DPM steps of the CogVideoX-5b request (the 2b "
                          f"runs the request's {COG_STEPS})")
+    ap.add_argument("--vchitect-steps", type=int, default=VCHITECT_STEPS,
+                    help="flow-match Euler steps of the Vchitect-2.0 "
+                         f"requests (the reference request's {VCHITECT_STEPS})")
     ap.add_argument("--remat-policy", default="full",
                     choices=("full", "dots", "none"),
                     help="activation recompute of the training phase")
@@ -3193,8 +3581,8 @@ def main(argv=None) -> int:
                     help="also profile one full-width denoise step (dense "
                          "and two PAB read steps), one full-width "
                          "training step, and one transformer step of "
-                         "CogVideoX-2b, Latte-1 and Open-Sora-Plan v1.2 (the "
-                         "last also with its RoPE tables on the host)")
+                         "CogVideoX-2b, Latte-1, Open-Sora-Plan v1.2 (also "
+                         "with its RoPE tables on the host) and Vchitect-2.0")
     args = ap.parse_args(argv)
 
     import torch
@@ -3269,6 +3657,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         osp = open_sora_plan_phase(fa, args.seed, args.profile)
         log(f"open_sora_plan phase: {time.perf_counter() - t0:.1f} s")
+    if "vchitect" in phases:  # phase 15: Vchitect-2.0 serving, its shapes
+        t0 = time.perf_counter()
+        vch = vchitect_phase(fa, args.seed, args.vchitect_steps, args.profile)
+        log(f"vchitect phase: {time.perf_counter() - t0:.1f} s")
     if set(phases) != set(PHASES):
         log(f"partial run ({args.phases}) total_s="
             f"{time.perf_counter() - t_start:.1f}: no kernel report")
@@ -3385,7 +3777,14 @@ def main(argv=None) -> int:
              "narrow", 125),
             (osp["kernel"]["cvae_tile"], osp["93x480p"]["dense"], "wgmma", 49),
             (osp["kernel"]["cvae_legacy"], osp["65x512x512"]["dense"], "wgmma",
-             49)):
+             49),
+            # Vchitect-2.0: the narrow forward at D = 64 on the joint rows,
+            # the cross-attention and the 40-frame temporal rows; the wide
+            # forward at the SD3 VAE's mid attention over 40 frames
+            (vch["kernel"]["vchitect_spatial"], vch["dense"], "narrow", 125),
+            (vch["kernel"]["vchitect_cross"], vch["dense"], "narrow", 125),
+            (vch["kernel"]["vchitect_temporal40"], vch["dense"], "narrow", 125),
+            (vch["kernel"]["vchitect_vae_mid"], vch["dense"], "wgmma", 49)):
         n = request["launches"][key]
         if n <= 0:
             raise AssertionError(f"{request['label']} never launched "

@@ -187,6 +187,12 @@ def test_port_imports_no_jax():
             " videosys_tpu_torch.schedulers.pndm,"
             " videosys_tpu_torch.schedulers.euler_ancestral,"
             " videosys_tpu_torch.models.text_encoders.t5,"
+            " videosys_tpu_torch.models.text_encoders.clip,"
+            " videosys_tpu_torch.models.transformers.vchitect,"
+            " videosys_tpu_torch.pipelines.vchitect.pipeline_vchitect,"
+            " videosys_tpu_torch.schedulers.flow_match_euler,"
+            " videosys_tpu_torch.eval.metrics, videosys_tpu_torch.eval.pab_eval,"
+            " videosys_tpu_torch.eval.batch_eval,"
             " videosys_tpu_torch.utils.checkpoint,"
             " videosys_tpu_torch.utils.safetensors_io;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -1,7 +1,8 @@
 """videosys_tpu_torch: the PyTorch/CUDA port of videosys_tpu.
 
 Same public surface, `initialize`, `VideoSysEngine(config).generate(prompt)`
-(Open-Sora v1.2, CogVideoX, Latte and Open-Sora-Plan v1.1 / v1.2 configs),
+(Open-Sora v1.2, CogVideoX, Latte, Open-Sora-Plan v1.1 / v1.2 and
+Vchitect-2.0 configs),
 `run_training(TrainConfig(...))`
 with the DCP `Profiler`, and `preprocess`,
 on one NVIDIA card (or the CPU with `device="cpu"`). Imports torch only;
@@ -32,7 +33,11 @@ from videosys_tpu_torch.pipelines.open_sora_plan.pipeline_open_sora_plan import 
     OpenSoraPlanV110PABConfig,
     OpenSoraPlanV120PABConfig,
 )
-
+from videosys_tpu_torch.pipelines.vchitect.pipeline_vchitect import (
+    VchitectConfig,
+    VchitectPABConfig,
+    VchitectXLPipeline,
+)
 from videosys_tpu_torch.training.datasets import PreprocessedLatentDataset
 from videosys_tpu_torch.training.preprocess import preprocess
 from videosys_tpu_torch.training.train import TrainConfig, run_training
@@ -43,5 +48,6 @@ __all__ = ["VideoSysEngine", "initialize", "BucketProfile", "CogVideoXConfig",
            "OpenSoraPABConfig", "OpenSoraPipeline", "OpenSoraPlanConfig",
            "OpenSoraPlanPipeline", "OpenSoraPlanV110PABConfig",
            "OpenSoraPlanV120PABConfig", "PABConfig",
-           "PreprocessedLatentDataset", "Profiler", "TrainConfig", "preprocess",
-           "run_training"]
+           "PreprocessedLatentDataset", "Profiler", "TrainConfig",
+           "VchitectConfig", "VchitectPABConfig", "VchitectXLPipeline",
+           "preprocess", "run_training"]

@@ -6,13 +6,16 @@ directory loads with no conversion: an STDiT3 snapshot
 (`hpcai-tech/OpenSora-STDiT-v3`: safetensors, possibly sharded, or
 `pytorch_model*.bin`), a diffusers-layout CogVideoX or Latte snapshot
 (`THUDM/CogVideoX-2b`, `maxin-cn/Latte-1`: the same files under
-`transformer/` and `vae/`), or an Open-Sora-Plan snapshot
+`transformer/` and `vae/`), a Vchitect snapshot (`Vchitect/Vchitect-2.0-2B`:
+its `transformer/` only; the JAX package loads no Vchitect VAE), or an
+Open-Sora-Plan snapshot
 (`LanguageBind/Open-Sora-Plan-v1.1.0` / `-v1.2.0`: one folder per
 transformer type, `65x512x512/`, `29x480p/`, ..., and the causal VAE under
 `vae/`). In place of the JAX package's `path/orbax`, `save_params` writes
 this package's own `path/torch_params/{module}.safetensors`;
 `try_load_params` reads either layout from `config.transformer`
-(Open-Sora, Open-Sora-Plan) or `config.model_path` (CogVideoX, Latte) and
+(Open-Sora, Open-Sora-Plan) or `config.model_path` (CogVideoX, Latte,
+Vchitect) and
 refuses an orbax directory, which only the JAX package reads. Tensors stay
 on the host; the pipeline casts and places them.
 """
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import glob
 import os
+import re
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -48,9 +52,11 @@ def _drop_computed(sd: StateDict) -> StateDict:
 
 
 FAMILIES = ("stdit3", "cogvideox", "latte", "osp_v110", "osp_v120",
-            "causal_vae")
-# the diffusers snapshot's folder of each module a pipeline loads
-SNAPSHOT_MODULES = ("transformer", "vae")
+            "causal_vae", "vchitect")
+# the diffusers snapshot's folders of the modules each family loads
+SNAPSHOT_MODULES = {"cogvideox": ("transformer", "vae"),
+                    "latte": ("transformer", "vae"),
+                    "vchitect": ("transformer",)}
 
 
 def load_torch_checkpoint(path: str, family: str = "stdit3"):
@@ -60,14 +66,14 @@ def load_torch_checkpoint(path: str, family: str = "stdit3"):
     folder): the directory's state_dict, None when it holds no weights.
     "cogvideox" and "latte": {module: state_dict} of the diffusers
     snapshot's `transformer/` and `vae/` folders that hold weights, None
-    when neither does."""
+    when neither does; "vchitect" the same of `transformer/` alone."""
     if family not in FAMILIES:
         raise NotImplementedError(
-            f"model family {family!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 7); {', '.join(repr(f) for f in FAMILIES)} load")
-    if family in ("cogvideox", "latte"):
+            f"model family {family!r} is not one the JAX package loads; "
+            f"{', '.join(repr(f) for f in FAMILIES)} load")
+    if family in SNAPSHOT_MODULES:
         loaded = {name: safetensors_io.load_dir(os.path.join(path, name))
-                  for name in SNAPSHOT_MODULES}
+                  for name in SNAPSHOT_MODULES[family]}
         loaded = {k: v for k, v in loaded.items() if v is not None}
         return loaded or None
     sd = safetensors_io.load_dir(path)
@@ -88,7 +94,7 @@ def try_load_params(config, family: str = "stdit3"
     """{module: state_dict} from the local directory of the config's
     weights: this package's `save_params` output ({"transformer", "vae"})
     or a reference checkpoint ({"transformer"} of an STDiT3 snapshot; the
-    modules of a CogVideoX or Latte snapshot; for family "osp", an
+    modules of a CogVideoX, Latte or Vchitect snapshot; for family "osp", an
     Open-Sora-Plan snapshot's `config.transformer_type` folder and its
     `vae/`); None when the path is unset, not a directory, or holds
     neither."""
@@ -115,17 +121,27 @@ def try_load_params(config, family: str = "stdit3"
                                          "causal_vae")}
         return {k: v for k, v in loaded.items() if v is not None} or None
     sd = load_torch_checkpoint(path, family)
-    if family in ("cogvideox", "latte") or sd is None:
+    if family in SNAPSHOT_MODULES or sd is None:
         return sd
     return {"transformer": sd}
 
 
-def require_weights(loaded: Mapping, config) -> None:
+def transformer_depth(sd: Mapping) -> int:
+    """The number of `transformer_blocks.{i}` in a state_dict."""
+    blocks = {int(m.group(1)) for m in
+              (re.match(r"transformer_blocks\.(\d+)\.", k) for k in sd) if m}
+    if not blocks:
+        raise ValueError("no transformer_blocks.{i} keys in the state_dict")
+    return max(blocks) + 1
+
+
+def require_weights(loaded: Mapping, config, vae: bool = True) -> None:
     """Raise when a configured model path did not resolve to weights and no
     random-init hook (`transformer_config`, `vae_config`) is set, as the
     reference's from_pretrained fails instead of generating noise. The VAE
     path is `config.vae` (Open-Sora) or the snapshot at `model_path`
-    (CogVideoX)."""
+    (CogVideoX); `vae=False` checks the transformer only (Vchitect, whose
+    VAE the JAX package never loads)."""
     path = _weights_path(config)
     if "transformer" not in loaded and path and \
             config.transformer_config is None:
@@ -135,7 +151,7 @@ def require_weights(loaded: Mapping, config) -> None:
             f"None with transformer_config=... for random-init testing")
     vae_path = getattr(config, "vae", None) or getattr(config, "model_path",
                                                        None)
-    if "vae" not in loaded and vae_path and config.vae_config is None:
+    if vae and "vae" not in loaded and vae_path and config.vae_config is None:
         raise FileNotFoundError(
             f"VAE weights not found at {vae_path!r}; set the path to None "
             f"with vae_config=... for random-init testing")

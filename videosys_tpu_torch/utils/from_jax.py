@@ -2,9 +2,9 @@
 
 `stdit3_from_jax`, `open_sora_vae_from_jax`, `t5_from_jax`,
 `cogvideox_from_jax`, `cogvideox_vae_from_jax`, `latte_from_jax`,
-`osp_v120_from_jax`, `vae2d_from_jax` and `causal_vae_from_jax` take a Flax
-param tree as numpy arrays (nested dicts) and return a state_dict for the
-modules here:
+`osp_v120_from_jax`, `vae2d_from_jax`, `causal_vae_from_jax`,
+`vchitect_from_jax` and `clip_from_jax` take a Flax param tree as numpy
+arrays (nested dicts) and return a state_dict for the modules here:
 
 * a Dense kernel [in, out] becomes a Linear weight [out, in];
 * a Conv kernel HWIO / THWIO becomes OIHW / OITHW;
@@ -357,3 +357,44 @@ def causal_vae_from_jax(params: Mapping, config) -> Dict[str, np.ndarray]:
         key, val = to_torch_leaf(name, value)
         sd[key] = val
     return sd
+
+
+_VCHITECT_RENAMES = (
+    (r"^patch_proj\.", "pos_embed.proj."),
+    (r"^time_embed\.mlp_0\.", "time_text_embed.timestep_embedder.linear_1."),
+    (r"^time_embed\.mlp_2\.", "time_text_embed.timestep_embedder.linear_2."),
+    (r"^pooled_in\.", "time_text_embed.text_embedder.linear_1."),
+    (r"^pooled_out\.", "time_text_embed.text_embedder.linear_2."),
+    (r"^norm_out_linear\.", "norm_out.linear."),
+)
+
+_VCHITECT_BLOCK_RENAMES = (
+    (r"^attn\.to_out\.", "attn.to_out.0."),
+    (r"^ff_in\.", "ff.net.0.proj."),
+    (r"^ff_out\.", "ff.net.2."),
+    (r"^ff_context_in\.", "ff_context.net.0.proj."),
+    (r"^ff_context_out\.", "ff_context.net.2."),
+    (r"^norm1_context_linear\.", "norm1_context.linear."),
+)
+
+
+def vchitect_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
+    """VchitectXLTransformer Flax params ({"params": ...} or the inner
+    tree) -> the state_dict of `models.transformers.vchitect` (the
+    reference's names): the scan-stacked `blocks.block` axis 0 becomes
+    `transformer_blocks.{i}` and `final_block` the last of them."""
+    p = dict(_params(params))
+    layers = _stacked_layers(p.pop("blocks")["block"])
+    layers.append(flatten(p.pop("final_block")))
+    sd = convert(p, _VCHITECT_RENAMES)
+    for i, layer in enumerate(layers):
+        sd.update({f"transformer_blocks.{i}.{k}": v for k, v in
+                   convert(layer, _VCHITECT_BLOCK_RENAMES).items()})
+    return sd
+
+
+def clip_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
+    """transformers' FlaxCLIPTextModelWithProjection params -> the
+    state_dict of `models.text_encoders.clip.CLIPTextModelWithProjection`
+    (HF's torch names: Flax's module paths are the same)."""
+    return convert(_params(params), ((r"\.embedding$", ".weight"),))
