@@ -24,7 +24,8 @@ Phases, each fatal on failure:
      under the three PAB ladders of the JAX package's bench.py with an fp8
      cache (timers, peak memory, cache bytes, PSNR against the dense video),
      conditioned on a seeded pixel reference image (the VAE encoder), and
-     with loop=2; each request's kernel launches, counted from 0, must equal
+     with loop=2 (those two at COND_STEPS); each request's kernel
+     launches, counted from 0, must equal
      the prediction from its shapes and PAB plans; compare the fp8 cast on
      the card with the CPU's; then hold one full-width bf16
      STDiT3 forward at the 480p shapes against the same forward with the
@@ -139,6 +140,27 @@ Phases, each fatal on failure:
      CLIP-bigG + T5-XXL trio at its published widths, bf16 against fp32,
      packed as SD3 packs it; tiny pipelines, dense and with PAB, on the
      card against the CPU (fp32).
+ 16. serve Open-Sora v1.2 in parallel (`core/parallel.py`) through
+     `VideoSysEngine(OpenSoraConfig(num_gpus=N, enable_cp=...))`, the ranks
+     sharing this one card: first whether NCCL takes two ranks on one
+     device (its message is printed; when it refuses, the shared-card
+     worlds pass backend="gloo" explicitly, which stages every exchange
+     through the host); world 1 through `initialize` on the default
+     backend (NCCL) with the groups installed, the 480p request at 4 steps
+     (and at `--steps` unless the serve phase ran it); then the 480p
+     request at full width on sp=2 for `--steps`, on cp=2 and on cp=2 x
+     sp=2 for PARALLEL_SHORT_STEPS, each held against world 1
+     (PARALLEL_LIMITS), with each rank's peak memory, denoise seconds,
+     launches against the prediction from its per-rank shapes, attention
+     shapes and the exchange's share of the denoise (the request runs
+     untimed; each collective it made is then replayed alone with a sync
+     on each side, and its median times its count is the exchange's
+     seconds); sp=2 over NCCL on two
+     cards where there are two, else a line that says it did not run; a
+     tiny fp32 configuration on sp=2 and sp=4 (T and S both padded, an
+     image, a reference frame) against world 1 at 2e-4; a worker that
+     raises must fail the driver's call; the forward kernels at one rank's
+     shapes of those worlds against their plain versions.
 
 bf16 outputs are held by two relative measures, rel_l2 = |got - want|_2 /
 |want|_2 and rel_max = max|got - want| / max|want|, at limits set per shape
@@ -168,16 +190,24 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 PEAK_BYTES = 3.35e12
 PHASES = ("kernel", "serve", "tiny", "bwd_kernel", "train", "tiny_train", "t5",
           "offload", "cogvideox", "dcp", "raw_video", "latte", "open_sora_plan",
-          "vchitect")
+          "vchitect", "parallel")
 TRAIN_STEPS = 4  # on the default buckets: two video shapes and an image
+# rflow steps of the serve phase's conditioned and loop=2 requests (the
+# depth of those repeats of the 480p request; their width is the request's)
+COND_STEPS = 10
+# the main path's request: 480p 9:16 2 s (51 frames)
+REQUEST_480P = dict(
+    prompt="a drone shot of waves breaking on a rocky coast at sunset",
+    resolution="480p", aspect_ratio="9:16", num_frames="2s")
 F32_TOL = 2e-5
 F32_GRAD_TOL = 1e-4
 DI_TOL = 1e-5  # di against rowsum(dO * O), relative to its largest entry
 # bf16 limits per shape (rel_l2, rel_max), set from this script's readings
 # on an H100 (PERF.md): the kernel read at most half of each, and a plain
 # version that drops one key per row read at least twice one of them
-BF16_LIMITS = {"spatial": (8e-3, 2e-2), "cross": (1e-2, 2e-2),
-               "temporal": (1e-2, 2e-2), "vae_mid": (6.5e-3, 1.5e-2),
+BF16_KIND = {"spatial": (8e-3, 2e-2), "cross": (1e-2, 2e-2),
+             "temporal": (1e-2, 2e-2)}
+BF16_LIMITS = {**BF16_KIND, "vae_mid": (6.5e-3, 1.5e-2),
                "stdit3_forward": (1.8e-2, 2.5e-2),
                # T5-v1.1-XXL bf16 against fp32 on the unmasked rows, read on
                # an H100: 2.15e-2, 2.50e-2; without the relative bias 0.73,
@@ -229,7 +259,12 @@ BF16_LIMITS = {"spatial": (8e-3, 2e-2), "cross": (1e-2, 2e-2),
                # the projected pooled vector) bf16 against fp32, read on an
                # H100: 1.14e-2, 1.49e-2 and 1.51e-2, 2.33e-2; with the
                # causal mask dropped 1.08, 1.22 and 1.22, 1.14
-               "clip_l": (4.5e-2, 5e-2), "clip_g": (4.5e-2, 5e-2)}
+               "clip_l": (4.5e-2, 5e-2), "clip_g": (4.5e-2, 5e-2),
+               # one rank's rows under sp / cp (parallel phase): the limits
+               # of the Open-Sora rows of the same kind
+               **{f"{w}_{k}": BF16_KIND[k] for w in ("sp2", "cp2", "cp2sp2",
+                                                     "sp4")
+                  for k in ("spatial", "temporal", "cross")}}
 # the same for the gradients of the backward kernels (the largest of dq, dk,
 # dv): the kernels read at most a third of each limit (3.0e-4, 3.2e-3), the
 # one-key fault at least 10x one of them (1.1e-2, 1.0e-1 at the long row)
@@ -333,7 +368,8 @@ def forward_shapes(fa, shapes, seed: int, dtypes=("bf16", "fp32")) -> dict:
     """Each forward shape (name, B, H, Nq, Nk, D, masked) in `dtypes` against
     the plain version (bf16 at BF16_LIMITS[name] with the one-key fault,
     fp32 at F32_TOL), then timed in bf16 beside the plain version and torch's
-    SDPA, with its bound."""
+    SDPA, with its bound. `masked`: False, True (ragged real lengths) or the
+    number of real keys of every row (the rest pad to the sp size)."""
     import torch
     import torch.nn.functional as F
 
@@ -344,10 +380,13 @@ def forward_shapes(fa, shapes, seed: int, dtypes=("bf16", "fp32")) -> dict:
         k = torch.randn(B, H, Nk, D, device="cuda", generator=gen)
         v = torch.randn(B, H, Nk, D, device="cuda", generator=gen)
         mask = None
-        if masked:  # ragged real lengths, the longest filling the bucket
+        if masked is True:  # ragged real lengths, the longest filling the bucket
             lens = torch.randint(1, Nk + 1, (B,), device="cuda", generator=gen)
             lens[0] = Nk
             mask = torch.arange(Nk, device="cuda")[None] < lens[:, None]
+        elif masked:  # the same real keys in every row, then the pad
+            mask = (torch.arange(Nk, device="cuda") < masked).expand(
+                B, Nk).contiguous()
         row = {"shape": [B, H, Nq, Nk, D], "masked": masked}
         for dt, tdt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
             if dt not in dtypes:
@@ -477,11 +516,13 @@ def wide_forward_edges(fa) -> dict:
 
 def expected_launches(fa, pipe, num_frames: int, height: int, width: int,
                       steps: int, text_len: int, plans=None, loop: int = 1,
-                      encoded=()) -> dict:
+                      encoded=(), sp: int = 1) -> dict:
     """Kernel launches one request makes, by variant, from its shapes and
     PAB plans: per denoise step and loop each depth runs spatial (S x S
     tokens), temporal (T x T, unless T = 1) and two cross attentions (S x
-    the bucketed text length), each on the variant its shape takes, less
+    the bucketed text length), each on the variant its shape takes (on
+    one of `sp` sequence-parallel ranks: T and S padded to a multiple of
+    sp, a cross-attention row of S / sp queries), less
     what the step's plan reads from the cache (spatial, temporal, both
     cross, or the whole pair); the VAE runs its mid attention once per frame
     micro-batch: per temporal chunk when one clip is streamed to uint8, over
@@ -490,7 +531,8 @@ def expected_launches(fa, pipe, num_frames: int, height: int, width: int,
     t_lat, h_lat, w_lat = pipe.vae.get_latent_size((num_frames, height, width))
     mc = pipe.model_config
     _, ph, pw = mc.patch_size
-    S = -(-h_lat // ph) * -(-w_lat // pw)
+    S = -(-(-(-h_lat // ph) * -(-w_lat // pw)) // sp) * sp
+    T = t_lat if t_lat == 1 else -(-t_lat // sp) * sp
     D = mc.hidden_size // mc.num_heads
     want = {key: 0 for key in fa.LAUNCHES}
     for plan in plans or [None] * steps:
@@ -498,9 +540,9 @@ def expected_launches(fa, pipe, num_frames: int, height: int, width: int,
         if plan is None or not (plan.spatial or plan.pair):
             calls.append((S, S))
         if plan is None or not (plan.cross or plan.pair):
-            calls += [(S, text_len)] * 2
-        if t_lat > 1 and (plan is None or not (plan.temporal or plan.pair)):
-            calls.append((t_lat, t_lat))
+            calls += [(S // sp, text_len)] * 2
+        if T > 1 and (plan is None or not (plan.temporal or plan.pair)):
+            calls.append((T, T))
         for Nq, Nk in calls:
             want[fa.kernel_variant(pipe.dtype, Nq, Nk, D)] += mc.depth * loop
     vae_cfg = pipe.vae.config
@@ -664,9 +706,7 @@ def serve_phase(fa, steps: int, seed: int, profile: bool = False) -> dict:
         f"init_s={time.perf_counter() - t0:.2f} "
         f"vae_bytes_gib={sum(v.numel() * v.element_size() for v in vae_sd.values()) / 2**30:.4f} "
         f"vae_encoder_bytes_gib={enc_bytes / 2**30:.4f}")
-    video_req = dict(
-        prompt="a drone shot of waves breaking on a rocky coast at sunset",
-        resolution="480p", aspect_ratio="9:16", num_frames="2s")
+    video_req = dict(REQUEST_480P)
     requests = [
         video_req,
         dict(prompt="a red fox sitting in fresh snow", resolution="144p",
@@ -685,6 +725,10 @@ def serve_phase(fa, steps: int, seed: int, profile: bool = False) -> dict:
         served("dense", rec)
         out["requests"].append(rec)
         videos.append(video)
+        if i == 0:  # world 1 of the parallel phase's sp=2 world
+            out["world1_480p"] = {"video": video,
+                                  "latents": pipe.last_latents.astype(
+                                      np.float64)}
     out["peak_mem_gib"] = max(r["peak_mem_gib"] for r in out["requests"])
 
     # PAB: the 480p request under each ladder, fp8 cache, the same weights
@@ -720,14 +764,16 @@ def serve_phase(fa, steps: int, seed: int, profile: bool = False) -> dict:
     # frozen), then two loops, the second conditioned on the first's end
     ref = np.random.default_rng(seed).uniform(
         -1, 1, (3, 1, h, w)).astype(np.float32)
+    set_steps(pipe, COND_STEPS)
     rec, _ = serve_request(fa, engine, dict(video_req, reference=ref), seed,
-                           steps, encoded=(1,))
+                           COND_STEPS, encoded=(1,))
     served("conditioned", rec)
     out["conditioned"] = rec
-    rec, _ = serve_request(fa, engine, dict(video_req, loop=2), seed, steps,
-                           encoded=(nf,))
+    rec, _ = serve_request(fa, engine, dict(video_req, loop=2), seed,
+                           COND_STEPS, encoded=(nf,))
     served("loop2", rec)
     out["loop2"] = rec
+    set_steps(pipe, steps)
     log(f"serve: launches={out['launches']} peak_mem_gib={out['peak_mem_gib']:.2f}")
     out["forward_check"] = forward_check(fa, pipe, requests[0], seed)
     if profile:
@@ -3558,6 +3604,590 @@ def raw_video_phase(fa, seed: int) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 16: parallel serving, DSP and CFG parallelism (core/parallel.py)
+
+PARALLEL_REQUEST = REQUEST_480P
+PARALLEL_SHORT_STEPS = 4  # the cp=2 and cp=2 x sp=2 worlds
+PARALLEL_WORLDS = (("sp2", 2, False), ("cp2", 2, True), ("cp2sp2", 4, True))
+PARALLEL_TIMEOUT_S = 300.0
+SHARED = "ranks share one card"
+# a full-width world against world 1, bf16, same seed and steps: the final
+# latents' relative L2 and the video's largest difference in uint8 levels.
+# Not bit-equal: a rank's bf16 GEMMs run over fewer rows and may take other
+# cuBLAS kernels, whose rounding differs, and the steps carry it on. Read on
+# an H100 (rel_l2, levels, PSNR): sp=2 at 30 steps 8.6e-3, 42, 39.9 dB; cp=2
+# and cp=2 x sp=2 at 4 steps 2.5e-2, 61 and 76, 37.0 dB. The latents' limit
+# is twice the largest reading and the video's a third above it; a wrong
+# layout or a lost pad mask moves the latents by their own size (rel_l2 ~1)
+PARALLEL_LIMITS = {"latent_rel_l2": 5e-2, "video_levels": 100}
+# the tiny fp32 worlds against world 1 on the card (latents, absolute)
+PARALLEL_TINY_TOL = 2e-4
+PARALLEL_LOG: dict = {}  # attention launches by (variant, shape, masked)
+# collectives by (op, shape, dtype, scatter dim, gather dim, axis)
+EXCHANGE_LOG: dict = {}
+EXCHANGE_REPS = 3  # timed calls of each logged collective in the replay
+PARALLEL_DEVICE = "cuda:0"  # the card the ranks share (a CPU rehearsal: "cpu")
+
+
+def _nccl_probe_rank(rank: int, address: str, q) -> None:
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"tcp://{address}",
+                                rank=rank, world_size=2,
+                                timeout=datetime.timedelta(seconds=60))
+        x = torch.ones(1, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        q.put((rank, "ok", float(x)))
+        dist.destroy_process_group()
+    except Exception as e:  # the message is the finding
+        q.put((rank, "error", f"{type(e).__name__}: {e}"))
+
+
+def nccl_probe() -> dict:
+    """Two NCCL ranks on cuda:0 and one all-reduce: does NCCL take two
+    ranks on one device? Each rank's outcome, verbatim."""
+    import queue
+
+    import torch
+
+    from videosys_tpu_torch.core import parallel as par
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    address = f"localhost:{par.free_port()}"
+    procs = [ctx.Process(target=_nccl_probe_rank, args=(r, address, q))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    outcomes = {}
+    deadline = time.monotonic() + 120
+    while len(outcomes) < 2 and time.monotonic() < deadline:
+        try:
+            rank, status, detail = q.get(timeout=5)
+            outcomes[rank] = {"status": status, "detail": detail}
+        except queue.Empty:
+            if not any(p.is_alive() for p in procs):
+                break
+    for p in procs:
+        p.join(timeout=10)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    accepted = len(outcomes) == 2 and all(
+        o["status"] == "ok" for o in outcomes.values())
+    out = {"accepted": accepted, "ranks": outcomes,
+           "exitcodes": [p.exitcode for p in procs]}
+    log("parallel: NCCL, two ranks on cuda:0:", json.dumps(out))
+    return out
+
+
+# run on every rank of an engine through VideoSysEngine._run_workers
+
+
+def _log_collectives(par) -> None:
+    """Wrap `par.all_to_all` and `par.gather` (the model and the pipeline
+    call them through the module) to count each collective by its
+    arguments in EXCHANGE_LOG; no sync, no clock: the request runs as
+    served. The wrappers keep the plain function as `inner`."""
+    if hasattr(par.all_to_all, "inner"):
+        return
+
+    def note(key, group):
+        if par.axis_size(group) > 1:
+            EXCHANGE_LOG[key] = EXCHANGE_LOG.get(key, 0) + 1
+
+    a2a, gather = par.all_to_all, par.gather
+
+    def logged_a2a(x, scatter_dim, gather_dim, group=par.SP_AXIS):
+        note(("all_to_all", tuple(x.shape), str(x.dtype), scatter_dim,
+              gather_dim, group), group)
+        return a2a(x, scatter_dim, gather_dim, group)
+
+    def logged_gather(x, dim, group=par.SP_AXIS):
+        note(("gather", tuple(x.shape), str(x.dtype), dim, -1, group), group)
+        return gather(x, dim, group)
+
+    logged_a2a.inner, logged_gather.inner = a2a, gather
+    par.all_to_all, par.gather = logged_a2a, logged_gather
+
+
+def rank_reset(pipeline) -> None:
+    """Zero this rank's launch counts, shape log, exchange counters and
+    log, and peak memory; log each attention launch's variant and shape
+    and each collective's arguments."""
+    import torch
+
+    from videosys_tpu_torch.core import parallel as par
+    from videosys_tpu_torch.ops import flash_attention as fa
+
+    if not hasattr(fa._launch, "logged"):
+        launch = fa._launch
+
+        def logged(q, k, v, scale, kv_mask, save_lse=False):
+            B, H, Nq, D = q.shape
+            key = (fa.kernel_variant(q.dtype, Nq, k.shape[2], D),
+                   (B, H, Nq, k.shape[2], D), kv_mask is not None)
+            PARALLEL_LOG[key] = PARALLEL_LOG.get(key, 0) + 1
+            return launch(q, k, v, scale, kv_mask, save_lse)
+
+        logged.logged = True
+        fa._launch = logged
+    _log_collectives(par)
+    PARALLEL_LOG.clear()
+    EXCHANGE_LOG.clear()
+    fa.reset_launches()
+    par.reset_exchange()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def rank_read(pipeline) -> dict:
+    """This rank's counts since `rank_reset`, its latents and timers."""
+    import torch
+
+    from videosys_tpu_torch.core import parallel as par
+    from videosys_tpu_torch.ops import flash_attention as fa
+
+    return {"launches": dict(fa.LAUNCHES),
+            "shapes": [[v, list(s), m, n]
+                       for (v, s, m), n in sorted(PARALLEL_LOG.items())],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30
+            if torch.cuda.is_available() else 0.0,
+            "exchange": dict(par.EXCHANGE),
+            "timings_s": dict(pipeline.last_timings),
+            "text_kv_len": pipeline.last_text_kv_len,
+            "latents": pipeline.last_latents}
+
+
+def rank_exchange_replay(pipeline) -> dict:
+    """Each collective of this rank's last request (EXCHANGE_LOG), replayed
+    alone on a tensor of its shape: the median of EXCHANGE_REPS calls, each
+    with a device sync before and after, times the request's count of it.
+    Every rank replays the same keys in the same order, so the calls
+    meet."""
+    import statistics
+
+    import torch
+
+    from videosys_tpu_torch.core import parallel as par
+
+    def sync():
+        if pipeline.device.type == "cuda":
+            torch.cuda.synchronize(pipeline.device)
+
+    calls, total = [], 0.0
+    with par.use_groups(pipeline.groups):
+        for key in sorted(EXCHANGE_LOG):
+            op, shape, dtype, a, b, group = key
+            x = torch.randn(shape, device=pipeline.device).to(
+                getattr(torch, dtype.removeprefix("torch.")))
+            times = []
+            for _ in range(EXCHANGE_REPS + 1):  # the first warms up
+                sync()
+                t0 = time.perf_counter()
+                if op == "all_to_all":
+                    par.all_to_all.inner(x, a, b, group)
+                else:
+                    par.gather.inner(x, a, group)
+                sync()
+                times.append(time.perf_counter() - t0)
+            ms = 1e3 * statistics.median(times[1:])
+            total += EXCHANGE_LOG[key] * ms / 1e3
+            calls.append([op, list(shape), dtype, group, EXCHANGE_LOG[key],
+                          ms])
+    return {"seconds": total, "calls": calls}
+
+
+def rank_free_before_decode(pipeline) -> None:
+    """The harness's memory rule for ranks that share one card: one VAE
+    decode at a time (an exclusive lock on a file under build/), each rank
+    returning its cached blocks to the card before and after its decode.
+    Four ranks that decode 480p at once outgrow the card's 80 GB: each
+    decode fragments its own cache (a rank of cp=2 x sp=2 ran out with
+    4.93 GiB of it reserved and unallocated, with and without the
+    denoise's blocks returned first). A rank on a card of its own needs
+    none of it: the package does not do it."""
+    import fcntl
+
+    import torch
+
+    lock = ROOT / "build" / "parallel_decode.lock"
+    lock.parent.mkdir(exist_ok=True)
+    vae = pipeline.vae
+
+    def free():
+        if pipeline.device.type == "cuda":
+            torch.cuda.synchronize(pipeline.device)
+            torch.cuda.empty_cache()
+
+    for name in ("decode", "decode_chunks_u8"):
+        plain = getattr(type(vae), name)
+
+        def one_at_a_time(*args, _plain=plain, **kwargs):
+            free()
+            with open(lock, "a") as f:
+                fcntl.flock(f, fcntl.LOCK_EX)
+                try:
+                    return _plain(vae, *args, **kwargs)
+                finally:
+                    free()
+                    fcntl.flock(f, fcntl.LOCK_UN)
+
+        setattr(vae, name, one_at_a_time)
+
+
+def raise_on_workers(pipeline, *args, **kwargs):
+    """Rank 0 generates and blocks in its first all-to-all; every other
+    rank raises before it gets there."""
+    if pipeline.groups.rank != 0:
+        raise ValueError("fault injected on a worker by chip_smoke")
+    return pipeline.generate(*args, **kwargs)
+
+
+def set_steps(pipeline, steps: int) -> None:
+    """The smoke's own switch of a built pipeline's rflow step count."""
+    import dataclasses
+
+    from videosys_tpu_torch.schedulers.rflow import RFlowScheduler
+
+    pipeline.scheduler = RFlowScheduler(dataclasses.replace(
+        pipeline.scheduler.config, num_sampling_steps=steps))
+
+
+def world_record(label: str, backend: str, where: str, ranks: list,
+                 video, ref: dict, expected: dict, steps: int) -> dict:
+    """Hold one world's ranks against the prediction and world 1; log it."""
+    import numpy as np
+
+    lats = [r.pop("latents") for r in ranks]
+    ranks_equal = all(np.array_equal(lat, lats[0]) for lat in lats)
+    d = lats[0].astype(np.float64) - ref["latents"]
+    rel_l2 = float(np.linalg.norm(d) / np.linalg.norm(ref["latents"]))
+    levels = int(np.abs(video.astype(int) - ref["video"].astype(int)).max())
+    denoise = ranks[0]["timings_s"]["denoise"]
+    rec = {"world": label, "backend": backend, "where": where,
+           "steps": steps, "video_shape": list(video.shape),
+           "latents_finite": bool(np.isfinite(lats[0]).all()),
+           "ranks_equal": ranks_equal, "latent_rel_l2": rel_l2,
+           "video_max_levels": levels,
+           "video_mean_levels": float(np.abs(
+               video.astype(float) - ref["video"].astype(float)).mean()),
+           "psnr_vs_world1_db": psnr_db(video, ref["video"]),
+           "denoise_s": denoise, "denoise_step_s": denoise / steps,
+           "expected_launches": expected, "ranks": ranks}
+    for r in ranks:
+        r["exchange_share"] = r["exchange"]["replayed"]["seconds"] / max(
+            r["timings_s"]["denoise"], 1e-9)
+    staged = ("host-staged (gloo copies each CUDA buffer through the host)"
+              if backend == "gloo" else "over NCCL")
+    log(f"parallel world {label}: backend {backend}, {where}; steps={steps} "
+        f"denoise_s={denoise:.3f} ({denoise / steps:.4f} a step) "
+        f"latent_rel_l2={rel_l2:.3e} video_max_levels={levels} "
+        f"psnr={rec['psnr_vs_world1_db']:.2f} dB ranks_equal={ranks_equal}")
+    for i, r in enumerate(ranks):
+        log(f"parallel world {label} rank {i}: backend {backend}, {where}; "
+            f"peak_gib={r['peak_gib']:.2f} denoise_s="
+            f"{r['timings_s']['denoise']:.3f} launches={r['launches']} "
+            f"(predicted {expected}) exchange: {r['exchange']['calls']} "
+            f"calls, {r['exchange']['bytes'] / 2**30:.3f} GiB, replayed "
+            f"alone {r['exchange']['replayed']['seconds']:.3f} s = "
+            f"{100 * r['exchange_share']:.1f}% of the (untimed) denoise, "
+            f"{staged}; replayed calls [op, shape, dtype, axis, count, ms] "
+            f"{r['exchange']['replayed']['calls']}; "
+            f"attention shapes {r['shapes']}")
+    bad = [i for i, r in enumerate(ranks) if r["launches"] != expected]
+    if bad:
+        raise AssertionError(f"world {label}: ranks {bad} launched other "
+                             f"than predicted {expected}")
+    if not (ranks_equal and rec["latents_finite"]):
+        raise AssertionError(f"world {label}: ranks disagree or non-finite")
+    if rel_l2 > PARALLEL_LIMITS["latent_rel_l2"] \
+            or levels > PARALLEL_LIMITS["video_levels"]:
+        raise AssertionError(f"world {label} disagrees with world 1: "
+                             f"{rel_l2:.3e}, {levels} levels")
+    return rec
+
+
+def free_card() -> float:
+    """Drop this process's unreferenced tensors and cached blocks, so that
+    ranks sharing the card find its memory; the GiB still reserved."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() / 2**30
+
+
+def full_width_world(fa, label: str, n: int, cp: bool, steps: int,
+                     seed: int, backend: str, devices: list, where: str,
+                     ref: dict) -> dict:
+    """STDiT3-XL/2 and its VAE at 480p 9:16 2 s, bf16, on `n` ranks."""
+    from videosys_tpu_torch import OpenSoraConfig, VideoSysEngine
+    from videosys_tpu_torch.pipelines.open_sora.data_process import (
+        get_image_size, get_num_frames)
+
+    cfg = OpenSoraConfig(transformer=None, vae=None, text_encoder=None,
+                         dtype="bf16", num_sampling_steps=steps, num_gpus=n,
+                         enable_cp=cp)
+    log(f"parallel world {label}: backend {backend}, {where}; the driver "
+        f"holds {free_card():.2f} GiB before the ranks start")
+    t0 = time.perf_counter()
+    engine = VideoSysEngine(cfg, devices=devices, backend=backend,
+                            timeout=PARALLEL_TIMEOUT_S, seed=seed)
+    setup_s = time.perf_counter() - t0
+    try:
+        engine._run_workers(setattr, "keep_latents", True)
+        engine._run_workers(rank_free_before_decode)
+        engine._run_workers(rank_reset)
+        t0 = time.perf_counter()
+        video = engine.generate(seed=seed, **PARALLEL_REQUEST).video
+        wall = time.perf_counter() - t0
+        ranks = engine._run_workers(rank_read)
+        for r, replay in zip(ranks, engine._run_workers(rank_exchange_replay)):
+            r["exchange"]["replayed"] = replay
+        h, w = get_image_size(PARALLEL_REQUEST["resolution"],
+                              PARALLEL_REQUEST["aspect_ratio"])
+        nf = get_num_frames(PARALLEL_REQUEST["num_frames"])
+        expected = expected_launches(
+            fa, engine.pipeline, nf, h, w, steps,
+            engine.pipeline.last_text_kv_len, sp=n // 2 if cp else n)
+    finally:
+        engine.shutdown()
+        del engine  # the driver's pipeline, freed before the next world
+    rec = world_record(label, backend, where, ranks, video, ref, expected,
+                       steps)
+    rec.update(setup_s=setup_s, wall_s=wall)
+    log(f"parallel world {label}: backend {backend}, {where}; setup_s="
+        f"{setup_s:.1f} generate_s={wall:.3f}")
+    return rec
+
+
+def world1_leg(fa, seed: int, step_counts) -> dict:
+    """World 1 through `initialize` with the groups installed, on the
+    default backend (NCCL for a CUDA device), one NCCL all-reduce, then
+    the 480p request at each step count: the references of the worlds."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from videosys_tpu_torch import OpenSoraConfig, OpenSoraPipeline
+    from videosys_tpu_torch.core import parallel as par
+    from videosys_tpu_torch.pipelines.open_sora.data_process import (
+        get_image_size, get_num_frames)
+
+    par.initialize(0, 1, f"localhost:{par.free_port()}",
+                   device=PARALLEL_DEVICE)
+    backend = dist.get_backend()
+    try:
+        groups = par.build_groups(par.ParallelConfig(), PARALLEL_DEVICE)
+        x = torch.ones(1, device=PARALLEL_DEVICE)
+        dist.all_reduce(x)
+        if float(x) != 1.0:
+            raise AssertionError("world-1 all-reduce changed its input")
+        cfg = OpenSoraConfig(transformer=None, vae=None, text_encoder=None,
+                             dtype="bf16", num_sampling_steps=max(step_counts))
+        pipe = OpenSoraPipeline(cfg, seed=seed, groups=groups,
+                                device=PARALLEL_DEVICE)
+        pipe.keep_latents = True
+        h, w = get_image_size(PARALLEL_REQUEST["resolution"],
+                              PARALLEL_REQUEST["aspect_ratio"])
+        nf = get_num_frames(PARALLEL_REQUEST["num_frames"])
+        refs = {}
+        for steps in step_counts:
+            set_steps(pipe, steps)
+            rank_reset(pipe)
+            t0 = time.perf_counter()
+            video = pipe.generate(seed=seed, **PARALLEL_REQUEST).video
+            wall = time.perf_counter() - t0
+            r = rank_read(pipe)
+            want = expected_launches(fa, pipe, nf, h, w, steps,
+                                     pipe.last_text_kv_len)
+            refs[steps] = {"video": video, "latents": r.pop("latents")
+                           .astype(np.float64), "record": dict(
+                               r, steps=steps, wall_s=wall,
+                               expected_launches=want)}
+            log(f"parallel world 1: backend {backend} (the default for "
+                f"{PARALLEL_DEVICE}), 1 rank on 1 card, groups installed; "
+                f"steps={steps} "
+                f"generate_s={wall:.3f} denoise_s="
+                f"{r['timings_s']['denoise']:.3f} peak_gib={r['peak_gib']:.2f}"
+                f" launches={r['launches']} (predicted {want}) exchange "
+                f"calls={r['exchange']['calls']}")
+            if r["launches"] != want or r["exchange"]["calls"]:
+                raise AssertionError("world 1 launched other than predicted "
+                                     "or exchanged")
+        del pipe
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return {"backend": backend, "refs": refs}
+
+
+def tiny_parallel(seed: int, backend: str) -> dict:
+    """A tiny fp32 Open-Sora on sp=2 and sp=4 ranks on cuda:0 against world
+    1 on the card: 17 frames (T = 5 latent frames) at 144p 5:8 (a 9 x 15
+    token grid), both padded under sp=2 and sp=4, an image (the batch
+    switch) and a reference frame (x_mask); then the engine's failure
+    path."""
+    import numpy as np
+    import torch
+
+    from videosys_tpu_torch import OpenSoraConfig, OpenSoraPipeline, VideoSysEngine
+    from videosys_tpu_torch.core.engine import WorkerError
+    from videosys_tpu_torch.models.autoencoders import autoencoder_open_sora as A
+    from videosys_tpu_torch.models.autoencoders.vae2d import AutoencoderKL2D
+    from videosys_tpu_torch.models.autoencoders.vae_temporal import VAETemporal
+    from videosys_tpu_torch.models.transformers.stdit3 import STDiT3Config
+
+    def config(**kw):
+        return OpenSoraConfig(
+            transformer=None, vae=None, text_encoder=None,
+            num_sampling_steps=4, dtype="fp32", transformer_config=STDiT3Config(
+                depth=2, hidden_size=32, num_heads=2, caption_channels=16,
+                model_max_length=8), **kw)
+
+    def vae():
+        return A.OpenSoraVAE(
+            A.OpenSoraVAEConfig(micro_frame_size=17, micro_batch_size=4),
+            spatial=AutoencoderKL2D(block_out_channels=(8, 8, 8, 16),
+                                    layers_per_block=1, num_groups=4,
+                                    mid_block_add_attention=False),
+            temporal=VAETemporal(filters=8, num_res_blocks=1, num_groups=4))
+
+    torch.manual_seed(seed)
+    one = OpenSoraPipeline(config(), vae=vae(), seed=seed,
+                           device=PARALLEL_DEVICE)
+    one.keep_latents = True
+    params = {name: {k: v.cpu().numpy() for k, v in m.state_dict().items()}
+              for name, m in (("transformer", one.transformer),
+                              ("vae", one.vae))}
+    kw = dict(prompt="waves at dusk", resolution="144p", aspect_ratio="5:8",
+              seed=seed)
+    cases = {"video": dict(num_frames=17), "image": dict(num_frames=1),
+             "reference": dict(num_frames=17, mask_strategy="0",
+                               reference=np.random.default_rng(seed).uniform(
+                                   -1, 1, (3, 1, 151, 241)).astype(np.float32))}
+    refs = {}
+    for case, extra in cases.items():
+        one.generate(**kw, **extra)
+        refs[case] = one.last_latents
+    out = {}
+    for label, n in (("sp2", 2), ("sp4", 4)):
+        engine = VideoSysEngine(config(num_gpus=n), vae=vae(), params=params,
+                                devices=[PARALLEL_DEVICE] * n,
+                                backend=backend,
+                                timeout=PARALLEL_TIMEOUT_S)
+        try:
+            engine._run_workers(setattr, "keep_latents", True)
+            for case, extra in cases.items():
+                engine.generate(**kw, **extra)
+                lats = engine._run_workers(getattr, "last_latents")
+                err = float(np.abs(lats[0] - refs[case]).max())
+                equal = all(np.array_equal(x, lats[0]) for x in lats) \
+                    and bool(np.isfinite(lats[0]).all())
+                log(f"parallel tiny {label} {case}: backend {backend}, "
+                    f"{SHARED}; fp32 latents max_abs_err vs world 1="
+                    f"{err:.3e} (tol {PARALLEL_TINY_TOL:.0e}) "
+                    f"ranks_equal={equal}")
+                if not (err <= PARALLEL_TINY_TOL and equal):
+                    raise AssertionError(f"tiny {label} {case} disagrees")
+                out[f"{label}_{case}"] = {"max_abs_err": err,
+                                          "ranks_equal": equal}
+            if label == "sp2":  # the failure path
+                t0 = time.perf_counter()
+                try:
+                    engine._run_workers(raise_on_workers, **kw,
+                                        **cases["image"])
+                except WorkerError as e:
+                    took = time.perf_counter() - t0
+                    first = str(e).splitlines()[0]
+                    log(f"parallel failure path: backend {backend}, "
+                        f"{SHARED}; a raising worker failed the "
+                        f"driver's call in {took:.2f} s (timeout "
+                        f"{PARALLEL_TIMEOUT_S:.0f} s): {first} / "
+                        f"{str(e).strip().splitlines()[-1]}")
+                    if "fault injected" not in str(e):
+                        raise AssertionError("the call failed with another "
+                                             "error than the worker's")
+                    out["failure"] = {"seconds": took, "error": first}
+                else:
+                    raise AssertionError("a raising worker's call returned")
+        finally:
+            engine.shutdown()
+    return out
+
+
+def parallel_kernel_shapes(fa, text_len: int) -> dict:
+    """The forward kernels at one rank's attention shapes of the parallel
+    worlds (480p 2 s, CFG batch 2, T 15 padded to 16 under sp=2, S 1590
+    padded to 1592 under sp=4), against their plain versions."""
+    return forward_shapes(fa, [
+        ("sp2_spatial", 16, 16, 1590, 1590, 72, False),
+        ("sp2_temporal", 1590, 16, 16, 16, 72, 15),
+        ("sp2_cross", 32, 16, 795, text_len, 72, True),
+        ("cp2_spatial", 15, 16, 1590, 1590, 72, False),
+        ("cp2_temporal", 1590, 16, 15, 15, 72, False),
+        ("cp2_cross", 15, 16, 1590, text_len, 72, True),
+        ("cp2sp2_spatial", 8, 16, 1590, 1590, 72, False),
+        ("cp2sp2_temporal", 795, 16, 16, 16, 72, 15),
+        ("cp2sp2_cross", 16, 16, 795, text_len, 72, True),
+        ("sp4_spatial", 8, 16, 1592, 1592, 72, 1590)], seed=5)
+
+
+def parallel_phase(fa, steps: int, seed: int, served=None) -> dict:
+    """Open-Sora v1.2 served through `VideoSysEngine(num_gpus=N)` with the
+    ranks sharing one card (see the module docstring, phase 16). `served`:
+    the serve phase's dense 480p request (the same weights, seed and
+    steps), world 1 of the sp=2 world; run here when None."""
+    import torch
+
+    t_start = time.perf_counter()
+    out = {"nccl_probe": nccl_probe()}
+    backend = "nccl" if out["nccl_probe"]["accepted"] else "gloo"
+    how = ("NCCL took two ranks on one device" if backend == "nccl"
+           else "NCCL refused two ranks on one device")
+    log(f"parallel: ranks that share one card run backend {backend}, passed "
+        f"explicitly ({how})")
+    counts = {PARALLEL_SHORT_STEPS} | ({steps} if served is None else set())
+    w1 = world1_leg(fa, seed, sorted(counts))
+    out["world1"] = {s: r["record"] for s, r in w1["refs"].items()}
+    if served is not None:
+        w1["refs"][steps] = served
+        log(f"parallel world 1, {steps} steps: the serve phase's dense 480p "
+            f"request (same weights, seed and steps)")
+    out["worlds"] = {}
+    for label, n, cp in PARALLEL_WORLDS:
+        n_steps = steps if label == "sp2" else PARALLEL_SHORT_STEPS
+        out["worlds"][label] = full_width_world(
+            fa, label, n, cp, n_steps, seed, backend, [PARALLEL_DEVICE] * n,
+            SHARED,
+            w1["refs"][n_steps])
+    if torch.cuda.device_count() >= 2:
+        out["worlds"]["sp2_nccl"] = full_width_world(
+            fa, "sp2_nccl", 2, False, PARALLEL_SHORT_STEPS, seed, "nccl",
+            ["cuda:0", "cuda:1"], "two cards",
+            w1["refs"][PARALLEL_SHORT_STEPS])
+    else:
+        log(f"parallel: sp=2 over NCCL on two cards did not run: "
+            f"torch.cuda.device_count() = {torch.cuda.device_count()}")
+    out["tiny"] = tiny_parallel(seed, backend)
+    out["kernel"] = parallel_kernel_shapes(
+        fa, out["worlds"]["sp2"]["ranks"][0]["text_kv_len"])
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"parallel phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=30,
@@ -3661,6 +4291,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         vch = vchitect_phase(fa, args.seed, args.vchitect_steps, args.profile)
         log(f"vchitect phase: {time.perf_counter() - t0:.1f} s")
+    if "parallel" in phases:  # phase 16: DSP and CFG parallel serving
+        par_out = parallel_phase(
+            fa, args.steps, args.seed,
+            served["world1_480p"] if "serve" in phases else None)
     if set(phases) != set(PHASES):
         log(f"partial run ({args.phases}) total_s="
             f"{time.perf_counter() - t_start:.1f}: no kernel report")
@@ -3799,6 +4433,29 @@ def main(argv=None) -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"]})
+    # one rank's shapes in the parallel worlds (ranks sharing the card),
+    # launches per rank per request from rank 0 of the world that ran them
+    for shape, world, key in (
+            ("sp2_spatial", "sp2", "narrow"), ("sp2_cross", "sp2", "narrow"),
+            ("sp2_temporal", "sp2", "short"),
+            ("cp2_spatial", "cp2", "narrow"), ("cp2_cross", "cp2", "narrow"),
+            ("cp2_temporal", "cp2", "short"),
+            ("cp2sp2_spatial", "cp2sp2", "narrow"),
+            ("cp2sp2_cross", "cp2sp2", "narrow"),
+            ("cp2sp2_temporal", "cp2sp2", "short")):
+        r = par_out["kernel"][shape]
+        n = par_out["worlds"][world]["ranks"][0]["launches"][key]
+        if n <= 0:
+            raise AssertionError(f"world {world} never launched "
+                                 f"flash_fwd_{key}")
+        kernels.append({
+            "name": f"flash_fwd_{key}", "route": "cuda",
+            "source": "videosys_tpu_torch/csrc/flash_fwd.cu",
+            "replaces": "videosys_tpu/ops/flash_attention.py:125",
+            "launches": n, "max_abs_err": r["max_abs_err_bf16"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"]})
     log(f"total_s={time.perf_counter() - t_start:.1f}")
     print(card)
     print(json.dumps({"kernels": kernels}))

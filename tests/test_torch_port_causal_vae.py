@@ -57,14 +57,22 @@ def perturbed(params, seed: int = 0):
 
 
 def vaes(name: str):
+    """The port's seeded weights, perturbed, and the same weights as JAX
+    params by the JAX package's converter (JAX compiles no init); from_jax
+    carries them back unchanged."""
     version, kw = CONFIGS[name]
     jcfg = J.CausalVAEConfig(**{**BASE, **kw})
     jvae = J.CausalVAE(jcfg, version=version)
-    params = perturbed(jvae.init(jax.random.key(0)))
     pcfg = P.CausalVAEConfig(**{**BASE, **kw})
+    torch.manual_seed(0)
     pvae = P.CausalVAE(pcfg, version=version)
-    pvae.load_state_dict({k: torch.from_numpy(v) for k, v in
-                          causal_vae_from_jax(params, pcfg).items()})
+    sd = perturbed({k: v.numpy() for k, v in pvae.state_dict().items()})
+    params = convert_causal_vae(sd, jcfg)
+    back = causal_vae_from_jax(params, pcfg)
+    assert back.keys() == sd.keys()
+    for k, v in back.items():
+        np.testing.assert_array_equal(v, sd[k])
+    pvae.load_state_dict({k: torch.from_numpy(v) for k, v in back.items()})
     return jcfg, jvae, params, pvae.eval()
 
 

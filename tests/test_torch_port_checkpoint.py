@@ -24,6 +24,8 @@ from videosys_tpu.models.autoencoders import autoencoder_open_sora as JA
 from videosys_tpu.models.autoencoders.vae2d import AutoencoderKL2D as JKL
 from videosys_tpu.models.autoencoders.vae_temporal import VAETemporal as JT
 from videosys_tpu.models.transformers.stdit3 import STDiT3Config as JCfg
+from videosys_tpu.utils.checkpoint import try_load_params as j_try_load_params
+from videosys_tpu.utils.convert import convert_vae2d, convert_vae_temporal
 from videosys_tpu_torch.models.autoencoders import autoencoder_open_sora as PA
 from videosys_tpu_torch.models.autoencoders.vae2d import AutoencoderKL2D as PKL
 from videosys_tpu_torch.models.autoencoders.vae_temporal import VAETemporal as PT
@@ -48,7 +50,7 @@ from videosys_tpu_torch.utils.from_jax import open_sora_vae_from_jax
 TOL = 2e-4
 SIZES = dict(depth=2, hidden_size=32, num_heads=2, caption_channels=16,
              model_max_length=8, patch_size=(1, 2, 2))
-SPATIAL = dict(mid_block_add_attention=False, block_out_channels=(8, 16),
+SPATIAL = dict(mid_block_add_attention=False, block_out_channels=(8, 8, 8, 16),
                layers_per_block=1, num_groups=4)
 TEMPORAL = dict(filters=8, num_res_blocks=1, num_groups=4)
 
@@ -170,14 +172,27 @@ def test_checkpoint_served_like_jax(tmp_path):
     jvae = JA.OpenSoraVAE(JA.OpenSoraVAEConfig(micro_frame_size=17,
                                                micro_batch_size=4),
                           spatial=JKL(**SPATIAL), temporal=JT(**TEMPORAL))
-    jpipe = videosys_tpu.OpenSoraPipeline(jcfg, vae=jvae)
-    jpipe.keep_latents = True
     pcfg = videosys_tpu_torch.OpenSoraConfig(
         transformer=ckpt, vae=None, text_encoder=None, num_sampling_steps=4,
         dtype="fp32", transformer_config=PCfg(**SIZES))
+    torch.manual_seed(0)
     pvae = PA.OpenSoraVAE(PA.OpenSoraVAEConfig(micro_frame_size=17,
                                                micro_batch_size=4),
                           spatial=PKL(**SPATIAL), temporal=PT(**TEMPORAL))
+    # the VAE: the port's seeded weights, given to JAX by the JAX package's
+    # converters and carried back by from_jax (JAX compiles no init)
+    sd = {k: v.numpy() for k, v in pvae.state_dict().items()}
+    part = {p: {k[len(p):]: v for k, v in sd.items() if k.startswith(p)}
+            for p in ("spatial_vae.module.", "temporal_vae.")}
+    vae_params = {"spatial": convert_vae2d(part["spatial_vae.module."],
+                                           len(SPATIAL["block_out_channels"])),
+                  "temporal": convert_vae_temporal(part["temporal_vae."], 4, 1)}
+    # the transformer: from the snapshot, by the loader the JAX pipeline
+    # calls when it is given no params
+    jparams = {**j_try_load_params(jcfg), "vae": vae_params}
+    assert "transformer" in jparams
+    jpipe = videosys_tpu.OpenSoraPipeline(jcfg, vae=jvae, params=jparams)
+    jpipe.keep_latents = True
     peng = videosys_tpu_torch.VideoSysEngine(
         pcfg, vae=pvae, device="cpu",
         params={"vae": open_sora_vae_from_jax(jpipe.params["vae"])})

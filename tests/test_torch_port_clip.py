@@ -197,6 +197,7 @@ def test_pipeline_with_triple_encoder_like_jax(snapshot, monkeypatch):
     import videosys_tpu_torch
     from videosys_tpu.models.autoencoders.vae2d import AutoencoderKL2D as JVAE
     from videosys_tpu.models.transformers import vchitect as J
+    from videosys_tpu.utils.convert import convert_vae2d, convert_vchitect
     from videosys_tpu_torch.models.transformers import vchitect as P
     from videosys_tpu_torch.utils.from_jax import vae2d_from_jax, vchitect_from_jax
 
@@ -205,19 +206,30 @@ def test_pipeline_with_triple_encoder_like_jax(snapshot, monkeypatch):
     vae = dict(mid_block_add_attention=False, latent_channels=16,
                block_out_channels=(8, 16), layers_per_block=1, num_groups=4)
     req = dict(num_inference_steps=3, width=32, height=32, frames=2, seed=4)
-    jpipe = JP.VchitectXLPipeline(JP.VchitectConfig(
-        model_path=snapshot, dtype="fp32",
-        transformer_config=J.VchitectModelConfig(**sizes), vae=JVAE(**vae)))
-    assert isinstance(jpipe.text_encoder, JC.VchitectTripleTextEncoder)
-    want = jpipe.generate("a ship sailing at dawn", **req).video
     pipe = videosys_tpu_torch.VchitectXLPipeline(
         videosys_tpu_torch.VchitectConfig(
             model_path=snapshot, dtype="fp32",
             transformer_config=P.VchitectModelConfig(**sizes), vae_config=vae),
-        device="cpu",
-        params={"transformer": vchitect_from_jax(jpipe.params["transformer"]),
-                "vae": vae2d_from_jax(jpipe.params["vae"])})
+        device="cpu")
     assert isinstance(pipe.text_encoder, VchitectTripleTextEncoder)
+    # the port's seeded weights, given to JAX by the JAX package's
+    # converters and carried back unchanged by from_jax (no init program)
+    sd = {name: {k: v.numpy() for k, v in m.state_dict().items()}
+          for name, m in (("transformer", pipe.transformer), ("vae", pipe.vae))}
+    params = {"transformer": convert_vchitect(sd["transformer"],
+                                              depth=sizes["num_layers"]),
+              "vae": convert_vae2d(sd["vae"], len(vae["block_out_channels"]))}
+    for name, back in (("transformer", vchitect_from_jax(params["transformer"])),
+                       ("vae", vae2d_from_jax(params["vae"]))):
+        assert back.keys() == sd[name].keys()
+        for k, v in back.items():
+            np.testing.assert_array_equal(v, sd[name][k])
+    jpipe = JP.VchitectXLPipeline(JP.VchitectConfig(
+        model_path=snapshot, dtype="fp32",
+        transformer_config=J.VchitectModelConfig(**sizes), vae=JVAE(**vae)),
+        params=params)
+    assert isinstance(jpipe.text_encoder, JC.VchitectTripleTextEncoder)
+    want = jpipe.generate("a ship sailing at dawn", **req).video
     _, zkey = jax.random.split(jax.random.key(4))
     z = np.array(jax.random.normal(zkey, pipe.latent_shape(2, 32, 32)))
     got = pipe.generate("a ship sailing at dawn", latents=torch.from_numpy(z),

@@ -23,7 +23,7 @@ from videosys_tpu.models.autoencoders.autoencoder_cogvideox import (
 from videosys_tpu.models.transformers import cogvideox as J
 from videosys_tpu.schedulers import ddim as jd
 from videosys_tpu.schedulers import dpm_cogvideox as jdpm
-from videosys_tpu.utils.convert import convert_cogvideox
+from videosys_tpu.utils.convert import convert_cogvideox, convert_cogvideox_vae
 from videosys_tpu_torch.core.pab import PABStepPlan
 from videosys_tpu_torch.models.autoencoders.autoencoder_cogvideox import (
     CogVideoXVAEConfig as PVAECfg,
@@ -59,15 +59,30 @@ def inputs(seed: int = 0, B: int = 2, F: int = 3, H: int = 8, W: int = 8):
     return x, enc, t
 
 
+def state(module) -> dict:
+    return {k: v.numpy() for k, v in module.state_dict().items()}
+
+
+def carried(sd: dict, params, from_jax) -> dict:
+    """from_jax carries `params` (made from `sd`) back to `sd` unchanged."""
+    back = from_jax(params)
+    assert back.keys() == sd.keys()
+    for k, v in back.items():
+        np.testing.assert_array_equal(v, sd[k])
+    return {k: torch.from_numpy(v) for k, v in back.items()}
+
+
 def models(rope: bool, pab=None):
+    """The port's seeded weights, perturbed, and the same weights as JAX
+    params by the JAX package's converter (JAX compiles no init)."""
     jcfg = J.CogVideoXConfig(**SIZES, use_rotary_positional_embeddings=rope)
     jm = J.CogVideoXTransformer3D(jcfg, pab_config=pab)
-    x, enc, t = inputs()
-    params = perturbed(jm.init(jax.random.key(0), x, enc, t))
+    torch.manual_seed(0)
     pm = P.CogVideoXTransformer3D(
         P.CogVideoXConfig(**SIZES, use_rotary_positional_embeddings=rope))
-    pm.load_state_dict({k: torch.from_numpy(v)
-                        for k, v in cogvideox_from_jax(params).items()})
+    sd = perturbed(state(pm))
+    params = convert_cogvideox(sd, depth=SIZES["num_layers"])
+    pm.load_state_dict(carried(sd, params, cogvideox_from_jax))
     return jcfg, jm, params, pm
 
 
@@ -218,28 +233,37 @@ def test_generate_like_jax(scheduler, pab, steps):
     rope = scheduler == "dpm"  # the 5b widths serve with DPM
     kw = dict(model_path="", dtype="fp32", scheduler=scheduler,
               enable_pab=pab, vae_tiling=False)
+    peng = videosys_tpu_torch.VideoSysEngine(
+        videosys_tpu_torch.CogVideoXConfig(
+            **kw, transformer_config=P.CogVideoXConfig(
+                **SIZES, use_rotary_positional_embeddings=rope),
+            vae_config=PVAECfg(**VAE)),
+        device="cpu")
+    pipe = peng.pipeline
+    pipe.keep_latents = True
+    # the port's seeded weights, perturbed, given to JAX by the JAX
+    # package's converters (JAX compiles no init)
+    sd = {"transformer": perturbed(state(pipe.transformer)),
+          "vae": perturbed(state(pipe.vae), 1)}
+    params = {"transformer": convert_cogvideox(sd["transformer"],
+                                               depth=SIZES["num_layers"]),
+              "vae": convert_cogvideox_vae(
+                  sd["vae"], len(VAE["block_out_channels"]),
+                  VAE["layers_per_block"])}
+    pipe.transformer.load_state_dict(carried(
+        sd["transformer"], params["transformer"], cogvideox_from_jax))
+    pipe.vae.load_state_dict(carried(sd["vae"], params["vae"],
+                                     cogvideox_vae_from_jax))
     jpipe = JP.CogVideoXPipeline(JP.CogVideoXConfig(
         **kw, transformer_config=J.CogVideoXConfig(
             **SIZES, use_rotary_positional_embeddings=rope),
-        vae_config=JVAECfg(**VAE)))
-    jpipe.params = perturbed(jpipe.params)
+        vae_config=JVAECfg(**VAE)), params=params)
     seen = []
     decode = jpipe.vae.decode
     jpipe.vae.decode = lambda p, lat: seen.append(np.asarray(lat)) or decode(p, lat)
     req = dict(num_inference_steps=steps, num_frames=9, height=32, width=32,
                seed=5, use_dynamic_cfg=scheduler == "dpm")
     want = jpipe.generate("a dog running on the beach", **req).video
-
-    peng = videosys_tpu_torch.VideoSysEngine(
-        videosys_tpu_torch.CogVideoXConfig(
-            **kw, transformer_config=P.CogVideoXConfig(
-                **SIZES, use_rotary_positional_embeddings=rope),
-            vae_config=PVAECfg(**VAE)),
-        device="cpu",
-        params={"transformer": cogvideox_from_jax(jpipe.params["transformer"]),
-                "vae": cogvideox_vae_from_jax(jpipe.params["vae"])})
-    pipe = peng.pipeline
-    pipe.keep_latents = True
     z, draws = jax_draws(5, pipe.latent_shape(9, 32, 32), steps)
     got = peng.generate("a dog running on the beach",
                         latents=torch.from_numpy(z),

@@ -30,13 +30,21 @@ SIZES = dict(latent_channels=4, block_out_channels=(8, 8, 16, 16),
 def vaes():
     jv = J.AutoencoderKLCogVideoX(J.CogVideoXVAEConfig(**SIZES))
     rng = np.random.default_rng(0)
-    # moved off the identity norms so the scales and biases count
-    params = jax.tree.map(
-        lambda a: np.asarray(a) + 0.05 * rng.standard_normal(
-            np.shape(a)).astype(np.float32), jv.init(jax.random.key(0)))
+    # the port's seeded weights, moved off the identity norms so the scales
+    # and biases count, as JAX params by the JAX package's converter (JAX
+    # compiles no init); from_jax carries them back unchanged
+    torch.manual_seed(0)
     pv = P.AutoencoderKLCogVideoX(P.CogVideoXVAEConfig(**SIZES))
-    pv.load_state_dict({k: torch.from_numpy(v) for k, v in
-                        cogvideox_vae_from_jax(params).items()}, strict=True)
+    sd = {k: v.numpy() + 0.05 * rng.standard_normal(v.shape).astype(np.float32)
+          for k, v in pv.state_dict().items()}
+    params = convert_cogvideox_vae(sd, len(SIZES["block_out_channels"]),
+                                   SIZES["layers_per_block"])
+    back = cogvideox_vae_from_jax(params)
+    assert back.keys() == sd.keys()
+    for k, v in back.items():
+        np.testing.assert_array_equal(v, sd[k])
+    pv.load_state_dict({k: torch.from_numpy(v) for k, v in back.items()},
+                       strict=True)
     return jv, params, pv
 
 

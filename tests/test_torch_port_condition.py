@@ -3,7 +3,8 @@ the VAE encoders and `OpenSoraVAE.encode` given the same noises, the
 encoder weights carried by from_jax, the mask-strategy helpers, the masked
 denoise step (with and without a PAB cache), and whole tiny conditioned and
 `loop=2` generates fed JAX's draws, reproduced from the seed by the JAX
-pipeline's own split sequence. fp32, whole models at 2e-4."""
+pipeline's own split sequence. fp32, whole models at 2e-4. The weights are
+the port's seeded ones, given to JAX by the JAX package's converters."""
 
 import jax
 import jax.numpy as jnp
@@ -20,7 +21,11 @@ from videosys_tpu.models.autoencoders.vae_temporal import VAETemporal as JT
 from videosys_tpu.models.transformers.stdit3 import STDiT3 as JSTDiT3
 from videosys_tpu.models.transformers.stdit3 import STDiT3Config as JCfg
 from videosys_tpu.pipelines.open_sora import mask_strategy as jms
-from videosys_tpu.utils.convert import convert_vae2d, convert_vae_temporal
+from videosys_tpu.utils.convert import (
+    convert_stdit3,
+    convert_vae2d,
+    convert_vae_temporal,
+)
 from videosys_tpu_torch.core.pab import PABStepPlan as PPlan
 from videosys_tpu_torch.models.autoencoders import autoencoder_open_sora as PA
 from videosys_tpu_torch.models.autoencoders.vae2d import AutoencoderKL2D as PKL
@@ -33,6 +38,8 @@ TOL = 2e-4
 SIZES = dict(depth=2, hidden_size=32, num_heads=2, caption_channels=16,
              model_max_length=8, patch_size=(1, 2, 2))
 SPATIAL = dict(block_out_channels=(8, 16), layers_per_block=1, num_groups=4)
+# the pipelines' VAE: 8x space, so that 144p gives a 12 x 12 token grid
+PIPE_SPATIAL = dict(SPATIAL, block_out_channels=(8, 8, 8, 16))
 TEMPORAL = dict(filters=8, num_res_blocks=1, num_groups=4)
 STEPS = 3  # sampling steps of the tiny pipelines
 
@@ -58,26 +65,47 @@ def encode_noise(key):
     return noise
 
 
-def vaes(attention):
+def vaes(attention, spatial=SPATIAL):
     jv = JA.OpenSoraVAE(JA.OpenSoraVAEConfig(micro_frame_size=17,
                                              micro_batch_size=4),
-                        spatial=JKL(mid_block_add_attention=attention, **SPATIAL),
+                        spatial=JKL(mid_block_add_attention=attention, **spatial),
                         temporal=JT(**TEMPORAL))
+    torch.manual_seed(0)
     pv = PA.OpenSoraVAE(PA.OpenSoraVAEConfig(micro_frame_size=17,
                                              micro_batch_size=4),
-                        spatial=PKL(mid_block_add_attention=attention, **SPATIAL),
+                        spatial=PKL(mid_block_add_attention=attention, **spatial),
                         temporal=PT(**TEMPORAL))
     return jv, pv.eval()
 
 
+def state(module) -> dict:
+    return {k: v.numpy() for k, v in module.state_dict().items()}
+
+
+def vae_params(sd: dict, spatial=SPATIAL) -> dict:
+    """A port VAE state_dict as the JAX VAE's params (the JAX package's
+    converters); from_jax carries them back unchanged."""
+    part = {p: {k[len(p):]: v for k, v in sd.items() if k.startswith(p)}
+            for p in ("spatial_vae.module.", "temporal_vae.")}
+    params = {"spatial": convert_vae2d(part["spatial_vae.module."],
+                                       len(spatial["block_out_channels"])),
+              "temporal": convert_vae_temporal(part["temporal_vae."], 4, 1)}
+    assert_same(open_sora_vae_from_jax(params), sd)
+    return params
+
+
+def assert_same(got: dict, want: dict) -> None:
+    assert got.keys() == want.keys()
+    for k, v in got.items():
+        np.testing.assert_array_equal(v, want[k])
+
+
 @pytest.fixture(scope="module")
 def vae_pair():
-    """The tiny VAE with its mid attention, JAX and port, same weights."""
+    """The tiny VAE with its mid attention, JAX and port, the same (the
+    port's seeded) weights: JAX compiles no init program."""
     jv, pv = vaes(True)
-    params = jv.init(jax.random.key(0))
-    pv.load_state_dict({k: torch.tensor(v)
-                        for k, v in open_sora_vae_from_jax(params).items()})
-    return jv, params, pv
+    return jv, vae_params(state(pv)), pv
 
 
 def test_encode_matches_jax(vae_pair):
@@ -117,16 +145,15 @@ def test_encode_matches_jax(vae_pair):
 
 def test_vae_state_dict_round_trip(vae_pair):
     """The port's whole VAE state_dict, encoders included, carries the
-    reference checkpoint's key names: the JAX package's converters turn it
-    back into the params it came from."""
+    reference checkpoint's key names: the JAX package's converters read
+    every key into the params the JAX VAE runs on, and from_jax turns those
+    back into the state_dict."""
     _, params, pv = vae_pair
-    sd = {k: v.numpy() for k, v in pv.state_dict().items()}
-    part = {p: {k[len(p):]: v for k, v in sd.items() if k.startswith(p)}
-            for p in ("spatial_vae.module.", "temporal_vae.")}
-    back = {"spatial": convert_vae2d(part["spatial_vae.module."], 2),
-            "temporal": convert_vae_temporal(part["temporal_vae."], 4, 1)}
+    sd = state(pv)
+    back = vae_params(sd)
     jax.tree.map(np.testing.assert_array_equal, back,
                  jax.tree.map(np.asarray, params))
+    assert_same(open_sora_vae_from_jax(back), sd)
 
 
 @pytest.mark.parametrize("strategy,loop_i,align", [
@@ -181,20 +208,22 @@ def test_append_generated_equals_jax(vae_pair):
 
 @pytest.fixture(scope="module")
 def engines():
-    jcfg = videosys_tpu.OpenSoraConfig(
-        transformer=None, vae=None, text_encoder=None, num_sampling_steps=STEPS,
-        dtype="fp32", transformer_config=JCfg(**SIZES))
-    jvae, pvae = vaes(False)
-    jpipe = videosys_tpu.OpenSoraPipeline(jcfg, vae=jvae)
-    jpipe.keep_latents = True
+    """The tiny pipelines on the same (the port's seeded) weights."""
+    jvae, pvae = vaes(False, PIPE_SPATIAL)
     pcfg = videosys_tpu_torch.OpenSoraConfig(
         transformer=None, vae=None, text_encoder=None, num_sampling_steps=STEPS,
         dtype="fp32", transformer_config=PCfg(**SIZES))
-    peng = videosys_tpu_torch.VideoSysEngine(
-        pcfg, vae=pvae, device="cpu",
-        params={"transformer": stdit3_from_jax(jpipe.params["transformer"]),
-                "vae": open_sora_vae_from_jax(jpipe.params["vae"])})
+    peng = videosys_tpu_torch.VideoSysEngine(pcfg, vae=pvae, device="cpu")
     peng.pipeline.keep_latents = True
+    sd = state(peng.pipeline.transformer)
+    params = {"transformer": convert_stdit3(sd, SIZES["depth"]),
+              "vae": vae_params(state(peng.pipeline.vae), PIPE_SPATIAL)}
+    assert_same(stdit3_from_jax(params["transformer"]), sd)
+    jcfg = videosys_tpu.OpenSoraConfig(
+        transformer=None, vae=None, text_encoder=None, num_sampling_steps=STEPS,
+        dtype="fp32", transformer_config=JCfg(**SIZES))
+    jpipe = videosys_tpu.OpenSoraPipeline(jcfg, vae=jvae, params=params)
+    jpipe.keep_latents = True
     return jpipe, peng
 
 

@@ -57,14 +57,28 @@ def inputs(seed: int = 0, B: int = 2, T: int = 4, H: int = 16, W: int = 16,
     return x, t, y, mask
 
 
+def state(module) -> dict:
+    return {k: v.numpy() for k, v in module.state_dict().items()}
+
+
+def carried(sd: dict, params, from_jax) -> dict:
+    """from_jax carries `params` (made from `sd`) back to `sd` unchanged."""
+    back = from_jax(params)
+    assert back.keys() == sd.keys()
+    for k, v in back.items():
+        np.testing.assert_array_equal(v, sd[k])
+    return {k: torch.from_numpy(v) for k, v in back.items()}
+
+
 def models(variant: str):
+    """The port's seeded weights, perturbed, and the same weights as JAX
+    params by the JAX package's converter (JAX compiles no init)."""
     kw = dict(SIZES, **VARIANTS[variant])
-    jm = J.LatteT2V(J.LatteConfig(**kw))
-    x, t, y, mask = inputs()
-    params = perturbed(jm.init(jax.random.key(0), x, t, y, kv_mask=mask))
+    torch.manual_seed(0)
     pm = P.LatteT2V(P.LatteConfig(**kw))
-    pm.load_state_dict({k: torch.from_numpy(v)
-                        for k, v in latte_from_jax(params).items()})
+    sd = perturbed(state(pm))
+    params = convert_latte(sd, depth=SIZES["num_layers"])
+    pm.load_state_dict(carried(sd, params, latte_from_jax))
     return kw, params, pm.eval()
 
 
@@ -190,27 +204,34 @@ def test_generate_like_jax(pab, monkeypatch):
     them to ~60), the uint8 video within one level."""
     req = dict(num_inference_steps=5 if pab else 3, video_length=4,
                height=16, width=16, seed=3)
-    jcfg = JP.LatteConfig(model_path=None, dtype="fp32", enable_pab=pab,
-                          pab_config=pab_config(),
-                          transformer_config=J.LatteConfig(**SIZES))
-    jpipe = JP.LattePipeline(jcfg, vae=JVAE(**VAE))
-    jpipe.params = perturbed(jpipe.params)
-    seen = []
-    # run the JAX VAE decode eagerly to see the latents it is given
-    monkeypatch.setattr(jjit, "jit_method", lambda obj, name, static_argnums=():
-                        lambda p, f: seen.append(np.asarray(f)) or getattr(obj, name)(p, f))
-    want = jpipe.generate("a cat playing piano", **req).video
-
     engine = videosys_tpu_torch.VideoSysEngine(
         videosys_tpu_torch.LatteConfig(
             model_path=None, dtype="fp32", enable_pab=pab,
             pab_config=pab_config(), transformer_config=P.LatteConfig(**SIZES),
             vae_config=VAE),
-        device="cpu",
-        params={"transformer": latte_from_jax(jpipe.params["transformer"]),
-                "vae": vae2d_from_jax(jpipe.params["vae"])})
+        device="cpu")
     pipe = engine.pipeline
     pipe.keep_latents = True
+    # the port's seeded weights, perturbed, given to JAX by the JAX
+    # package's converters (JAX compiles no init)
+    sd = {"transformer": perturbed(state(pipe.transformer)),
+          "vae": perturbed(state(pipe.vae), 1)}
+    params = {"transformer": convert_latte(sd["transformer"],
+                                           depth=SIZES["num_layers"]),
+              "vae": convert_vae2d(sd["vae"], len(VAE["block_out_channels"]))}
+    pipe.transformer.load_state_dict(carried(
+        sd["transformer"], params["transformer"], latte_from_jax))
+    pipe.vae.load_state_dict(carried(sd["vae"], params["vae"],
+                                     vae2d_from_jax))
+    jcfg = JP.LatteConfig(model_path=None, dtype="fp32", enable_pab=pab,
+                          pab_config=pab_config(),
+                          transformer_config=J.LatteConfig(**SIZES))
+    jpipe = JP.LattePipeline(jcfg, vae=JVAE(**VAE), params=params)
+    seen = []
+    # run the JAX VAE decode eagerly to see the latents it is given
+    monkeypatch.setattr(jjit, "jit_method", lambda obj, name, static_argnums=():
+                        lambda p, f: seen.append(np.asarray(f)) or getattr(obj, name)(p, f))
+    want = jpipe.generate("a cat playing piano", **req).video
     z = jax_latents(3, pipe.latent_shape(4, 16, 16))
     got = engine.generate("a cat playing piano", latents=torch.from_numpy(z),
                           **req).video

@@ -64,8 +64,8 @@ class WordTokenizer:
 def tiny_vae():
     return PA.OpenSoraVAE(
         PA.OpenSoraVAEConfig(micro_frame_size=17, micro_batch_size=4),
-        spatial=AutoencoderKL2D(block_out_channels=(8, 16), layers_per_block=1,
-                                num_groups=4),
+        spatial=AutoencoderKL2D(block_out_channels=(8, 8, 8, 16),
+                                layers_per_block=1, num_groups=4),
         temporal=VAETemporal(filters=8, num_res_blocks=1, num_groups=4))
 
 
@@ -134,7 +134,9 @@ def test_config_fields():
                                                device="cpu")
     assert all(p.device.type == "cpu" and not p.is_pinned()
                for p in pipe.transformer.parameters())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    # num_gpus > 1 builds its groups over the default process group: none
+    # exists here (VideoSysEngine spawns the ranks)
+    with pytest.raises(RuntimeError, match="initialize"):
         videosys_tpu_torch.OpenSoraPipeline(
             dataclasses.replace(cfg, num_gpus=2), vae=tiny_vae(), device="cpu")
 
@@ -148,7 +150,7 @@ def test_flash_attn_off_raises_on_card():
             tiny_config(enable_flash_attn=False), vae=tiny_vae())
 
 
-def test_engine_api_and_initialize():
+def test_engine_api_and_initialize(monkeypatch):
     eng = videosys_tpu_torch.VideoSysEngine(tiny_config(), vae=tiny_vae(),
                                             device="cpu")
     assert eng.driver_worker is eng.pipeline
@@ -158,5 +160,11 @@ def test_engine_api_and_initialize():
     a = (random.random(), np.random.rand(), torch.rand(1).item())
     videosys_tpu_torch.initialize(rank=0, world_size=1, seed=3)
     assert a == (random.random(), np.random.rand(), torch.rand(1).item())
-    with pytest.raises(NotImplementedError, match="world_size"):
-        videosys_tpu_torch.initialize(world_size=2)
+    # world_size > 1 joins a process group: at an address, on a device
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(ValueError, match="coordinator_address"):
+        videosys_tpu_torch.initialize(world_size=2, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            videosys_tpu_torch.initialize(world_size=2,
+                                          coordinator_address="localhost:1")

@@ -28,7 +28,11 @@ from videosys_tpu.models.transformers import open_sora_plan_v110 as J110
 from videosys_tpu.models.transformers import open_sora_plan_v120 as J
 from videosys_tpu.schedulers import euler_ancestral as jea
 from videosys_tpu.schedulers import pndm as jpndm
-from videosys_tpu.utils.convert import convert_osp_v120
+from videosys_tpu.utils.convert import (
+    convert_causal_vae,
+    convert_latte,
+    convert_osp_v120,
+)
 from videosys_tpu_torch.core.pab import PABStepPlan
 from videosys_tpu_torch.models.autoencoders.autoencoder_causal_vae import (
     CausalVAEConfig as PVAECfg,
@@ -76,15 +80,28 @@ def inputs(seed: int = 0, B: int = 2):
     return x, enc, t, mask
 
 
+def state(module) -> dict:
+    return {k: v.numpy() for k, v in module.state_dict().items()}
+
+
+def carried(sd: dict, params, from_jax) -> dict:
+    """from_jax carries `params` (made from `sd`) back to `sd` unchanged."""
+    back = from_jax(params)
+    assert back.keys() == sd.keys()
+    for k, v in back.items():
+        np.testing.assert_array_equal(v, sd[k])
+    return {k: torch.from_numpy(v) for k, v in back.items()}
+
+
 def v120_models(use_rope: bool):
-    jm = J.OpenSoraPlanV120Transformer(J.OpenSoraPlanV120Config(
-        **V120, use_rope=use_rope))
-    x, enc, t, mask = inputs()
-    params = perturbed(jm.init(jax.random.key(0), x, enc, t))
+    """The port's seeded weights, perturbed, and the same weights as JAX
+    params by the JAX package's converter (JAX compiles no init)."""
+    torch.manual_seed(0)
     pm = P.OpenSoraPlanV120Transformer(P.OpenSoraPlanV120Config(
         **V120, use_rope=use_rope))
-    pm.load_state_dict({k: torch.from_numpy(v)
-                        for k, v in osp_v120_from_jax(params).items()})
+    sd = perturbed(state(pm))
+    params = convert_osp_v120(sd, depth=V120["num_layers"])
+    pm.load_state_dict(carried(sd, params, osp_v120_from_jax))
     return params, pm.eval()
 
 
@@ -260,34 +277,41 @@ def test_generate_like_jax(version, ttype, pab, steps):
     jvae_cfg = (JVAECfg(**VAE) if version == "v110"
                 else JVAECfg(**VAE, encoder_attention="AttnBlock3DFix",
                              decoder_attention="AttnBlock3DFix"))
-    jcfg = JP.OpenSoraPlanConfig(
-        version=version, transformer_type=ttype, dtype="fp32",
-        enable_tiling=False, enable_pab=pab, transformer_config=jt,
-        vae=JVAE(jvae_cfg, version=version))
-    jpipe = JP.OpenSoraPlanPipeline(jcfg)
-    jpipe.params = perturbed(jpipe.params, scale=0.05)
-    seen = []
-    decode = jpipe.vae.decode
-    jpipe.vae.decode = lambda p, z: seen.append(np.asarray(z)) or decode(p, z)
-    want = jpipe.generate("sunset over the sea", num_inference_steps=steps,
-                          seed=2).video
-
     pt = (P110.OpenSoraPlanV110Config(**V110) if version == "v110"
           else P.OpenSoraPlanV120Config(**V120))
     pvae_cfg = PVAECfg(**{f.name: getattr(jvae_cfg, f.name)
                           for f in dataclasses.fields(PVAECfg)})
-    tparams = (latte_from_jax if version == "v110" else osp_v120_from_jax)(
-        jpipe.params["transformer"])
     engine = videosys_tpu_torch.VideoSysEngine(
         videosys_tpu_torch.OpenSoraPlanConfig(
             version=version, transformer_type=ttype, dtype="fp32",
             enable_tiling=False, enable_pab=pab, transformer_config=pt,
             vae_config=pvae_cfg),
-        device="cpu",
-        params={"transformer": tparams,
-                "vae": causal_vae_from_jax(jpipe.params["vae"], pvae_cfg)})
+        device="cpu")
     pipe = engine.pipeline
     pipe.keep_latents = True
+    # the port's seeded weights, perturbed, given to JAX by the JAX
+    # package's converters (JAX compiles no init)
+    convert, from_jax = ((convert_latte, latte_from_jax) if version == "v110"
+                         else (convert_osp_v120, osp_v120_from_jax))
+    sd = {"transformer": perturbed(state(pipe.transformer), scale=0.05),
+          "vae": perturbed(state(pipe.vae), 1, scale=0.05)}
+    params = {"transformer": convert(sd["transformer"], depth=2),
+              "vae": convert_causal_vae(sd["vae"], jvae_cfg)}
+    pipe.transformer.load_state_dict(carried(
+        sd["transformer"], params["transformer"], from_jax))
+    pipe.vae.load_state_dict(carried(
+        sd["vae"], params["vae"],
+        lambda p: causal_vae_from_jax(p, pvae_cfg)))
+    jcfg = JP.OpenSoraPlanConfig(
+        version=version, transformer_type=ttype, dtype="fp32",
+        enable_tiling=False, enable_pab=pab, transformer_config=jt,
+        vae=JVAE(jvae_cfg, version=version))
+    jpipe = JP.OpenSoraPlanPipeline(jcfg, params=params)
+    seen = []
+    decode = jpipe.vae.decode
+    jpipe.vae.decode = lambda p, z: seen.append(np.asarray(z)) or decode(p, z)
+    want = jpipe.generate("sunset over the sea", num_inference_steps=steps,
+                          seed=2).video
     draws = JaxDraws(2, pipe.latent_shape(), len(
         pipe.scheduler.set_timesteps(steps)))
     got = engine.generate("sunset over the sea", num_inference_steps=steps,

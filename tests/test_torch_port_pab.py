@@ -20,6 +20,11 @@ from videosys_tpu.models.autoencoders import autoencoder_open_sora as JA
 from videosys_tpu.models.autoencoders.vae2d import AutoencoderKL2D as JKL
 from videosys_tpu.models.autoencoders.vae_temporal import VAETemporal as JT
 from videosys_tpu.models.transformers import stdit3 as JS
+from videosys_tpu.utils.convert import (
+    convert_stdit3,
+    convert_vae2d,
+    convert_vae_temporal,
+)
 from videosys_tpu_torch.core import pab as P
 from videosys_tpu_torch.models.autoencoders import autoencoder_open_sora as PA
 from videosys_tpu_torch.models.autoencoders.vae2d import AutoencoderKL2D as PKL
@@ -32,7 +37,7 @@ from videosys_tpu_torch.utils.from_jax import open_sora_vae_from_jax, stdit3_fro
 TOL = 2e-4
 SIZES = dict(depth=2, hidden_size=32, num_heads=2, caption_channels=16,
              model_max_length=8, patch_size=(1, 2, 2))
-SPATIAL = dict(mid_block_add_attention=False, block_out_channels=(8, 16),
+SPATIAL = dict(mid_block_add_attention=False, block_out_channels=(8, 8, 8, 16),
                layers_per_block=1, num_groups=4)
 TEMPORAL = dict(filters=8, num_res_blocks=1, num_groups=4)
 
@@ -124,17 +129,17 @@ def models():
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2, B, 4, T, H, W)).astype(np.float32)
     y = rng.standard_normal((B, L, 16)).astype(np.float32)
-    jm = JS.STDiT3(JS.STDiT3Config(**SIZES))
-    params = jm.init(jax.random.key(0), jnp.asarray(x[0]),
-                     jnp.ones((B,), jnp.float32), jnp.asarray(y),
-                     height=256.0, width=256.0)
-    leaves, tree = jax.tree.flatten(params)
-    leaves = [np.asarray(a) + 0.05 * rng.standard_normal(a.shape).astype(np.float32)
-              for a in leaves]
-    params = jax.tree.unflatten(tree, leaves)
+    # the port's seeded weights, perturbed, given to JAX by the JAX
+    # package's converter and carried back by from_jax (no init program)
+    torch.manual_seed(0)
     pm = PS.STDiT3(PS.STDiT3Config(**SIZES))
+    sd = {k: v.numpy() + 0.05 * rng.standard_normal(v.shape).astype(np.float32)
+          for k, v in pm.state_dict().items()}
+    params = convert_stdit3(sd, SIZES["depth"])
     pm.load_state_dict({k: torch.tensor(v)
                         for k, v in stdit3_from_jax(params).items()})
+    for k, v in pm.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), sd[k])
     kw = dict(kv_mask=np.arange(L)[None] < np.array([[5], [8]]),
               x_mask=np.array([[True, True, False], [True, False, False]]),
               fps=np.full((B,), 24.0, np.float32))
@@ -243,20 +248,37 @@ def engines():
     jvae = JA.OpenSoraVAE(JA.OpenSoraVAEConfig(micro_frame_size=17,
                                                micro_batch_size=4),
                           spatial=JKL(**SPATIAL), temporal=JT(**TEMPORAL))
-    jpipe = videosys_tpu.OpenSoraPipeline(jcfg, vae=jvae)
-    jpipe.keep_latents = True
     pcfg = videosys_tpu_torch.OpenSoraConfig(
         transformer=None, vae=None, text_encoder=None,
         num_sampling_steps=steps, dtype="fp32",
         transformer_config=PS.STDiT3Config(**SIZES))
+    torch.manual_seed(0)
     pvae = PA.OpenSoraVAE(PA.OpenSoraVAEConfig(micro_frame_size=17,
                                                micro_batch_size=4),
                           spatial=PKL(**SPATIAL), temporal=PT(**TEMPORAL))
-    peng = videosys_tpu_torch.VideoSysEngine(
-        pcfg, vae=pvae, device="cpu",
-        params={"transformer": stdit3_from_jax(jpipe.params["transformer"]),
-                "vae": open_sora_vae_from_jax(jpipe.params["vae"])})
+    peng = videosys_tpu_torch.VideoSysEngine(pcfg, vae=pvae, device="cpu")
     peng.pipeline.keep_latents = True
+    # the port's seeded weights, given to JAX by the JAX package's
+    # converters and carried back unchanged by from_jax (no init program)
+    sd = {name: {k: v.numpy() for k, v in m.state_dict().items()}
+          for name, m in (("transformer", peng.pipeline.transformer),
+                          ("vae", peng.pipeline.vae))}
+    part = {p: {k[len(p):]: v for k, v in sd["vae"].items()
+                if k.startswith(p)}
+            for p in ("spatial_vae.module.", "temporal_vae.")}
+    params = {"transformer": convert_stdit3(sd["transformer"], SIZES["depth"]),
+              "vae": {"spatial": convert_vae2d(
+                          part["spatial_vae.module."],
+                          len(SPATIAL["block_out_channels"])),
+                      "temporal": convert_vae_temporal(part["temporal_vae."],
+                                                       4, 1)}}
+    for name, back in (("transformer", stdit3_from_jax(params["transformer"])),
+                       ("vae", open_sora_vae_from_jax(params["vae"]))):
+        assert back.keys() == sd[name].keys()
+        for k, v in back.items():
+            np.testing.assert_array_equal(v, sd[name][k])
+    jpipe = videosys_tpu.OpenSoraPipeline(jcfg, vae=jvae, params=params)
+    jpipe.keep_latents = True
     return jpipe, peng
 
 

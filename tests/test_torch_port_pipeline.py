@@ -1,6 +1,7 @@
 """The PyTorch port's Open-Sora slice against the JAX package: the rflow
 ladders, the stub text encoder, text-KV bucketing, the whole tiny
-`VideoSysEngine.generate` (same params via from_jax, same initial noise),
+`VideoSysEngine.generate` (the same params: the port's, converted for JAX
+and back through from_jax; the same initial noise),
 the copied framework-free files, and the port's import isolation."""
 
 import subprocess
@@ -26,6 +27,11 @@ from videosys_tpu.models.text_encoders.t5 import StubTextEncoder as JStub
 from videosys_tpu.models.transformers.stdit3 import STDiT3Config as JCfg
 from videosys_tpu.pipelines.common import bucket_text_kv as j_bucket
 from videosys_tpu.schedulers import rflow as jr
+from videosys_tpu.utils.convert import (
+    convert_stdit3,
+    convert_vae2d,
+    convert_vae_temporal,
+)
 from videosys_tpu_torch.models.autoencoders import autoencoder_open_sora as PA
 from videosys_tpu_torch.models.autoencoders.vae2d import AutoencoderKL2D as PKL
 from videosys_tpu_torch.models.autoencoders.vae_temporal import VAETemporal as PT
@@ -38,7 +44,7 @@ from videosys_tpu_torch.utils.from_jax import open_sora_vae_from_jax, stdit3_fro
 TOL = 2e-4
 SIZES = dict(depth=2, hidden_size=32, num_heads=2, caption_channels=16,
              model_max_length=8, patch_size=(1, 2, 2))
-SPATIAL = dict(mid_block_add_attention=False, block_out_channels=(8, 16),
+SPATIAL = dict(mid_block_add_attention=False, block_out_channels=(8, 8, 8, 16),
                layers_per_block=1, num_groups=4)
 TEMPORAL = dict(filters=8, num_res_blocks=1, num_groups=4)
 
@@ -80,8 +86,44 @@ def test_stub_encoder_and_bucketing_bit_equal():
     assert p_bucket(*short, 300)[2] == 64
 
 
+def jax_params(pipe) -> dict:
+    """The port pipeline's seeded weights as the JAX pipeline's params, by
+    the JAX package's converters (the reference checkpoint's key names);
+    from_jax carries them back unchanged. JAX compiles no init program."""
+    sd = {name: {k: v.numpy() for k, v in m.state_dict().items()}
+          for name, m in (("transformer", pipe.transformer), ("vae", pipe.vae))}
+
+    def part(prefix):
+        return {k[len(prefix):]: v for k, v in sd["vae"].items()
+                if k.startswith(prefix)}
+
+    params = {"transformer": convert_stdit3(sd["transformer"], SIZES["depth"]),
+              "vae": {"spatial": convert_vae2d(
+                          part("spatial_vae.module."),
+                          len(SPATIAL["block_out_channels"])),
+                      "temporal": convert_vae_temporal(
+                          part("temporal_vae."), 4,
+                          TEMPORAL["num_res_blocks"])}}
+    for name, back in (("transformer", stdit3_from_jax(params["transformer"])),
+                       ("vae", open_sora_vae_from_jax(params["vae"]))):
+        assert back.keys() == sd[name].keys()
+        for k, v in back.items():
+            np.testing.assert_array_equal(v, sd[name][k])
+    return params
+
+
 @pytest.fixture(scope="module")
 def engines():
+    pcfg = videosys_tpu_torch.OpenSoraConfig(
+        transformer=None, vae=None, text_encoder=None, num_sampling_steps=4,
+        dtype="fp32", transformer_config=PCfg(**SIZES))
+    torch.manual_seed(0)
+    pvae = PA.OpenSoraVAE(PA.OpenSoraVAEConfig(micro_frame_size=17,
+                                               micro_batch_size=4),
+                          spatial=PKL(**SPATIAL), temporal=PT(**TEMPORAL))
+    peng = videosys_tpu_torch.VideoSysEngine(pcfg, vae=pvae, device="cpu")
+    peng.pipeline.keep_latents = True
+
     jcfg = videosys_tpu.OpenSoraConfig(
         transformer=None, vae=None, text_encoder=None, num_sampling_steps=4,
         dtype="fp32", transformer_config=JCfg(**SIZES))
@@ -89,21 +131,9 @@ def engines():
                                                micro_batch_size=4),
                           spatial=JKL(**SPATIAL), temporal=JT(**TEMPORAL))
     # the JAX pipeline that videosys_tpu.VideoSysEngine(jcfg, vae=jvae) wraps
-    jpipe = videosys_tpu.OpenSoraPipeline(jcfg, vae=jvae)
+    jpipe = videosys_tpu.OpenSoraPipeline(jcfg, vae=jvae,
+                                          params=jax_params(peng.pipeline))
     jpipe.keep_latents = True
-    jparams = jpipe.params
-
-    pcfg = videosys_tpu_torch.OpenSoraConfig(
-        transformer=None, vae=None, text_encoder=None, num_sampling_steps=4,
-        dtype="fp32", transformer_config=PCfg(**SIZES))
-    pvae = PA.OpenSoraVAE(PA.OpenSoraVAEConfig(micro_frame_size=17,
-                                               micro_batch_size=4),
-                          spatial=PKL(**SPATIAL), temporal=PT(**TEMPORAL))
-    peng = videosys_tpu_torch.VideoSysEngine(
-        pcfg, vae=pvae, device="cpu",
-        params={"transformer": stdit3_from_jax(jparams["transformer"]),
-                "vae": open_sora_vae_from_jax(jparams["vae"])})
-    peng.pipeline.keep_latents = True
     return jpipe, peng
 
 
@@ -166,7 +196,9 @@ def test_copies_equal_originals(mod_j, mod_p, extra):
 def test_port_imports_no_jax():
     """The port imports no JAX and nothing of the JAX package; the modules
     that read weights import neither transformers nor safetensors, so the
-    port runs where neither is installed."""
+    port runs where neither is installed. The same holds for the parallel
+    runtime, the watchdog and the workers' entry point (a spawned worker
+    imports only what it runs)."""
     code = ("import sys, videosys_tpu_torch, videosys_tpu_torch.utils.from_jax,"
             " videosys_tpu_torch.training.train, videosys_tpu_torch.training.ckpt,"
             " videosys_tpu_torch.training.datasets, videosys_tpu_torch.core.pab,"
@@ -194,7 +226,9 @@ def test_port_imports_no_jax():
             " videosys_tpu_torch.eval.metrics, videosys_tpu_torch.eval.pab_eval,"
             " videosys_tpu_torch.eval.batch_eval,"
             " videosys_tpu_torch.utils.checkpoint,"
-            " videosys_tpu_torch.utils.safetensors_io;"
+            " videosys_tpu_torch.utils.safetensors_io,"
+            " videosys_tpu_torch.core.parallel, videosys_tpu_torch.core.worker,"
+            " videosys_tpu_torch.utils.watchdog;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'videosys_tpu',"
             " 'transformers', 'safetensors', 'tokenizers')];"

@@ -22,6 +22,7 @@ import torch
 from videosys_tpu.models.transformers import stdit3 as J
 from videosys_tpu.schedulers import rflow as JR
 from videosys_tpu.training import train_step as JT
+from videosys_tpu.utils.convert import convert_stdit3
 from videosys_tpu_torch.models.transformers import stdit3 as P
 from videosys_tpu_torch.schedulers import rflow as PR
 from videosys_tpu_torch.training import ckpt as ckpt_io
@@ -79,17 +80,21 @@ def _jax_draws(sched, rng, x_shape, prob):
 
 @pytest.fixture(scope="module")
 def models():
-    batch = _batch()
+    """The port's seeded weights, perturbed, as JAX params by the JAX
+    package's converter (JAX compiles no init); from_jax carries them back
+    unchanged."""
     jm = J.STDiT3(J.STDiT3Config(**SIZES))
-    params = jm.init(jax.random.key(0), jnp.asarray(batch["x"]),
-                     jnp.zeros((B,)), jnp.asarray(batch["y"]),
-                     height=64.0, width=64.0)
+    torch.manual_seed(0)
+    pm = P.STDiT3(P.STDiT3Config(**SIZES))
     rng = np.random.default_rng(1)
-    leaves, tree = jax.tree.flatten(params)
-    leaves = [np.asarray(a) + 0.05 * rng.standard_normal(a.shape).astype(np.float32)
-              for a in leaves]
-    params = jax.tree.unflatten(tree, leaves)
-    return jm, params, stdit3_from_jax(params)
+    sd = {k: v.numpy() + 0.05 * rng.standard_normal(v.shape).astype(np.float32)
+          for k, v in pm.state_dict().items()}
+    params = convert_stdit3(sd, SIZES["depth"])
+    back = stdit3_from_jax(params)
+    assert back.keys() == sd.keys()
+    for k, v in back.items():
+        np.testing.assert_array_equal(v, sd[k])
+    return jm, params, back
 
 
 def _port_model(sd, **kw):

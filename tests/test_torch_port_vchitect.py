@@ -24,7 +24,7 @@ from videosys_tpu.core.pab import build_plans as j_build_plans
 from videosys_tpu.models.autoencoders.vae2d import AutoencoderKL2D as JVAE
 from videosys_tpu.models.transformers import vchitect as J
 from videosys_tpu.schedulers import flow_match_euler as JS
-from videosys_tpu.utils.convert import convert_vchitect
+from videosys_tpu.utils.convert import convert_vae2d, convert_vchitect
 from videosys_tpu_torch.core.pab import build_plans
 from videosys_tpu_torch.models.transformers import vchitect as P
 from videosys_tpu_torch.pipelines.vchitect import pipeline_vchitect as PP
@@ -58,14 +58,29 @@ def inputs(seed: int = 0, F: int = 4, L: int = 6):
             np.array([500.0], np.float32))
 
 
+def state(module) -> dict:
+    return {k: v.numpy() for k, v in module.state_dict().items()}
+
+
+def carried(sd: dict, params, from_jax) -> dict:
+    """from_jax carries `params` (made from `sd`) back to `sd` unchanged."""
+    back = from_jax(params)
+    assert back.keys() == sd.keys()
+    for k, v in back.items():
+        np.testing.assert_array_equal(v, sd[k])
+    return {k: torch.from_numpy(v) for k, v in back.items()}
+
+
 @pytest.fixture(scope="module")
 def models():
-    """(JAX params, the port's model with them), built once."""
-    jm = J.VchitectXLTransformer(J.VchitectModelConfig(**SIZES))
-    params = perturbed(jax.jit(jm.init)(jax.random.key(0), *inputs()))
+    """(JAX params, the port's model with them), built once: the port's
+    seeded weights, perturbed, as JAX params by the JAX package's converter
+    (JAX compiles no init)."""
+    torch.manual_seed(0)
     pm = P.VchitectXLTransformer(P.VchitectModelConfig(**SIZES))
-    pm.load_state_dict({k: torch.from_numpy(v)
-                        for k, v in vchitect_from_jax(params).items()})
+    sd = perturbed(state(pm))
+    params = convert_vchitect(sd, depth=SIZES["num_layers"])
+    pm.load_state_dict(carried(sd, params, vchitect_from_jax))
     return params, pm.eval()
 
 
@@ -214,27 +229,34 @@ def test_generate_like_jax(pab, monkeypatch, tmp_path):
     level. The PAB run's ladder (8 steps) reads every branch."""
     req = dict(num_inference_steps=8 if pab else 3, width=32, height=32,
                frames=4, seed=3)
-    jcfg = JP.VchitectConfig(model_path=None, dtype="fp32", enable_pab=pab,
-                             transformer_config=J.VchitectModelConfig(**SIZES),
-                             vae=JVAE(**VAE))
-    jpipe = JP.VchitectXLPipeline(jcfg)
-    jpipe.params = perturbed(jpipe.params)
-    seen = []
-    # run the JAX VAE decode eagerly to see the latents it is given
-    monkeypatch.setattr(jjit, "jit_method", lambda obj, name, static_argnums=():
-                        lambda p, f: seen.append(np.asarray(f)) or getattr(obj, name)(p, f))
-    want = jpipe.generate(PROMPT, **req).video
-
     engine = videosys_tpu_torch.VideoSysEngine(
         videosys_tpu_torch.VchitectConfig(
             model_path=None, dtype="fp32", enable_pab=pab,
             transformer_config=P.VchitectModelConfig(**SIZES),
             vae_config=VAE),
-        device="cpu",
-        params={"transformer": vchitect_from_jax(jpipe.params["transformer"]),
-                "vae": vae2d_from_jax(jpipe.params["vae"])})
+        device="cpu")
     pipe = engine.pipeline
     pipe.keep_latents = True
+    # the port's seeded weights, perturbed, given to JAX by the JAX
+    # package's converters (JAX compiles no init)
+    sd = {"transformer": perturbed(state(pipe.transformer)),
+          "vae": perturbed(state(pipe.vae), 1)}
+    params = {"transformer": convert_vchitect(sd["transformer"],
+                                              depth=SIZES["num_layers"]),
+              "vae": convert_vae2d(sd["vae"], len(VAE["block_out_channels"]))}
+    pipe.transformer.load_state_dict(carried(
+        sd["transformer"], params["transformer"], vchitect_from_jax))
+    pipe.vae.load_state_dict(carried(sd["vae"], params["vae"],
+                                     vae2d_from_jax))
+    jcfg = JP.VchitectConfig(model_path=None, dtype="fp32", enable_pab=pab,
+                             transformer_config=J.VchitectModelConfig(**SIZES),
+                             vae=JVAE(**VAE))
+    jpipe = JP.VchitectXLPipeline(jcfg, params=params)
+    seen = []
+    # run the JAX VAE decode eagerly to see the latents it is given
+    monkeypatch.setattr(jjit, "jit_method", lambda obj, name, static_argnums=():
+                        lambda p, f: seen.append(np.asarray(f)) or getattr(obj, name)(p, f))
+    want = jpipe.generate(PROMPT, **req).video
     z = jax_latents(3, pipe.latent_shape(4, 32, 32))
     got = engine.generate(PROMPT, latents=torch.from_numpy(z), **req).video
     frames = pipe.last_latents[0] / PP.VAE_SCALING + PP.VAE_SHIFT

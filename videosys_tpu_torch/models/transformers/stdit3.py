@@ -1,9 +1,16 @@
 """STDiT3 (Open-Sora v1.2), the spatio-temporal DiT.
 
-Port of `videosys_tpu/models/transformers/stdit3.py` without sharding.
-Activations are [B, T, S, C]; the depth pairs are a Python loop over
-`spatial_blocks` and `temporal_blocks`, named as in the reference
-checkpoint's state_dict. For training, `remat` recomputes each
+Port of `videosys_tpu/models/transformers/stdit3.py`. Activations are
+[B, T, S, C]; the depth pairs are a Python loop over `spatial_blocks` and
+`temporal_blocks`, named as in the reference checkpoint's state_dict.
+
+Sequence parallelism (DSP, `core/parallel.py`): under groups installed with
+`parallel.use_groups` and sp > 1, T and S are padded to the sp size after
+patchify and each rank holds its S shard [B, T, S/sp, C]. A spatial block
+switches only its attention input to T-sharded and back; temporal and
+cross-attention and the MLP stay local; the padded tokens and frames are
+masked as keys. S is gathered before unpatchify. With no groups the
+one-card loop runs unchanged. For training, `remat` recomputes each
 spatial+temporal pair in the backward pass, and `compute_dtype` computes in
 another dtype than the parameters are held in (fp32 master weights, bf16
 matmuls and attention).
@@ -31,6 +38,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from videosys_tpu_torch.core import parallel as par
 from videosys_tpu_torch.core.pab import (
     PABCache,
     PABConfig,
@@ -120,11 +128,13 @@ class STDiT3Block(nn.Module):
         self.mlp = Mlp(C, int(C * config.mlp_ratio), C)
 
     def forward(self, x, y, t_mlp, t0_mlp=None, x_mask=None, kv_mask=None,
-                read=None, write=None):
+                read=None, write=None, s_pad=None, t_pad=None):
         """`read` / `write`: PAB cache views of this block by slot ("attn",
         "cross", "mlp"), each [B, T, S, C]. A slot in `read` replaces its
         branch, which is not computed, by the cached output; a branch whose
-        slot is in `write` is computed and copied into it in place."""
+        slot is in `write` is computed and copied into it in place.
+        `s_pad` [S] / `t_pad` [T]: False at the tokens / frames that pad
+        to the sp size, masked as keys (x is this rank's S shard)."""
         cfg = self.config
         read = read or {}
         write = write or {}
@@ -147,14 +157,25 @@ class STDiT3Block(nn.Module):
                 x_m = t_mask_select(x_mask, x_m,
                                     t2i_modulate(normed1, shift_msa0, scale_msa0))
             if self.temporal:
+                # local under the resident S shard
                 xa = x_m.permute(0, 2, 1, 3).reshape(B * S, T, C)
                 rope = rope_channel_tables(np.arange(T, dtype=np.float32),
                                            rope_freqs(C // cfg.num_heads),
                                            cfg.num_heads)
-                xa = self.attn(xa, rope_channel=rope)
+                t_kv = None if t_pad is None else t_pad.expand(B * S, T)
+                xa = self.attn(xa, kv_mask=t_kv, rope_channel=rope)
                 x_m = xa.reshape(B, S, T, C).permute(0, 2, 1, 3)
             else:
-                x_m = self.attn(x_m.reshape(B * T, S, C)).reshape(B, T, S, C)
+                # DSP switch: S shard -> T shard (an image: batch shard)
+                is_image = T == 1
+                x_m = (par.shard_batch_over_all(x_m) if is_image
+                       else par.shard_temporal(x_m))
+                Ba, Ta, Sa = x_m.shape[:3]
+                s_kv = None if s_pad is None else s_pad.expand(Ba * Ta, Sa)
+                x_m = self.attn(x_m.reshape(Ba * Ta, Sa, C),
+                                kv_mask=s_kv).reshape(Ba, Ta, Sa, C)
+                x_m = (par.unshard_batch(x_m, B) if is_image
+                       else par.shard_spatial(x_m))
             x_m_s = gate_msa * x_m
             if x_mask is not None:
                 x_m_s = t_mask_select(x_mask, x_m_s, gate_msa0 * x_m)
@@ -257,11 +278,17 @@ class STDiT3(nn.Module):
 
     def init_cache(self, pab: PABConfig, B: int, T: int, S: int) -> PABCache:
         """A zeroed PAB cache for B rows of T x S tokens on the model's
-        device, in `pab.cache_dtype` (None: the model's compute dtype)."""
+        device, in `pab.cache_dtype` (None: the model's compute dtype).
+        Under active sp groups its slots take this rank's padded shard,
+        [B, T_pad, S_pad / sp, C], as the forward holds it."""
         cfg = self.config
         weight = self.final_layer.linear.weight
         dtype = (cache_torch_dtype(pab.cache_dtype) or self.compute_dtype
                  or weight.dtype)
+        m = par.token_pad_multiple()
+        if m > 1:
+            T = T if T == 1 else -(-T // m) * m
+            S = -(-S // m) * m // m
         shape = (cfg.depth, B, T, S, cfg.hidden_size)
 
         def zeros(shape):
@@ -281,11 +308,13 @@ class STDiT3(nn.Module):
                                 if b < cfg.depth})
 
     @staticmethod
-    def _pair(spatial, temporal, xe, y, t_mlp, t0_mlp, x_mask, kv_mask):
-        xe = spatial(xe, y, t_mlp, t0_mlp, x_mask, kv_mask)
-        return temporal(xe, y, t_mlp, t0_mlp, x_mask, kv_mask)
+    def _pair(spatial, temporal, xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
+              s_pad=None, t_pad=None):
+        xe = spatial(xe, y, t_mlp, t0_mlp, x_mask, kv_mask, s_pad=s_pad)
+        return temporal(xe, y, t_mlp, t0_mlp, x_mask, kv_mask, t_pad=t_pad)
 
-    def _dense_pairs(self, xe, y, t_mlp, t0_mlp, x_mask, kv_mask):
+    def _dense_pairs(self, xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
+                     s_pad=None, t_pad=None):
         recompute = (self.remat and self.remat_policy != "none"
                      and torch.is_grad_enabled())
         for spatial, temporal in zip(self.spatial_blocks, self.temporal_blocks):
@@ -294,15 +323,16 @@ class STDiT3(nn.Module):
                     "context_fn": functools.partial(
                         create_selective_checkpoint_contexts, _save_matmuls)}
                 xe = checkpoint(self._pair, spatial, temporal, xe, y, t_mlp,
-                                t0_mlp, x_mask, kv_mask, use_reentrant=False,
-                                **context)
+                                t0_mlp, x_mask, kv_mask, s_pad, t_pad,
+                                use_reentrant=False, **context)
             else:
                 xe = self._pair(spatial, temporal, xe, y, t_mlp, t0_mlp,
-                                x_mask, kv_mask)
+                                x_mask, kv_mask, s_pad, t_pad)
         return xe
 
     def _pab_pairs(self, xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
-                   plan: PABStepPlan, cache: PABCache):
+                   plan: PABStepPlan, cache: PABCache, s_pad=None,
+                   t_pad=None):
         """The depth pairs of one PAB step: a pair-read step adds each
         pair's cached residual and runs neither block."""
         delta = cache.slots.get("pair", {}).get("delta")
@@ -313,9 +343,9 @@ class STDiT3(nn.Module):
                 continue
             x_in = xe
             xe = spatial(xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
-                         *cache.views(plan, "spatial", i))
+                         *cache.views(plan, "spatial", i), s_pad=s_pad)
             xe = temporal(xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
-                          *cache.views(plan, "temporal", i))
+                          *cache.views(plan, "temporal", i), t_pad=t_pad)
             if delta is not None and plan.save_pair:
                 delta[i].copy_(xe - x_in)
         return xe
@@ -359,11 +389,34 @@ class STDiT3(nn.Module):
         xe = self.x_embedder(x.to(dtype)).reshape(B, T, S, cfg.hidden_size)
         xe = xe + pos[None, None]
 
+        # sp: pad T and S to the sp size (an image never pads T), mask the
+        # pad as keys, keep this rank's S shard (JAX stdit3.py:515-537)
+        T0, S0 = T, S
+        s_pad = t_pad = None
+        m = par.token_pad_multiple()
+        if m > 1:
+            Sp = -(-S // m) * m
+            Tp = T if T == 1 else -(-T // m) * m
+            if Sp != S:
+                s_pad = torch.arange(Sp, device=device) < S
+            if Tp != T:
+                t_pad = torch.arange(Tp, device=device) < T
+                if x_mask is not None:
+                    x_mask = torch.cat([x_mask, x_mask.new_ones(
+                        (B, Tp - T))], dim=1)
+            if (Tp, Sp) != (T, S):
+                xe = torch.nn.functional.pad(
+                    xe, (0, 0, 0, Sp - S, 0, Tp - T))
+                T, S = Tp, Sp
+            xe = par.split(xe, 2)
+
         if pab_cache is not None:
             xe = self._pab_pairs(xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
-                                 plan or PABStepPlan(), pab_cache)
+                                 plan or PABStepPlan(), pab_cache, s_pad,
+                                 t_pad)
         else:
-            xe = self._dense_pairs(xe, y, t_mlp, t0_mlp, x_mask, kv_mask)
+            xe = self._dense_pairs(xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
+                                   s_pad, t_pad)
 
         table = self.final_layer.scale_shift_table.float()
         mods = (table[None] + t[:, None].float()).to(dtype)
@@ -377,6 +430,9 @@ class STDiT3(nn.Module):
                                mods0[:, 1, None, None, :])
             xo = t_mask_select(x_mask, xo, xo0)
         xo = self.final_layer.linear(xo)
+        if m > 1:  # gather S, drop the sp padding (JAX stdit3.py:625-626)
+            xo = par.gather(xo, 2)[:, :T0, :S0]
+            T, S = T0, S0
 
         # unpatchify: [B, T, (H W), (pt ph pw c)] -> [B, c, T*pt, H*ph, W*pw]
         c = cfg.out_channels

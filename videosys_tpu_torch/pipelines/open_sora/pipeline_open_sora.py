@@ -13,8 +13,15 @@ Weights come from local directories (`utils/checkpoint.py`): the
 transformer from a reference snapshot or, with the VAE, from this
 package's `save_params` directory; the T5 encoder and its tokenizer from a
 local HF snapshot. `cpu_offload` keeps every module on the host and fetches
-each onto the card for its phase only (text, denoise, VAE). Not ported
-yet: multi-device runs (`num_gpus > 1`).
+each onto the card for its phase only (text, denoise, VAE).
+
+`num_gpus > 1` (`core/parallel.py`): one pipeline per rank, each on its own
+device, over the ranks' process groups (`groups=`; `VideoSysEngine` spawns
+the ranks, a `torchrun` caller passes its own). STDiT3 runs sequence
+parallel (DSP) over sp; with `enable_cp` the two halves of the CFG-doubled
+batch run on the two cp ranks and are gathered for the guidance. Every rank
+draws the same noise from the same seeds, takes the same steps and decodes
+the whole video; rank 0 alone post-processes and returns it.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from videosys_tpu_torch.core import parallel as par
 from videosys_tpu_torch.core.pab import PABConfig, build_plans
 from videosys_tpu_torch.core.pipeline import (
     VideoSysPipeline,
@@ -86,11 +94,11 @@ class OpenSoraConfig:
     vae: Optional[str] = "hpcai-tech/OpenSora-VAE-v1.2"
     text_encoder: Optional[str] = "DeepFloyd/t5-v1_1-xxl"
     # ======== distributed ========
-    num_gpus: int = 1  # > 1 is not ported yet
+    num_gpus: int = 1  # ranks: sp = num_gpus, or num_gpus / 2 with cp
     # low-memory mode: the modules stay on the host and each phase fetches
     # the one it runs (text encoder, transformer, VAE) onto the card
     cpu_offload: bool = False
-    enable_cp: bool = False  # no effect on one card, as in the JAX package
+    enable_cp: bool = False  # CFG halves over 2 ranks (even num_gpus)
     # ======== scheduler ========
     num_sampling_steps: int = 30
     cfg_scale: float = 7.0
@@ -115,22 +123,30 @@ class OpenSoraConfig:
 
 
 class OpenSoraPipeline(VideoSysPipeline):
+    serves_parallel = True  # VideoSysEngine may spawn num_gpus ranks
+
     def __init__(self, config: OpenSoraConfig, text_encoder=None,
                  vae: Optional[OpenSoraVAE] = None,
-                 params: Optional[dict] = None, seed: int = 42, device=None):
+                 params: Optional[dict] = None, seed: int = 42, device=None,
+                 groups: Optional[par.Groups] = None):
         """`params`: optional {"transformer": state_dict, "vae": state_dict}
         (tensors or numpy arrays, this package's key names; see
         utils/from_jax.py); a module not in it is loaded from the config's
         paths, or random-initialized from `seed` under the random-init
         hooks. Under `cpu_offload` the modules are built and kept on the
-        host."""
+        host. `groups`: this rank's process groups (`parallel.build_groups`,
+        the counterpart of JAX's `mesh=`); with `num_gpus > 1` and none
+        given they are built over the default process group."""
         self._config = config
         self.device = resolve_device(device)
         self.dtype = _DTYPES[config.dtype]
-        if config.num_gpus > 1:
-            raise NotImplementedError(
-                "num_gpus > 1 is not ported yet (ROADMAP Queue 1 item 6, "
-                "parallelism); run on one card")
+        if groups is None and config.num_gpus > 1:
+            groups = par.build_groups(par.ParallelConfig.from_world_size(
+                config.num_gpus, enable_cp=config.enable_cp), self.device)
+        if groups is not None and groups.world_size != config.num_gpus:
+            raise ValueError(f"groups of {groups.world_size} ranks for "
+                             f"num_gpus={config.num_gpus}")
+        self.groups = groups
         if not config.enable_flash_attn and self.device.type == "cuda":
             raise ValueError(
                 "enable_flash_attn=False: on the card every attention runs "
@@ -189,11 +205,16 @@ class OpenSoraPipeline(VideoSysPipeline):
         B = z.shape[0]
         z_in = torch.cat([z, z]).to(self.dtype)
         t_in = torch.full((2 * B,), float(t_scalar), device=z.device)
+        batch = [z_in, t_in, y_all, kv_mask_all, torch.cat([fps, fps]), x_mask]
+        # cp: this rank runs its half of the CFG-doubled batch
+        z_in, t_in, y_all, kv_mask_all, fps_in, x_mask = (
+            None if a is None else par.split(a, 0, par.CP_AXIS) for a in batch)
         out = self.transformer(z_in, t_in, y_all, kv_mask=kv_mask_all,
-                               x_mask=x_mask, fps=torch.cat([fps, fps]),
+                               x_mask=x_mask, fps=fps_in,
                                height=height, width=width, plan=plan,
                                pab_cache=cache)
-        pred = out[:, : self.model_config.in_channels]
+        pred = par.gather(out[:, : self.model_config.in_channels], 0,
+                          par.CP_AXIS)
         v = self.scheduler.apply_cfg(pred[:B], pred[B:], guidance_scale)
         return self.scheduler.step(z, v, dt)
 
@@ -248,7 +269,8 @@ class OpenSoraPipeline(VideoSysPipeline):
                                           torch.Tensor]] = None,
                  return_dict: bool = True):
         """Text to video. `prompt` may be a list (one batched denoise; row i
-        uses seed + i).
+        uses seed + i). A negative `seed` draws one; on several ranks, rank
+        0 draws it and sends it to the others.
 
         Condition frames: `reference` is pixels [C, T, H, W] in [-1, 1]
         (conditioned on its frame 0 unless `mask_strategy` says otherwise;
@@ -274,7 +296,10 @@ class OpenSoraPipeline(VideoSysPipeline):
                 raise ValueError(f"seed list length {len(seed)} != {B} prompts")
             seeds = [int(s) for s in seed]
         else:
-            base = int(seed) if seed >= 0 else np.random.randint(0, 2**31 - 1)
+            # an unseeded request: rank 0's draw, so that every rank
+            # starts from the same noise
+            base = int(seed) if seed >= 0 else par.broadcast_from_rank0(
+                int(np.random.randint(0, 2**31 - 1)), self.groups)
             seeds = [base + i for i in range(B)]
         if isinstance(latents, torch.Tensor):
             latents = [latents]
@@ -334,7 +359,8 @@ class OpenSoraPipeline(VideoSysPipeline):
                     with self._phase("text"):
                         texts = texts_i
                         y_all, kv_mask_all = self._encode_prompts(texts)
-            with self._phase("denoise", self.transformer, "transformer"):
+            with self._phase("denoise", self.transformer, "transformer"), \
+                    par.use_groups(self.groups):
                 if latents is not None:
                     if tuple(latents[loop_i].shape) != shape:
                         raise ValueError(
@@ -355,8 +381,9 @@ class OpenSoraPipeline(VideoSysPipeline):
                     T_tok = -(-t_lat // mc.patch_size[0])
                     S_tok = (-(-h_lat // mc.patch_size[1])) * (
                         -(-w_lat // mc.patch_size[2]))
-                    cache = self.transformer.init_cache(pab, 2 * B, T_tok,
-                                                        S_tok)
+                    cache = self.transformer.init_cache(
+                        pab, 2 * B // par.axis_size(par.CP_AXIS), T_tok,
+                        S_tok)
                     self.last_pab_cache_bytes = cache.nbytes
                 args = (y_all, kv_mask_all, fps_arr, float(height),
                         float(width), float(guidance_scale))
@@ -383,6 +410,9 @@ class OpenSoraPipeline(VideoSysPipeline):
                     clips.append(self.vae.decode(z, num_frames))
 
         # --- postprocess ------------------------------------------------------- #
+        if self.groups is not None and self.groups.rank != 0:
+            return (None,) if not return_dict else VideoSysPipelineOutput(
+                video=None)  # rank 0 alone returns the video
         t0 = time.perf_counter()
         if loop == 1:
             video = torch.cat(clips[0], dim=1)
