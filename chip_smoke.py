@@ -146,21 +146,28 @@ Phases, each fatal on failure:
      device (its message is printed; when it refuses, the shared-card
      worlds pass backend="gloo" explicitly, which stages every exchange
      through the host); world 1 through `initialize` on the default
-     backend (NCCL) with the groups installed, the 480p request at 4 steps
-     (and at `--steps` unless the serve phase ran it); then the 480p
-     request at full width on sp=2 for `--steps`, on cp=2 and on cp=2 x
-     sp=2 for PARALLEL_SHORT_STEPS, each held against world 1
-     (PARALLEL_LIMITS), with each rank's peak memory, denoise seconds,
-     launches against the prediction from its per-rank shapes, attention
-     shapes and the exchange's share of the denoise (the request runs
-     untimed; each collective it made is then replayed alone with a sync
-     on each side, and its median times its count is the exchange's
-     seconds); sp=2 over NCCL on two
-     cards where there are two, else a line that says it did not run; a
-     tiny fp32 configuration on sp=2 and sp=4 (T and S both padded, an
-     image, a reference frame) against world 1 at 2e-4; a worker that
-     raises must fail the driver's call; the forward kernels at one rank's
-     shapes of those worlds against their plain versions.
+     backend (NCCL) with the groups installed, the 480p request at
+     PARALLEL_SHORT_STEPS; then that request at full width on sp=2, cp=2
+     and cp=2 x sp=2, each held against world 1 (PARALLEL_LIMITS), with
+     each rank's peak memory, denoise seconds, launches against the
+     prediction from its per-rank shapes, attention shapes and the
+     exchange's share of the denoise (the request runs untimed; each
+     collective it made is then replayed alone with a sync on each side,
+     and its median times its count is the exchange's seconds); sp=2 over
+     NCCL on two cards where there are two, else a line that says it did
+     not run. Then every other family the same way at its published widths
+     and depth (FAMILY_WORLDS, sp=2 on the shared card, Latte also cp=2):
+     CogVideoX-2b 49 x 480 x 720 and Open-Sora-Plan v1.2 29 x 480p under
+     Ulysses, Latte-1 16 x 512 x 512, Open-Sora-Plan v1.1 65 x 512 x 512 and
+     Vchitect-2.0 40 x 288 x 480 under DSP, FAMILY_STEPS denoise steps and
+     one decode each, against world 1 (the driver's own pipeline with its
+     groups taken away), the per-rank attention shapes held to the
+     prediction. A tiny fp32 configuration on sp=2 and sp=4 (T and S both
+     padded, an image, a reference frame) against world 1 at 2e-4, and on
+     the same ranks every family's tiny parallel forward (every pad taken)
+     against the CPU; a worker that raises must fail the driver's call;
+     the forward kernels at one rank's shapes of every world against their
+     plain versions.
 
 bf16 outputs are held by two relative measures, rel_l2 = |got - want|_2 /
 |want|_2 and rel_max = max|got - want| / max|want|, at limits set per shape
@@ -264,6 +271,13 @@ BF16_LIMITS = {**BF16_KIND, "vae_mid": (6.5e-3, 1.5e-2),
                # of the Open-Sora rows of the same kind
                **{f"{w}_{k}": BF16_KIND[k] for w in ("sp2", "cp2", "cp2sp2",
                                                      "sp4")
+                  for k in ("spatial", "temporal", "cross")},
+               # one rank's rows in the other families' worlds: the limits
+               # of the family's own rows of the same kind
+               "sp2_cog2b": (6.5e-3, 1.5e-2), "sp2_osp120": (6.5e-3, 1.5e-2),
+               "sp2_osp120_cross": (6.5e-3, 1.5e-2),
+               **{f"sp2_{f}_{k}": BF16_KIND[k]
+                  for f in ("latte", "osp110", "vchitect")
                   for k in ("spatial", "temporal", "cross")}}
 # the same for the gradients of the backward kernels (the largest of dq, dk,
 # dv): the kernels read at most a third of each limit (3.0e-4, 3.2e-3), the
@@ -725,10 +739,6 @@ def serve_phase(fa, steps: int, seed: int, profile: bool = False) -> dict:
         served("dense", rec)
         out["requests"].append(rec)
         videos.append(video)
-        if i == 0:  # world 1 of the parallel phase's sp=2 world
-            out["world1_480p"] = {"video": video,
-                                  "latents": pipe.last_latents.astype(
-                                      np.float64)}
     out["peak_mem_gib"] = max(r["peak_mem_gib"] for r in out["requests"])
 
     # PAB: the 480p request under each ladder, fp8 cache, the same weights
@@ -2368,15 +2378,18 @@ def latte_launches(fa, pipe, steps: int, T: int, S: int, text_len: int,
 
 
 def osp_v120_launches(fa, pipe, steps: int, N: int, text_len: int,
-                      plans=None) -> dict:
+                      plans=None, sp: int = 1) -> dict:
     """The same for OpenSoraT2V: per step and layer a self-attention over N
-    tokens and a cross-attention to the text, less the plan's reads."""
+    tokens and a cross-attention to the text, less the plan's reads (on one
+    of `sp` Ulysses ranks: N padded to a multiple of sp, N / sp queries in
+    the cross-attention)."""
     mc = pipe.model_config
+    N = -(-N // sp) * sp
     want = {key: 0 for key in fa.LAUNCHES}
     for plan in plans or [None] * steps:
         calls = [] if plan is not None and plan.spatial else [(N, N)]
         if plan is None or not plan.cross:
-            calls.append((N, text_len))
+            calls.append((N // sp, text_len))
         for nq, nk in calls:
             want[fa.kernel_variant(pipe.dtype, nq, nk, mc.head_dim)] += mc.depth
     return want
@@ -2862,8 +2875,11 @@ def tiny_osp_parity(seed: int) -> dict:
 VCHITECT_REQUEST = dict(prompt="Sunset over the sea.", frames=40, height=288,
                         width=480, guidance_scale=7.5)
 # the reference request's flow-match Euler steps
-# (examples/inference/vchitect/sample.py)
+# (examples/inference/vchitect/sample.py): 47.6 s dense and 35.2 s under
+# PAB on an H100; a default run takes VCHITECT_RUN_STEPS of them to keep the
+# whole script inside its time (`--vchitect-steps 100` runs the reference's)
 VCHITECT_STEPS = 100
+VCHITECT_RUN_STEPS = 50
 # the text towers of Vchitect-2.0's trio at their published widths (SD3's
 # text_encoder and text_encoder_2 config.json); CLIP's vocabulary and 77
 # positions are the CLIPTextConfig defaults
@@ -2875,15 +2891,18 @@ CLIP_G = dict(hidden_size=1280, intermediate_size=5120, projection_dim=1280,
 
 
 def vchitect_launches(fa, pipe, steps: int, F: int, S: int, L: int,
-                      plans=None) -> dict:
+                      plans=None, sp: int = 1) -> dict:
     """Kernel launches of a Vchitect denoise loop by variant: per step two
     forwards (uncond, cond), per block a spatial (S + L tokens of each
     frame), a cross (the F (S + L) tokens against the L context tokens of
     frame 0) and, with more than one frame, a temporal (the F frames of
     each token) attention, less what the step's plan reads from the PAB
-    cache in every block but the last, which runs dense."""
+    cache in every block but the last, which runs dense. On one of `sp`
+    DSP ranks F is padded to a multiple of sp: the cross rows hold the
+    rank's F / sp frames, the temporal rows all of them."""
     mc = pipe.model_config
     N = S + L
+    Fp = -(-F // sp) * sp
     want = {key: 0 for key in fa.LAUNCHES}
     for plan in plans or [None] * steps:
         for cached, blocks in ((True, mc.depth - 1), (False, 1)):
@@ -2891,9 +2910,9 @@ def vchitect_launches(fa, pipe, steps: int, F: int, S: int, L: int,
                 return cached and plan is not None and getattr(plan, branch)
             calls = [] if reads("spatial") else [(N, N)]
             if not reads("cross"):
-                calls.append((F * N, L))
+                calls.append((Fp // sp * N, L))
             if F > 1 and not reads("temporal"):
-                calls.append((F, F))
+                calls.append((Fp, Fp))
             for nq, nk in calls:
                 want[fa.kernel_variant(pipe.dtype, nq, nk, mc.head_dim)] += \
                     2 * blocks
@@ -3618,8 +3637,11 @@ SHARED = "ranks share one card"
 # cuBLAS kernels, whose rounding differs, and the steps carry it on. Read on
 # an H100 (rel_l2, levels, PSNR): sp=2 at 30 steps 8.6e-3, 42, 39.9 dB; cp=2
 # and cp=2 x sp=2 at 4 steps 2.5e-2, 61 and 76, 37.0 dB. The latents' limit
-# is twice the largest reading and the video's a third above it; a wrong
-# layout or a lost pad mask moves the latents by their own size (rel_l2 ~1)
+# is twice the largest of those readings and the video's a third above it;
+# a wrong layout or a lost pad mask moves the latents by their own size
+# (rel_l2 ~1). The other families' worlds (2 steps; v1.1 4) read up to
+# 3.2e-2 (Latte cp=2) and 25 levels; CogVideoX-2b and v1.2 under Ulysses
+# equal world 1 bit for bit
 PARALLEL_LIMITS = {"latent_rel_l2": 5e-2, "video_levels": 100}
 # the tiny fp32 worlds against world 1 on the card (latents, absolute)
 PARALLEL_TINY_TOL = 2e-4
@@ -3763,7 +3785,7 @@ def rank_read(pipeline) -> dict:
             if torch.cuda.is_available() else 0.0,
             "exchange": dict(par.EXCHANGE),
             "timings_s": dict(pipeline.last_timings),
-            "text_kv_len": pipeline.last_text_kv_len,
+            "text_kv_len": getattr(pipeline, "last_text_kv_len", None),
             "latents": pipeline.last_latents}
 
 
@@ -3829,7 +3851,9 @@ def rank_free_before_decode(pipeline) -> None:
             torch.cuda.empty_cache()
 
     for name in ("decode", "decode_chunks_u8"):
-        plain = getattr(type(vae), name)
+        plain = getattr(type(vae), name, None)
+        if plain is None:
+            continue
 
         def one_at_a_time(*args, _plain=plain, **kwargs):
             free()
@@ -4037,8 +4061,9 @@ def tiny_parallel(seed: int, backend: str) -> dict:
     """A tiny fp32 Open-Sora on sp=2 and sp=4 ranks on cuda:0 against world
     1 on the card: 17 frames (T = 5 latent frames) at 144p 5:8 (a 9 x 15
     token grid), both padded under sp=2 and sp=4, an image (the batch
-    switch) and a reference frame (x_mask); then the engine's failure
-    path."""
+    switch) and a reference frame (x_mask); on the same ranks every other
+    family's tiny parallel forward against the CPU (`rank_tiny_families`);
+    then the engine's failure path."""
     import numpy as np
     import torch
 
@@ -4103,6 +4128,17 @@ def tiny_parallel(seed: int, backend: str) -> dict:
                     raise AssertionError(f"tiny {label} {case} disagrees")
                 out[f"{label}_{case}"] = {"max_abs_err": err,
                                           "ranks_equal": equal}
+            # every family's parallel forward, card against the CPU
+            fams = engine._run_workers(rank_tiny_families, seed)
+            worst = {k: max(r[k] for r in fams) for k in fams[0]}
+            log(f"parallel tiny {label} families: backend {backend}, "
+                f"{SHARED}; fp32 forward max_abs_err, card (groups) vs CPU "
+                f"(none), worst rank: {json.dumps(worst)} (tol "
+                f"{PARALLEL_TINY_TOL:.0e})")
+            if not all(e <= PARALLEL_TINY_TOL for e in worst.values()):
+                raise AssertionError(f"tiny {label}: a family's parallel "
+                                     f"forward disagrees")
+            out[f"{label}_families"] = worst
             if label == "sp2":  # the failure path
                 t0 = time.perf_counter()
                 try:
@@ -4144,11 +4180,322 @@ def parallel_kernel_shapes(fa, text_len: int) -> dict:
         ("sp4_spatial", 8, 16, 1592, 1592, 72, 1590)], seed=5)
 
 
-def parallel_phase(fa, steps: int, seed: int, served=None) -> dict:
+# the other families' worlds, ranks sharing the card: (label, family,
+# num_gpus, enable_cp). Each serves its family's request at full width,
+# FAMILY_STEPS denoise steps (v1.1's PNDM takes 4 at least) and one
+# decode, against world 1 (the driver's own pipeline, its groups taken
+# away for one request, on the same seed)
+FAMILY_WORLDS = (("cog2b_sp2", "cog2b", 2, False),
+                 ("osp120_sp2", "osp120", 2, False),
+                 ("latte_sp2", "latte", 2, False),
+                 ("latte_cp2", "latte", 2, True),
+                 ("osp110_sp2", "osp110", 2, False),
+                 ("vchitect_sp2", "vchitect", 2, False))
+FAMILY_STEPS = 2
+
+
+def family_config(family: str, **kw):
+    """The family's serving config at its published widths and depth,
+    random weights, the stub encoders, bf16."""
+    import torch
+
+    from videosys_tpu_torch import (CogVideoXConfig, LatteConfig,
+                                    OpenSoraPlanConfig, VchitectConfig)
+    from videosys_tpu_torch.models.transformers.open_sora_plan_v110 import (
+        OpenSoraPlanV110Config)
+    from videosys_tpu_torch.models.transformers.vchitect import VchitectModelConfig
+
+    if family == "cog2b":
+        return CogVideoXConfig(model_path=None, dtype="bf16", **kw)
+    if family == "osp120":
+        return OpenSoraPlanConfig(version="v120", transformer_type="29x480p",
+                                  dtype="bf16", **kw)
+    if family == "osp110":
+        return OpenSoraPlanConfig(
+            version="v110", transformer_type="65x512x512", dtype="bf16",
+            transformer_config=OpenSoraPlanV110Config(
+                "65x512x512", use_rope=True, dtype=torch.bfloat16), **kw)
+    if family == "latte":
+        return LatteConfig(model_path=None, dtype="bf16", **kw)
+    return VchitectConfig(model_path=None, dtype="bf16",
+                          transformer_config=VchitectModelConfig(
+                              dtype=torch.bfloat16), **kw)
+
+
+def family_request(family: str) -> dict:
+    steps = dict(num_inference_steps=4 if family == "osp110"
+                 else FAMILY_STEPS)
+    if family == "cog2b":
+        return dict(COG_REQUEST, **steps)
+    if family in ("osp120", "osp110"):
+        return dict(prompt=OSP_PROMPT, **steps)
+    if family == "latte":
+        return dict(LATTE_REQUEST, **steps)
+    return dict(VCHITECT_REQUEST, **steps)
+
+
+def family_launches(fa, family: str, pipe, sp: int = 1) -> dict:
+    """One rank's launches of the family's request (dense) on
+    `sp` sequence-parallel ranks: the transformer's rows at the rank's
+    shapes (`latte_launches`, `osp_v120_launches`, `vchitect_launches`;
+    CogVideoX one joint attention a layer over L + N padded to sp) and the
+    VAE's whole decode, which every rank runs."""
+    mc = pipe.model_config
+    req = family_request(family)
+    steps = req["num_inference_steps"]
+    text_len = getattr(pipe, "last_text_kv_len", None)
+    if family == "cog2b":
+        _, F, _, h, w = pipe.latent_shape(req["num_frames"], req["height"],
+                                          req["width"])
+        N = F * (h // mc.patch_size) * (w // mc.patch_size)
+        n = mc.max_text_seq_length + -(-N // sp) * sp
+        want = {key: 0 for key in fa.LAUNCHES}
+        want[fa.kernel_variant(pipe.dtype, n, n, mc.head_dim)] = \
+            mc.num_layers * steps
+        return want
+    if family in ("osp120", "osp110"):
+        _, _, T, h, w = pipe.latent_shape()
+        S = pipe._tokens(pipe.latent_shape())
+        if family == "osp120":
+            want = osp_v120_launches(fa, pipe, steps, T * S, text_len, sp=sp)
+        else:
+            want = latte_launches(fa, pipe, len(pipe.scheduler.set_timesteps(
+                steps)), -(-T // sp) * sp, S, text_len)
+        for _, th, tw in causal_vae_tiles(pipe.vae, T, h, w):
+            want[fa.kernel_variant(pipe.dtype, th * tw, th * tw,
+                                   vae_width(pipe))] += 1
+        return want
+    if family == "latte":
+        T = req["video_length"]
+        shape = pipe.latent_shape(T, req["height"], req["width"])
+        S = (shape[3] // mc.patch_size) * (shape[4] // mc.patch_size)
+        want = latte_launches(fa, pipe, steps, -(-T // sp) * sp, S, text_len)
+    else:
+        F = req["frames"]
+        shape = pipe.latent_shape(F, req["height"], req["width"])
+        S = (shape[3] // mc.patch_size) * (shape[4] // mc.patch_size)
+        L = pipe.text_encoder.clip_len + pipe.text_encoder.t5_len
+        want = vchitect_launches(fa, pipe, steps, F, S, L, sp=sp)
+    n_mid = shape[3] * shape[4]  # one decode of every frame
+    d_mid = pipe.vae.block_out_channels[-1]
+    want[fa.kernel_variant(pipe.dtype, n_mid, n_mid, d_mid)] += 1
+    return want
+
+
+def family_rank_shapes(family: str, text_len) -> list:
+    """One rank's attention rows at sp=2 (or cp=2: Latte's halves of the
+    CFG batch give the same rows), predicted before any run: (name, B, H,
+    Nq, Nk, D, masked) as `forward_shapes` takes them; `masked` an int is
+    the real keys of every row."""
+    if family == "cog2b":  # 226 text + 13 x 30 x 45 video tokens, 30 heads
+        return [("sp2_cog2b", 2, 15, 17776, 17776, 64, False)]
+    if family == "osp120":  # 8 x 30 x 40 tokens, 24 heads
+        return [("sp2_osp120", 2, 12, 9600, 9600, 96, False),
+                ("sp2_osp120_cross", 2, 24, 4800, text_len, 96, True)]
+    if family == "latte":  # 16 frames of 32 x 32 patches, CFG batch 2
+        return [("sp2_latte_spatial", 16, 16, 1024, 1024, 72, False),
+                ("sp2_latte_cross", 16, 16, 1024, text_len, 72, True),
+                ("sp2_latte_temporal", 1024, 16, 16, 16, 72, False)]
+    if family == "osp110":  # 17 frames padded to 18, 32 x 32 patches
+        return [("sp2_osp110_spatial", 18, 16, 1024, 1024, 72, False),
+                ("sp2_osp110_cross", 18, 16, 1024, text_len, 72, True),
+                ("sp2_osp110_temporal", 1024, 16, 18, 18, 72, 17)]
+    # Vchitect: 40 frames of 18 x 30 patches and 333 context tokens
+    return [("sp2_vchitect_spatial", 20, 18, 873, 873, 64, False),
+            ("sp2_vchitect_cross", 1, 18, 17460, 333, 64, False),
+            ("sp2_vchitect_temporal", 437, 18, 40, 40, 64, False)]
+
+
+def world1_on_driver(fa, engine, family: str, seed: int) -> dict:
+    """World 1 of a family world: the driver's pipeline (rank 0 of the
+    engine, the same seeded weights) serves the request alone, its groups
+    taken away; launches counted from 0 and held against the family's
+    world-1 prediction."""
+    import numpy as np
+    import torch
+
+    pipe = engine.pipeline
+    groups, pipe.groups = pipe.groups, None
+    try:
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        video = pipe.generate(seed=seed, **family_request(family)).video
+        wall = time.perf_counter() - t0
+    finally:
+        pipe.groups = groups
+    launches = dict(fa.LAUNCHES)
+    want = family_launches(fa, family, pipe)
+    rec = {"launches": launches, "expected_launches": want, "wall_s": wall,
+           "timings_s": dict(pipe.last_timings),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"parallel world 1 of {family}: the driver's pipeline alone, groups "
+        f"taken away; steps={family_request(family)['num_inference_steps']} "
+        f"generate_s={wall:.3f} denoise_s="
+        f"{rec['timings_s']['denoise']:.3f} peak_gib={rec['peak_gib']:.2f} "
+        f"launches={launches} (predicted {want})")
+    if launches != want:
+        raise AssertionError(f"world 1 of {family} launched other than "
+                             f"predicted")
+    return {"video": video, "latents": pipe.last_latents.astype(np.float64),
+            "record": rec}
+
+
+def family_world(fa, label: str, family: str, n: int, cp: bool, seed: int,
+                 backend: str, refs: dict) -> dict:
+    """One family world on `n` ranks sharing the card: the request once
+    (untimed, launches and attention shapes logged per rank), the exchange
+    replayed, then world 1 on the driver's pipeline (kept in `refs` by
+    family for the next world of that family); held by `world_record`.
+    The logged per-rank shapes must be the predicted ones."""
+    from videosys_tpu_torch import VideoSysEngine
+
+    log(f"parallel world {label}: backend {backend}, {SHARED}; the driver "
+        f"holds {free_card():.2f} GiB before the ranks start")
+    t0 = time.perf_counter()
+    cp_kw = {"enable_cp": True} if cp else {}  # CogVideoX has no cp
+    engine = VideoSysEngine(family_config(family, num_gpus=n, **cp_kw),
+                            devices=[PARALLEL_DEVICE] * n, backend=backend,
+                            timeout=PARALLEL_TIMEOUT_S, seed=seed)
+    setup_s = time.perf_counter() - t0
+    try:
+        engine._run_workers(setattr, "keep_latents", True)
+        engine._run_workers(rank_free_before_decode)
+        engine._run_workers(rank_reset)
+        t0 = time.perf_counter()
+        video = engine.generate(seed=seed, **family_request(family)).video
+        wall = time.perf_counter() - t0
+        ranks = engine._run_workers(rank_read)
+        for r, replay in zip(ranks, engine._run_workers(rank_exchange_replay)):
+            r["exchange"]["replayed"] = replay
+        sp = n // 2 if cp else n
+        expected = family_launches(fa, family, engine.pipeline, sp=sp)
+        if family not in refs:
+            refs[family] = world1_on_driver(fa, engine, family, seed)
+    finally:
+        engine.shutdown()
+        del engine
+    rec = world_record(label, backend, SHARED, ranks, video, refs[family],
+                       expected, family_request(family)["num_inference_steps"])
+    rec.update(setup_s=setup_s, wall_s=wall, family=family,
+               world1=refs[family]["record"])
+    text_len = ranks[0]["text_kv_len"]
+    want = {(tuple(s[1:6]), bool(s[6])) for s in
+            family_rank_shapes(family, text_len)}
+    for i, r in enumerate(ranks):
+        got = {(tuple(shape), masked) for variant, shape, masked, _ in
+               r["shapes"] if variant != "wgmma"}
+        if got != want:
+            raise AssertionError(f"world {label} rank {i}: attention shapes "
+                                 f"{sorted(got)} != predicted {sorted(want)}")
+    log(f"parallel world {label}: backend {backend}, {SHARED}; setup_s="
+        f"{setup_s:.1f} generate_s={wall:.3f}; per-rank attention shapes as "
+        f"predicted")
+    return rec
+
+
+def family_kernel_shapes(fa, worlds: dict) -> dict:
+    """The forward kernels at each new per-rank shape of the family worlds
+    against their plain versions at the limits of their kind (bf16), timed
+    beside the plain version and SDPA: the rows over more than 4096 keys by
+    `long_row` (chunked plain version, sampled heads), the rest by
+    `forward_shapes`; each row's launches a request from rank 0's log."""
+    import torch
+
+    rows, seen = [], set()
+    for rec in worlds.values():
+        for row in family_rank_shapes(rec["family"],
+                                      rec["ranks"][0]["text_kv_len"]):
+            if row[1:] not in seen:
+                seen.add(row[1:])
+                rows.append((row, rec))
+    gen = torch.Generator("cuda").manual_seed(16)
+    out = {}
+    for (name, B, H, Nq, Nk, D, masked), rec in rows:
+        if Nq > 4096 and Nq == Nk and not masked:
+            out[name] = long_row(fa, name, B, H, Nq, D, gen)
+        else:
+            out.update(forward_shapes(fa, [(name, B, H, Nq, Nk, D, masked)],
+                                      seed=16, dtypes=("bf16",)))
+        out[name]["world"] = rec["world"]
+        out[name]["variant"] = fa.kernel_variant(torch.bfloat16, Nq, Nk, D)
+        out[name]["launches"] = sum(
+            c for _, shape, m, c in rec["ranks"][0]["shapes"]
+            if shape == [B, H, Nq, Nk, D] and m == bool(masked))
+    return out
+
+
+def rank_tiny_families(pipeline, seed: int) -> dict:
+    """On every rank of a tiny world: a tiny fp32 transformer of each
+    family, sized so that every pad is taken (3 heads; 45 video tokens;
+    5 and 3 frames; 15 and 25 patches; Vchitect's S + L = 14 + 333), on
+    this rank's device under its groups, against the same forward with no
+    groups on the CPU: the largest absolute difference by family."""
+    import numpy as np
+    import torch
+
+    from videosys_tpu_torch.core import parallel as par
+    from videosys_tpu_torch.models.transformers import cogvideox as C
+    from videosys_tpu_torch.models.transformers import latte as La
+    from videosys_tpu_torch.models.transformers import open_sora_plan_v120 as O
+    from videosys_tpu_torch.models.transformers import vchitect as V
+
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    steps2 = torch.tensor([500.0, 720.0])
+    cog = dict(num_layers=2, num_heads=3, head_dim=16, in_channels=4,
+               out_channels=4, time_embed_dim=16, text_embed_dim=16,
+               max_text_seq_length=8)
+    ragged = torch.arange(8)[None] < torch.tensor([[8], [5]])
+    cases = {
+        "cog2b": (lambda: C.CogVideoXTransformer3D(C.CogVideoXConfig(**cog)),
+                  (t(2, 3, 4, 6, 10), t(2, 8, 16), steps2)),
+        "cog5b": (lambda: C.CogVideoXTransformer3D(C.CogVideoXConfig(
+            **cog, use_rotary_positional_embeddings=True)),
+            (t(2, 3, 4, 6, 10), t(2, 8, 16), steps2)),
+        "osp120": (lambda: O.OpenSoraPlanV120Transformer(
+            O.OpenSoraPlanV120Config(num_layers=2, num_heads=3, head_dim=24,
+                                     caption_channels=32, sample_size=(6, 10),
+                                     sample_size_t=3)),
+            (t(2, 4, 3, 12, 20), t(2, 8, 32), steps2, ragged)),
+        "latte": (lambda: La.LatteT2V(La.LatteConfig(
+            num_layers=2, num_heads=2, head_dim=16, caption_channels=16,
+            video_length=5, sample_size=8)),
+            (t(2, 4, 5, 6, 10), steps2, t(2, 8, 16), ragged)),
+        "osp110": (lambda: La.LatteT2V(La.LatteConfig(
+            num_layers=2, num_heads=2, head_dim=24, caption_channels=32,
+            video_length=3, sample_size=10, use_rope=True)),
+            (t(2, 4, 3, 10, 10), steps2, t(2, 8, 32), ragged)),
+        "vchitect": (lambda: V.VchitectXLTransformer(V.VchitectModelConfig(
+            num_layers=3, num_heads=2, head_dim=16, in_channels=4,
+            out_channels=4, joint_attention_dim=32, pooled_projection_dim=24,
+            sample_size=8, pos_embed_max_size=12)),
+            (t(1, 5, 4, 4, 14), t(1, 333, 32), t(1, 24),
+             torch.tensor([500.0]))),
+    }
+    errs = {}
+    for name, (make, inputs) in cases.items():
+        torch.manual_seed(seed)
+        model = make().float().eval()
+        with torch.no_grad():
+            want = model(*inputs)
+            model.to(pipeline.device)
+            with par.use_groups(pipeline.groups):
+                got = model(*(a.to(pipeline.device) for a in inputs))
+        errs[name] = float((got.cpu() - want).abs().max())
+    return errs
+
+
+def parallel_phase(fa, steps: int, seed: int) -> dict:
     """Open-Sora v1.2 served through `VideoSysEngine(num_gpus=N)` with the
-    ranks sharing one card (see the module docstring, phase 16). `served`:
-    the serve phase's dense 480p request (the same weights, seed and
-    steps), world 1 of the sp=2 world; run here when None."""
+    ranks sharing one card (see the module docstring, phase 16), each
+    world at PARALLEL_SHORT_STEPS against world 1 (NCCL, `initialize`);
+    then every other family's worlds (FAMILY_WORLDS), their per-rank
+    kernel rows, and the tiny worlds."""
     import torch
 
     t_start = time.perf_counter()
@@ -4158,20 +4505,17 @@ def parallel_phase(fa, steps: int, seed: int, served=None) -> dict:
            else "NCCL refused two ranks on one device")
     log(f"parallel: ranks that share one card run backend {backend}, passed "
         f"explicitly ({how})")
-    counts = {PARALLEL_SHORT_STEPS} | ({steps} if served is None else set())
-    w1 = world1_leg(fa, seed, sorted(counts))
+    if steps != PARALLEL_SHORT_STEPS:
+        log(f"parallel: the Open-Sora worlds run {PARALLEL_SHORT_STEPS} rflow "
+            f"steps (the serve phase's request runs {steps}; cut to keep the "
+            f"script inside its time)")
+    w1 = world1_leg(fa, seed, [PARALLEL_SHORT_STEPS])
     out["world1"] = {s: r["record"] for s, r in w1["refs"].items()}
-    if served is not None:
-        w1["refs"][steps] = served
-        log(f"parallel world 1, {steps} steps: the serve phase's dense 480p "
-            f"request (same weights, seed and steps)")
     out["worlds"] = {}
     for label, n, cp in PARALLEL_WORLDS:
-        n_steps = steps if label == "sp2" else PARALLEL_SHORT_STEPS
         out["worlds"][label] = full_width_world(
-            fa, label, n, cp, n_steps, seed, backend, [PARALLEL_DEVICE] * n,
-            SHARED,
-            w1["refs"][n_steps])
+            fa, label, n, cp, PARALLEL_SHORT_STEPS, seed, backend,
+            [PARALLEL_DEVICE] * n, SHARED, w1["refs"][PARALLEL_SHORT_STEPS])
     if torch.cuda.device_count() >= 2:
         out["worlds"]["sp2_nccl"] = full_width_world(
             fa, "sp2_nccl", 2, False, PARALLEL_SHORT_STEPS, seed, "nccl",
@@ -4180,9 +4524,17 @@ def parallel_phase(fa, steps: int, seed: int, served=None) -> dict:
     else:
         log(f"parallel: sp=2 over NCCL on two cards did not run: "
             f"torch.cuda.device_count() = {torch.cuda.device_count()}")
+    refs = {}
+    out["family_worlds"] = {}
+    for label, family, n, cp in FAMILY_WORLDS:
+        out["family_worlds"][label] = family_world(fa, label, family, n, cp,
+                                                   seed, backend, refs)
+    del refs
+    free_card()
     out["tiny"] = tiny_parallel(seed, backend)
     out["kernel"] = parallel_kernel_shapes(
         fa, out["worlds"]["sp2"]["ranks"][0]["text_kv_len"])
+    out["family_kernel"] = family_kernel_shapes(fa, out["family_worlds"])
     out["seconds"] = time.perf_counter() - t_start
     log(f"parallel phase: {out['seconds']:.1f} s")
     return out
@@ -4196,7 +4548,7 @@ def main(argv=None) -> int:
     ap.add_argument("--cog5b-steps", type=int, default=COG_5B_STEPS,
                     help="DPM steps of the CogVideoX-5b request (the 2b "
                          f"runs the request's {COG_STEPS})")
-    ap.add_argument("--vchitect-steps", type=int, default=VCHITECT_STEPS,
+    ap.add_argument("--vchitect-steps", type=int, default=VCHITECT_RUN_STEPS,
                     help="flow-match Euler steps of the Vchitect-2.0 "
                          f"requests (the reference request's {VCHITECT_STEPS})")
     ap.add_argument("--remat-policy", default="full",
@@ -4291,10 +4643,8 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         vch = vchitect_phase(fa, args.seed, args.vchitect_steps, args.profile)
         log(f"vchitect phase: {time.perf_counter() - t0:.1f} s")
-    if "parallel" in phases:  # phase 16: DSP and CFG parallel serving
-        par_out = parallel_phase(
-            fa, args.steps, args.seed,
-            served["world1_480p"] if "serve" in phases else None)
+    if "parallel" in phases:  # phase 16: parallel serving, every family
+        par_out = parallel_phase(fa, args.steps, args.seed)
     if set(phases) != set(PHASES):
         log(f"partial run ({args.phases}) total_s="
             f"{time.perf_counter() - t_start:.1f}: no kernel report")
@@ -4453,6 +4803,21 @@ def main(argv=None) -> int:
             "source": "videosys_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "videosys_tpu/ops/flash_attention.py:125",
             "launches": n, "max_abs_err": r["max_abs_err_bf16"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"]})
+    # one rank's rows in the other families' worlds (Ulysses, DSP, cp),
+    # launches per rank per request from rank 0's shape log
+    for name, r in par_out["family_kernel"].items():
+        if r["launches"] <= 0:
+            raise AssertionError(f"world {r['world']} never launched {name}")
+        kernels.append({
+            "name": f"flash_fwd_{r['variant']}", "route": "cuda",
+            "source": "videosys_tpu_torch/csrc/flash_fwd.cu",
+            "replaces": "videosys_tpu/ops/flash_attention.py:"
+                        + ("49" if r["shape"][3] > 4096 else "125"),
+            "launches": r["launches"],
+            "max_abs_err": r.get("max_abs_err", r.get("max_abs_err_bf16")),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"]})

@@ -278,13 +278,14 @@ def test_generate_like_jax(scheduler, pab, steps):
 
 
 def test_config_raises_and_seeded_draws():
-    """One card only, no CPU fallback, a configured text encoder is never
-    replaced by the stub; a seeded DPM generate (two noises a step) draws
-    the same sequence twice."""
+    """num_gpus > 1 needs a process group (VideoSysEngine spawns the
+    ranks), no CPU fallback, a configured text encoder is never replaced by
+    the stub; a seeded DPM generate (two noises a step) draws the same
+    sequence twice."""
     tiny = dict(model_path="", dtype="fp32", vae_tiling=False,
                 transformer_config=P.CogVideoXConfig(**SIZES),
                 vae_config=PVAECfg(**VAE))
-    with pytest.raises(NotImplementedError, match="num_gpus"):
+    with pytest.raises(RuntimeError, match="initialize"):
         videosys_tpu_torch.CogVideoXPipeline(
             videosys_tpu_torch.CogVideoXConfig(num_gpus=2, **tiny),
             device="cpu")

@@ -113,9 +113,8 @@ class VideoSysEngine:
             return
         if not getattr(config.pipeline_cls, "serves_parallel", False):
             raise NotImplementedError(
-                f"num_gpus > 1 is ported for Open-Sora v1.2 only; "
-                f"{config.pipeline_cls.__name__} runs on one card (ROADMAP "
-                f"Queue 1 item 6c)")
+                f"{config.pipeline_cls.__name__} runs on one rank: it does "
+                f"not take process groups (num_gpus={self.world_size})")
         n = self.world_size
         devs = par.rank_devices(n, pipeline_kwargs.pop("device", None),
                                 devices)

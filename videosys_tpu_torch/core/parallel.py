@@ -12,8 +12,18 @@ DSP (Dynamic Sequence Parallelism) in STDiT3: activations [B, T, S, C] stay
 S-sharded ([B, T, S/sp, C] on each rank); spatial attention switches its
 input to T-sharded ([B, T/sp, S, C]) with one all-to-all and back with
 another. T and S are padded to `token_pad_multiple()` (the reference's pad
-registry, comm.py:268-304) and the pad is masked as keys. CFG parallelism
-splits the CFG-doubled batch over cp.
+registry, comm.py:268-304) and the pad is masked as keys. Latte,
+Open-Sora-Plan v1.1 and Vchitect keep frames resident instead and switch
+to tokens for their temporal attention with the same two helpers.
+
+Ulysses (the joint-attention models, CogVideoX and Open-Sora-Plan v1.2):
+tokens stay sharded ([B, N/sp, C], `shard_tokens`, N padded to sp); the
+attention trades heads for the whole sequence with one all-to-all
+(`ulysses_shard_heads`, H padded to sp with zero heads) and back
+(`ulysses_shard_seq`); tokens every rank holds whole take their heads
+locally (`split_heads`) and come back by `gather_heads`. `broadcast`
+sends one sp rank's tensor to its line. CFG parallelism splits the
+CFG-doubled batch over cp.
 
 The groups in force are installed with `use_groups`. With none, or with one
 rank, every helper returns its input: the one-card path gains no collective
@@ -40,7 +50,7 @@ from videosys_tpu_torch.core.pipeline import resolve_device
 # Canonical axis names, as in the JAX package.
 DP_AXIS = "dp"   # data parallel (batch)
 CP_AXIS = "cp"   # CFG-batch ("context") parallel, inference only
-SP_AXIS = "sp"   # sequence parallel (DSP)
+SP_AXIS = "sp"   # sequence parallel (DSP, Ulysses)
 MESH_AXES = (DP_AXIS, CP_AXIS, SP_AXIS)
 
 # A collective waits this long for its peers before it raises.
@@ -267,6 +277,23 @@ def gather(x: torch.Tensor, dim: int,
     return torch.cat(parts, dim=dim)
 
 
+def broadcast(x: torch.Tensor, src: int = 0,
+              group: Union[str, Axis] = SP_AXIS) -> torch.Tensor:
+    """The `x` of the group's rank `src` (its index on the line) on every
+    rank of the group; every rank passes a tensor of the same shape and
+    dtype. Vchitect's cross-attention reads frame 0's context, which only
+    the sp rank holding frame 0 has."""
+    ax = _axis(group)
+    if ax is None:
+        return x
+    _forward_only(x, "broadcast")
+    x = x.contiguous() if ax.rank == src else torch.empty_like(x)
+    if ax.rank == src:
+        _count(x)
+    dist.broadcast(x, src=ax.ranks[src], group=ax.group)
+    return x
+
+
 def broadcast_from_rank0(obj, groups: Optional[Groups]):
     """Rank 0's `obj` (a picklable host value) on every rank of `groups`,
     over the default process group; `obj` itself with no groups or one
@@ -312,6 +339,72 @@ def unshard_batch(x: torch.Tensor, batch: int) -> torch.Tensor:
     if axis_size(SP_AXIS) == 1:
         return x
     return all_to_all(x, 2, 0)[:batch]
+
+
+# --- token shards and Ulysses (heads <-> sequence) ---------------------- #
+# JAX's `shard_tokens`, `ulysses_shard_heads` and `ulysses_shard_seq`
+# (videosys_tpu/core/parallel.py:173-188). GSPMD pads an uneven dim on its
+# own; here the pad is explicit: tokens are padded with zero rows to a
+# multiple of sp (the caller masks them as keys and drops them after the
+# gather), heads with zero heads, dropped on the way back.
+
+def pad_to_multiple(x: torch.Tensor, dim: int, multiple: int) -> torch.Tensor:
+    """`x` with zeros appended along `dim` up to a multiple of `multiple`."""
+    pad = -x.shape[dim] % multiple
+    if not pad:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+def shard_tokens(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """This rank's sp shard of the tokens along `dim`, padded with zero
+    rows to a multiple of sp first: the resident layout of the
+    joint-attention models (JAX P(batch, sp, None) on [B, N, C])."""
+    n = axis_size(SP_AXIS)
+    if n == 1:
+        return x
+    return split(pad_to_multiple(x, dim, n), dim)
+
+
+def ulysses_shard_heads(x: torch.Tensor) -> torch.Tensor:
+    """Sequence-sharded [B, N/sp, ..., H, D] -> heads over sp with the
+    sequence gathered, [B, N, ..., ceil(H/sp), D]; H is padded with zero
+    heads to a multiple of sp (CogVideoX-2b's 30 heads at sp=4). One
+    all-to-all; q, k and v may go stacked on a dim before the heads."""
+    n = axis_size(SP_AXIS)
+    if n == 1:
+        return x
+    heads = x.ndim - 2
+    return all_to_all(pad_to_multiple(x, heads, n), heads, 1)
+
+
+def ulysses_shard_seq(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Inverse of `ulysses_shard_heads`: [B, N, ..., ceil(H/sp), D] ->
+    [B, N/sp, ..., H, D] with the pad heads dropped."""
+    if axis_size(SP_AXIS) == 1:
+        return x
+    return all_to_all(x, 1, x.ndim - 2)[..., :num_heads, :]
+
+
+def split_heads(x: torch.Tensor) -> torch.Tensor:
+    """This rank's heads of a tensor every sp rank holds whole,
+    [B, L, ..., H, D] -> [B, L, ..., ceil(H/sp), D], as
+    `ulysses_shard_heads` deals them (no communication): the text rows
+    of a joint attention."""
+    n = axis_size(SP_AXIS)
+    if n == 1:
+        return x
+    return split(pad_to_multiple(x, x.ndim - 2, n), x.ndim - 2)
+
+
+def gather_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Every sp rank's heads, [B, L, ..., ceil(H/sp), D] ->
+    [B, L, ..., H, D] on every rank (all-gather), the pad heads dropped."""
+    if axis_size(SP_AXIS) == 1:
+        return x
+    return gather(x, x.ndim - 2)[..., :num_heads, :]
 
 
 # --- process set-up ------------------------------------------------------ #

@@ -3,7 +3,8 @@ point and the set-up every rank runs (the reference's
 `core/engine/mp_utils.py` workers).
 
 Each rank joins the default process group, builds the groups of
-`ParallelConfig.from_world_size(num_gpus, enable_cp)` and the configured
+`ParallelConfig.from_world_size(num_gpus, enable_cp)` (enable_cp False
+where the config has none) and the configured
 pipeline on its own device. A worker then serves the driver's calls over
 its end of a pipe: after ("setup", config, pipeline_kwargs, numerics),
 ("call", method, args, kwargs) runs `method` (a pipeline
@@ -45,7 +46,7 @@ def setup_rank(rank: int, world_size: int, address: str, backend: str,
     par.initialize(rank, world_size, address, backend=backend, device=device,
                    timeout=timeout)
     groups = par.build_groups(par.ParallelConfig.from_world_size(
-        world_size, enable_cp=config.enable_cp), device)
+        world_size, enable_cp=getattr(config, "enable_cp", False)), device)
     return config.pipeline_cls(config, device=device, groups=groups,
                                **pipeline_kwargs)
 

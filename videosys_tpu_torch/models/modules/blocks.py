@@ -15,6 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from videosys_tpu_torch.core import parallel as par
 from videosys_tpu_torch.models.modules.cast import Linear
 from videosys_tpu_torch.models.modules.embeddings import apply_rope_channel
 from videosys_tpu_torch.models.modules.normalization import RMSNorm
@@ -102,7 +103,11 @@ class Attention(nn.Module):
     [B, H, N, D]), or cross-attention to `cond` [Bc, L, C] with `kv_mask`
     [Bc, L] (True = attend), where x's rows are batch-major, frame-minor
     (B = Bc x frames) and k, v are projected once per Bc row and repeated
-    across the frames."""
+    across the frames. `ulysses=True` (self-attention under active sp
+    groups, `core/parallel.py`): x is this rank's sequence shard; q, k and
+    v trade heads for the whole sequence in one all-to-all before `rope`
+    and the attention (`kv_mask` [B, N * sp] then masks the pad tokens),
+    and the output comes back by the inverse all-to-all."""
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
@@ -113,7 +118,8 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([Linear(dim, dim)])
 
     def forward(self, x, cond=None, kv_mask: Optional[torch.Tensor] = None,
-                rope: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
+                rope: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                ulysses: bool = False):
         B, N, C = x.shape
         H, D = self.num_heads, C // self.num_heads
         src = x if cond is None else cond
@@ -121,6 +127,18 @@ class Attention(nn.Module):
 
         def heads(t, rows, n):
             return t.reshape(rows, n, H, D).transpose(1, 2)
+
+        if ulysses and par.axis_size() > 1:
+            qkv = torch.stack([t.reshape(B, N, H, D) for t in (
+                self.to_q(x), self.to_k(x), self.to_v(x))], 2)
+            q, k, v = (t.transpose(1, 2) for t in
+                       par.ulysses_shard_heads(qkv).unbind(2))
+            if rope is not None:
+                q, k = rope(q), rope(k)
+            o = scaled_dot_product_attention(q, k, v, scale=D ** -0.5,
+                                             kv_mask=kv_mask)
+            o = par.ulysses_shard_seq(o.transpose(1, 2), H)
+            return self.to_out[0](o.reshape(B, N, C))
 
         v = heads(self.to_v(src), Bc, L)
         if cond is None and N == 1:

@@ -1,7 +1,6 @@
 """CogVideoX transformer: joint [text; video] attention, 3D positions.
 
-Port of `videosys_tpu/models/transformers/cogvideox.py` without sharding.
-Module names follow the reference checkpoint's state_dict (diffusers'
+Port of `videosys_tpu/models/transformers/cogvideox.py`. Module names follow the reference checkpoint's state_dict (diffusers'
 `CogVideoXTransformer3DModel`: `patch_embed.proj`, `time_embedding.linear_1`,
 `transformer_blocks.{i}.attn1.to_out.0`, `ff.net.0.proj`, `norm_out.linear`,
 ...). The blocks are a Python loop. CogVideoX-2b adds a 3D sincos table to
@@ -13,6 +12,19 @@ PAB (`core/pab.py`): `forward(..., plan=, pab_cache=)` runs one sampling
 step; a block whose attention the plan reads adds the cached output of the
 joint attention (no norm, projection or attention for it), a block the plan
 writes copies that output into `slot[depth]` in place.
+
+Sequence parallelism (Ulysses, `core/parallel.py`): under groups installed
+with `parallel.use_groups` and sp > 1, the video tokens are padded to a
+multiple of sp and each rank holds its shard [B, N/sp, C]; the L text
+tokens stay whole on every rank. The joint attention projects the rank's
+rows, applies the qk norm and (5b) RoPE with the rank's rows of the table,
+then trades its video rows' heads for the whole sequence (one all-to-all
+of q, k and v, heads padded to a multiple of sp) and takes its own heads
+of the text rows; the pad tokens are masked as keys. Its output goes back
+by the inverse all-to-all (video) and a gather over heads (text), so that
+`to_out` and the PAB slot see [text; local video] rows that equal world
+1's. The video tokens are gathered before unpatchify. With no groups the
+one-card loop runs unchanged.
 """
 
 from __future__ import annotations
@@ -25,6 +37,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from videosys_tpu_torch.core import parallel as par
 from videosys_tpu_torch.core.pab import (
     PABCache,
     PABConfig,
@@ -179,9 +192,10 @@ class CogVideoXJointAttention(nn.Module):
         self.norm_k = nn.LayerNorm(D, eps=1e-6)
         self.to_out = nn.ModuleList([Linear(C, C), nn.Dropout(0.0)])
 
-    def forward(self, h, L: int, rope=None):
+    def forward(self, h, L: int, rope=None, key_mask=None):
         """h: [B, L + N, C], the text first -> the projected output, same
-        shape."""
+        shape. Under sp, N is this rank's video shard and `key_mask`
+        [B, L + N * sp] marks the tokens that are not pad."""
         B, N, C = h.shape
         H, D = self.num_heads, self.head_dim
         q = layer_norm_fp32(self.norm_q, self.to_q(h).view(B, N, H, D))
@@ -191,10 +205,18 @@ class CogVideoXJointAttention(nn.Module):
             cos, sin = rope  # [N - L, 1, D] fp32
             q = torch.cat([q[:, :L], rotate_interleaved_pairs(q[:, L:], cos, sin)], 1)
             k = torch.cat([k[:, :L], rotate_interleaved_pairs(k[:, L:], cos, sin)], 1)
+        if par.axis_size() > 1:  # Ulysses (JAX cogvideox.py:170-177)
+            qkv = torch.stack([q, k, v], 2)  # [B, L + N, 3, H, D]
+            q, k, v = torch.cat([par.split_heads(qkv[:, :L]),
+                                 par.ulysses_shard_heads(qkv[:, L:])],
+                                1).unbind(2)
         out = scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            scale=D ** -0.5)
-        return self.to_out[0](out.transpose(1, 2).reshape(B, N, C))
+            scale=D ** -0.5, kv_mask=key_mask).transpose(1, 2)
+        if par.axis_size() > 1:
+            out = torch.cat([par.gather_heads(out[:, :L], H),
+                             par.ulysses_shard_seq(out[:, L:], H)], 1)
+        return self.to_out[0](out.reshape(B, N, C))
 
 
 class GELUProj(nn.Module):
@@ -229,11 +251,13 @@ class CogVideoXBlock(nn.Module):
                                             config.norm_eps)
         self.ff = FeedForward(C, 4 * C)
 
-    def forward(self, x, enc, temb, rope=None, read=None, write=None):
-        """x: [B, N, C] video, enc: [B, L, C] text. `read` / `write`: the
-        PAB cache view of this block's joint attention output [B, L + N, C]
-        ("attn"): read replaces the attention, which is not computed; write
-        receives a copy of it."""
+    def forward(self, x, enc, temb, rope=None, read=None, write=None,
+                key_mask=None):
+        """x: [B, N, C] video (this rank's shard under sp), enc: [B, L, C]
+        text. `read` / `write`: the PAB cache view of this block's joint
+        attention output [B, L + N, C] ("attn"): read replaces the
+        attention, which is not computed; write receives a copy of it.
+        `key_mask`: the joint attention's, under sp with padded tokens."""
         L = enc.shape[1]
         mods = self.norm1.modulations(temb)
         gate, e_gate = mods[2], mods[5]
@@ -241,7 +265,7 @@ class CogVideoXBlock(nn.Module):
             attn = read["attn"].to(x.dtype)
         else:
             nx, nenc = self.norm1(x, enc, mods)
-            attn = self.attn1(torch.cat([nenc, nx], 1), L, rope)
+            attn = self.attn1(torch.cat([nenc, nx], 1), L, rope, key_mask)
             if write and "attn" in write:
                 write["attn"].copy_(attn)
         x = x + gate * attn[:, L:]
@@ -293,10 +317,13 @@ class CogVideoXTransformer3D(nn.Module):
         """A zeroed PAB cache of the joint attention output for B rows of L
         text and N_video video tokens, on the model's device, in
         `pab.cache_dtype` (None: the model's dtype); None when `pab` does
-        not broadcast the spatial (here: joint) attention."""
+        not broadcast the spatial (here: joint) attention. Under active sp
+        groups the video rows are this rank's padded shard."""
         if pab is None or not pab.spatial_broadcast:
             return None
         cfg = self.config
+        m = par.token_pad_multiple()
+        N_video = -(-N_video // m)
         weight = self.proj_out.weight
         dtype = cache_torch_dtype(pab.cache_dtype) or weight.dtype
         return PABCache({"spatial": {"attn": torch.zeros(
@@ -343,17 +370,31 @@ class CogVideoXTransformer3D(nn.Module):
         else:
             xe = xe + table[None]
 
+        # sp: the video tokens padded to the sp size, this rank's shard
+        # resident, the pad masked as keys (JAX cogvideox.py:313)
+        m = par.token_pad_multiple()
+        key_mask = None
+        if m > 1:
+            xe = par.shard_tokens(xe)
+            if rope is not None:
+                rope = tuple(par.shard_tokens(a, 0) for a in rope)
+            if N % m:
+                key_mask = (torch.arange(L + N + -N % m, device=xe.device)
+                            < L + N).expand(B, -1)
+
         plan = plan or PABStepPlan()
         for i, block in enumerate(self.transformer_blocks):
             views = (pab_cache.views(plan, "spatial", i) if pab_cache
                      is not None else ({}, {}))
-            xe, enc = block(xe, enc, temb, rope, *views)
+            xe, enc = block(xe, enc, temb, rope, *views, key_mask=key_mask)
 
         if cfg.use_rotary_positional_embeddings:  # 5b: over the joint tokens
             xe = layer_norm_fp32(self.norm_final, torch.cat([enc, xe], 1))[:, L:]
         else:
             xe = layer_norm_fp32(self.norm_final, xe)
         xe = self.proj_out(self.norm_out(xe, temb))
+        if m > 1:  # gather the video tokens, drop the sp padding
+            xe = par.gather(xe, 1)[:, :N]
 
         # unpatchify -> [B, F, C_out, H, W]
         out = xe.reshape(B, F_, h_p, w_p, cfg.out_channels, p, p)

@@ -1,8 +1,7 @@
 """LatteT2V (Latte-1; also Open-Sora-Plan v1.1), alternating spatial and
 temporal DiT blocks under PixArt's adaLN-single.
 
-Port of `videosys_tpu/models/transformers/latte.py` without sharding.
-Activations are [B, T, S, C]: spatial blocks attend over the S patches of
+Port of `videosys_tpu/models/transformers/latte.py`. Activations are [B, T, S, C]: spatial blocks attend over the S patches of
 each frame (rows b·t), temporal blocks over the T frames of each patch (rows
 b·s). Module names follow the reference checkpoint (`maxin-cn/Latte-1`,
 `LanguageBind/Open-Sora-Plan-v1.1.0`): `pos_embed.proj`, `adaln_single`,
@@ -17,6 +16,15 @@ self-attention and MLP; a slot the plan reads replaces its branch, which is
 not computed (no norm, GEMM or attention), and a slot it writes is filled in
 place. The MLP slots follow the per-depth rows of the reference's MLP
 broadcast configs.
+
+Sequence parallelism (DSP, `core/parallel.py`): under groups installed with
+`parallel.use_groups` and sp > 1, T is padded to a multiple of sp after the
+patch embed and each rank holds its frames [B, T/sp, S, C] (JAX :381); the
+spatial and cross-attention and the MLP are local. A temporal block
+switches its attention input to the token shard [B, T, S/sp, C] (S padded
+to sp where it does not divide) and back (JAX :197-209); the pad frames are
+masked as keys there and keep the positions after the real frames'. The
+PAB slots hold the rank's frames. T is gathered before unpatchify.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from videosys_tpu_torch.core import parallel as par
 from videosys_tpu_torch.core.pab import (
     PABCache,
     PABConfig,
@@ -108,9 +117,11 @@ class LatteBlock(nn.Module):
         self.ff = FeedForward(C, config.activation_fn)
 
     def forward(self, x, t_6c, y=None, kv_mask=None, rope=None, read=None,
-                write=None):
+                write=None, t_pad=None):
         """`read` / `write`: PAB cache views of this block by slot ("attn",
-        "cross", "mlp"), each [B, T, S, C] (outputs after their gates)."""
+        "cross", "mlp"), each [B, T, S, C] (outputs after their gates).
+        `t_pad` [T * sp]: False at the frames that pad T to the sp size,
+        masked as keys in a temporal block (x is this rank's frames)."""
         eps = self.config.norm_eps
         read = read or {}
         write = write or {}
@@ -123,9 +134,15 @@ class LatteBlock(nn.Module):
         else:
             h = t2i_modulate(layer_norm(x, eps), shift_msa, scale_msa)
             if self.temporal:
-                h = self.attn1(h.transpose(1, 2).reshape(B * S, T, C),
-                               rope=rope)
-                h = h.reshape(B, S, T, C).transpose(1, 2)
+                # DSP switch: frame shard -> token shard and back
+                h = par.shard_spatial(par.pad_to_multiple(
+                    h, 2, par.axis_size()))
+                Ba, Ta, Sa = h.shape[:3]
+                t_kv = None if t_pad is None else t_pad.expand(Ba * Sa, Ta)
+                h = self.attn1(h.transpose(1, 2).reshape(Ba * Sa, Ta, C),
+                               kv_mask=t_kv, rope=rope)
+                h = par.shard_temporal(h.reshape(Ba, Sa, Ta, C)
+                                       .transpose(1, 2))[:, :, :S]
             else:
                 h = self.attn1(h.reshape(B * T, S, C),
                                rope=rope).reshape(B, T, S, C)
@@ -200,8 +217,10 @@ class LatteT2V(nn.Module):
     def init_cache(self, pab: PABConfig, B: int, T: int, S: int) -> PABCache:
         """A zeroed PAB cache for B rows of T x S tokens on the model's
         device, in `pab.cache_dtype` (None: the model's dtype); an MLP slot
-        holds one row per configured block."""
+        holds one row per configured block. Under active sp groups the
+        slots hold this rank's frames of the padded T."""
         weight = self.proj_out.weight
+        T = -(-T // par.token_pad_multiple())
         dtype = cache_torch_dtype(pab.cache_dtype) or weight.dtype
         blocks = [b for b in mlp_config_blocks(pab) if b < self.config.depth]
         shape = (self.config.depth, B, T, S, self.config.hidden_size)
@@ -270,11 +289,23 @@ class LatteT2V(nn.Module):
         h_p, w_p = H // p, W // p
         S, C = h_p * w_p, cfg.hidden_size
 
+        # sp: T padded to the sp size, this rank's frames resident, the pad
+        # frames masked as keys in the temporal rows (JAX latte.py:381)
+        m = par.token_pad_multiple()
+        Tp = -(-T // m) * m
+        t_pad = (torch.arange(Tp, device=device) < T) if Tp != T else None
+
         # patch embed with the 2D sincos table at the checkpoint's base size
-        pos, temp_pos, ropes = self._positions(T, h_p, w_p, device, dtype)
+        pos, temp_pos, ropes = self._positions(Tp, h_p, w_p, device, dtype)
+        if T == 1:
+            temp_pos = None
         xe = x.transpose(1, 2).reshape(B * T, C_in, H, W).to(dtype)
         xe = self.pos_embed.proj(xe).flatten(2).transpose(1, 2)
         xe = xe.reshape(B, T, S, C) + pos
+        if m > 1:
+            xe = par.split(par.pad_to_multiple(xe, 1, m), 1)
+            if temp_pos is not None:
+                temp_pos = par.split(temp_pos, 1)
 
         # the sinusoid is keyed on the timestep rounded to the model dtype
         t_6c, t_emb = self.adaln_single(timestep.to(dtype))
@@ -295,13 +326,16 @@ class LatteT2V(nn.Module):
             xe = spatial(xe, t_6c, y, kv_mask, rope_s, *views_s)
             if i == 0 and temp_pos is not None:
                 xe = xe + temp_pos
-            xe = temporal(xe, t_6c, None, None, rope_t, *views_t)
+            xe = temporal(xe, t_6c, None, None, rope_t, *views_t,
+                          t_pad=t_pad)
 
         mods = (self.scale_shift_table.float()[None]
                 + t_emb[:, None].float()).to(dtype)
         xo = t2i_modulate(layer_norm(xe, 1e-6), mods[:, 0, None, None],
                           mods[:, 1, None, None])
         xo = self.proj_out(xo)
+        if m > 1:  # gather T, drop the sp padding
+            xo = par.gather(xo, 1)[:, :T]
 
         # unpatchify: [B, T, (h w), (p q c)] -> [B, c, T, h p, w q]
         c = cfg.out_channels

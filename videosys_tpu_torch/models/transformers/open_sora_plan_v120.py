@@ -1,8 +1,7 @@
 """Open-Sora-Plan v1.2 transformer (OpenSoraT2V): a PixArt-style DiT over
 one stream of T x H x W tokens with 3D RoPE.
 
-Port of `videosys_tpu/models/transformers/open_sora_plan_v120.py` without
-sharding: per-frame 2D conv patch embed, the shared adaLN-single, per block
+Port of `videosys_tpu/models/transformers/open_sora_plan_v120.py`: per-frame 2D conv patch embed, the shared adaLN-single, per block
 self-attention with 3D RoPE (head_dim in thirds over t, h, w), cross-
 attention to mT5 captions (no norm before it) and the feed-forward, each
 modulated by the block's `scale_shift_table`. Module names follow the
@@ -15,6 +14,14 @@ PAB: `forward(..., plan=, pab_cache=)`; slots "attn" (self-attention,
 before its gate) and "cross" of branch "spatial", [depth, B, N, C]. A slot
 the plan reads replaces its branch, which is not computed; a slot it writes
 is filled in place.
+
+Sequence parallelism (Ulysses, `core/parallel.py`): under groups installed
+with `parallel.use_groups` and sp > 1, the tokens are padded to a multiple
+of sp and each rank holds its shard [B, N/sp, C]; self-attention trades
+heads for the whole sequence (one all-to-all of q, k and v), applies the 3D
+RoPE there with the whole table, masks the pad tokens as keys and comes
+back by the inverse all-to-all (JAX :152-162). Cross-attention, the MLP
+and the PAB slots are per rank. The tokens are gathered before unpatchify.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from videosys_tpu_torch.core import parallel as par
 from videosys_tpu_torch.core.pab import (
     PABCache,
     PABConfig,
@@ -124,9 +132,10 @@ class V120Block(nn.Module):
         self.ff = FeedForward(C, config.activation_fn)
 
     def forward(self, x, enc, mods, kv_mask=None, rope=None, read=None,
-                write=None):
+                write=None, key_mask=None):
         """`read` / `write`: PAB cache views by slot ("attn", "cross"),
-        each [B, N, C]."""
+        each [B, N, C]. `key_mask` [B, N * sp]: self-attention's, under sp
+        with padded tokens."""
         eps = self.config.norm_eps
         read = read or {}
         write = write or {}
@@ -140,7 +149,8 @@ class V120Block(nn.Module):
             attn = read["attn"].to(x.dtype)
         else:
             attn = self.attn1(t2i_modulate(layer_norm(x, eps), shift_msa,
-                                           scale_msa), rope=rope)
+                                           scale_msa), kv_mask=key_mask,
+                              rope=rope, ulysses=True)
             if "attn" in write:
                 write["attn"].copy_(attn)
         x = x + gate_msa * attn
@@ -196,8 +206,10 @@ class OpenSoraPlanV120Transformer(nn.Module):
 
     def init_cache(self, pab: PABConfig, B: int, N: int) -> PABCache:
         """A zeroed PAB cache for B rows of N tokens on the model's device,
-        in `pab.cache_dtype` (None: the model's dtype)."""
+        in `pab.cache_dtype` (None: the model's dtype). Under active sp
+        groups the rows are this rank's padded shard."""
         weight = self.proj_out.weight
+        N = -(-N // par.token_pad_multiple())
         dtype = cache_torch_dtype(pab.cache_dtype) or weight.dtype
         shape = (self.config.depth, B, N, self.config.hidden_size)
         keys = self.cache_keys(pab)
@@ -250,13 +262,21 @@ class OpenSoraPlanV120Transformer(nn.Module):
         xe = self.pos_embed.proj(xe).flatten(2).transpose(1, 2)
         xe = xe.reshape(B, T, h_p * w_p, C)
         table = self._positions(T, h_p, w_p, xe.device, dtype)
+        N = T * h_p * w_p
+        # sp: the tokens padded to the sp size, this rank's shard resident,
+        # the pad masked as keys (JAX open_sora_plan_v120.py:348)
+        sp = par.token_pad_multiple()
+        key_mask = None
+        if sp > 1 and N % sp:
+            key_mask = (torch.arange(N + -N % sp, device=xe.device)
+                        < N).expand(B, -1)
         rope = None
         if cfg.use_rope:
-            rope = partial(apply_rope_multiaxis, cos=table[0], sin=table[1],
-                           n_axes=3)
+            cos, sin = (par.pad_to_multiple(a, 0, sp) for a in table)
+            rope = partial(apply_rope_multiaxis, cos=cos, sin=sin, n_axes=3)
         else:
             xe = xe + table[0] + table[1]
-        xe = xe.reshape(B, T * h_p * w_p, C)
+        xe = par.shard_tokens(xe.reshape(B, N, C))
 
         mods, emb = self.adaln_single(timestep.float())
         enc = self.caption_projection(encoder_hidden_states.to(dtype))
@@ -265,11 +285,14 @@ class OpenSoraPlanV120Transformer(nn.Module):
         for i, block in enumerate(self.transformer_blocks):
             views = (pab_cache.views(plan, "spatial", i)
                      if pab_cache is not None else ())
-            xe = block(xe, enc, mods, kv_mask, rope, *views)
+            xe = block(xe, enc, mods, kv_mask, rope, *views,
+                       key_mask=key_mask)
 
         m = self.scale_shift_table.to(dtype)[None] + emb[:, None]
         xe = t2i_modulate(layer_norm(xe, 1e-6), m[:, 0, None], m[:, 1, None])
         xo = self.proj_out(xe)
+        if sp > 1:  # gather the tokens, drop the sp padding
+            xo = par.gather(xo, 1)[:, :N]
 
         # unpatchify: [B, (T h w), (p q c)] -> [B, c, T, h p, w q]
         c = cfg.out_channels

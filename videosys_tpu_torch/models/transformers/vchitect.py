@@ -1,8 +1,7 @@
 """Vchitect-XL transformer: MMDiT (SD3-style) joint blocks with spatial,
 temporal and cross attention.
 
-Port of `videosys_tpu/models/transformers/vchitect.py` without sharding.
-Activations are video tokens [B, F, S, C] and context tokens [B, F, L, C]
+Port of `videosys_tpu/models/transformers/vchitect.py`. Activations are video tokens [B, F, S, C] and context tokens [B, F, L, C]
 (the text replicated per frame). Per block: joint [video; context]
 attention within each frame (spatial), attention across the F frames of
 every joint token with RoPE on interleaved pairs (temporal), and attention
@@ -25,6 +24,17 @@ video rows, JAX's `temporal_x`, then the context rows before their
 projection, JAX's `temporal_enc`). A slot the plan reads replaces its
 branch, which is not computed; a slot it writes is filled in place. The
 last block always runs dense.
+
+Sequence parallelism (DSP, `core/parallel.py`): under groups installed with
+`parallel.use_groups` and sp > 1, F is padded to a multiple of sp and each
+rank holds its frames of the video and context tokens (JAX :365). The
+spatial joint rows are per frame and local. The temporal path switches its
+q, k and v to the token shard over S + L (padded to sp; the pad rows are
+dropped, not masked: the attention runs over frames, where the pad frames
+are masked as keys) and its output back (JAX :120-150). Cross-attention
+reads frame 0's context, which only sp rank 0 holds: each computed cross
+step broadcasts its k and v rows [B, L, C] from there. The PAB slots hold
+the rank's frames. F is gathered before unpatchify.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from videosys_tpu_torch.core import parallel as par
 from videosys_tpu_torch.core.pab import (
     PABCache,
     PABConfig,
@@ -130,12 +141,15 @@ class VchitectJointAttention(nn.Module):
         if not context_pre_only:
             self.to_add_out = Linear(C, C)
 
-    def forward(self, x, enc, rope, read=None, write=None):
-        """x [B, F, S, C], enc [B, F, L, C]; `rope`: (cos, sin) [F, D] fp32;
-        `read` / `write`: PAB cache views by slot ("attn", "cross" of the
-        spatial branch; "temporal" for the temporal slot), each
-        [B, F, S + L, C]. Returns (video out [B, F, S, C], context out
-        [B, F, L, C], None for a context_pre_only block)."""
+    def forward(self, x, enc, rope, read=None, write=None, f_pad=None):
+        """x [B, F, S, C], enc [B, F, L, C] (this rank's frames under sp);
+        `rope`: (cos, sin) [F * sp, D] fp32, None for one frame (no
+        temporal term); `read` / `write`: PAB cache views by slot ("attn",
+        "cross" of the spatial branch; "temporal" for the temporal slot),
+        each [B, F, S + L, C]; `f_pad` [F * sp]: False at the frames that
+        pad F to the sp size, masked as keys in the temporal rows. Returns
+        (video out [B, F, S, C], context out [B, F, L, C], None for a
+        context_pre_only block)."""
         read = read or {}
         write = write or {}
         cfg = self.config
@@ -153,22 +167,33 @@ class VchitectJointAttention(nn.Module):
 
         # temporal: rows [B * N, H, F, D], RoPE over the frames
         temporal = None
-        if Fr > 1:
+        if rope is not None:
             if "temporal" in read:
                 temporal = read["temporal"].to(x.dtype)
             else:
+                qkv = [joint(self.to_q_temp, enc_q),
+                       joint(self.to_k_temp, enc_k),
+                       joint(self.to_v_temp, enc_v)]
+                if par.axis_size() > 1:
+                    # DSP switch: frame shard -> token shard over S + L
+                    qkv = par.shard_spatial(par.pad_to_multiple(
+                        torch.stack(qkv, 1).flatten(0, 1), 2,
+                        par.axis_size())).unflatten(0, (B, 3)).unbind(1)
+                Ft, Nt = qkv[0].shape[1:3]
+
                 def frames(t):
-                    return t.reshape(B, Fr, N, H, D).permute(0, 2, 3, 1, 4) \
-                        .reshape(B * N, H, Fr, D)
+                    return t.reshape(B, Ft, Nt, H, D).permute(0, 2, 3, 1, 4) \
+                        .reshape(B * Nt, H, Ft, D)
                 cos, sin = rope
-                qt = rotate_interleaved_pairs(
-                    frames(joint(self.to_q_temp, enc_q)), cos, sin)
-                kt = rotate_interleaved_pairs(
-                    frames(joint(self.to_k_temp, enc_k)), cos, sin)
-                vt = frames(joint(self.to_v_temp, enc_v))
-                of = scaled_dot_product_attention(qt, kt, vt, scale=scale)
-                of = of.reshape(B, N, H, Fr, D).permute(0, 3, 1, 2, 4) \
-                    .reshape(B, Fr, N, C)
+                qt = rotate_interleaved_pairs(frames(qkv[0]), cos, sin)
+                kt = rotate_interleaved_pairs(frames(qkv[1]), cos, sin)
+                f_kv = None if f_pad is None else f_pad.expand(B * Nt, Ft)
+                of = scaled_dot_product_attention(qt, kt, frames(qkv[2]),
+                                                  scale=scale, kv_mask=f_kv)
+                of = of.reshape(B, Nt, H, Ft, D).permute(0, 3, 1, 2, 4) \
+                    .reshape(B, Ft, Nt, C)
+                # flip back to the frame shard, the pad rows dropped
+                of = par.shard_temporal(of)[:, :, :N]
                 temporal = torch.cat([self.to_out_temporal(of[:, :, :S]),
                                       of[:, :, S:]], dim=2)
                 if "temporal" in write:
@@ -179,8 +204,10 @@ class VchitectJointAttention(nn.Module):
             cross = read["cross"].to(x.dtype)
         else:
             qc = joint(self.to_q_cross, enc_q).reshape(B, Fr * N, H, D)
-            kc = enc_k[:, 0].reshape(B, L, H, D)
-            vc = enc_v[:, 0].reshape(B, L, H, D)
+            kc, vc = enc_k[:, 0], enc_v[:, 0]
+            if par.axis_size() > 1:  # frame 0 lives on sp rank 0
+                kc, vc = par.broadcast(torch.stack([kc, vc]), 0).unbind(0)
+            kc, vc = kc.reshape(B, L, H, D), vc.reshape(B, L, H, D)
             oc = scaled_dot_product_attention(
                 qc.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
                 scale=scale)
@@ -233,14 +260,14 @@ class VchitectBlock(nn.Module):
         if not context_pre_only:
             self.ff_context = FeedForward(C)
 
-    def forward(self, x, enc, temb, rope, read=None, write=None):
+    def forward(self, x, enc, temb, rope, read=None, write=None, f_pad=None):
         nx, g_msa, sh_mlp, sc_mlp, g_mlp = self.norm1(x, temb)
         if self.context_pre_only:
             nenc = self.norm1_context(enc, temb)
         else:
             nenc, c_gmsa, c_shmlp, c_scmlp, c_gmlp = self.norm1_context(
                 enc, temb)
-        attn_x, attn_enc = self.attn(nx, nenc, rope, read, write)
+        attn_x, attn_enc = self.attn(nx, nenc, rope, read, write, f_pad)
         x = x + g_msa * attn_x
         x = x + g_mlp * self.ff(layer_norm(x, 1e-6) * (1 + sc_mlp) + sh_mlp)
         if self.context_pre_only:
@@ -314,8 +341,11 @@ class VchitectXLTransformer(nn.Module):
     def init_cache(self, pab: PABConfig, B: int, F: int, S: int,
                    L: int) -> PABCache:
         """A zeroed PAB cache, one row for each block but the last, on the
-        model's device in `pab.cache_dtype` (None: the model's dtype)."""
+        model's device in `pab.cache_dtype` (None: the model's dtype).
+        Under active sp groups the slots hold this rank's frames of the
+        padded F."""
         weight = self.proj_out.weight
+        F = -(-F // par.token_pad_multiple())
         dtype = cache_torch_dtype(pab.cache_dtype) or weight.dtype
         shape = (self.config.depth - 1, B, F, S + L, self.config.hidden_size)
         slots = {branch: {k: torch.zeros(shape, dtype=dtype,
@@ -366,7 +396,15 @@ class VchitectXLTransformer(nn.Module):
         p = cfg.patch_size
         h_p, w_p = Hpx // p, Wpx // p
         S, C = h_p * w_p, cfg.hidden_size
-        pos, rope = self._positions(Fr, h_p, w_p, hidden_states.device, dtype)
+        # sp: F padded to the sp size, this rank's frames resident, the pad
+        # frames masked as keys in the temporal rows (JAX vchitect.py:365)
+        m = par.token_pad_multiple()
+        Fp = -(-Fr // m) * m
+        f_pad = (torch.arange(Fp, device=hidden_states.device) < Fr
+                 if Fp != Fr else None)
+        pos, rope = self._positions(Fp, h_p, w_p, hidden_states.device, dtype)
+        if Fr == 1:
+            rope = None  # one frame: no temporal term
 
         # patch embed plus the centre-cropped SD3 position table
         xe = self.pos_embed.proj(
@@ -380,15 +418,20 @@ class VchitectXLTransformer(nn.Module):
 
         # the context, replicated per frame
         enc = self.context_embedder(encoder_hidden_states.to(dtype))
-        enc = enc[:, None].expand(B, Fr, *enc.shape[1:])
+        Fl = Fp // m
+        enc = enc[:, None].expand(B, Fl, *enc.shape[1:])
+        if m > 1:
+            xe = par.split(par.pad_to_multiple(xe, 1, m), 1)
 
         plan = plan or PABStepPlan()
         last = cfg.num_layers - 1
         for i, block in enumerate(self.transformer_blocks):
             read, write = self._views(pab_cache if i < last else None, plan, i)
-            xe, enc = block(xe, enc, temb, rope, read, write)
+            xe, enc = block(xe, enc, temb, rope, read, write, f_pad)
 
         xo = self.proj_out(self.norm_out(xe, temb))
+        if m > 1:  # gather F, drop the sp padding
+            xo = par.gather(xo, 1)[:, :Fr]
         # unpatchify: [B, F, (h w), (p q c)] -> [B, F, c, h p, w q]
         c = cfg.out_channels
         out = xo.reshape(B, Fr, h_p, w_p, p, p, c).permute(0, 1, 6, 2, 4, 3, 5)

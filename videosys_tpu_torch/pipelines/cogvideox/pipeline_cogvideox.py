@@ -14,8 +14,13 @@ Weights come from a local diffusers-layout snapshot at `model_path`
 (`transformer/`, `vae/`, and `text_encoder/` with `tokenizer/`; see
 utils/checkpoint.py) or from this package's `save_params` directory there.
 `cpu_offload` keeps every module on the host and fetches each onto the
-card for its phase only (text, denoise, VAE). Not ported yet: multi-device
-runs (`num_gpus > 1`).
+card for its phase only (text, denoise, VAE).
+
+`num_gpus > 1` (`core/parallel.py`): one pipeline per rank over the ranks'
+process groups (`groups=`; `VideoSysEngine` spawns the ranks). Every rank
+is sp, as in the JAX pipeline (no cp): the transformer runs Ulysses
+sequence parallelism. Every rank draws the same noise, takes the same steps
+and decodes the whole video; rank 0 alone returns it.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from videosys_tpu_torch.core import parallel as par
 from videosys_tpu_torch.core.pab import PABConfig, build_plans
 from videosys_tpu_torch.core.pipeline import (
     VideoSysPipeline,
@@ -44,7 +50,11 @@ from videosys_tpu_torch.models.transformers.cogvideox import (
     CogVideoXConfig as CogModelConfig,
 )
 from videosys_tpu_torch.models.transformers.cogvideox import CogVideoXTransformer3D
-from videosys_tpu_torch.pipelines.common import snapshot_text_encoder
+from videosys_tpu_torch.pipelines.common import (
+    rank_groups,
+    request_seed,
+    snapshot_text_encoder,
+)
 from videosys_tpu_torch.schedulers.ddim import DDIMConfig, DDIMScheduler
 from videosys_tpu_torch.schedulers.dpm_cogvideox import (
     CogVideoXDPMConfig,
@@ -70,7 +80,7 @@ class CogVideoXConfig:
     `vae_config`) runs random weights and the stub encoder."""
 
     model_path: Optional[str] = "THUDM/CogVideoX-2b"
-    num_gpus: int = 1  # > 1 is not ported yet
+    num_gpus: int = 1  # ranks, all sp (Ulysses)
     # low-memory mode: the modules stay on the host and each phase fetches
     # the one it runs (text encoder, transformer, VAE) onto the card
     cpu_offload: bool = False
@@ -97,21 +107,23 @@ def dynamic_guidance(scale: float, t: float, num_steps: int) -> float:
 
 
 class CogVideoXPipeline(VideoSysPipeline):
+    serves_parallel = True  # VideoSysEngine may spawn num_gpus ranks
+
     def __init__(self, config: CogVideoXConfig, text_encoder=None,
                  vae: Optional[AutoencoderKLCogVideoX] = None,
-                 params: Optional[dict] = None, seed: int = 42, device=None):
+                 params: Optional[dict] = None, seed: int = 42, device=None,
+                 groups: Optional[par.Groups] = None):
         """`params`: optional {"transformer": state_dict, "vae": state_dict}
         (tensors or numpy arrays, this package's key names; see
         utils/from_jax.py); a module not in it is loaded from `model_path`,
         or random-initialized from `seed` under the random-init hooks.
-        Under `cpu_offload` the modules are built and kept on the host."""
+        Under `cpu_offload` the modules are built and kept on the host.
+        `groups`: this rank's process groups (`pipelines.common.
+        rank_groups`)."""
         self._config = config
         self.device = resolve_device(device)
         self.dtype = _DTYPES[config.dtype]
-        if config.num_gpus > 1:
-            raise NotImplementedError(
-                "num_gpus > 1 is not ported yet (ROADMAP Queue 1 item 6, "
-                "parallelism); run on one card")
+        self.groups = rank_groups(config, groups, self.device)
         is_5b = "5b" in (config.model_path or "")
         self.model_config = config.transformer_config or CogModelConfig(
             use_rotary_positional_embeddings=is_5b,
@@ -174,12 +186,11 @@ class CogVideoXPipeline(VideoSysPipeline):
         """Text to video. Draws: `latents`, the initial noise [B, F, C, h, w];
         `noise(name, shape)`, the DPM steps' noise ("dpm/{step}/first",
         "dpm/{step}/second"); both come from a generator seeded with `seed`
-        otherwise."""
+        otherwise (a negative one: rank 0's draw)."""
         cfg = self._config
         mc = self.model_config
-        if seed < 0:
-            seed = np.random.randint(0, 2**31 - 1)
-        gen = torch.Generator(self.device).manual_seed(int(seed))
+        seed = request_seed(seed, self.groups)
+        gen = torch.Generator(self.device).manual_seed(seed)
 
         def draw(prefix):
             def fn(name, shape):
@@ -203,7 +214,8 @@ class CogVideoXPipeline(VideoSysPipeline):
         plans = build_plans(pab, timesteps.astype(np.float32), mc.num_layers)
         is_dpm = isinstance(self.scheduler, CogVideoXDPMScheduler)
 
-        with self._phase("denoise", self.transformer, "transformer"):
+        with self._phase("denoise", self.transformer, "transformer"), \
+                par.use_groups(self.groups):
             if latents is not None:
                 if tuple(latents.shape) != shape:
                     raise ValueError(f"latents shape {tuple(latents.shape)} "
@@ -242,6 +254,9 @@ class CogVideoXPipeline(VideoSysPipeline):
             lat = z.transpose(1, 2) / self.vae.config.scaling_factor
             video = self.vae.decode(lat)  # [B, 3, T, H, W]
 
+        if self.groups is not None and self.groups.rank != 0:
+            return (None,) if not return_dict else VideoSysPipelineOutput(
+                video=None)  # rank 0 alone returns the video
         t0 = time.perf_counter()
         video = torch.round(torch.clamp(video.float() / 2 + 0.5, 0, 1) * 255)
         video = video.permute(0, 2, 3, 4, 1).to(torch.uint8).cpu().numpy()

@@ -4,15 +4,19 @@
 the smallest 64-token bucket that holds every real token of the batch. It
 is exact: the trimmed tokens are masked and weigh nothing in the softmax.
 `snapshot_text_encoder` loads the T5 of a local diffusers snapshot.
+`rank_groups` and `request_seed` are the multi-rank plumbing every
+pipeline shares (`core/parallel.py`).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from videosys_tpu_torch.core import parallel as par
 from videosys_tpu_torch.models.text_encoders.t5 import T5EncoderModel, T5TextEncoder
 
 _GRANULARITY = 64
@@ -59,3 +63,30 @@ def snapshot_text_encoder(path: str, max_length: int, dtype: torch.dtype,
             f"text encoder {path!r} could not be loaded ({e}); pass "
             f"{option}=None for the offline stub, or a local snapshot "
             f"path") from e
+
+
+def rank_groups(config, groups: Optional[par.Groups], device
+                ) -> Optional[par.Groups]:
+    """This rank's process groups: `groups` as given (the counterpart of
+    the JAX pipelines' `mesh=`), else, with `config.num_gpus > 1`, the
+    groups of `ParallelConfig.from_world_size(num_gpus, enable_cp)` built
+    over the default process group (which must exist: `VideoSysEngine`
+    spawns the ranks, a `torchrun` caller calls `initialize`); None on one
+    rank. Raises when the groups' size is not `num_gpus`."""
+    n = config.num_gpus
+    if groups is None and n > 1:
+        groups = par.build_groups(par.ParallelConfig.from_world_size(
+            n, enable_cp=getattr(config, "enable_cp", False)), device)
+    if groups is not None and groups.world_size != n:
+        raise ValueError(f"groups of {groups.world_size} ranks for "
+                         f"num_gpus={n}")
+    return groups
+
+
+def request_seed(seed: int, groups: Optional[par.Groups]) -> int:
+    """`seed`, or for a negative one a draw of rank 0's, sent to every
+    rank, so that every rank starts from the same noise."""
+    if seed >= 0:
+        return int(seed)
+    return par.broadcast_from_rank0(int(np.random.randint(0, 2**31 - 1)),
+                                    groups)

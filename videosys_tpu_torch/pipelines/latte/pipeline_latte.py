@@ -14,8 +14,14 @@ Weights come from a local diffusers-layout snapshot at `model_path`
 (`transformer/`, `vae/`, and `text_encoder/` with `tokenizer/`; see
 utils/checkpoint.py) or from this package's `save_params` directory there.
 The T5 runs at 120 tokens. `cpu_offload` keeps every module on the host and
-fetches each onto the card for its phase only. Not ported yet: multi-device
-runs (`num_gpus > 1`).
+fetches each onto the card for its phase only.
+
+`num_gpus > 1` (`core/parallel.py`): one pipeline per rank over the ranks'
+process groups (`groups=`; `VideoSysEngine` spawns the ranks). LatteT2V runs
+DSP over sp (frames resident, tokens for the temporal attention); with
+`enable_cp` the two halves of the CFG-doubled batch run on the two cp ranks
+and are gathered for the guidance. Every rank draws the same noise, takes
+the same steps and decodes the whole video; rank 0 alone returns it.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from videosys_tpu_torch.core import parallel as par
 from videosys_tpu_torch.core.pab import PABConfig, build_plans
 from videosys_tpu_torch.core.pipeline import (
     VideoSysPipeline,
@@ -38,7 +45,12 @@ from videosys_tpu_torch.models.autoencoders.vae2d import AutoencoderKL2D
 from videosys_tpu_torch.models.text_encoders.t5 import StubTextEncoder
 from videosys_tpu_torch.models.transformers.latte import LatteConfig as LatteModelConfig
 from videosys_tpu_torch.models.transformers.latte import LatteT2V
-from videosys_tpu_torch.pipelines.common import bucket_text_kv, snapshot_text_encoder
+from videosys_tpu_torch.pipelines.common import (
+    bucket_text_kv,
+    rank_groups,
+    request_seed,
+    snapshot_text_encoder,
+)
 from videosys_tpu_torch.pipelines.open_sora.data_process import text_preprocessing
 from videosys_tpu_torch.schedulers.ddim import DDIMConfig, DDIMScheduler
 from videosys_tpu_torch.utils.checkpoint import require_weights, try_load_params
@@ -74,11 +86,11 @@ class LatteConfig:
     encoder. `vae_config`: AutoencoderKL2D keyword arguments."""
 
     model_path: Optional[str] = "maxin-cn/Latte-1"
-    num_gpus: int = 1  # > 1 is not ported yet
+    num_gpus: int = 1  # ranks: sp = num_gpus, or num_gpus / 2 with cp
     # low-memory mode: the modules stay on the host and each phase fetches
     # the one it runs (text encoder, transformer, VAE) onto the card
     cpu_offload: bool = False
-    enable_cp: bool = False  # no effect on one card, as in the JAX package
+    enable_cp: bool = False  # CFG halves over 2 ranks (even num_gpus)
     beta_start: float = 0.0001
     beta_end: float = 0.02
     beta_schedule: str = "linear"
@@ -97,21 +109,22 @@ class LatteConfig:
 
 
 class LattePipeline(VideoSysPipeline):
+    serves_parallel = True  # VideoSysEngine may spawn num_gpus ranks
+
     def __init__(self, config: LatteConfig, text_encoder=None,
                  vae: Optional[AutoencoderKL2D] = None,
-                 params: Optional[dict] = None, seed: int = 42, device=None):
+                 params: Optional[dict] = None, seed: int = 42, device=None,
+                 groups: Optional[par.Groups] = None):
         """`params`: optional {"transformer": state_dict, "vae": state_dict}
         (this package's key names, the reference's); a module not in it is
         loaded from `model_path`, or random-initialized from `seed` under
         the random-init hooks. Under `cpu_offload` the modules are built and
-        kept on the host."""
+        kept on the host. `groups`: this rank's process groups
+        (`pipelines.common.rank_groups`)."""
         self._config = config
         self.device = resolve_device(device)
         self.dtype = _DTYPES[config.dtype]
-        if config.num_gpus > 1:
-            raise NotImplementedError(
-                "num_gpus > 1 is not ported yet (ROADMAP Queue 1 item 6, "
-                "parallelism); run on one card")
+        self.groups = rank_groups(config, groups, self.device)
         self.model_config = config.transformer_config or LatteModelConfig(
             dtype=self.dtype)
         if text_encoder is None:
@@ -153,12 +166,12 @@ class LattePipeline(VideoSysPipeline):
                  seed: int = -1, latents: Optional[torch.Tensor] = None,
                  return_dict: bool = True):
         """Text to video. `latents`: the initial noise [B, C, T, h, w],
-        drawn from a generator seeded with `seed` otherwise."""
+        drawn from a generator seeded with `seed` otherwise (a negative
+        one: rank 0's draw)."""
         cfg = self._config
         mc = self.model_config
-        if seed < 0:
-            seed = np.random.randint(0, 2**31 - 1)
-        gen = torch.Generator(self.device).manual_seed(int(seed))
+        seed = request_seed(seed, self.groups)
+        gen = torch.Generator(self.device).manual_seed(seed)
         self.last_timings = dict.fromkeys(
             ("text", "denoise", "vae", "postprocess"), 0.0)
         with self._phase("text"):
@@ -179,7 +192,12 @@ class LattePipeline(VideoSysPipeline):
         pab = cfg.pab_config if cfg.enable_pab else None
         plans = build_plans(pab, timesteps.astype(np.float32), mc.num_layers)
 
-        with self._phase("denoise", self.transformer, "transformer"):
+        with self._phase("denoise", self.transformer, "transformer"), \
+                par.use_groups(self.groups):
+            # cp: this rank runs its half of the CFG-doubled batch
+            y_in, kv_in = (par.split(a, 0, par.CP_AXIS)
+                           for a in (y_all, kv_mask))
+            rows = 2 * B // par.axis_size(par.CP_AXIS)
             if latents is not None:
                 if tuple(latents.shape) != shape:
                     raise ValueError(f"latents shape {tuple(latents.shape)} "
@@ -191,16 +209,18 @@ class LattePipeline(VideoSysPipeline):
             if pab is not None:  # on the card with the transformer
                 p = mc.patch_size
                 cache = self.transformer.init_cache(
-                    pab, 2 * B, video_length,
+                    pab, rows, video_length,
                     (shape[3] // p) * (shape[4] // p))
                 self.last_pab_cache_bytes = cache.nbytes
             for t_i, plan in zip(timesteps, plans):
                 a_t, a_prev = self.scheduler.alphas_for_step(int(t_i))
-                t_in = torch.full((2 * B,), float(t_i), device=self.device)
-                out = self.transformer(torch.cat([z, z]).to(self.dtype), t_in,
-                                       y_all, kv_mask=kv_mask, plan=plan,
-                                       pab_cache=cache)
-                eps = out[:, :mc.in_channels]  # the learned sigma dropped
+                t_in = torch.full((rows,), float(t_i), device=self.device)
+                z_in = par.split(torch.cat([z, z]).to(self.dtype), 0,
+                                 par.CP_AXIS)
+                out = self.transformer(z_in, t_in, y_in, kv_mask=kv_in,
+                                       plan=plan, pab_cache=cache)
+                # the learned sigma dropped
+                eps = par.gather(out[:, :mc.in_channels], 0, par.CP_AXIS)
                 eps = eps[:B] + guidance_scale * (eps[B:] - eps[:B])
                 x0, eps = self.scheduler.predict_x0(z, eps, a_t)
                 z = a_prev ** 0.5 * x0 + (1 - a_prev) ** 0.5 * eps
@@ -213,6 +233,9 @@ class LattePipeline(VideoSysPipeline):
                                                *shape[3:])
             video = self.vae.decode((frames / VAE_SCALING).to(self.dtype))
 
+        if self.groups is not None and self.groups.rank != 0:
+            return (None,) if not return_dict else VideoSysPipelineOutput(
+                video=None)  # rank 0 alone returns the video
         t0 = time.perf_counter()
         video = torch.clamp(video.float() / 2 + 0.5, 0, 1) * 255
         video = video.to(torch.uint8).reshape(B, video_length,

@@ -30,7 +30,6 @@ import dataclasses
 import time
 from typing import Callable, Optional, Sequence, Tuple, Union
 
-import numpy as np
 import torch
 
 from videosys_tpu_torch.core import parallel as par
@@ -47,7 +46,11 @@ from videosys_tpu_torch.models.autoencoders.autoencoder_open_sora import (
 )
 from videosys_tpu_torch.models.text_encoders.t5 import StubTextEncoder, T5TextEncoder
 from videosys_tpu_torch.models.transformers.stdit3 import STDiT3, STDiT3Config
-from videosys_tpu_torch.pipelines.common import bucket_text_kv
+from videosys_tpu_torch.pipelines.common import (
+    bucket_text_kv,
+    rank_groups,
+    request_seed,
+)
 from videosys_tpu_torch.pipelines.open_sora import mask_strategy as ms
 from videosys_tpu_torch.pipelines.open_sora.data_process import (
     append_score_to_prompts,
@@ -135,18 +138,11 @@ class OpenSoraPipeline(VideoSysPipeline):
         paths, or random-initialized from `seed` under the random-init
         hooks. Under `cpu_offload` the modules are built and kept on the
         host. `groups`: this rank's process groups (`parallel.build_groups`,
-        the counterpart of JAX's `mesh=`); with `num_gpus > 1` and none
-        given they are built over the default process group."""
+        the counterpart of JAX's `mesh=`; `pipelines.common.rank_groups`)."""
         self._config = config
         self.device = resolve_device(device)
         self.dtype = _DTYPES[config.dtype]
-        if groups is None and config.num_gpus > 1:
-            groups = par.build_groups(par.ParallelConfig.from_world_size(
-                config.num_gpus, enable_cp=config.enable_cp), self.device)
-        if groups is not None and groups.world_size != config.num_gpus:
-            raise ValueError(f"groups of {groups.world_size} ranks for "
-                             f"num_gpus={config.num_gpus}")
-        self.groups = groups
+        self.groups = rank_groups(config, groups, self.device)
         if not config.enable_flash_attn and self.device.type == "cuda":
             raise ValueError(
                 "enable_flash_attn=False: on the card every attention runs "
@@ -296,10 +292,7 @@ class OpenSoraPipeline(VideoSysPipeline):
                 raise ValueError(f"seed list length {len(seed)} != {B} prompts")
             seeds = [int(s) for s in seed]
         else:
-            # an unseeded request: rank 0's draw, so that every rank
-            # starts from the same noise
-            base = int(seed) if seed >= 0 else par.broadcast_from_rank0(
-                int(np.random.randint(0, 2**31 - 1)), self.groups)
+            base = request_seed(seed, self.groups)
             seeds = [base + i for i in range(B)]
         if isinstance(latents, torch.Tensor):
             latents = [latents]

@@ -16,8 +16,15 @@ Weights come from a local Open-Sora-Plan snapshot at `transformer` (the
 `transformer_type` folder and `vae/`; see utils/checkpoint.py) or this
 package's `save_params` directory there; the captions from a local T5
 (v1.1) or mT5 (v1.2) snapshot at `text_encoder`. `cpu_offload` keeps every
-module on the host and fetches each onto the card for its phase only. Not
-ported yet: multi-device runs (`num_gpus > 1`).
+module on the host and fetches each onto the card for its phase only.
+
+`num_gpus > 1` (`core/parallel.py`): one pipeline per rank over the ranks'
+process groups (`groups=`; `VideoSysEngine` spawns the ranks). The
+transformer runs sequence parallel over sp: v1.2 Ulysses, v1.1 (LatteT2V)
+DSP over frames; with `enable_cp` the two halves of the CFG-doubled batch
+run on the two cp ranks and are gathered for the guidance. Every rank draws
+the same noise, takes the same steps and decodes the whole video; rank 0
+alone returns it.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from videosys_tpu_torch.core import parallel as par
 from videosys_tpu_torch.core.pab import PABConfig, build_plans
 from videosys_tpu_torch.core.pipeline import (
     VideoSysPipeline,
@@ -49,7 +57,12 @@ from videosys_tpu_torch.models.transformers.open_sora_plan_v120 import (
     OpenSoraPlanV120Config,
     OpenSoraPlanV120Transformer,
 )
-from videosys_tpu_torch.pipelines.common import bucket_text_kv, snapshot_text_encoder
+from videosys_tpu_torch.pipelines.common import (
+    bucket_text_kv,
+    rank_groups,
+    request_seed,
+    snapshot_text_encoder,
+)
 from videosys_tpu_torch.pipelines.open_sora.data_process import text_preprocessing
 from videosys_tpu_torch.schedulers.euler_ancestral import EulerAncestralScheduler
 from videosys_tpu_torch.schedulers.pndm import PNDMScheduler
@@ -104,8 +117,8 @@ class OpenSoraPlanConfig:
     transformer_type: str = "29x480p"
     transformer: Optional[str] = None
     text_encoder: Optional[str] = None
-    num_gpus: int = 1  # > 1 is not ported yet
-    enable_cp: bool = False  # no effect on one card, as in the JAX package
+    num_gpus: int = 1  # ranks: sp = num_gpus, or num_gpus / 2 with cp
+    enable_cp: bool = False  # CFG halves over 2 ranks (even num_gpus)
     cpu_offload: bool = False
     enable_tiling: bool = True
     tile_overlap_factor: float = 0.25
@@ -132,22 +145,23 @@ class OpenSoraPlanConfig:
 
 
 class OpenSoraPlanPipeline(VideoSysPipeline):
+    serves_parallel = True  # VideoSysEngine may spawn num_gpus ranks
+
     def __init__(self, config: OpenSoraPlanConfig, text_encoder=None,
                  vae: Optional[CausalVAE] = None,
-                 params: Optional[dict] = None, seed: int = 42, device=None):
+                 params: Optional[dict] = None, seed: int = 42, device=None,
+                 groups: Optional[par.Groups] = None):
         """`params`: optional {"transformer": state_dict, "vae": state_dict}
         (this package's key names, the reference's); a module not in it is
         loaded from `transformer`, or random-initialized from `seed` under
         the random-init hooks. Under `cpu_offload` the modules are built and
-        kept on the host."""
+        kept on the host. `groups`: this rank's process groups
+        (`pipelines.common.rank_groups`)."""
         self._config = config
         self.device = resolve_device(device)
         self.dtype = _DTYPES[config.dtype]
         self.version = config.version
-        if config.num_gpus > 1:
-            raise NotImplementedError(
-                "num_gpus > 1 is not ported yet (ROADMAP Queue 1 item 6, "
-                "parallelism); run on one card")
+        self.groups = rank_groups(config, groups, self.device)
         v110 = self.version == "v110"
         if config.transformer_config is not None:
             self.model_config = config.transformer_config
@@ -215,13 +229,13 @@ class OpenSoraPlanPipeline(VideoSysPipeline):
         """Text to video. Draws: `latents`, the initial noise [B, C, T, h, w]
         (before v1.2's init_noise_sigma); `draw(name, shape)`, v1.2's
         ancestral noise of each step ("euler/{step}/ancestral"); both from
-        a generator seeded with `seed` otherwise."""
+        a generator seeded with `seed` otherwise (a negative one: rank 0's
+        draw)."""
         cfg = self._config
         mc = self.model_config
         v110 = self.version == "v110"
-        if seed < 0:
-            seed = np.random.randint(0, 2**31 - 1)
-        gen = torch.Generator(self.device).manual_seed(int(seed))
+        seed = request_seed(seed, self.groups)
+        gen = torch.Generator(self.device).manual_seed(seed)
 
         def step_draw(prefix):
             def fn(name, shape):
@@ -251,7 +265,12 @@ class OpenSoraPlanPipeline(VideoSysPipeline):
         plans = build_plans(pab, np.asarray(timesteps, np.float32),
                             mc.num_layers)
 
-        with self._phase("denoise", self.transformer, "transformer"):
+        with self._phase("denoise", self.transformer, "transformer"), \
+                par.use_groups(self.groups):
+            # cp: this rank runs its half of the CFG-doubled batch
+            y_in, kv_in = (par.split(a, 0, par.CP_AXIS)
+                           for a in (y_all, kv_mask))
+            rows = 2 * B // par.axis_size(par.CP_AXIS)
             if latents is not None:
                 if tuple(latents.shape) != shape:
                     raise ValueError(f"latents shape {tuple(latents.shape)} "
@@ -264,23 +283,24 @@ class OpenSoraPlanPipeline(VideoSysPipeline):
             cache = None
             if pab is not None:  # on the card with the transformer
                 S = self._tokens(shape)
-                cache = (self.transformer.init_cache(pab, 2 * B, shape[2], S)
+                cache = (self.transformer.init_cache(pab, rows, shape[2], S)
                          if v110 else
-                         self.transformer.init_cache(pab, 2 * B, shape[2] * S))
+                         self.transformer.init_cache(pab, rows, shape[2] * S))
                 self.last_pab_cache_bytes = cache.nbytes
             for i, (t_i, plan) in enumerate(zip(timesteps, plans)):
                 z_in = torch.cat([z, z])
                 if not v110:
                     z_in = self.scheduler.scale_model_input(z_in, i)
-                z_in = z_in.to(self.dtype)
-                t_in = torch.full((2 * B,), float(t_i), device=self.device)
+                z_in = par.split(z_in.to(self.dtype), 0, par.CP_AXIS)
+                t_in = torch.full((rows,), float(t_i), device=self.device)
                 if v110:
-                    out = self.transformer(z_in, t_in, y_all, kv_mask=kv_mask,
+                    out = self.transformer(z_in, t_in, y_in, kv_mask=kv_in,
                                            plan=plan, pab_cache=cache)
                 else:
-                    out = self.transformer(z_in, y_all, t_in, kv_mask=kv_mask,
+                    out = self.transformer(z_in, y_in, t_in, kv_mask=kv_in,
                                            plan=plan, pab_cache=cache)
-                eps = out[:, :mc.in_channels]  # a learned sigma dropped
+                # a learned sigma dropped
+                eps = par.gather(out[:, :mc.in_channels], 0, par.CP_AXIS)
                 eps = eps[:B] + guidance_scale * (eps[B:] - eps[:B])
                 if v110:
                     z = self.scheduler.step(eps, int(t_i), z)
@@ -293,6 +313,9 @@ class OpenSoraPlanPipeline(VideoSysPipeline):
         with self._phase("vae", self.vae, "vae"):
             video = self.vae.decode(z)
 
+        if self.groups is not None and self.groups.rank != 0:
+            return (None,) if not return_dict else VideoSysPipelineOutput(
+                video=None)  # rank 0 alone returns the video
         t0 = time.perf_counter()
         video = torch.clamp(video / 2 + 0.5, 0, 1) * 255
         video = video.permute(0, 2, 3, 4, 1).to(torch.uint8)

@@ -17,8 +17,16 @@ Weights: the transformer from a local diffusers-layout snapshot's
 directory there), its depth read from the keys; the VAE is random-init from
 the seed, as in the JAX package, which loads no Vchitect VAE.
 `cpu_offload` keeps every module on the host and fetches each onto the
-card for its phase only. Not ported yet: multi-device runs
-(`num_gpus > 1`).
+card for its phase only.
+
+`num_gpus > 1` (`core/parallel.py`): one pipeline per rank over the ranks'
+process groups (`groups=`; `VideoSysEngine` spawns the ranks). The
+transformer runs DSP over sp (frames resident, tokens for the temporal
+attention). The uncond and cond forwards run one after the other with B =
+1, as in the JAX pipeline, so under `enable_cp` the two cp ranks of an sp
+line compute the same rows: JAX's batch-over-(dp, cp) layout is degenerate
+at B = 1. Every rank draws the same noise, takes the same steps and decodes
+the whole video; rank 0 alone returns it.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from videosys_tpu_torch.core import parallel as par
 from videosys_tpu_torch.core.pab import PABConfig, build_plans
 from videosys_tpu_torch.core.pipeline import (
     VideoSysPipeline,
@@ -45,6 +54,7 @@ from videosys_tpu_torch.models.transformers.vchitect import (
     VchitectModelConfig,
     VchitectXLTransformer,
 )
+from videosys_tpu_torch.pipelines.common import rank_groups, request_seed
 from videosys_tpu_torch.pipelines.open_sora.data_process import text_preprocessing
 from videosys_tpu_torch.schedulers.flow_match_euler import FlowMatchEulerScheduler
 from videosys_tpu_torch.utils.checkpoint import (
@@ -123,8 +133,9 @@ class VchitectConfig:
     unless given)."""
 
     model_path: Optional[str] = "Vchitect/Vchitect-2.0-2B"
-    num_gpus: int = 1  # > 1 is not ported yet
-    enable_cp: bool = False  # no effect on one card, as in the JAX package
+    num_gpus: int = 1  # ranks: sp = num_gpus, or num_gpus / 2 with cp
+    # cp ranks replicate the B = 1 forwards (as the JAX pipeline's mesh)
+    enable_cp: bool = False
     # low-memory mode: the modules stay on the host and each phase fetches
     # the one it runs (text encoders, transformer, VAE) onto the card
     cpu_offload: bool = False
@@ -142,22 +153,23 @@ class VchitectConfig:
 
 
 class VchitectXLPipeline(VideoSysPipeline):
+    serves_parallel = True  # VideoSysEngine may spawn num_gpus ranks
+
     def __init__(self, config: VchitectConfig, text_encoder=None,
                  vae: Optional[AutoencoderKL2D] = None,
-                 params: Optional[dict] = None, seed: int = 42, device=None):
+                 params: Optional[dict] = None, seed: int = 42, device=None,
+                 groups: Optional[par.Groups] = None):
         """`params`: optional {"transformer": state_dict, "vae": state_dict}
         (this package's key names, the reference's); a transformer not in
         it is loaded from `model_path`, or random-initialized from `seed`
         under `transformer_config`; the VAE is random-initialized unless
         given. Under `cpu_offload` the modules are built and kept on the
-        host."""
+        host. `groups`: this rank's process groups
+        (`pipelines.common.rank_groups`)."""
         self._config = config
         self.device = resolve_device(device)
         self.dtype = _DTYPES[config.dtype]
-        if config.num_gpus > 1:
-            raise NotImplementedError(
-                "num_gpus > 1 is not ported yet (ROADMAP Queue 1 item 6, "
-                "parallelism); run on one card")
+        self.groups = rank_groups(config, groups, self.device)
         params = dict(params or {})
         if "transformer" not in params:
             params = {**(try_load_params(config, family="vchitect") or {}),
@@ -205,12 +217,12 @@ class VchitectXLPipeline(VideoSysPipeline):
                  seed: int = -1, latents: Optional[torch.Tensor] = None,
                  return_dict: bool = True):
         """Text to video. `latents`: the initial noise [1, F, C, h, w],
-        drawn from a generator seeded with `seed` otherwise."""
+        drawn from a generator seeded with `seed` otherwise (a negative
+        one: rank 0's draw)."""
         cfg = self._config
         mc = self.model_config
-        if seed < 0:
-            seed = np.random.randint(0, 2**31 - 1)
-        gen = torch.Generator(self.device).manual_seed(int(seed))
+        seed = request_seed(seed, self.groups)
+        gen = torch.Generator(self.device).manual_seed(seed)
         self.last_timings = dict.fromkeys(
             ("text", "denoise", "vae", "postprocess"), 0.0)
         with self._phase("text"):
@@ -226,7 +238,8 @@ class VchitectXLPipeline(VideoSysPipeline):
         plans = build_plans(pab, np.asarray(timesteps, np.float32),
                             mc.num_layers)
 
-        with self._phase("denoise", self.transformer, "transformer"):
+        with self._phase("denoise", self.transformer, "transformer"), \
+                par.use_groups(self.groups):
             if latents is not None:
                 if tuple(latents.shape) != shape:
                     raise ValueError(f"latents shape {tuple(latents.shape)} "
@@ -263,6 +276,9 @@ class VchitectXLPipeline(VideoSysPipeline):
             video = self.vae.decode((z[0] / VAE_SCALING + VAE_SHIFT)
                                     .to(self.dtype))
 
+        if self.groups is not None and self.groups.rank != 0:
+            return (None,) if not return_dict else VideoSysPipelineOutput(
+                video=None)  # rank 0 alone returns the video
         t0 = time.perf_counter()
         video = torch.clamp(video.float() / 2 + 0.5, 0, 1) * 255
         video = video.to(torch.uint8).permute(0, 2, 3, 1)[None].cpu().numpy()
