@@ -167,7 +167,27 @@ Phases, each fatal on failure:
      the same ranks every family's tiny parallel forward (every pad taken)
      against the CPU; a worker that raises must fail the driver's call;
      the forward kernels at one rank's shapes of every world against their
-     plain versions.
+     plain versions. The Open-Sora VAE runs split over the ranks (latent
+     rows with halos, then frames): every rank decodes its share at once,
+     and each rank's VAE seconds and VAE peak are printed beside world
+     1's working set over the world size (the prediction).
+ 17. train STDiT3-XL/2 at its published width over ranks sharing the card
+     (gloo): dp=2, sp=2 and dp=2 x sp=2 (PTRAIN_WORLDS; the four ranks of
+     dp=2 x sp=2 at a cut depth, PERF.md), ZeRO-1 and DSP under recompute
+     "full", the 240p 51-frame bucket, PTRAIN_STEPS steps each, against
+     world 1 on the same global batch and draws (PTRAIN_LIMITS): the
+     per-step loss and grad norm, each rank's peak, ZeRO-1 moment bytes
+     (1/N of world 1's), the seconds in collectives (each wrapped with a
+     sync on both sides) against the steps', and its launches against the
+     per-rank prediction; a tiny fp32 configuration at dp=2 and sp=2 on
+     the card's kernels against the CPU's world 1 (losses 1e-4); the
+     kernels at one rank's new training rows (forward and backward) and at
+     one rank's share of the split decode against their plain versions.
+
+Opt-in (named in --phases only): `parallel_fp32` runs the DSP and cp
+worlds of phase 16 (Open-Sora sp=2 and cp=2, Latte-1 sp=2 and cp=2, OSP
+v1.1 sp=2, Vchitect-2.0 sp=2) in fp32 with TF32 off for 2 steps (v1.1 4)
+against world 1 in fp32 and prints each world's latent relative L2.
 
 bf16 outputs are held by two relative measures, rel_l2 = |got - want|_2 /
 |want|_2 and rel_max = max|got - want| / max|want|, at limits set per shape
@@ -188,6 +208,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 
@@ -197,11 +218,12 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 PEAK_BYTES = 3.35e12
 PHASES = ("kernel", "serve", "tiny", "bwd_kernel", "train", "tiny_train", "t5",
           "offload", "cogvideox", "dcp", "raw_video", "latte", "open_sora_plan",
-          "vchitect", "parallel")
+          "vchitect", "parallel", "parallel_train")
+OPT_IN_PHASES = ("parallel_fp32",)  # run only when named in --phases
 TRAIN_STEPS = 4  # on the default buckets: two video shapes and an image
 # rflow steps of the serve phase's conditioned and loop=2 requests (the
 # depth of those repeats of the 480p request; their width is the request's)
-COND_STEPS = 10
+COND_STEPS = 5  # cut from 10 to keep the script inside its time
 # the main path's request: 480p 9:16 2 s (51 frames)
 REQUEST_480P = dict(
     prompt="a drone shot of waves breaking on a rocky coast at sunset",
@@ -278,13 +300,19 @@ BF16_LIMITS = {**BF16_KIND, "vae_mid": (6.5e-3, 1.5e-2),
                "sp2_osp120_cross": (6.5e-3, 1.5e-2),
                **{f"sp2_{f}_{k}": BF16_KIND[k]
                   for f in ("latte", "osp110", "vchitect")
-                  for k in ("spatial", "temporal", "cross")}}
+                  for k in ("spatial", "temporal", "cross")},
+               # one rank's training rows under sp=2 (parallel_train) and
+               # its share of the split 480p decode: the limits of the
+               # rows of the same kind
+               **{f"ptrain_{k}": BF16_KIND[k]
+                  for k in ("spatial", "temporal", "cross")},
+               "vae_mid_rank": (6.5e-3, 1.5e-2)}
 # the same for the gradients of the backward kernels (the largest of dq, dk,
 # dv): the kernels read at most a third of each limit (3.0e-4, 3.2e-3), the
 # one-key fault at least 10x one of them (1.1e-2, 1.0e-1 at the long row)
 BWD_BF16_LIMITS = {name: (1e-3, 1e-2) for name in (
     "spatial144", "spatial", "temporal", "cross8", "cross300", "long_row",
-    "dcp_spatial")}
+    "dcp_spatial", "ptrain_spatial", "ptrain_cross", "ptrain_temporal")}
 
 
 def log(*a):
@@ -530,7 +558,7 @@ def wide_forward_edges(fa) -> dict:
 
 def expected_launches(fa, pipe, num_frames: int, height: int, width: int,
                       steps: int, text_len: int, plans=None, loop: int = 1,
-                      encoded=(), sp: int = 1) -> dict:
+                      encoded=(), sp: int = 1, vae_ranks: int = 1) -> dict:
     """Kernel launches one request makes, by variant, from its shapes and
     PAB plans: per denoise step and loop each depth runs spatial (S x S
     tokens), temporal (T x T, unless T = 1) and two cross attentions (S x
@@ -541,7 +569,9 @@ def expected_launches(fa, pipe, num_frames: int, height: int, width: int,
     cross, or the whole pair); the VAE runs its mid attention once per frame
     micro-batch: per temporal chunk when one clip is streamed to uint8, over
     the whole clip per loop otherwise, and over each encoded clip of
-    `encoded` frames (a reference, a loop's previous clip)."""
+    `encoded` frames (a reference, a loop's previous clip); split over
+    `vae_ranks` ranks, each decodes its block of those frames (padded to a
+    multiple of the ranks) in micro-batches."""
     t_lat, h_lat, w_lat = pipe.vae.get_latent_size((num_frames, height, width))
     mc = pipe.model_config
     _, ph, pw = mc.patch_size
@@ -561,15 +591,19 @@ def expected_launches(fa, pipe, num_frames: int, height: int, width: int,
             want[fa.kernel_variant(pipe.dtype, Nq, Nk, D)] += mc.depth * loop
     vae_cfg = pipe.vae.config
     mbs = vae_cfg.micro_batch_size
+
+    def micro_batches(n_frames: int) -> int:  # a rank's, of n frames
+        return -(-(-(-n_frames // vae_ranks)) // mbs)
+
     if loop == 1:
         n_vae, remaining = 0, num_frames
         for _ in range(0, t_lat, pipe.vae.micro_z_frame_size):
             nf = min(vae_cfg.micro_frame_size, remaining)
-            n_vae += -(-nf // mbs)
+            n_vae += micro_batches(nf)
             remaining -= vae_cfg.micro_frame_size
     else:
-        n_vae = loop * -(-num_frames // mbs)
-    n_vae += sum(-(-n // mbs) for n in encoded)
+        n_vae = loop * micro_batches(num_frames)
+    n_vae += sum(micro_batches(n) for n in encoded)
     vae_mid_d = pipe.vae.spatial_vae.module.block_out_channels[-1]
     n_mid = h_lat * w_lat  # a frame's positions at the VAE's mid blocks
     want[fa.kernel_variant(pipe.dtype, n_mid, n_mid, vae_mid_d)] += n_vae
@@ -1532,7 +1566,13 @@ def backward_kernel_phase(fa, shapes=None) -> dict:
             raise AssertionError(f"{name}: expected the {variant} backward")
         q, k, v, do = (torch.randn(B, H, n, D, device="cuda", generator=gen)
                        for n in (Nq, Nk, Nk, Nq))
-        mask = ragged_mask(B, Nk, gen) if masked else None
+        if masked is True:
+            mask = ragged_mask(B, Nk, gen)
+        elif masked:  # the same real keys in every row, then the sp pad
+            mask = (torch.arange(Nk, device="cuda") < masked).expand(
+                B, Nk).contiguous()
+        else:
+            mask = None
         row = {"shape": [B, H, Nq, Nk, D], "masked": masked,
                "backward": variant}
 
@@ -1671,22 +1711,27 @@ def backward_kernel_phase(fa, shapes=None) -> dict:
 
 
 def step_launches(fa, mc, thw, B: int, gas: int, policy: str,
-                  text_len: int = 8) -> dict:
+                  text_len: int = 8, sp: int = 1) -> dict:
     """Kernel launches of one training step, by `LAUNCHES` key, from its
     shapes: per depth pair and micro-batch one spatial, one temporal
     (unless T = 1) and two cross attentions (to `text_len` keys: run_
     training's synthetic captions have 8); under recompute ("full" or
     "dots") every forward runs twice; every backward is
-    `backward_variant`'s choice."""
+    `backward_variant`'s choice. On one of `sp` ranks (DSP; B its batch),
+    T and S are padded to a multiple of sp: spatial attention over its
+    T / sp frames of the whole S, temporal over its S / sp rows, the cross
+    over its S / sp queries."""
     D = mc.hidden_size // mc.num_heads
     _, ph, pw = mc.patch_size
     T, Hpx, Wpx = thw
     t_lat = max(1, T // 17 * 5) if T > 1 else 1
     S = -(-(Hpx // 8) // ph) * -(-(Wpx // 8) // pw)
-    calls = [(B * t_lat, S, S), (B * t_lat, S, text_len),
-             (B * t_lat, S, text_len)]
+    S = -(-S // sp) * sp
+    Tp = t_lat if t_lat == 1 else -(-t_lat // sp) * sp
+    calls = [(B * Tp // sp, S, S), (B * Tp, S // sp, text_len),
+             (B * Tp, S // sp, text_len)]
     if t_lat > 1:
-        calls.append((B * S, t_lat, t_lat))
+        calls.append((B * S // sp, Tp, Tp))
     want = {key: 0 for key in fa.LAUNCHES}
     for rows, Nq, Nk in calls:
         n = mc.depth * gas
@@ -1929,10 +1974,13 @@ COG_WIDTHS = {"2b": (30, 30), "5b": (42, 48)}
 COG_REQUEST = dict(prompt="a golden retriever running through a field of "
                    "sunflowers at sunset, cinematic", num_frames=49,
                    height=480, width=720)
-COG_STEPS = 50  # the repo's default request (examples/inference/cogvideox)
+# the repo's default request (examples/inference/cogvideox) runs 50 steps;
+# the 2b runs 10 of them, to keep the script inside its time
+COG_REQUEST_STEPS = 50
+COG_STEPS = 10
 # the 5b's DPM steps in a default run: 50 took 108.3 s of denoise on an
-# H100 (2.17 s a step); 30 keep the whole script under 600 s
-COG_5B_STEPS = 30
+# H100 (2.17 s a step); 5 keep the script inside its time
+COG_5B_STEPS = 5
 # query rows of one plain reference chunk at 17,776 keys (fp32 scores of
 # one chunk: 73 MB a (batch, head) pair)
 COG_CHUNK = 1024
@@ -2247,7 +2295,8 @@ def cogvideox_phase(fa, seed: int, steps_5b: int,
             if profile:
                 out["profile_2b"] = profile_cog_step(pipe, seed)
         else:
-            log(f"cogvideox-5b: {steps_5b} of the request's {COG_STEPS} DPM "
+            log(f"cogvideox-5b: {steps_5b} of the request's "
+                f"{COG_REQUEST_STEPS} DPM "
                 f"steps (cut to keep the script inside its time; width, "
                 f"depth and shapes are the published ones)")
             out["5b"] = cog_request(fa, engine, "5b dpm", steps_5b, seed,
@@ -2342,18 +2391,19 @@ def tiny_cogvideox_parity(seed: int) -> dict:
 
 
 # Latte-1's default request (examples/inference/latte): 16 x 512 x 512,
-# 50 DDIM steps, guidance 7.5
+# 50 DDIM steps, guidance 7.5; 10 of the steps run, to keep the script
+# inside its time
 LATTE_REQUEST = dict(prompt="a panda playing a guitar on a mossy rock in a "
                      "bamboo forest, cinematic", video_length=16, height=512,
-                     width=512, guidance_scale=7.5, num_inference_steps=50)
+                     width=512, guidance_scale=7.5, num_inference_steps=10)
 OSP_PROMPT = "a red sports car driving along a coastal road at sunset"
 # Euler-Ancestral steps of the v1.2 29 x 480p requests and PNDM steps of the
 # v1.1 65 x 512 x 512 request (the pipeline's default is 100 for both: 100
 # Euler calls of 0.535 s and 109 PNDM calls of 0.508 s on an H100); the
 # 93 x 480p request runs one step and its whole tiled decode
-OSP_V120_STEPS = 50
+OSP_V120_STEPS = 10  # cut from 50 to keep the script inside its time
 OSP_V120_93_STEPS = 1
-OSP_V110_STEPS = 20
+OSP_V110_STEPS = 5  # cut from 20 to keep the script inside its time
 
 
 def latte_launches(fa, pipe, steps: int, T: int, S: int, text_len: int,
@@ -2879,7 +2929,7 @@ VCHITECT_REQUEST = dict(prompt="Sunset over the sea.", frames=40, height=288,
 # PAB on an H100; a default run takes VCHITECT_RUN_STEPS of them to keep the
 # whole script inside its time (`--vchitect-steps 100` runs the reference's)
 VCHITECT_STEPS = 100
-VCHITECT_RUN_STEPS = 50
+VCHITECT_RUN_STEPS = 10  # cut from 50 to keep the script inside its time
 # the text towers of Vchitect-2.0's trio at their published widths (SD3's
 # text_encoder and text_encoder_2 config.json); CLIP's vocabulary and 77
 # positions are the CLIPTextConfig defaults
@@ -3627,7 +3677,7 @@ def raw_video_phase(fa, seed: int) -> dict:
 # phase 16: parallel serving, DSP and CFG parallelism (core/parallel.py)
 
 PARALLEL_REQUEST = REQUEST_480P
-PARALLEL_SHORT_STEPS = 4  # the cp=2 and cp=2 x sp=2 worlds
+PARALLEL_SHORT_STEPS = 2  # the Open-Sora worlds
 PARALLEL_WORLDS = (("sp2", 2, False), ("cp2", 2, True), ("cp2sp2", 4, True))
 PARALLEL_TIMEOUT_S = 300.0
 SHARED = "ranks share one card"
@@ -3643,11 +3693,23 @@ SHARED = "ranks share one card"
 # 3.2e-2 (Latte cp=2) and 25 levels; CogVideoX-2b and v1.2 under Ulysses
 # equal world 1 bit for bit
 PARALLEL_LIMITS = {"latent_rel_l2": 5e-2, "video_levels": 100}
+# world 1's latents decoded split over a world's ranks against the same
+# latents decoded whole on world 1, both in fp32 with TF32 off: the first
+# temporal chunk (5 latent frames, 17 pixel frames) at the request's rows
+# (so each rank's rows, halos and seam are the request's) and half its
+# columns (half the memory and time). The split changes only the order of
+# the group norms' sums, the convolutions' shapes and the frames a
+# micro-batch holds; a wrong halo, pad mask or seam moves whole rows. In
+# bf16 the same decode read 41 levels (mean 1.50, 41.11 dB; sp=2, H100):
+# rounding that the random weights amplify, which would hide such a fault
+SPLIT_VAE_LEVELS = 1
+SPLIT_VAE_CHUNK = (5, 17)  # latent frames, pixel frames
 # the tiny fp32 worlds against world 1 on the card (latents, absolute)
 PARALLEL_TINY_TOL = 2e-4
 PARALLEL_LOG: dict = {}  # attention launches by (variant, shape, masked)
 # collectives by (op, shape, dtype, scatter dim, gather dim, axis)
 EXCHANGE_LOG: dict = {}
+EXCHANGE_AXES: dict = {}  # a logged line's name -> its Axis
 EXCHANGE_REPS = 3  # timed calls of each logged collective in the replay
 PARALLEL_DEVICE = "cuda:0"  # the card the ranks share (a CPU rehearsal: "cpu")
 
@@ -3721,6 +3783,15 @@ def _log_collectives(par) -> None:
     if hasattr(par.all_to_all, "inner"):
         return
 
+    def label(group):
+        """An axis name, or for a line given as an Axis (the VAE's) its
+        ranks (a key must sort and pickle); EXCHANGE_AXES maps it back."""
+        if isinstance(group, str):
+            return group
+        name = "ranks " + ",".join(map(str, group.ranks))
+        EXCHANGE_AXES[name] = group
+        return name
+
     def note(key, group):
         if par.axis_size(group) > 1:
             EXCHANGE_LOG[key] = EXCHANGE_LOG.get(key, 0) + 1
@@ -3729,21 +3800,59 @@ def _log_collectives(par) -> None:
 
     def logged_a2a(x, scatter_dim, gather_dim, group=par.SP_AXIS):
         note(("all_to_all", tuple(x.shape), str(x.dtype), scatter_dim,
-              gather_dim, group), group)
+              gather_dim, label(group)), group)
         return a2a(x, scatter_dim, gather_dim, group)
 
     def logged_gather(x, dim, group=par.SP_AXIS):
-        note(("gather", tuple(x.shape), str(x.dtype), dim, -1, group), group)
+        note(("gather", tuple(x.shape), str(x.dtype), dim, -1, label(group)),
+             group)
         return gather(x, dim, group)
 
     logged_a2a.inner, logged_gather.inner = a2a, gather
     par.all_to_all, par.gather = logged_a2a, logged_gather
 
 
+VAE_PEAK: dict = {}  # this rank's card memory over its last VAE decode
+
+
+def _probe_vae(pipeline) -> None:
+    """Wrap the pipeline's VAE decodes (once) to read the card's memory
+    over each: VAE_PEAK holds the largest peak of a decode, the bytes held
+    when it began and the request's peak before it. The decodes run
+    together on every rank (the split VAE is collective)."""
+    import torch
+
+    vae = getattr(pipeline, "vae", None)
+    if vae is None or getattr(vae, "_probed", False) \
+            or pipeline.device.type != "cuda":
+        return
+    for name in ("decode", "decode_chunks_u8"):
+        plain = getattr(vae, name, None)
+        if plain is None:
+            continue
+
+        def probed(*args, _plain=plain, **kwargs):
+            torch.cuda.synchronize()
+            VAE_PEAK["before"] = max(VAE_PEAK.get("before", 0),
+                                     torch.cuda.max_memory_allocated())
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                return _plain(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                if peak > VAE_PEAK.get("peak", -1):
+                    VAE_PEAK.update(peak=peak, base=base)
+
+        setattr(vae, name, probed)
+    vae._probed = True
+
+
 def rank_reset(pipeline) -> None:
     """Zero this rank's launch counts, shape log, exchange counters and
-    log, and peak memory; log each attention launch's variant and shape
-    and each collective's arguments."""
+    log, peak memory and VAE probe; log each attention launch's variant
+    and shape and each collective's arguments."""
     import torch
 
     from videosys_tpu_torch.core import parallel as par
@@ -3762,6 +3871,8 @@ def rank_reset(pipeline) -> None:
         logged.logged = True
         fa._launch = logged
     _log_collectives(par)
+    _probe_vae(pipeline)
+    VAE_PEAK.clear()
     PARALLEL_LOG.clear()
     EXCHANGE_LOG.clear()
     fa.reset_launches()
@@ -3778,11 +3889,18 @@ def rank_read(pipeline) -> dict:
     from videosys_tpu_torch.core import parallel as par
     from videosys_tpu_torch.ops import flash_attention as fa
 
+    cuda = torch.cuda.is_available()
+    peak = max(VAE_PEAK.get("before", 0),
+               torch.cuda.max_memory_allocated() if cuda else 0)
+    vae_peak = VAE_PEAK.get("peak", 0)
     return {"launches": dict(fa.LAUNCHES),
             "shapes": [[v, list(s), m, n]
                        for (v, s, m), n in sorted(PARALLEL_LOG.items())],
-            "peak_gib": torch.cuda.max_memory_allocated() / 2**30
-            if torch.cuda.is_available() else 0.0,
+            "peak_gib": peak / 2**30,
+            # the decode's peak, and its working set (the peak less what
+            # the rank held when the decode began: weights, caches)
+            "vae_peak_gib": vae_peak / 2**30,
+            "vae_working_gib": (vae_peak - VAE_PEAK.get("base", 0)) / 2**30,
             "exchange": dict(par.EXCHANGE),
             "timings_s": dict(pipeline.last_timings),
             "text_kv_len": getattr(pipeline, "last_text_kv_len", None),
@@ -3808,7 +3926,8 @@ def rank_exchange_replay(pipeline) -> dict:
     calls, total = [], 0.0
     with par.use_groups(pipeline.groups):
         for key in sorted(EXCHANGE_LOG):
-            op, shape, dtype, a, b, group = key
+            op, shape, dtype, a, b, name = key
+            group = EXCHANGE_AXES.get(name, name)
             x = torch.randn(shape, device=pipeline.device).to(
                 getattr(torch, dtype.removeprefix("torch.")))
             times = []
@@ -3823,49 +3942,9 @@ def rank_exchange_replay(pipeline) -> dict:
                 times.append(time.perf_counter() - t0)
             ms = 1e3 * statistics.median(times[1:])
             total += EXCHANGE_LOG[key] * ms / 1e3
-            calls.append([op, list(shape), dtype, group, EXCHANGE_LOG[key],
+            calls.append([op, list(shape), dtype, name, EXCHANGE_LOG[key],
                           ms])
     return {"seconds": total, "calls": calls}
-
-
-def rank_free_before_decode(pipeline) -> None:
-    """The harness's memory rule for ranks that share one card: one VAE
-    decode at a time (an exclusive lock on a file under build/), each rank
-    returning its cached blocks to the card before and after its decode.
-    Four ranks that decode 480p at once outgrow the card's 80 GB: each
-    decode fragments its own cache (a rank of cp=2 x sp=2 ran out with
-    4.93 GiB of it reserved and unallocated, with and without the
-    denoise's blocks returned first). A rank on a card of its own needs
-    none of it: the package does not do it."""
-    import fcntl
-
-    import torch
-
-    lock = ROOT / "build" / "parallel_decode.lock"
-    lock.parent.mkdir(exist_ok=True)
-    vae = pipeline.vae
-
-    def free():
-        if pipeline.device.type == "cuda":
-            torch.cuda.synchronize(pipeline.device)
-            torch.cuda.empty_cache()
-
-    for name in ("decode", "decode_chunks_u8"):
-        plain = getattr(type(vae), name, None)
-        if plain is None:
-            continue
-
-        def one_at_a_time(*args, _plain=plain, **kwargs):
-            free()
-            with open(lock, "a") as f:
-                fcntl.flock(f, fcntl.LOCK_EX)
-                try:
-                    return _plain(vae, *args, **kwargs)
-                finally:
-                    free()
-                    fcntl.flock(f, fcntl.LOCK_UN)
-
-        setattr(vae, name, one_at_a_time)
 
 
 def raise_on_workers(pipeline, *args, **kwargs):
@@ -3886,9 +3965,28 @@ def set_steps(pipeline, steps: int) -> None:
         pipeline.scheduler.config, num_sampling_steps=steps))
 
 
+def rank_split_decode(pipeline, z, num_frames: int):
+    """World 1's latents `z` through this rank's share of the split decode
+    (the request's own VAE call, under the rank's groups), the VAE cast to
+    fp32 for it: the uint8 video on rank 0, None on the others."""
+    import torch
+
+    from videosys_tpu_torch.core import parallel as par
+
+    pipeline.vae.float()
+    with par.use_groups(pipeline.groups):
+        chunks = pipeline.vae.decode_chunks_u8(
+            torch.from_numpy(z).to(pipeline.device), num_frames)
+    return torch.cat(chunks, dim=1).cpu().numpy() if chunks else None
+
+
 def world_record(label: str, backend: str, where: str, ranks: list,
-                 video, ref: dict, expected: dict, steps: int) -> dict:
-    """Hold one world's ranks against the prediction and world 1; log it."""
+                 video, ref: dict, expected: dict, steps: int,
+                 split_video=None) -> dict:
+    """Hold one world's ranks against the prediction and world 1; log it.
+    `split_video`: a chunk of world 1's latents decoded split over the
+    world's ranks in fp32, held against the same chunk decoded whole on
+    world 1 at SPLIT_VAE_LEVELS."""
     import numpy as np
 
     lats = [r.pop("latents") for r in ranks]
@@ -3907,6 +4005,20 @@ def world_record(label: str, backend: str, where: str, ranks: list,
            "psnr_vs_world1_db": psnr_db(video, ref["video"]),
            "denoise_s": denoise, "denoise_step_s": denoise / steps,
            "expected_launches": expected, "ranks": ranks}
+    vae_split = split_video is not None
+    if vae_split:
+        diff = np.abs(split_video.astype(int)
+                      - ref["split_video"].astype(int))
+        rec.update(split_vae_max_levels=int(diff.max()),
+                   split_vae_mean_levels=float(diff.mean()),
+                   split_vae_psnr_db=psnr_db(split_video,
+                                             ref["split_video"]))
+        log(f"parallel world {label}: world 1's latents (first chunk "
+            f"{list(split_video.shape)}, fp32, TF32 off) decoded split over "
+            f"{len(ranks)} ranks vs whole on world 1: max "
+            f"{rec['split_vae_max_levels']} levels (limit {SPLIT_VAE_LEVELS})"
+            f", mean {rec['split_vae_mean_levels']:.4f}, psnr "
+            f"{rec['split_vae_psnr_db']:.2f} dB")
     for r in ranks:
         r["exchange_share"] = r["exchange"]["replayed"]["seconds"] / max(
             r["timings_s"]["denoise"], 1e-9)
@@ -3916,7 +4028,21 @@ def world_record(label: str, backend: str, where: str, ranks: list,
         f"denoise_s={denoise:.3f} ({denoise / steps:.4f} a step) "
         f"latent_rel_l2={rel_l2:.3e} video_max_levels={levels} "
         f"psnr={rec['psnr_vs_world1_db']:.2f} dB ranks_equal={ranks_equal}")
+    w1_vae = ref.get("record", {}).get("vae_working_gib")
     for i, r in enumerate(ranks):
+        if r["vae_peak_gib"] and w1_vae:
+            # the prediction: a rank holds what it held before the decode
+            # plus 1/world of world 1's VAE working set
+            r["vae_predicted_gib"] = (r["vae_peak_gib"] - r["vae_working_gib"]
+                                      + w1_vae / len(ranks))
+        log(f"parallel world {label} rank {i}: backend {backend}, {where}; "
+            f"vae_s={r['timings_s'].get('vae', 0.0):.3f} ("
+            f"{f'split over {len(ranks)} ranks, all at once' if vae_split else 'whole on every rank'}"
+            f") vae_peak_gib="
+            f"{r['vae_peak_gib']:.3f} vae_working_gib="
+            f"{r['vae_working_gib']:.3f} (predicted peak "
+            f"{r.get('vae_predicted_gib', float('nan')):.3f}: held + world 1's "
+            f"working set {w1_vae or float('nan'):.3f} / {len(ranks)})")
         log(f"parallel world {label} rank {i}: backend {backend}, {where}; "
             f"peak_gib={r['peak_gib']:.2f} denoise_s="
             f"{r['timings_s']['denoise']:.3f} launches={r['launches']} "
@@ -3937,6 +4063,9 @@ def world_record(label: str, backend: str, where: str, ranks: list,
             or levels > PARALLEL_LIMITS["video_levels"]:
         raise AssertionError(f"world {label} disagrees with world 1: "
                              f"{rel_l2:.3e}, {levels} levels")
+    if vae_split and rec["split_vae_max_levels"] > SPLIT_VAE_LEVELS:
+        raise AssertionError(f"world {label}: the split decode disagrees "
+                             f"with the whole one")
     return rec
 
 
@@ -3971,7 +4100,6 @@ def full_width_world(fa, label: str, n: int, cp: bool, steps: int,
     setup_s = time.perf_counter() - t0
     try:
         engine._run_workers(setattr, "keep_latents", True)
-        engine._run_workers(rank_free_before_decode)
         engine._run_workers(rank_reset)
         t0 = time.perf_counter()
         video = engine.generate(seed=seed, **PARALLEL_REQUEST).video
@@ -3982,14 +4110,17 @@ def full_width_world(fa, label: str, n: int, cp: bool, steps: int,
         h, w = get_image_size(PARALLEL_REQUEST["resolution"],
                               PARALLEL_REQUEST["aspect_ratio"])
         nf = get_num_frames(PARALLEL_REQUEST["num_frames"])
+        split = engine._run_workers(rank_split_decode, ref["split_z"],
+                                    SPLIT_VAE_CHUNK[1])[0]
         expected = expected_launches(
             fa, engine.pipeline, nf, h, w, steps,
-            engine.pipeline.last_text_kv_len, sp=n // 2 if cp else n)
+            engine.pipeline.last_text_kv_len, sp=n // 2 if cp else n,
+            vae_ranks=n)
     finally:
         engine.shutdown()
         del engine  # the driver's pipeline, freed before the next world
     rec = world_record(label, backend, where, ranks, video, ref, expected,
-                       steps)
+                       steps, split_video=split)
     rec.update(setup_s=setup_s, wall_s=wall)
     log(f"parallel world {label}: backend {backend}, {where}; setup_s="
         f"{setup_s:.1f} generate_s={wall:.3f}")
@@ -4036,15 +4167,27 @@ def world1_leg(fa, seed: int, step_counts) -> dict:
             r = rank_read(pipe)
             want = expected_launches(fa, pipe, nf, h, w, steps,
                                      pipe.last_text_kv_len)
-            refs[steps] = {"video": video, "latents": r.pop("latents")
-                           .astype(np.float64), "record": dict(
+            z = r.pop("latents")
+            zc = np.ascontiguousarray(
+                z[:, :, :SPLIT_VAE_CHUNK[0], :, :z.shape[4] // 2])
+            pipe.vae.float()  # the split decode's reference, in fp32
+            split_ref = torch.cat(pipe.vae.decode_chunks_u8(
+                torch.from_numpy(zc).to(PARALLEL_DEVICE),
+                SPLIT_VAE_CHUNK[1]), dim=1).cpu().numpy()
+            pipe.vae.to(pipe.dtype)
+            refs[steps] = {"video": video, "split_z": zc,
+                           "split_video": split_ref,
+                           "latents": z.astype(np.float64), "record": dict(
                                r, steps=steps, wall_s=wall,
                                expected_launches=want)}
             log(f"parallel world 1: backend {backend} (the default for "
                 f"{PARALLEL_DEVICE}), 1 rank on 1 card, groups installed; "
                 f"steps={steps} "
                 f"generate_s={wall:.3f} denoise_s="
-                f"{r['timings_s']['denoise']:.3f} peak_gib={r['peak_gib']:.2f}"
+                f"{r['timings_s']['denoise']:.3f} vae_s="
+                f"{r['timings_s']['vae']:.3f} vae_peak_gib="
+                f"{r['vae_peak_gib']:.3f} vae_working_gib="
+                f"{r['vae_working_gib']:.3f} peak_gib={r['peak_gib']:.2f}"
                 f" launches={r['launches']} (predicted {want}) exchange "
                 f"calls={r['exchange']['calls']}")
             if r["launches"] != want or r["exchange"]["calls"]:
@@ -4191,35 +4334,69 @@ FAMILY_WORLDS = (("cog2b_sp2", "cog2b", 2, False),
                  ("latte_cp2", "latte", 2, True),
                  ("osp110_sp2", "osp110", 2, False),
                  ("vchitect_sp2", "vchitect", 2, False))
-FAMILY_STEPS = 2
+FAMILY_STEPS = 1
+# transformer blocks of each family world (published depths 18-32), cut to
+# keep the script inside its time: the worlds test layouts, pads, shapes
+# and launches, which the depth does not change (PERF.md §4)
+FAMILY_LAYERS = 8
 
 
-def family_config(family: str, **kw):
+def family_config(family: str, dtype: str = "bf16",
+                  layers: Optional[int] = None, **kw):
     """The family's serving config at its published widths and depth,
-    random weights, the stub encoders, bf16."""
+    random weights, the stub encoders, in `dtype` ("bf16" or "fp32");
+    `layers` cuts the transformer to that many blocks (its published
+    model config with `num_layers` replaced), for other families than
+    Open-Sora."""
+    import dataclasses
+
     import torch
 
     from videosys_tpu_torch import (CogVideoXConfig, LatteConfig,
-                                    OpenSoraPlanConfig, VchitectConfig)
+                                    OpenSoraConfig, OpenSoraPlanConfig,
+                                    VchitectConfig)
+    from videosys_tpu_torch.models.transformers.cogvideox import (
+        CogVideoXConfig as CogModelConfig)
+    from videosys_tpu_torch.models.transformers.latte import (
+        LatteConfig as LatteModelConfig)
     from videosys_tpu_torch.models.transformers.open_sora_plan_v110 import (
         OpenSoraPlanV110Config)
+    from videosys_tpu_torch.models.transformers.open_sora_plan_v120 import (
+        OpenSoraPlanV120Config)
     from videosys_tpu_torch.models.transformers.vchitect import VchitectModelConfig
 
-    if family == "cog2b":
-        return CogVideoXConfig(model_path=None, dtype="bf16", **kw)
-    if family == "osp120":
-        return OpenSoraPlanConfig(version="v120", transformer_type="29x480p",
-                                  dtype="bf16", **kw)
-    if family == "osp110":
+    def cut(mc):  # None keeps the pipeline's own published config
+        if layers is None:
+            return None
+        return dataclasses.replace(mc, num_layers=layers)
+
+    tdtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
+    if family == "open_sora":
+        return OpenSoraConfig(transformer=None, vae=None, text_encoder=None,
+                              dtype=dtype, **kw)
+    if family == "cog2b":  # the pipeline's 2b model config
+        return CogVideoXConfig(model_path=None, dtype=dtype,
+                               transformer_config=cut(CogModelConfig(
+                                   use_rotary_positional_embeddings=False,
+                                   num_layers=30, num_heads=30)), **kw)
+    if family == "osp120":  # the pipeline's 29 x 480p model config
         return OpenSoraPlanConfig(
-            version="v110", transformer_type="65x512x512", dtype="bf16",
-            transformer_config=OpenSoraPlanV110Config(
-                "65x512x512", use_rope=True, dtype=torch.bfloat16), **kw)
+            version="v120", transformer_type="29x480p", dtype=dtype,
+            transformer_config=cut(OpenSoraPlanV120Config(
+                sample_size=(60, 80), sample_size_t=(29 - 1) // 4 + 1,
+                dtype=tdtype)), **kw)
+    if family == "osp110":
+        mc = OpenSoraPlanV110Config("65x512x512", use_rope=True, dtype=tdtype)
+        return OpenSoraPlanConfig(
+            version="v110", transformer_type="65x512x512", dtype=dtype,
+            transformer_config=cut(mc) or mc, **kw)
     if family == "latte":
-        return LatteConfig(model_path=None, dtype="bf16", **kw)
-    return VchitectConfig(model_path=None, dtype="bf16",
-                          transformer_config=VchitectModelConfig(
-                              dtype=torch.bfloat16), **kw)
+        return LatteConfig(model_path=None, dtype=dtype,
+                           transformer_config=cut(LatteModelConfig(
+                               dtype=tdtype)), **kw)
+    mc = VchitectModelConfig(dtype=tdtype)
+    return VchitectConfig(model_path=None, dtype=dtype,
+                          transformer_config=cut(mc) or mc, **kw)
 
 
 def family_request(family: str) -> dict:
@@ -4355,13 +4532,13 @@ def family_world(fa, label: str, family: str, n: int, cp: bool, seed: int,
         f"holds {free_card():.2f} GiB before the ranks start")
     t0 = time.perf_counter()
     cp_kw = {"enable_cp": True} if cp else {}  # CogVideoX has no cp
-    engine = VideoSysEngine(family_config(family, num_gpus=n, **cp_kw),
+    engine = VideoSysEngine(family_config(family, layers=FAMILY_LAYERS,
+                                          num_gpus=n, **cp_kw),
                             devices=[PARALLEL_DEVICE] * n, backend=backend,
                             timeout=PARALLEL_TIMEOUT_S, seed=seed)
     setup_s = time.perf_counter() - t0
     try:
         engine._run_workers(setattr, "keep_latents", True)
-        engine._run_workers(rank_free_before_decode)
         engine._run_workers(rank_reset)
         t0 = time.perf_counter()
         video = engine.generate(seed=seed, **family_request(family)).video
@@ -4540,14 +4717,401 @@ def parallel_phase(fa, steps: int, seed: int) -> dict:
     return out
 
 
+# opt-in phase parallel_fp32: the drift of the DSP and cp worlds against
+# world 1, in fp32 with TF32 off (in bf16 they read 1.7e-2 to 3.2e-2
+# relative L2 after 2 steps)
+DRIFT_WORLDS = (("open_sora_sp2", "open_sora", 2, False),
+                ("open_sora_cp2", "open_sora", 2, True),
+                ("latte_sp2", "latte", 2, False),
+                ("latte_cp2", "latte", 2, True),
+                ("osp110_sp2", "osp110", 2, False),
+                ("vchitect_sp2", "vchitect", 2, False))
+DRIFT_STEPS = 2  # Open-Sora-Plan v1.1's PNDM takes 4 at least
+
+
+def drift_world(label: str, family: str, n: int, cp: bool, seed: int,
+                backend: str) -> dict:
+    """One world in fp32 against world 1 (the driver's pipeline with its
+    groups taken away): the final latents' relative L2."""
+    import numpy as np
+
+    from videosys_tpu_torch import VideoSysEngine
+
+    steps = 4 if family == "osp110" else DRIFT_STEPS
+    if family == "open_sora":
+        cfg_kw, request = dict(num_sampling_steps=steps), dict(PARALLEL_REQUEST)
+    else:
+        cfg_kw = {}
+        request = dict(family_request(family), num_inference_steps=steps)
+        if family == "vchitect":  # two fp32 decodes of 40 frames at once
+            request["frames"] = 16  # would outgrow the card
+
+    if cp:
+        cfg_kw["enable_cp"] = True
+    free_card()
+    engine = VideoSysEngine(family_config(family, "fp32", num_gpus=n,
+                                          **cfg_kw),
+                            devices=[PARALLEL_DEVICE] * n, backend=backend,
+                            timeout=PARALLEL_TIMEOUT_S, seed=seed)
+    try:
+        engine._run_workers(setattr, "keep_latents", True)
+        engine.generate(seed=seed, **request)
+        lats = engine._run_workers(getattr, "last_latents")
+        pipe = engine.pipeline
+        groups, pipe.groups = pipe.groups, None
+        try:
+            pipe.generate(seed=seed, **request)
+        finally:
+            pipe.groups = groups
+        ref = pipe.last_latents.astype(np.float64)
+    finally:
+        engine.shutdown()
+        del engine
+    rel = float(np.linalg.norm(lats[0] - ref) / np.linalg.norm(ref))
+    equal = all(np.array_equal(x, lats[0]) for x in lats)
+    log(f"parallel_fp32 world {label}: backend {backend}, {SHARED}; fp32, "
+        f"TF32 off, {steps} steps; latents rel_l2 vs world 1 = {rel:.3e} "
+        f"ranks_equal={equal}")
+    if not (equal and np.isfinite(rel)):
+        raise AssertionError(f"parallel_fp32 {label}: ranks disagree")
+    return {"latent_rel_l2": rel, "steps": steps}
+
+
+def parallel_fp32_phase(seed: int) -> dict:
+    """The DSP and cp worlds of phase 16 in fp32 with TF32 off, 2 steps,
+    against world 1 in fp32: near 1e-5 the bf16 drift is rounding, at 1e-3
+    or more a layout fault."""
+    import torch
+
+    t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("parallel_fp32 needs TF32 off")
+    out = {label: drift_world(label, family, n, cp, seed, "gloo")
+           for label, family, n, cp in DRIFT_WORLDS}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"parallel_fp32 phase: {out['seconds']:.1f} s")
+    return out
+
+
+# phase 17: training over ranks, dp and sp with ZeRO-1 (training/train_step.py)
+PTRAIN_STEPS = 3
+PTRAIN_BATCH = 2  # the global batch of the 240p 51-frame bucket
+# (label, dp, sp, depth): full depth where the ranks' predicted peaks sum to
+# under ~70 GB; the four ranks of dp=2 x sp=2 at 28 pairs would hold
+# 4 x (14 B x 1.209e9 params + ~2 GiB) = 71 GiB; at 25 pairs they peaked at
+# 4 x 16.22 GiB alone, but ran out after the earlier phases (the driver
+# holds more by then): 24 pairs (PERF.md)
+PTRAIN_WORLDS = (("dp2", 2, 1, 28), ("sp2", 1, 2, 28), ("dp2sp2", 2, 2, 24))
+# full width, bf16, 3 steps against world 1 on the same global batch and
+# draws: the largest relative difference of a step's loss and grad norm.
+# Read on an H100 (dp=2, sp=2, dp=2 x sp=2; PERF.md): at most 4.0e-4 and
+# 7.8e-4; the limits are about four times those
+PTRAIN_LIMITS = {"loss_rel": 2e-3, "grad_norm_rel": 3e-3}
+PTRAIN_TIMEOUT_S = 900.0
+EXCHANGE_TIME: dict = {}  # seconds in each torch.distributed collective
+
+
+def ptrain_config(dp: int, sp: int, depth: int, seed: int, **kw):
+    """STDiT3-XL/2 at its published width, `depth` pairs, bf16 compute,
+    the 240p 51-frame bucket at a global batch of PTRAIN_BATCH, recompute
+    "full", PTRAIN_STEPS steps."""
+    import torch
+
+    from videosys_tpu_torch import TrainConfig
+    from videosys_tpu_torch.models.transformers.stdit3 import STDiT3Config
+
+    kw.setdefault("model", STDiT3Config(depth=depth, dtype=torch.bfloat16))
+    return TrainConfig(
+        bucket_config={"240p": {51: (1.0, PTRAIN_BATCH // dp)}},
+        remat_policy="full", max_steps=PTRAIN_STEPS, log_every=1,
+        warmup_steps=2, seed=seed, dataset_size=64, dp_size=dp, sp_size=sp,
+        **kw)
+
+
+def ptrain_dataset(seed: int):
+    from videosys_tpu_torch.training.datasets import DummyVariableVideoTextDataset
+
+    return DummyVariableVideoTextDataset(
+        size=64, seed=seed, distribution="uniform", frames_choices=(51,),
+        resolution_choices=((240, 426),))
+
+
+def _time_collectives() -> None:
+    """Wrap torch.distributed's collectives (once) to add each call's
+    seconds to EXCHANGE_TIME, with the card synchronized before (the
+    queued compute is not the exchange's) and after."""
+    import torch
+    import torch.distributed as dist
+
+    if getattr(dist.all_reduce, "timed", False):
+        return
+    for name in ("all_to_all_single", "all_gather", "reduce_scatter",
+                 "all_reduce", "broadcast", "gather", "reduce"):
+        plain = getattr(dist, name)
+
+        def timed(*args, _plain=plain, _name=name, **kwargs):
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return _plain(*args, **kwargs)
+            finally:
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                EXCHANGE_TIME[_name] = EXCHANGE_TIME.get(_name, 0.0) \
+                    + time.perf_counter() - t0
+
+        timed.timed = True
+        setattr(dist, name, timed)
+
+
+def rank_parallel_train(target, dataset, params=None) -> dict:
+    """`run_training` on this training rank (`core/worker.py`'s
+    TrainRank): its launches, peak, ZeRO-1 moment bytes, exchange calls,
+    bytes and seconds, and the metrics history."""
+    import torch
+
+    from videosys_tpu_torch.core import parallel as par
+    from videosys_tpu_torch.ops import flash_attention as fa
+    from videosys_tpu_torch.training.train import run_training
+
+    _time_collectives()
+    fa.reset_launches()
+    par.reset_exchange()
+    EXCHANGE_TIME.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with no_fallback(fa):
+        state, ema, history = run_training(
+            target.cfg, dataset=dataset, device=target.device,
+            groups=target.groups, params=params)
+    torch.cuda.synchronize()
+    out = {"history": history, "launches": dict(fa.LAUNCHES),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "moment_bytes": state.tx.moment_bytes,
+           "param_count": sum(p.numel() for p in state.tx.params),
+           "exchange": dict(par.EXCHANGE),
+           "exchange_s": dict(EXCHANGE_TIME), "wall_s":
+           time.perf_counter() - t0}
+    del state, ema
+    free_card()
+    return out
+
+
+def ptrain_world(fa, label: str, dp: int, sp: int, depth: int, seed: int,
+                 backend: str, ref: list, devices: list, where: str) -> dict:
+    """One training world on dp x sp ranks: every rank's run, held against
+    world 1's history `ref` and the launch prediction."""
+    from videosys_tpu_torch.core.engine import Ranks
+    from videosys_tpu_torch.core.worker import setup_train_rank
+
+    n = dp * sp
+    cfg = ptrain_config(dp, sp, depth, seed)
+    log(f"parallel_train world {label}: backend {backend}, {where}; the "
+        f"driver holds {free_card():.2f} GiB before the ranks start")
+    t0 = time.perf_counter()
+    ranks = Ranks()
+    ranks._spawn(n, setup_train_rank, (cfg,), devices, backend,
+                 PTRAIN_TIMEOUT_S)
+    setup_s = time.perf_counter() - t0
+    try:
+        got = ranks._run_workers(rank_parallel_train, ptrain_dataset(seed))
+    finally:
+        ranks.shutdown()
+    hist = got[0]["history"]
+    if any(r["history"] != hist for r in got[1:]):
+        raise AssertionError(f"parallel_train {label}: ranks' histories "
+                             f"disagree")
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(hist, ref))
+    norm_rel = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                   for a, b in zip(hist, ref))
+    steps_s = sum(h["seconds"] for h in hist)
+    P = got[0]["param_count"]
+    predicted_moments = 2 * 4 * -(-P // n)
+    rec = {"world": label, "dp": dp, "sp": sp, "depth": depth,
+           "backend": backend, "where": where, "setup_s": setup_s,
+           "loss": [h["loss"] for h in hist],
+           "grad_norm": [h["grad_norm"] for h in hist],
+           "world1_loss": [h["loss"] for h in ref],
+           "world1_grad_norm": [h["grad_norm"] for h in ref],
+           "loss_max_rel": loss_rel, "grad_norm_max_rel": norm_rel,
+           "step_s": [h["seconds"] for h in hist], "ranks": []}
+    log(f"parallel_train world {label}: backend {backend}, {where}; "
+        f"dp={dp} sp={sp} depth={depth} steps={len(hist)} setup_s="
+        f"{setup_s:.1f} step_s={[round(h['seconds'], 3) for h in hist]} "
+        f"loss={rec['loss']} (world 1 {rec['world1_loss']}) grad_norm="
+        f"{rec['grad_norm']} (world 1 {rec['world1_grad_norm']}) max rel "
+        f"diff loss {loss_rel:.3e} grad_norm {norm_rel:.3e} (limits "
+        f"{PTRAIN_LIMITS})")
+    for i, r in enumerate(got):
+        want = {key: 0 for key in fa.LAUNCHES}
+        for h in r["history"]:
+            add_launches(want, step_launches(
+                fa, cfg.model, h["thw"], h["batch"] // dp, h["gas"],
+                h["remat_policy"], sp=sp))
+        ex_s = sum(r["exchange_s"].values())
+        bwd = {k: v for k, v in r["launches"].items() if k.startswith("bwd")}
+        log(f"parallel_train world {label} rank {i}: backend {backend}, "
+            f"{where}; peak_gib={r['peak_gib']:.2f} zero1_moment_bytes="
+            f"{r['moment_bytes']} (predicted 2 x 4 x ceil({P} / {n}) = "
+            f"{predicted_moments}; world 1 {8 * P}) exchange: "
+            f"{r['exchange']} ({ex_s:.3f} s in collectives = "
+            f"{100 * ex_s / max(steps_s, 1e-9):.1f}% of the steps' "
+            f"{steps_s:.3f} s; by op {r['exchange_s']}) launches={r['launches']}"
+            f" (predicted {want}); backward launches {bwd}")
+        rec["ranks"].append({"peak_gib": r["peak_gib"],
+                             "moment_bytes": r["moment_bytes"],
+                             "exchange": r["exchange"], "exchange_s": ex_s,
+                             "exchange_share": ex_s / max(steps_s, 1e-9),
+                             "launches": r["launches"],
+                             "expected_launches": want})
+        if r["launches"] != want:
+            raise AssertionError(f"parallel_train {label} rank {i} launched "
+                                 f"other than predicted")
+        if r["moment_bytes"] != predicted_moments:
+            raise AssertionError(f"parallel_train {label} rank {i}: moments "
+                                 f"are not 1/{n} of the whole")
+    if not (loss_rel <= PTRAIN_LIMITS["loss_rel"]
+            and norm_rel <= PTRAIN_LIMITS["grad_norm_rel"]):
+        raise AssertionError(f"parallel_train {label} disagrees with world 1")
+    return rec
+
+
+def ptrain_world1(fa, depth: int, seed: int) -> list:
+    """World 1 on the driver: the global batch on one rank."""
+    import torch
+
+    from videosys_tpu_torch import run_training
+
+    cfg = ptrain_config(1, 1, depth, seed)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    with no_fallback(fa):
+        state, ema, history = run_training(cfg, dataset=ptrain_dataset(seed),
+                                           device="cuda:0")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"parallel_train world 1 (depth {depth}): 1 rank, the global batch "
+        f"{PTRAIN_BATCH}; step_s={[round(h['seconds'], 3) for h in history]} "
+        f"loss={[h['loss'] for h in history]} grad_norm="
+        f"{[h['grad_norm'] for h in history]} peak_gib={peak:.2f} "
+        f"launches={dict(fa.LAUNCHES)}")
+    del state, ema
+    free_card()
+    return history
+
+
+def tiny_ptrain(fa, seed: int, backend: str) -> dict:
+    """A tiny fp32 configuration trained 3 steps at dp=2, sp=2 and dp=2 x
+    sp=2 on the card's kernels (ranks sharing it) against world 1 on the
+    CPU (plain versions): losses at 1e-4, grad norms at 1e-3 relative, as
+    the tiny one-rank parity phase."""
+    import torch
+
+    from videosys_tpu_torch import TrainConfig, run_training
+    from videosys_tpu_torch.core.engine import Ranks
+    from videosys_tpu_torch.core.worker import setup_train_rank
+    from videosys_tpu_torch.models.transformers.stdit3 import STDiT3Config
+
+    from videosys_tpu_torch.models.transformers.stdit3 import STDiT3
+
+    mc = STDiT3Config(depth=2, hidden_size=32, num_heads=2,
+                      caption_channels=16, model_max_length=8,
+                      dtype=torch.float32)
+    torch.manual_seed(seed)  # the same weights on the card and the CPU
+    params = {k: v.clone() for k, v in STDiT3(mc).state_dict().items()}
+
+    def config(dp, sp):
+        return TrainConfig(
+            model=mc, bucket_config={"144p": {1: (1.0, 2 // dp),
+                                              51: (1.0, 2 // dp)}},
+            mask_ratios={"identity": 0.5, "quarter_head": 0.25,
+                         "random": 0.25},
+            max_steps=3, log_every=1, warmup_steps=2, lr=1e-3, seed=seed,
+            dataset_size=16, dp_size=dp, sp_size=sp)
+
+    cpu = run_training(config(1, 1), device="cpu", params=params)[2]
+    out = {}
+    for label, dp, sp in (("dp2", 2, 1), ("sp2", 1, 2), ("dp2sp2", 2, 2)):
+        ranks = Ranks()
+        ranks._spawn(dp * sp, setup_train_rank, (config(dp, sp),),
+                     [PARALLEL_DEVICE] * (dp * sp), backend,
+                     PARALLEL_TIMEOUT_S)
+        try:
+            got = ranks._run_workers(rank_parallel_train, None, params)
+        finally:
+            ranks.shutdown()
+        card = got[0]["history"]
+        loss_err = max(abs(a["loss"] - b["loss"]) for a, b in zip(card, cpu))
+        norm_err = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                       for a, b in zip(card, cpu))
+        launches = got[0]["launches"]
+        log(f"parallel_train tiny {label}: backend {backend}, {SHARED}; fp32 "
+            f"card kernels vs CPU world 1 (plain), 3 steps: losses "
+            f"{[h['loss'] for h in card]} vs {[h['loss'] for h in cpu]} "
+            f"max_abs_diff={loss_err:.3e} (tol 1e-4) grad_norm max_rel_diff="
+            f"{norm_err:.3e} (tol 1e-3) launches rank 0 {launches}")
+        if not (loss_err <= 1e-4 and norm_err <= 1e-3):
+            raise AssertionError(f"tiny parallel training {label} disagrees "
+                                 f"with the CPU's world 1")
+        if not (launches["f32"] > 0 and launches["bwd_fused_f32"] > 0):
+            raise AssertionError(f"tiny {label} did not launch the kernels")
+        out[label] = {"loss_max_abs_diff": loss_err,
+                      "grad_norm_max_rel_diff": norm_err}
+    return out
+
+
+def ptrain_kernel_shapes(fa) -> dict:
+    """The kernels at one rank's new training rows of the sp=2 world (240p,
+    51 frames: T 15 padded to 16, S 405 padded to 406, the pad masked)
+    against their plain versions: the forwards and the backward each row
+    takes; and the wide forward at one rank's share of the 480p decode
+    under cp=2 x sp=2 (5 of a chunk's 17 frames)."""
+    B = PTRAIN_BATCH  # sp=2: the whole global batch on the pair
+    fwd = forward_shapes(fa, [
+        ("ptrain_spatial", B * 8, 16, 406, 406, 72, 405),
+        ("ptrain_cross", B * 16, 16, 203, 8, 72, False),
+        ("ptrain_temporal", B * 203, 16, 16, 16, 72, 15),
+        ("vae_mid_rank", 5, 1, 6360, 6360, 512, False)], seed=5,
+        dtypes=("bf16",))
+    bwd = backward_kernel_phase(fa, [
+        ("ptrain_spatial", B * 8, 16, 406, 406, 72, 405, "blocked"),
+        ("ptrain_cross", B * 16, 16, 203, 8, 72, False, "fused"),
+        ("ptrain_temporal", B * 203, 16, 16, 16, 72, 15, "fused")])
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def parallel_train_phase(fa, seed: int) -> dict:
+    """STDiT3-XL/2 trained over ranks sharing the card (dp=2, sp=2, dp=2 x
+    sp=2; ZeRO-1, DSP under recompute), each against world 1 on the same
+    global batch and draws; the tiny fp32 worlds; the new kernel rows."""
+    t_start = time.perf_counter()
+    backend = "gloo"  # NCCL refuses two ranks on one device (phase 16)
+    out = {"worlds": {}}
+    refs = {}
+    for label, dp, sp, depth in PTRAIN_WORLDS:
+        if depth not in refs:
+            refs[depth] = ptrain_world1(fa, depth, seed)
+        out["worlds"][label] = ptrain_world(
+            fa, label, dp, sp, depth, seed, backend, refs[depth],
+            [PARALLEL_DEVICE] * (dp * sp), SHARED)
+    out["tiny"] = tiny_ptrain(fa, seed, backend)
+    out["kernel"] = ptrain_kernel_shapes(fa)
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"parallel_train phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=30,
+    ap.add_argument("--steps", type=int, default=10,
                     help="rflow sampling steps of the full-width requests "
                          "(serve and offload)")
     ap.add_argument("--cog5b-steps", type=int, default=COG_5B_STEPS,
                     help="DPM steps of the CogVideoX-5b request (the 2b "
-                         f"runs the request's {COG_STEPS})")
+                         f"runs {COG_STEPS} of the request's "
+                         f"{COG_REQUEST_STEPS})")
     ap.add_argument("--vchitect-steps", type=int, default=VCHITECT_RUN_STEPS,
                     help="flow-match Euler steps of the Vchitect-2.0 "
                          f"requests (the reference request's {VCHITECT_STEPS})")
@@ -4602,49 +5166,55 @@ def main(argv=None) -> int:
     text_len = bucket_text_kv(y, m, 300)[2]
 
     phases = args.phases.split(",")
-    if not set(phases) <= set(PHASES):
-        ap.error(f"--phases takes a subset of {PHASES}")
+    if not set(phases) <= set(PHASES + OPT_IN_PHASES):
+        ap.error(f"--phases takes a subset of {PHASES + OPT_IN_PHASES}")
+    def timed(name: str, fn, *fn_args):
+        t0 = time.perf_counter()
+        result = fn(*fn_args)
+        log(f"{name} phase: {time.perf_counter() - t0:.1f} s")
+        return result
+
     if "kernel" in phases:  # phase 2: forward kernel against plain
-        shapes = kernel_phase(fa, text_len)
+        shapes = timed("kernel", kernel_phase, fa, text_len)
     if "serve" in phases:  # phase 3: the serving path
-        served = serve_phase(fa, args.steps, args.seed, args.profile)
+        served = timed("serve", serve_phase, fa, args.steps, args.seed,
+                       args.profile)
     if "tiny" in phases:  # phase 4: tiny configuration, card against CPU
-        tiny_parity_phase(args.seed)
+        timed("tiny", tiny_parity_phase, args.seed)
     if "t5" in phases:  # phase 5: the T5-XXL text encoder
-        t5_phase(args.seed)
+        timed("t5", t5_phase, args.seed)
     if "offload" in phases:  # phase 6: T5, checkpoint loading, cpu_offload
-        offload_phase(fa, args.steps, args.seed)
+        # 5 steps, to keep the script inside its time: the phase compares
+        # the two requests' first step and video, not the step count
+        timed("offload", offload_phase, fa, min(args.steps, 5), args.seed)
     if "bwd_kernel" in phases:  # phase 7: backward kernels against plain
-        bwd_shapes = backward_kernel_phase(fa)
+        bwd_shapes = timed("bwd_kernel", backward_kernel_phase, fa)
     if "train" in phases:  # phase 8: the training path
-        trained = train_phase(fa, TRAIN_STEPS, args.seed, args.profile,
-                              args.remat_policy)
+        trained = timed("train", train_phase, fa, TRAIN_STEPS, args.seed,
+                        args.profile, args.remat_policy)
     if "tiny_train" in phases:  # phase 9: tiny training, card against CPU
-        tiny_train_parity_phase(fa, args.seed)
+        timed("tiny_train", tiny_train_parity_phase, fa, args.seed)
     if "cogvideox" in phases:  # phase 10: CogVideoX serving, its kernel shapes
-        cog = cogvideox_phase(fa, args.seed, args.cog5b_steps, args.profile)
+        cog = timed("cogvideox", cogvideox_phase, fa, args.seed,
+                    args.cog5b_steps, args.profile)
     if "dcp" in phases:  # phase 11: training with the DCP profile phase
-        t0 = time.perf_counter()
-        dcp = dcp_phase(fa, args.seed)
-        log(f"dcp phase: {time.perf_counter() - t0:.1f} s")
+        dcp = timed("dcp", dcp_phase, fa, args.seed)
     if "raw_video" in phases:  # phase 12: raw video, preprocess, latents
-        t0 = time.perf_counter()
-        raw = raw_video_phase(fa, args.seed)
-        log(f"raw_video phase: {time.perf_counter() - t0:.1f} s")
+        raw = timed("raw_video", raw_video_phase, fa, args.seed)
     if "latte" in phases:  # phase 13: Latte-1 serving, its kernel shapes
-        t0 = time.perf_counter()
-        latte = latte_phase(fa, args.seed, args.profile)
-        log(f"latte phase: {time.perf_counter() - t0:.1f} s")
+        latte = timed("latte", latte_phase, fa, args.seed, args.profile)
     if "open_sora_plan" in phases:  # phase 14: Open-Sora-Plan v1.1 and v1.2
-        t0 = time.perf_counter()
-        osp = open_sora_plan_phase(fa, args.seed, args.profile)
-        log(f"open_sora_plan phase: {time.perf_counter() - t0:.1f} s")
+        osp = timed("open_sora_plan", open_sora_plan_phase, fa, args.seed,
+                    args.profile)
     if "vchitect" in phases:  # phase 15: Vchitect-2.0 serving, its shapes
-        t0 = time.perf_counter()
-        vch = vchitect_phase(fa, args.seed, args.vchitect_steps, args.profile)
-        log(f"vchitect phase: {time.perf_counter() - t0:.1f} s")
+        vch = timed("vchitect", vchitect_phase, fa, args.seed,
+                    args.vchitect_steps, args.profile)
     if "parallel" in phases:  # phase 16: parallel serving, every family
         par_out = parallel_phase(fa, args.steps, args.seed)
+    if "parallel_train" in phases:  # phase 17: training over ranks
+        ptrain = parallel_train_phase(fa, args.seed)
+    if "parallel_fp32" in phases:  # opt-in: the DSP and cp drift in fp32
+        parallel_fp32_phase(args.seed)
     if set(phases) != set(PHASES):
         log(f"partial run ({args.phases}) total_s="
             f"{time.perf_counter() - t_start:.1f}: no kernel report")
@@ -4821,6 +5391,58 @@ def main(argv=None) -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"]})
+    # one rank's training rows of the sp=2 world (forwards and backwards),
+    # launches per rank from its run; the wide forward at one rank's share
+    # of the split 480p decode, launches from rank 0 of cp=2 x sp=2
+    ptr = ptrain["worlds"]["sp2"]["ranks"][0]["launches"]
+    for shape in ("ptrain_spatial", "ptrain_cross", "ptrain_temporal"):
+        r = ptrain["kernel"]["fwd"][shape]
+        key = fa.kernel_variant(torch.bfloat16, r["shape"][2], r["shape"][3],
+                                r["shape"][4])
+        kernels.append({
+            "name": f"flash_fwd_{key}", "route": "cuda",
+            "source": "videosys_tpu_torch/csrc/flash_fwd.cu",
+            "replaces": "videosys_tpu/ops/flash_attention.py:125",
+            "launches": ptr[key], "max_abs_err": r["max_abs_err_bf16"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"]})
+        b = ptrain["kernel"]["bwd"][shape]
+        for kern in ("fused", "dq", "dkv"):
+            if kern not in b:
+                continue
+            name = {"fused": "bwd_fused", "dq": "bwd_dq", "dkv": "bwd_dkv"}[kern]
+            counter = name + ("_short" if kern == "fused"
+                              and fa.fused_kind(b["shape"][2], b["shape"][3],
+                                                torch.bfloat16) == "short"
+                              else "")
+            if ptr.get(counter, 0) <= 0:
+                raise AssertionError(f"the sp=2 training world never launched "
+                                     f"flash_{counter}")
+            kernels.append({
+                "name": f"flash_{counter}", "route": "cuda",
+                "source": {"fused": fused_src, "dq": dq_src,
+                           "dkv": dkv_src}[kern],
+                "replaces": "videosys_tpu/ops/flash_attention.py:"
+                            + {"fused": "326", "dq": "594", "dkv": "522"}[kern],
+                "launches": ptr[counter],
+                "max_abs_err": b[kern]["max_abs_err_bf16"],
+                "ms": b[kern]["ms"], "plain_ms": b[kern]["plain_ms"],
+                "bound_ms": b[kern]["bound_ms"],
+                "bound_by": b[kern]["bound_by"],
+                "library_ms": b[kern]["library_ms"], "shape": b["shape"]})
+    r = ptrain["kernel"]["fwd"]["vae_mid_rank"]
+    n = par_out["worlds"]["cp2sp2"]["ranks"][0]["launches"]["wgmma"]
+    if n <= 0:
+        raise AssertionError("the split decode never launched flash_fwd_wide")
+    kernels.append({
+        "name": "flash_fwd_wide", "route": "cuda",
+        "source": "videosys_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "videosys_tpu/ops/flash_attention.py:49",
+        "launches": n, "max_abs_err": r["max_abs_err_bf16"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "shape": r["shape"]})
     log(f"total_s={time.perf_counter() - t_start:.1f}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -20,6 +20,7 @@ from videosys_tpu.core import dcp as JD
 from videosys_tpu.training import train as JTR
 from videosys_tpu.training.buckets import Bucket as JBucket
 from videosys_tpu_torch.core import dcp as PD
+from videosys_tpu_torch.core import parallel as par
 from videosys_tpu_torch.models.transformers.stdit3 import STDiT3Config
 from videosys_tpu_torch.training import train as PTR
 from videosys_tpu_torch.training.buckets import Bucket
@@ -263,8 +264,8 @@ def test_sp_balance_runs_the_packed_step_loop():
 @pytest.mark.parametrize("fields,error", [
     (dict(dynamic_recompute=True), ValueError),
     (dict(zero3=True, sp_balance=True), ValueError),
-    (dict(dp_size=2), NotImplementedError),
-    (dict(sp_size=2), NotImplementedError),
+    (dict(dp_size=2, zero3=True), NotImplementedError),
+    (dict(sp_size=2, dynamic_sp=True), NotImplementedError),
     (dict(dynamic_sp=True), NotImplementedError),
     (dict(zero3=True), NotImplementedError),
 ])
@@ -293,8 +294,13 @@ def test_timer_and_memory_stats_on_the_cpu():
         sum(range(10000))
     assert t.elapsed > 0 and t.memory == {}
     assert device_memory_stats("cpu") == {}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        GroupTimer("group", mesh=object(), device="cpu")
+    one = par.Axis(None, (0,), 0)
+    groups = par.Groups(par.ParallelConfig(), 0,
+                        {a: one for a in par.MESH_AXES}, None,
+                        torch.device("cpu"))
+    with GroupTimer("one rank", groups=groups) as g:  # no collective
+        pass
+    assert g.elapsed >= 0 and g.groups is None
     with GroupTimer("one device", device="cpu") as g:
         pass
     assert g.elapsed >= 0

@@ -257,8 +257,8 @@ def test_rank_layout_equals_build_mesh(dp, cp, sp):
 
 def test_helpers_are_identity_on_one_rank():
     """No groups, or groups of one rank: every helper returns its input and
-    the pad multiple is 1; a collective raises where autograd would need
-    its gradient."""
+    the pad multiple is 1; a collective carries a gradient (its backward
+    runs the reverse exchange, counted under its own keys)."""
     x = torch.randn(2, 3, 5, 4)
     one = par.Axis(None, (0,), 0)
     groups = par.Groups(par.ParallelConfig(), 0,
@@ -273,8 +273,20 @@ def test_helpers_are_identity_on_one_rank():
                       lambda t: par.unshard_batch(t, 2)):
                 assert f(x) is x
     two = par.Axis(None, (0, 1), 0)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        par.all_to_all(x.requires_grad_(), 1, 2, two)
+    exchanges = []
+
+    def exchange(recv, send, group=None):  # this rank's own chunks back
+        exchanges.append(tuple(send.shape))
+        recv.copy_(send)
+
+    par.reset_exchange()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(par.dist, "all_to_all_single", exchange)
+        y = par.all_to_all(x.requires_grad_(), 0, 2, two)
+        y.sum().backward()
+    assert y.requires_grad and torch.equal(x.grad, torch.ones_like(x))
+    assert exchanges == [(2, 1, 3, 5, 4), (2, 1, 3, 5, 4)]
+    assert (par.EXCHANGE["calls"], par.EXCHANGE["backward_calls"]) == (1, 1)
 
 
 @pytest.mark.parametrize("world", list(WORLDS))

@@ -281,7 +281,8 @@ def worlds():
 
 def test_collectives_are_identity_on_one_rank():
     """No groups, or groups of one rank: each new helper returns its input
-    (no copy), a pad to a multiple of 1 too."""
+    (no copy), a pad to a multiple of 1 too; `broadcast` carries a
+    gradient to its source."""
     x = torch.randn(2, 5, 3, 3, 4)
     one = par.Axis(None, (0,), 0)
     groups = par.Groups(par.ParallelConfig(), 0,
@@ -299,8 +300,12 @@ def test_collectives_are_identity_on_one_rank():
     assert padded.shape == (2, 5, 3, 4, 4)
     assert torch.equal(padded[:, :, :, :3], x) and not padded[:, :, :, 3].any()
     two = par.Axis(None, (0, 1), 0)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        par.broadcast(x.requires_grad_(), 0, two)
+    with pytest.MonkeyPatch.context() as mp:  # this rank is the source
+        mp.setattr(par.dist, "broadcast", lambda t, src, group=None: None)
+        mp.setattr(par.dist, "reduce", lambda t, dst, group=None: None)
+        y = par.broadcast(x.requires_grad_(), 0, two)
+        (2 * y).sum().backward()
+    assert torch.equal(y, x) and torch.equal(x.grad, torch.full_like(x, 2))
 
 
 def test_collectives_round_trip_on_two_ranks(worlds):

@@ -19,7 +19,8 @@ a recomputed 240p step then held ~54 GiB more at its optimizer update). A
 candidate
 fits iff that peak is within `memory_budget_bytes * alloc_memory_fraction`
 and the run raised nothing; an out-of-memory error (or any other error of
-the run) is a non-fit, recorded in `failures` with phase "execute". On the
+the run) is a non-fit, recorded in `failures` with phase "execute" (over
+ranks it stops the world instead: see `Profiler`). On the
 CPU there is no allocator to read: pass `peak_bytes(thw, bs, sp, policy)`.
 """
 
@@ -65,7 +66,15 @@ class Profiler:
     be repeatable and should leave nothing the caller needs changed.
 
     `memory_budget_bytes` defaults to the card's memory; `peak_bytes`
-    replaces the allocator's reading (required without a card). `trials`
+    replaces the allocator's reading (required without a card). `agree(peak,
+    seconds, fits) -> (peak, seconds, fits)`, given, turns a rank's reading
+    into the one every rank of a world acts on, so that all run the same
+    candidates: the ranks agree on each build (a candidate that one rank
+    fails to build is skipped by all) and on each reading. A run that
+    raises on one rank leaves the others inside the step's collectives, so
+    under `agree` it stops the world with an error, and the bs ladder takes
+    a rung only where twice the last rung's peak fits the budget (a step's
+    peak at twice the batch is at most twice its peak). `trials`
     lists every candidate profiled, in order; `results` the chosen one per
     bucket; `failures` every candidate that failed to build or to run."""
 
@@ -81,8 +90,10 @@ class Profiler:
         bs_escalate: bool = True,
         max_bs: int = 128,
         peak_bytes: Optional[Callable[..., int]] = None,
+        agree: Optional[Callable] = None,
     ):
         self.bucket = bucket
+        self.agree = agree
         self.step_builder = step_builder
         self.peak_bytes = peak_bytes
         self.device = torch.device("cuda" if peak_bytes is None else "cpu")
@@ -159,19 +170,38 @@ class Profiler:
         to it (and to the activations its frames hold) is dropped before
         the card's cache is emptied for the next candidate."""
         where = {"bucket": bucket_id, "bs": bs, "sp": sp, "policy": policy}
+        error = None
         try:
             fn, args = self._build(thw, bs, sp, policy)
         except Exception as e:
-            self.failures.append({**where, "error": f"{type(e).__name__}: {e}"})
+            error = f"{type(e).__name__}: {e}"
+        if self.agree is not None:  # a candidate any rank failed to build
+            built = self.agree(0, 0.0, error is None)[2]  # is skipped by all
+            if error is None and not built:
+                error = "another rank failed to build it"
+        if error is not None:
+            self.failures.append({**where, "error": error})
             logger.warning("DCP profile failed to build bucket=%s bs=%d sp=%d "
-                           "policy=%s: %s", bucket_id, bs, sp, policy, e)
+                           "policy=%s: %s", bucket_id, bs, sp, policy, error)
             return None
-        error = None
         try:
             peak, seconds, flops = self._run(fn, args, thw, bs, sp, policy)
         except Exception as e:  # out of memory, or any fault of the run
+            if self.agree is not None:
+                # the other ranks wait inside the step's collectives, which
+                # no call of this rank can meet: the world stops
+                raise RuntimeError(
+                    f"DCP profile candidate {where} failed on this rank of a "
+                    f"world ({type(e).__name__}: {e}); the world cannot go "
+                    f"on") from e
             error = f"{type(e).__name__}: {e}"
         fn = args = None
+        if self.agree is not None:
+            peak, seconds, fits = self.agree(
+                0 if error else peak, float("inf") if error else seconds,
+                error is None and peak <= self.memory_budget)
+            if not fits and error is None:
+                error = "another rank did not fit"
         if error is not None:
             gc.collect()
             if self.peak_bytes is None:
@@ -215,10 +245,14 @@ class Profiler:
     def _escalate_bs(self, thw, prof: BucketProfile) -> BucketProfile:
         """Double bs at the fitting (sp, policy) while the step fits the
         budget; a rung that does not fit, or fails, ends the ladder and the
-        last rung that fitted is kept."""
+        last rung that fitted is kept. Under `agree` the ladder also ends
+        before a rung whose peak could pass the budget."""
         best = prof
         bs = prof.bs * 2
         while bs <= self.max_bs:
+            if self.agree is not None and 2 * best.memory_bytes > \
+                    self.memory_budget:
+                break  # a rung that might not fit could stop the world
             rung = self._candidate(prof.bucket_id, thw, bs, prof.sp,
                                    prof.remat_policy)
             if rung is None or not rung.fits:

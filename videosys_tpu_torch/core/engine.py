@@ -8,7 +8,8 @@ one process group and builds the same pipeline on its own device, and each
 call runs on every rank. A monitor thread (the reference's WorkerMonitor,
 mp_utils.py:111-151) reads the workers' answers and watches their
 processes: a worker that raises or dies fails the driver's call with the
-worker's error.
+worker's error. `run_training_ranks` spawns training ranks the same way
+(`core/worker.py`'s `setup_train_rank`), rank 0 in the caller's process.
 """
 
 from __future__ import annotations
@@ -28,11 +29,13 @@ from videosys_tpu_torch.core.worker import (
     call,
     numerics,
     setup_rank,
+    setup_train_rank,
     worker_main,
 )
 from videosys_tpu_torch.utils.video import save_video as _save_video
 
-__all__ = ["VideoSysEngine", "WorkerError", "initialize"]
+__all__ = ["VideoSysEngine", "WorkerError", "initialize",
+           "run_training_ranks"]
 
 # after the driver's own call fails, how long it waits for a worker's error
 FAILURE_WAIT_S = 10.0
@@ -88,36 +91,19 @@ class _Monitor(threading.Thread):
                                    f"{self.workers[i][0].exitcode}")
 
 
-class VideoSysEngine:
-    """`VideoSysEngine(config).generate(prompt)`; the pipeline is
-    `driver_worker` (also `pipeline`).
+class Ranks:
+    """Rank 0 in this process and N - 1 spawned workers (`worker_main`),
+    each of which builds its target with `setup(rank, world_size, address,
+    backend, timeout, device, *setup_args)`; `_run_workers` runs a call on
+    every rank, a monitor thread fails it with the first worker's error.
+    The driver's target is `driver_worker`."""
 
-    With `config.num_gpus = N > 1`: `devices` names each rank's device
-    (default `cuda:r` for rank r; `device=` sets one device for every rank,
-    e.g. "cpu"), `backend` the process group's ("nccl" for CUDA devices,
-    "gloo" for the CPU, by default), `timeout` how long a collective or a
-    worker's answer may take, in seconds. `generate` returns rank 0's
-    video; `shutdown` stops the workers."""
-
-    def __init__(self, config: Any, devices: Optional[Sequence] = None,
-                 backend: Optional[str] = None,
-                 timeout: float = par.DEFAULT_TIMEOUT_S, **pipeline_kwargs):
-        self.config = config
-        self.world_size = getattr(config, "num_gpus", 1)
+    def _spawn(self, n: int, setup: Callable, setup_args: tuple, devs,
+               backend: Optional[str], timeout: float) -> None:
+        self.world_size = n
         self.timeout = timeout
         self._workers: List = []
-        self._monitor: Optional[_Monitor] = None
         self._broken: Optional[str] = None
-        if self.world_size <= 1:
-            self.driver_worker = config.pipeline_cls(config, **pipeline_kwargs)
-            return
-        if not getattr(config.pipeline_cls, "serves_parallel", False):
-            raise NotImplementedError(
-                f"{config.pipeline_cls.__name__} runs on one rank: it does "
-                f"not take process groups (num_gpus={self.world_size})")
-        n = self.world_size
-        devs = par.rank_devices(n, pipeline_kwargs.pop("device", None),
-                                devices)
         self.backend = backend or par.default_backend(devs[0])
         address = f"localhost:{par.free_port()}"
         ctx = torch.multiprocessing.get_context("spawn")
@@ -133,17 +119,12 @@ class VideoSysEngine:
         self._monitor.start()
         try:
             for _, conn in self._workers:
-                conn.send(("setup", config, pipeline_kwargs, numerics()))
-            self.driver_worker = setup_rank(0, n, address, self.backend,
-                                            timeout, devs[0], config,
-                                            pipeline_kwargs)
+                conn.send(("setup", setup, setup_args, numerics()))
+            self.driver_worker = setup(0, n, address, self.backend, timeout,
+                                       devs[0], *setup_args)
         except BaseException as e:
             self._fail(e)
         self._answers()
-
-    @property
-    def pipeline(self):
-        return self.driver_worker
 
     def _answers(self) -> List[Any]:
         """Each worker's answer to the last call, in rank order."""
@@ -190,12 +171,6 @@ class VideoSysEngine:
             self._fail(e)
         return [own] + (self._answers() if self._workers else [])
 
-    def generate(self, *args, **kwargs):
-        return self._run_workers("generate", *args, **kwargs)[0]
-
-    def save_video(self, video, output_path: str, fps: int = 24):
-        return _save_video(video, output_path, fps=fps)
-
     def _stop_workers(self, graceful: bool) -> None:
         if self._monitor is not None:
             self._monitor.stopping = True
@@ -224,3 +199,65 @@ class VideoSysEngine:
         if self._workers:
             self._stop_workers(graceful=self._broken is None)
             self._broken = self._broken or "shut down"
+
+
+class VideoSysEngine(Ranks):
+    """`VideoSysEngine(config).generate(prompt)`; the pipeline is
+    `driver_worker` (also `pipeline`).
+
+    With `config.num_gpus = N > 1`: `devices` names each rank's device
+    (default `cuda:r` for rank r; `device=` sets one device for every rank,
+    e.g. "cpu"), `backend` the process group's ("nccl" for CUDA devices,
+    "gloo" for the CPU, by default), `timeout` how long a collective or a
+    worker's answer may take, in seconds. `generate` returns rank 0's
+    video; `shutdown` stops the workers."""
+
+    def __init__(self, config: Any, devices: Optional[Sequence] = None,
+                 backend: Optional[str] = None,
+                 timeout: float = par.DEFAULT_TIMEOUT_S, **pipeline_kwargs):
+        self.config = config
+        self.world_size = getattr(config, "num_gpus", 1)
+        self.timeout = timeout
+        self._workers: List = []
+        self._monitor: Optional[_Monitor] = None
+        self._broken: Optional[str] = None
+        if self.world_size <= 1:
+            self.driver_worker = config.pipeline_cls(config, **pipeline_kwargs)
+            return
+        if not getattr(config.pipeline_cls, "serves_parallel", False):
+            raise NotImplementedError(
+                f"{config.pipeline_cls.__name__} runs on one rank: it does "
+                f"not take process groups (num_gpus={self.world_size})")
+        n = self.world_size
+        devs = par.rank_devices(n, pipeline_kwargs.pop("device", None),
+                                devices)
+        self._spawn(n, setup_rank, (config, pipeline_kwargs), devs, backend,
+                    timeout)
+
+    @property
+    def pipeline(self):
+        return self.driver_worker
+
+    def generate(self, *args, **kwargs):
+        return self._run_workers("generate", *args, **kwargs)[0]
+
+    def save_video(self, video, output_path: str, fps: int = 24):
+        return _save_video(video, output_path, fps=fps)
+
+
+def run_training_ranks(cfg, devices: Optional[Sequence] = None,
+                       backend: Optional[str] = None,
+                       timeout: float = par.DEFAULT_TIMEOUT_S, **kwargs):
+    """`run_training(cfg, **kwargs)` on dp_size x sp_size ranks: N - 1
+    spawned workers and rank 0 in this process, each on its device
+    (`devices`, else `device=` for every rank, else `cuda:r`), over
+    `backend`'s process group. Returns rank 0's (train_state, ema,
+    metrics_history); the workers are stopped before it returns."""
+    n = cfg.dp_size * cfg.sp_size
+    devs = par.rank_devices(n, kwargs.pop("device", None), devices)
+    ranks = Ranks()
+    ranks._spawn(n, setup_train_rank, (cfg,), devs, backend, timeout)
+    try:
+        return ranks._run_workers("run", **kwargs)[0]
+    finally:
+        ranks.shutdown()

@@ -25,11 +25,36 @@ locally (`split_heads`) and come back by `gather_heads`. `broadcast`
 sends one sp rank's tensor to its line. CFG parallelism splits the
 CFG-doubled batch over cp.
 
+The Open-Sora VAE splits over the cp x sp ranks of a dp index (`CPSP_AXIS`;
+every rank when serving): the temporal stage holds latent rows
+(`shard_vae_rows`, h padded to the line's size, the pad marked in a
+`RowShard`), its convolutions take one-row halos (`halo_exchange`) and its
+group norms sum their statistics over the line (`all_reduce`); one
+all-to-all crosses the seam into frames (`rows_to_frames`), which the 2D
+stage decodes frame-locally and `gather_frames` collects on the line's
+first rank. ZeRO-1 (training/train_step.py) reduce-scatters gradients and
+all-gathers parameters over every rank (`WORLD_AXIS`) in flat buffers.
+
 The groups in force are installed with `use_groups`. With none, or with one
 rank, every helper returns its input: the one-card path gains no collective
-and no copy. The collectives are forward-only (serving): each raises where
-autograd would need a gradient through it. A failed collective raises; the
-package picks no other backend.
+and no copy. A failed collective raises; the package picks no other backend.
+
+Gradients (training, after the reference's autograd collectives in
+`comm.py`): `all_to_all`, `split`, `gather`, `broadcast`, `all_reduce` and
+`halo_exchange` are `torch.autograd.Function`s. The loss is the one every
+rank computes after the last `gather` (the same number on every rank). A
+tensor that only this rank holds gets its gradient whole; a tensor every
+rank holds gets this rank's share of it, and the shares sum over the line
+to the whole. So the gradient of a replicated parameter is the sum of its
+gradients over the sp ranks. Backward passes: `all_to_all` -> the reverse
+all-to-all; `split` -> `gather` of the gradient, divided by the line's size
+(the reference's `grad_scale="down"`: each rank's share of a tensor every
+rank holds); `gather` -> `split` of the gradient (no factor); `broadcast`
+-> a sum-reduce to its source (zero elsewhere); `all_reduce` -> an
+all-reduce of the gradients; `halo_exchange` -> each halo's gradient sent
+back to its owner and added. The backward's exchanges count in `EXCHANGE`
+under keys of their own ("backward_calls", "backward_bytes"), the
+optimizer's under "optimizer_calls", "optimizer_bytes".
 """
 
 from __future__ import annotations
@@ -52,16 +77,28 @@ DP_AXIS = "dp"   # data parallel (batch)
 CP_AXIS = "cp"   # CFG-batch ("context") parallel, inference only
 SP_AXIS = "sp"   # sequence parallel (DSP, Ulysses)
 MESH_AXES = (DP_AXIS, CP_AXIS, SP_AXIS)
+# The cp x sp ranks of one dp index (the VAE's rows and frames: JAX's
+# shard_vae_rows puts h on (cp, sp) and, the batch being dp-major, its
+# shard_frames gives each dp index its own frames), and every rank (ZeRO-1).
+CPSP_AXIS = "cpsp"
+WORLD_AXIS = "world"
 
 # A collective waits this long for its peers before it raises.
 DEFAULT_TIMEOUT_S = 600.0
 
-# Collective calls and bytes sent since the last `reset_exchange()`.
-EXCHANGE: Dict[str, int] = {"calls": 0, "bytes": 0}
+# Collective calls and bytes sent since the last `reset_exchange()`: the
+# forward's ("calls", "bytes"), autograd's backward ("backward_*") and the
+# ZeRO-1 optimizer's ("optimizer_*").
+EXCHANGE: Dict[str, int] = {}
 
 
 def reset_exchange() -> None:
-    EXCHANGE.update(calls=0, bytes=0)
+    EXCHANGE.clear()
+    for kind in ("", "backward_", "optimizer_"):
+        EXCHANGE.update({kind + "calls": 0, kind + "bytes": 0})
+
+
+reset_exchange()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,8 +136,16 @@ def rank_layout(config: ParallelConfig) -> np.ndarray:
 
 
 def axis_lines(config: ParallelConfig, axis: str) -> List[List[int]]:
-    """The rank lists of every line along `axis`, in a fixed order."""
-    grid = np.moveaxis(rank_layout(config), MESH_AXES.index(axis), -1)
+    """The rank lists of every line along `axis`, in a fixed order;
+    `CPSP_AXIS` lines hold the cp x sp ranks of one dp index, the one
+    `WORLD_AXIS` line every rank."""
+    layout = rank_layout(config)
+    if axis == CPSP_AXIS:
+        grid = layout.reshape(config.dp_size, -1)
+    elif axis == WORLD_AXIS:
+        grid = layout.reshape(1, -1)
+    else:
+        grid = np.moveaxis(layout, MESH_AXES.index(axis), -1)
     return [list(map(int, line)) for line in grid.reshape(-1, grid.shape[-1])]
 
 
@@ -134,8 +179,8 @@ class Groups:
     def world_size(self) -> int:
         return self.config.world_size
 
-    def axis(self, name: str) -> Axis:
-        return self.axes[name]
+    def axis(self, name: str) -> Optional[Axis]:
+        return self.axes.get(name)
 
 
 def build_groups(config: ParallelConfig, device=None) -> Groups:
@@ -156,6 +201,17 @@ def build_groups(config: ParallelConfig, device=None) -> Groups:
             group = dist.new_group(line) if len(line) > 1 else None
             if rank in line:
                 axes[name] = Axis(group, tuple(line), line.index(rank))
+    # the cp x sp line is the sp or the cp line when the other is 1; the
+    # world is the default group
+    if config.cp_size == 1 or config.sp_size == 1:
+        axes[CPSP_AXIS] = axes[SP_AXIS if config.cp_size == 1 else CP_AXIS]
+    else:
+        for line in axis_lines(config, CPSP_AXIS):
+            group = dist.new_group(line)
+            if rank in line:
+                axes[CPSP_AXIS] = Axis(group, tuple(line), line.index(rank))
+    axes[WORLD_AXIS] = Axis(dist.group.WORLD if n > 1 else None,
+                            tuple(range(n)), rank)
     monitor = dist.new_group(list(range(n)), backend="gloo") if n > 1 else None
     if device is None:
         device = torch.device("cuda", torch.cuda.current_device()) \
@@ -199,7 +255,7 @@ def _axis(group: Union[str, Axis, None]) -> Optional[Axis]:
         if groups is None:
             return None
         ax = groups.axis(group)
-    return ax if ax.size > 1 else None
+    return ax if ax is not None and ax.size > 1 else None
 
 
 def axis_size(group: Union[str, Axis] = SP_AXIS) -> int:
@@ -215,17 +271,150 @@ def token_pad_multiple() -> int:
     return axis_size(SP_AXIS)
 
 
-def _forward_only(x: torch.Tensor, what: str) -> None:
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise RuntimeError(
-            f"parallel.{what} is forward-only (serving); a gradient through "
-            f"it is not ported (ROADMAP Queue 1 item 6e)")
+def _count(x: torch.Tensor, kind: str = "") -> None:
+    """Count one collective that sends `x`; `kind` "backward_" for
+    autograd's backward, "optimizer_" for ZeRO-1."""
+    EXCHANGE[kind + "calls"] += 1
+    EXCHANGE[kind + "bytes"] += x.numel() * x.element_size()
 
 
-def _count(x: torch.Tensor) -> None:
-    """Count one collective that sends `x`."""
-    EXCHANGE["calls"] += 1
-    EXCHANGE["bytes"] += x.numel() * x.element_size()
+def _via_host(ax: Axis, x: torch.Tensor) -> bool:
+    """True where a collective stages a CUDA tensor through the host: on a
+    gloo group (ranks that share one card)."""
+    return x.is_cuda and dist.get_backend(ax.group) == "gloo"
+
+
+def _all_to_all(x, scatter_dim: int, gather_dim: int, ax: Axis,
+                kind: str = "") -> torch.Tensor:
+    send = torch.stack(x.chunk(ax.size, scatter_dim))  # [n, ...], contiguous
+    recv = torch.empty_like(send)
+    _count(send, kind)
+    dist.all_to_all_single(recv, send, group=ax.group)
+    return torch.cat(recv.unbind(0), dim=gather_dim)
+
+
+def _all_gather(x, dim: int, ax: Axis, kind: str = "") -> torch.Tensor:
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(ax.size)]
+    _count(x, kind)
+    dist.all_gather(parts, x, group=ax.group)
+    return torch.cat(parts, dim=dim)
+
+
+def _all_reduce(x, ax: Axis, kind: str = "") -> torch.Tensor:
+    x = x.contiguous().clone()
+    _count(x, kind)
+    dist.all_reduce(x, group=ax.group)
+    return x
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scatter_dim, gather_dim, ax):
+        ctx.dims, ctx.ax = (scatter_dim, gather_dim), ax
+        return _all_to_all(x, scatter_dim, gather_dim, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        scatter_dim, gather_dim = ctx.dims
+        return (_all_to_all(g, gather_dim, scatter_dim, ctx.ax, "backward_"),
+                None, None, None)
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        return x.chunk(ax.size, dim)[ax.rank].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        whole = _all_gather(g, ctx.dim, ctx.ax, "backward_")
+        return whole / ctx.ax.size, None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        return _all_gather(x, dim, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.ax.size, ctx.dim)[ctx.ax.rank].contiguous(), \
+            None, None
+
+
+class _Broadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, src, ax):
+        ctx.src, ctx.ax = src, ax
+        out = x.contiguous().clone() if ax.rank == src else torch.empty_like(x)
+        if ax.rank == src:
+            _count(out)
+        dist.broadcast(out, src=ax.ranks[src], group=ax.group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        _count(g, "backward_")
+        dist.reduce(g, dst=ctx.ax.ranks[ctx.src], group=ctx.ax.group)
+        return (g if ctx.ax.rank == ctx.src else torch.zeros_like(g)), \
+            None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mean, ax):
+        ctx.mean, ctx.ax = mean, ax
+        out = _all_reduce(x, ax)
+        return out / ax.size if mean else out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _all_reduce(g, ctx.ax, "backward_")
+        return (g / ctx.ax.size if ctx.mean else g), None, None
+
+
+def _edges(x, dim: int, width: int):
+    """[first `width` rows, last `width` rows] of `x` along `dim`, stacked."""
+    n = x.shape[dim]
+    return torch.stack([x.narrow(dim, 0, width), x.narrow(dim, n - width,
+                                                          width)])
+
+
+class _Halo(torch.autograd.Function):
+    """Each rank's edge rows go to every rank of the line in one
+    all-gather (a few rows: cheaper to reason about than paired sends,
+    and every backend has it); each rank keeps its neighbours'."""
+
+    @staticmethod
+    def forward(ctx, x, dim, width, ax):
+        ctx.args = (dim, width, ax)
+        edges = _all_gather(_edges(x, dim, width)[None], 0, ax)
+        r, n = ax.rank, ax.size
+        zeros = torch.zeros_like(edges[0, 0])
+        before = edges[r - 1, 1] if r > 0 else zeros
+        after = edges[r + 1, 0] if r < n - 1 else zeros
+        return torch.cat([before, x, after], dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, width, ax = ctx.args
+        n_in = g.shape[dim] - 2 * width
+        # the gradients of the rows this rank took from its neighbours go
+        # back to them: its first halo to the rank before, its last after
+        sent = torch.stack([g.narrow(dim, 0, width),
+                            g.narrow(dim, width + n_in, width)])
+        back = _all_gather(sent[None], 0, ax, "backward_")
+        gx = g.narrow(dim, width, n_in).clone()
+        r, n = ax.rank, ax.size
+        if r > 0:  # the rank before took my first rows as its last halo
+            gx.narrow(dim, 0, width).add_(back[r - 1, 1])
+        if r < n - 1:  # the rank after took my last rows as its first halo
+            gx.narrow(dim, n_in - width, width).add_(back[r + 1, 0])
+        return gx, None, None, None
 
 
 def all_to_all(x: torch.Tensor, scatter_dim: int, gather_dim: int,
@@ -233,48 +422,39 @@ def all_to_all(x: torch.Tensor, scatter_dim: int, gather_dim: int,
     """Scatter `x` along `scatter_dim` over the group's ranks and gather
     their chunks along `gather_dim` (rank order), over
     `dist.all_to_all_single` on one contiguous buffer: the DSP switch
-    (comm.py:139)."""
+    (comm.py:139). Backward: the reverse all-to-all."""
     ax = _axis(group)
     if ax is None:
         return x
-    _forward_only(x, "all_to_all")
-    n = ax.size
-    if x.shape[scatter_dim] % n:
+    if x.shape[scatter_dim] % ax.size:
         raise ValueError(f"dim {scatter_dim} of {tuple(x.shape)} does not "
-                         f"split over {n} ranks")
-    send = torch.stack(x.chunk(n, scatter_dim))  # [n, ...], contiguous
-    recv = torch.empty_like(send)
-    _count(send)
-    dist.all_to_all_single(recv, send, group=ax.group)
-    return torch.cat(recv.unbind(0), dim=gather_dim)
+                         f"split over {ax.size} ranks")
+    return _AllToAll.apply(x, scatter_dim, gather_dim, ax)
 
 
 def split(x: torch.Tensor, dim: int,
           group: Union[str, Axis] = SP_AXIS) -> torch.Tensor:
     """This rank's chunk of `x` along `dim` (no communication: every rank
-    holds the whole of `x`)."""
+    holds the whole of `x`). Backward: the gathered gradient over the
+    line's size (this rank's share of a tensor every rank holds)."""
     ax = _axis(group)
     if ax is None:
         return x
     if x.shape[dim] % ax.size:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
                          f"over {ax.size} ranks")
-    return x.chunk(ax.size, dim)[ax.rank]
+    return _Split.apply(x, dim, ax)
 
 
 def gather(x: torch.Tensor, dim: int,
            group: Union[str, Axis] = SP_AXIS) -> torch.Tensor:
     """Every rank's `x` concatenated along `dim` in rank order
-    (all-gather; comm.py:256-260)."""
+    (all-gather; comm.py:256-260). Backward: this rank's chunk of the
+    gradient."""
     ax = _axis(group)
     if ax is None:
         return x
-    _forward_only(x, "gather")
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(ax.size)]
-    _count(x)
-    dist.all_gather(parts, x, group=ax.group)
-    return torch.cat(parts, dim=dim)
+    return _Gather.apply(x, dim, ax)
 
 
 def broadcast(x: torch.Tensor, src: int = 0,
@@ -282,16 +462,74 @@ def broadcast(x: torch.Tensor, src: int = 0,
     """The `x` of the group's rank `src` (its index on the line) on every
     rank of the group; every rank passes a tensor of the same shape and
     dtype. Vchitect's cross-attention reads frame 0's context, which only
-    the sp rank holding frame 0 has."""
+    the sp rank holding frame 0 has. Backward: the ranks' gradients summed
+    on `src`, zero elsewhere."""
     ax = _axis(group)
     if ax is None:
         return x
-    _forward_only(x, "broadcast")
-    x = x.contiguous() if ax.rank == src else torch.empty_like(x)
-    if ax.rank == src:
-        _count(x)
-    dist.broadcast(x, src=ax.ranks[src], group=ax.group)
-    return x
+    return _Broadcast.apply(x, src, ax)
+
+
+def all_reduce(x: torch.Tensor, group: Union[str, Axis] = SP_AXIS,
+               op: str = "sum") -> torch.Tensor:
+    """The sum ("sum") or the mean ("mean") of the ranks' `x` on every rank
+    of the group. Backward: the gradients all-reduced the same way."""
+    if op not in ("sum", "mean"):
+        raise ValueError(f"op {op!r} is not 'sum' or 'mean'")
+    ax = _axis(group)
+    if ax is None:
+        return x
+    return _AllReduce.apply(x, op == "mean", ax)
+
+
+def halo_exchange(x: torch.Tensor, dim: int, width: int = 1,
+                  group: Union[str, Axis] = CPSP_AXIS) -> torch.Tensor:
+    """`x` with the last `width` rows of the rank before on the line
+    prepended along `dim` and the first `width` rows of the rank after
+    appended; zeros past the line's ends. Every rank holds at least `width`
+    rows. Backward: each halo's gradient added to the rows it came from."""
+    ax = _axis(group)
+    if ax is None:
+        pad = [0, 0] * (x.ndim - 1 - dim % x.ndim) + [width, width]
+        return torch.nn.functional.pad(x, pad)
+    if x.shape[dim] < width:
+        raise ValueError(f"{x.shape[dim]} rows along dim {dim} hold no halo "
+                         f"of {width}")
+    return _Halo.apply(x, dim, width, ax)
+
+
+# --- flat buffers (ZeRO-1), outside autograd ---------------------------- #
+
+def reduce_scatter_flat(x: torch.Tensor,
+                        group: Union[str, Axis] = WORLD_AXIS) -> torch.Tensor:
+    """This rank's 1/n slice of the sum of the ranks' 1-D `x` (its length
+    a multiple of the group's size)."""
+    ax = _axis(group)
+    if ax is None:
+        return x
+    host = _via_host(ax, x)
+    src = x.cpu() if host else x
+    out = src.new_empty(x.numel() // ax.size)
+    _count(src, "optimizer_")
+    dist.reduce_scatter(out, list(src.chunk(ax.size)), group=ax.group)
+    return out.to(x.device) if host else out
+
+
+def all_gather_flat(x: torch.Tensor, out: Optional[torch.Tensor] = None,
+                    group: Union[str, Axis] = WORLD_AXIS) -> torch.Tensor:
+    """The ranks' 1-D slices `x` concatenated in rank order, into `out`
+    when given."""
+    ax = _axis(group)
+    if ax is None:
+        return x if out is None else out.copy_(x)
+    host = _via_host(ax, x)
+    src = x.cpu() if host else x.contiguous()
+    whole = src.new_empty(x.numel() * ax.size)
+    _count(src, "optimizer_")
+    dist.all_gather(list(whole.chunk(ax.size)), src, group=ax.group)
+    if out is None:
+        return whole.to(x.device)
+    return out.copy_(whole)
 
 
 def broadcast_from_rank0(obj, groups: Optional[Groups]):
@@ -339,6 +577,139 @@ def unshard_batch(x: torch.Tensor, batch: int) -> torch.Tensor:
     if axis_size(SP_AXIS) == 1:
         return x
     return all_to_all(x, 2, 0)[:batch]
+
+
+# --- the Open-Sora VAE: latent rows, then frames ------------------------ #
+# JAX's shard_vae_rows and shard_frames (videosys_tpu/core/parallel.py
+# :190-214) on the cp x sp line of this rank (every rank when serving). h is
+# padded with zero rows to a multiple of the line's size; the pad rows sit at
+# the end of the axis, so each rank's real rows are a prefix of its own.
+
+@dataclasses.dataclass(frozen=True)
+class RowShard:
+    """This rank's share of the latent rows (dim 3 of [B, C, T, h, w]):
+    `local` rows a rank, of which the first `valid` are real (`rows` in
+    all); the temporal VAE's convolutions take halos across `axis` and its
+    group norms sum their statistics over it."""
+
+    axis: Axis
+    rows: int
+    local: int
+
+    @property
+    def valid(self) -> int:
+        return max(0, min(self.local, self.rows - self.axis.rank * self.local))
+
+    def mask(self, x: torch.Tensor) -> torch.Tensor:
+        """`x` with its pad rows zeroed (a no-op where every row is real)."""
+        if self.valid == self.local:
+            return x
+        keep = torch.arange(self.local, device=x.device) < self.valid
+        return x * keep[:, None].to(x.dtype)
+
+
+_ROWS: List[Optional[RowShard]] = [None]
+
+
+class use_rows:
+    """Context manager installing the row shard the temporal VAE reads."""
+
+    def __init__(self, rows: Optional[RowShard]):
+        self.rows = rows
+
+    def __enter__(self):
+        _ROWS.append(self.rows)
+        return self.rows
+
+    def __exit__(self, *exc):
+        _ROWS.pop()
+        return False
+
+
+def active_rows() -> Optional[RowShard]:
+    return _ROWS[-1]
+
+
+def vae_rows(rows: int) -> Optional[RowShard]:
+    """The `RowShard` of `rows` latent rows over this rank's cp x sp line;
+    None on one rank."""
+    ax = _axis(CPSP_AXIS)
+    if ax is None:
+        return None
+    return RowShard(ax, rows, -(-rows // ax.size))
+
+
+def shard_vae_rows(x: torch.Tensor) -> Tuple[torch.Tensor, Optional[RowShard]]:
+    """This rank's latent rows of [B, C, T, h, w] (every rank holds the
+    whole), h padded with zero rows to a multiple of the line's size, and
+    the `RowShard` that marks them; (x, None) on one rank."""
+    rows = vae_rows(x.shape[3])
+    if rows is None:
+        return x, None
+    return split(pad_to_multiple(x, 3, rows.axis.size), 3, rows.axis), rows
+
+
+def gather_rows(x: torch.Tensor, rows: Optional[RowShard]) -> torch.Tensor:
+    """Inverse of `shard_vae_rows`: every rank's rows, the pad dropped, on
+    every rank."""
+    if rows is None:
+        return x
+    return gather(x, 3, rows.axis)[:, :, :, :rows.rows]
+
+
+def rows_to_frames(x: torch.Tensor, rows: Optional[RowShard]
+                   ) -> Tuple[torch.Tensor, int]:
+    """The seam: row-sharded [B, C, T, h/n, w] -> this rank's frames
+    [N/n, C, h, w] of the B*T frames (batch-major), N padded with zero
+    frames to a multiple of n; one all-to-all. Returns (frames, B*T)."""
+    B, C, T, hl, w = x.shape
+    frames = x.transpose(1, 2).reshape(B * T, C, hl, w)
+    if rows is None:
+        return frames, B * T
+    frames = pad_to_multiple(frames, 0, rows.axis.size)
+    out = all_to_all(frames, 0, 2, rows.axis)
+    return out[:, :, :rows.rows], B * T
+
+
+def frames_to_rows(frames: torch.Tensor, rows: Optional[RowShard], B: int,
+                   T: int) -> torch.Tensor:
+    """Inverse of `rows_to_frames`: this rank's frames [N/n, C, h, w] ->
+    row-sharded [B, C, T, h/n, w]; one all-to-all."""
+    if rows is not None:
+        frames = pad_to_multiple(frames, 2, rows.axis.size)
+        frames = all_to_all(frames, 2, 0, rows.axis)[:B * T]
+    return frames.reshape(B, T, *frames.shape[1:]).transpose(1, 2)
+
+
+def shard_frames(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """This rank's block of the frames [N, ...] every rank holds, N padded
+    with zero frames to a multiple of the line's size: JAX's frames over
+    every mesh axis. Returns (frames, N)."""
+    ax = _axis(CPSP_AXIS)
+    if ax is None:
+        return x, x.shape[0]
+    return split(pad_to_multiple(x, 0, ax.size), 0, ax), x.shape[0]
+
+
+def gather_frames(x: torch.Tensor, n_frames: int, everywhere: bool = False
+                  ) -> Optional[torch.Tensor]:
+    """Inverse of `shard_frames` on the line's first rank (the video's
+    owner; None on the others), or with `everywhere` on every rank; the
+    pad frames dropped."""
+    ax = _axis(CPSP_AXIS)
+    if ax is None:
+        return x[:n_frames]
+    if everywhere:
+        return gather(x, 0, ax)[:n_frames]
+    host = _via_host(ax, x)
+    src = x.contiguous().cpu() if host else x.contiguous()
+    parts = ([torch.empty_like(src) for _ in range(ax.size)]
+             if ax.rank == 0 else None)
+    _count(src)
+    dist.gather(src, parts, dst=ax.ranks[0], group=ax.group)
+    if ax.rank != 0:
+        return None
+    return torch.cat(parts)[:n_frames].to(x.device)
 
 
 # --- token shards and Ulysses (heads <-> sequence) ---------------------- #

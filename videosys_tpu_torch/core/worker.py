@@ -2,14 +2,16 @@
 point and the set-up every rank runs (the reference's
 `core/engine/mp_utils.py` workers).
 
-Each rank joins the default process group, builds the groups of
+Each rank joins the default process group and builds its target: a
+serving rank (`setup_rank`) the groups of
 `ParallelConfig.from_world_size(num_gpus, enable_cp)` (enable_cp False
-where the config has none) and the configured
-pipeline on its own device. A worker then serves the driver's calls over
-its end of a pipe: after ("setup", config, pipeline_kwargs, numerics),
-("call", method, args, kwargs) runs `method` (a pipeline
-method's name, or a function called with the pipeline first) and answers
-("ok", result); ("stop",) ends it. A call that raises answers ("error",
+where the config has none) and the configured pipeline on its own device;
+a training rank (`setup_train_rank`) the groups of
+`ParallelConfig(dp_size, 1, sp_size)` for `run_training`. A worker then
+serves the driver's calls over its end of a pipe: after ("setup", setup,
+setup_args, numerics), ("call", method, args, kwargs) runs `method` (a
+method's name of the target, or a function called with the target first)
+and answers ("ok", result); ("stop",) ends it. A call that raises answers ("error",
 the traceback) and the worker exits, so the ranks blocked on it in a
 collective fail at once instead of at the timeout.
 """
@@ -51,6 +53,33 @@ def setup_rank(rank: int, world_size: int, address: str, backend: str,
                                **pipeline_kwargs)
 
 
+class TrainRank:
+    """A training rank's target: its config, device and groups."""
+
+    def __init__(self, cfg, device, groups):
+        self.cfg, self.device, self.groups = cfg, device, groups
+
+    def run(self, **kwargs):
+        """`run_training` on this rank: rank 0 gets its whole result, the
+        others (train_state, ema) None and the metrics history, which every
+        rank holds the same."""
+        from videosys_tpu_torch.training.train import run_training
+
+        out = run_training(self.cfg, device=self.device, groups=self.groups,
+                           **kwargs)
+        return out if self.groups.rank == 0 else (None, None, out[2])
+
+
+def setup_train_rank(rank: int, world_size: int, address: str, backend: str,
+                     timeout: float, device, cfg) -> TrainRank:
+    """Join the world and build this rank's training groups."""
+    par.initialize(rank, world_size, address, backend=backend, device=device,
+                   timeout=timeout)
+    groups = par.build_groups(par.ParallelConfig(cfg.dp_size, 1,
+                                                 cfg.sp_size), device)
+    return TrainRank(cfg, device, groups)
+
+
 def call(pipeline, method: Union[str, Callable], args, kwargs) -> Any:
     if isinstance(method, str):
         return getattr(pipeline, method)(*args, **kwargs)
@@ -60,15 +89,17 @@ def call(pipeline, method: Union[str, Callable], args, kwargs) -> Any:
 def worker_main(rank: int, world_size: int, address: str, backend: str,
                 timeout: float, device, conn) -> None:
     """The entry point of worker process `rank` (spawned). Its first
-    message is ("setup", config, pipeline_kwargs, the driver's `numerics`):
-    sent after the start, so that the workers start together (a large
-    argument of the start itself blocks the driver until that worker has
-    imported torch)."""
+    message is ("setup", setup, setup_args, the driver's `numerics`): sent
+    after the start, so that the workers start together (a large argument
+    of the start itself blocks the driver until that worker has imported
+    torch); `setup(rank, world_size, address, backend, timeout, device,
+    *setup_args)` builds the rank's target (`setup_rank`,
+    `setup_train_rank`)."""
     try:
-        _, config, pipeline_kwargs, values = conn.recv()
+        _, setup, setup_args, values = conn.recv()
         set_numerics(values)
-        pipeline = setup_rank(rank, world_size, address, backend, timeout,
-                              device, config, pipeline_kwargs)
+        pipeline = setup(rank, world_size, address, backend, timeout, device,
+                         *setup_args)
         conn.send(("ok", None))
         while True:
             msg = conn.recv()

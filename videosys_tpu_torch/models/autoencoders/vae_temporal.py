@@ -3,6 +3,13 @@
 Port of `videosys_tpu/models/autoencoders/vae_temporal.py`. Module names
 follow the reference VAE_Temporal state_dict (`res_blocks.j`,
 `block_res_blocks.i.j`, `conv_blocks.i.conv`).
+
+Under `parallel.use_rows` (the VAE split over ranks) each rank holds a
+share of the rows h: a convolution with kernel 3 in h takes a one-row halo
+from each neighbour in place of its zero pad (the line's first and last
+ranks keep the zero pad) and the group norms sum their statistics over the
+line. Strides and the depth-to-space upsample act on T only, so every rank's
+rows stay the same rows through the whole stage.
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from videosys_tpu_torch.core import parallel as par
 from videosys_tpu_torch.models.modules.normalization import GroupNorm
 
 
@@ -25,12 +33,22 @@ class CausalConv3d(nn.Module):
                  bias: bool = True, time_stride: int = 1):
         super().__init__()
         kt, kh, kw = kernel_size
+        self.halo = kh // 2
         self.pad = (kw // 2, kw // 2, kh // 2, kh // 2, kt - time_stride, 0)
+        stride = (time_stride, 1, 1)
+        # a row split holds only where no conv strides over rows
+        assert stride[1:] == (1, 1), stride
         self.conv = nn.Conv3d(in_channels, out_channels, kernel_size,
-                              stride=(time_stride, 1, 1), bias=bias)
+                              stride=stride, bias=bias)
 
     def forward(self, x):
-        return self.conv(F.pad(x, self.pad))
+        rows = par.active_rows()
+        if rows is None or not self.halo:
+            return self.conv(F.pad(x, self.pad))
+        # zero the pad rows (they stand for the conv's own zero pad), then
+        # the neighbours' edge rows in place of the h pad
+        x = par.halo_exchange(rows.mask(x), 3, self.halo, rows.axis)
+        return self.conv(F.pad(x, self.pad[:2] + (0, 0) + self.pad[4:]))
 
 
 class ResBlock3D(nn.Module):
@@ -46,8 +64,9 @@ class ResBlock3D(nn.Module):
                       if in_channels != filters else None)
 
     def forward(self, x):
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        rows = par.active_rows()
+        h = self.conv1(F.silu(self.norm1(x, rows)))
+        h = self.conv2(F.silu(self.norm2(h, rows)))
         if self.conv3 is not None:
             x = self.conv3(x)
         return x + h
@@ -91,7 +110,7 @@ class EncoderTemporal(nn.Module):
                 h = self.conv_blocks[str(i)](h)
         for res in self.res_blocks:
             h = res(h)
-        return self.conv2(F.silu(self.norm1(h)))
+        return self.conv2(F.silu(self.norm1(h, par.active_rows())))
 
 
 class DecoderTemporal(nn.Module):
@@ -138,7 +157,7 @@ class DecoderTemporal(nn.Module):
                 B, C2, T, H, W = h.shape
                 h = h.reshape(B, C2 // 2, 2, T, H, W).transpose(2, 3)
                 h = h.reshape(B, C2 // 2, T * 2, H, W)
-        return self.conv_out(F.silu(self.norm1(h)))
+        return self.conv_out(F.silu(self.norm1(h, par.active_rows())))
 
 
 class VAETemporal(nn.Module):

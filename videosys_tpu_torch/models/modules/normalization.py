@@ -7,8 +7,12 @@ the TPU layout tricks of the JAX package. Numbers are the same.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
+
+from videosys_tpu_torch.core import parallel as par
 
 
 class RMSNorm(nn.Module):
@@ -59,7 +63,12 @@ class GroupNorm(nn.Module):
     """GroupNorm over channel-first [B, C, ...] tensors with fp32 statistics
     (variance as E[x^2] - E[x]^2, as the JAX package's GroupNormMXU
     computes it); the output follows x's dtype. `weight`/`bias` are the JAX
-    module's `scale`/`bias`."""
+    module's `scale`/`bias`.
+
+    `rows`: dim 3 is this rank's share of a row-sharded axis (the Open-Sora
+    temporal VAE under `parallel.shard_vae_rows`): the sum and the sum of
+    squares are taken in fp32 over the real rows only, summed over the
+    rows' line, and divided by the whole axis's count."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6):
         super().__init__()
@@ -71,13 +80,22 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
-    def forward(self, x):
+    def forward(self, x, rows: Optional[par.RowShard] = None):
         B, C = x.shape[:2]
         G = self.num_groups
         xf = x.float()
-        xg = xf.reshape(B, G, -1)
-        mean = xg.mean(-1)
-        var = (xg * xg).mean(-1) - mean * mean
+        if rows is None:
+            xg = xf.reshape(B, G, -1)
+            mean = xg.mean(-1)
+            var = (xg * xg).mean(-1) - mean * mean
+        else:
+            xg = rows.mask(xf).reshape(B, G, -1)
+            sums = par.all_reduce(
+                torch.stack([xg.sum(-1), (xg * xg).sum(-1)], dim=-1),
+                rows.axis)
+            count = xg.shape[-1] // rows.local * rows.rows
+            mean = sums[..., 0] / count
+            var = sums[..., 1] / count - mean * mean
         rstd = torch.rsqrt(var + self.eps)  # [B, G]
         bshape = (B, C) + (1,) * (x.ndim - 2)
         r_c = rstd.repeat_interleave(C // G, dim=1)

@@ -319,6 +319,9 @@ class STDiT3(nn.Module):
                      and torch.is_grad_enabled())
         for spatial, temporal in zip(self.spatial_blocks, self.temporal_blocks):
             if recompute:
+                # the replay in the backward pass runs the pair's DSP
+                # collectives again, in the forward's order on every rank:
+                # the step's backward runs under the same `use_groups`
                 context = {} if self.remat_policy == "full" else {
                     "context_fn": functools.partial(
                         create_selective_checkpoint_contexts, _save_matmuls)}

@@ -20,8 +20,10 @@ device, over the ranks' process groups (`groups=`; `VideoSysEngine` spawns
 the ranks, a `torchrun` caller passes its own). STDiT3 runs sequence
 parallel (DSP) over sp; with `enable_cp` the two halves of the CFG-doubled
 batch run on the two cp ranks and are gathered for the guidance. Every rank
-draws the same noise from the same seeds, takes the same steps and decodes
-the whole video; rank 0 alone post-processes and returns it.
+draws the same noise from the same seeds and takes the same steps; the VAE
+(the decode, and the encodes of references and loop clips) runs split over
+every rank (`OpenSoraVAE` under the groups: latent rows, then frames), and
+rank 0 alone gathers, post-processes and returns the video.
 """
 
 from __future__ import annotations
@@ -333,7 +335,8 @@ class OpenSoraPipeline(VideoSysPipeline):
         # the VAE encodes of references and loop clips count as "vae"
         refs, strategies = [None] * B, [mask_strategy] * B
         if reference is not None:
-            with self._phase("vae", self.vae, "vae"):
+            with self._phase("vae", self.vae, "vae"), \
+                    par.use_groups(self.groups):
                 ref = ms.load_reference(reference, self.vae, self.device,
                                         draws("reference"))
             refs = [[ref]] * B
@@ -342,7 +345,8 @@ class OpenSoraPipeline(VideoSysPipeline):
         clips = []
         for loop_i in range(loop):
             if loop_i > 0:
-                with self._phase("vae", self.vae, "vae"):
+                with self._phase("vae", self.vae, "vae"), \
+                        par.use_groups(self.groups):
                     refs, strategies = ms.append_generated(
                         self.vae, clips[-1], refs, strategies, loop_i,
                         condition_frame_length, condition_frame_edit,
@@ -396,7 +400,10 @@ class OpenSoraPipeline(VideoSysPipeline):
             if getattr(self, "keep_latents", False):
                 self.last_latents = z.cpu().numpy()
 
-            with self._phase("vae", self.vae, "vae"):
+            # split over the ranks: the uint8 chunks land on rank 0 alone;
+            # a loop's clip on every rank (the next loop encodes it)
+            with self._phase("vae", self.vae, "vae"), \
+                    par.use_groups(self.groups):
                 if loop == 1:
                     clips.append(self.vae.decode_chunks_u8(z, num_frames))
                 else:

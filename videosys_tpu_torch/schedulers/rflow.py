@@ -9,10 +9,25 @@ functions. The training side draws its timesteps and noise from an explicit
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+
+
+def latent_frames(num_frames: int) -> float:
+    """The latent frame count the timestep warp scales by: 1 for an image,
+    else 5 for every whole 17 pixel frames. 2 to 16 frames would give 0 and
+    a NaN ladder (0 / 0 in the first step), so they raise; the JAX package
+    has that fault (`videosys_tpu/schedulers/rflow.py:42`)."""
+    if num_frames == 1:
+        return 1.0
+    if 2 <= num_frames <= 16:
+        raise ValueError(
+            f"num_frames={num_frames}: the timestep transform needs 1 or at "
+            f"least 17 frames ((num_frames // 17) * 5 latent frames is 0 "
+            f"for 2 to 16, a NaN ladder)")
+    return float((num_frames // 17) * 5)
 
 
 def timestep_transform(t, height: float, width: float, num_frames: int,
@@ -23,8 +38,7 @@ def timestep_transform(t, height: float, width: float, num_frames: int,
     pixel frame count (17 frames -> 5 latent frames, 1 = image)."""
     t = np.asarray(t, dtype=np.float64) / num_timesteps
     ratio_space = np.sqrt(height * width / base_resolution)
-    lat_frames = 1.0 if num_frames == 1 else (num_frames // 17) * 5
-    ratio_time = np.sqrt(lat_frames / base_num_frames)
+    ratio_time = np.sqrt(latent_frames(num_frames) / base_num_frames)
     ratio = ratio_space * ratio_time * scale
     new_t = ratio * t / (1 + (ratio - 1) * t)
     return (new_t * num_timesteps).astype(np.float32)
@@ -108,8 +122,8 @@ class RFlowScheduler:
         the bucket's pixel dims make the warp ratio a host constant."""
         c = self.config
         ratio_space = float(np.sqrt(height * width / (512.0 * 512.0)))
-        lat_frames = 1.0 if num_frames == 1 else (num_frames // 17) * 5
-        ratio = ratio_space * float(np.sqrt(lat_frames)) * c.transform_scale
+        ratio = (ratio_space * float(np.sqrt(latent_frames(num_frames)))
+                 * c.transform_scale)
         tn = t / c.num_timesteps
         return ratio * tn / (1.0 + (ratio - 1.0) * tn) * c.num_timesteps
 
@@ -119,18 +133,26 @@ class RFlowScheduler:
                         height: Optional[float] = None,
                         width: Optional[float] = None,
                         num_frames: Optional[int] = None,
-                        generator: Optional[torch.Generator] = None):
+                        generator: Optional[torch.Generator] = None,
+                        share: Tuple[int, int] = (0, 1)):
         """MSE(v_pred, x0 - noise) per sample, with an optional frame mask
         [B, T] (True = a noised frame that counts in the loss; False = a
         clean condition frame). x0: [B, C, T, H, W]. `t` [B] and `noise`
         (x0's shape) are drawn from `generator` unless given; a sampled t is
-        warped by (height, width, num_frames) when the config asks for it."""
+        warped by (height, width, num_frames) when the config asks for it.
+        `share` (i, n): x0 is share i of a batch of n * B rows (a dp rank's);
+        the draws are made for the whole batch and share i of them kept."""
         model_kwargs = dict(model_kwargs or {})
+        if self.config.use_timestep_transform and num_frames is not None:
+            latent_frames(num_frames)  # 2 to 16 frames raise
         # draws are made on the generator's device (a CPU generator gives
         # the same draws whatever device trains) and moved to x0's
         draw_dev = generator.device if generator is not None else x0.device
+        i, n = share
+        B = x0.shape[0]
         if t is None:
-            t = self.sample_t(x0.shape[0], generator, draw_dev).to(x0.device)
+            t = self.sample_t(n * B, generator, draw_dev)[i * B:(i + 1) * B]
+            t = t.to(x0.device)
             if self.config.use_timestep_transform:
                 if height is None or width is None or num_frames is None:
                     raise ValueError(
@@ -138,8 +160,10 @@ class RFlowScheduler:
                         "num_frames (pixel dims) in training_losses")
                 t = self.transform_training_t(t, height, width, num_frames)
         if noise is None:
-            noise = torch.randn(x0.shape, dtype=x0.dtype, device=draw_dev,
-                                generator=generator).to(x0.device)
+            noise = torch.randn((n * B,) + tuple(x0.shape[1:]),
+                                dtype=x0.dtype, device=draw_dev,
+                                generator=generator)[i * B:(i + 1) * B]
+            noise = noise.to(x0.device)
         x_t = self.add_noise(x0, noise, t)
         if mask is not None:
             x_t0 = self.add_noise(x0, noise, torch.zeros_like(t))

@@ -6,6 +6,11 @@ examples/training/open_sora/train.py), with `--device` (default: the card).
     python -m videosys_tpu_torch.training.cli --dynamic-profile --max-steps 100
     python -m videosys_tpu_torch.training.cli --csv videos.csv   # raw video
     python -m videosys_tpu_torch.training.cli --tiny --device cpu --max-steps 2
+    python -m videosys_tpu_torch.training.cli --dp-size 2 --sp-size 2  # 4 cards
+
+`--dp-size` x `--sp-size` > 1 spawns that many ranks (rank 0 in this
+process), rank r on `cuda:r`, or every rank on `--device` (with `--backend
+gloo` where they share one card).
 """
 
 from __future__ import annotations
@@ -54,7 +59,11 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--tiny", action="store_true",
                     help="random-init tiny model (offline smoke)")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the card)")
+                    help="torch device (default: the card; over ranks, "
+                         "cuda:r for rank r)")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="process group of the ranks (default: nccl on "
+                         "cards, gloo on the CPU)")
     ap.add_argument("--config", default=None,
                     help="YAML file; CLI flags override its values "
                          "(reference merge_args, utils/utils.py:62-78)")
@@ -79,7 +88,9 @@ def main(argv: Optional[Sequence[str]] = None):
                        else TrainConfig().bucket_config),
         mask_ratios=None if args.tiny else TrainConfig().mask_ratios,
     )
-    device = resolve_device(args.device)
+    ranks = args.dp_size * args.sp_size > 1
+    device = torch.device(args.device or "cuda") if ranks \
+        else resolve_device(args.device)
     dataset = vae = None
     if args.csv:
         from videosys_tpu_torch.models.autoencoders.autoencoder_open_sora import (
@@ -94,8 +105,11 @@ def main(argv: Optional[Sequence[str]] = None):
         with torch.random.fork_rng(devices=cuda):
             torch.manual_seed(args.seed + 7)
             vae = OpenSoraVAE(OpenSoraVAEConfig())
-    state, ema, history = run_training(cfg, dataset=dataset, vae=vae,
-                                       device=device)
+    if ranks:  # every rank on `--device`, or rank r on cuda:r
+        extra = dict(device=args.device, backend=args.backend)
+    else:
+        extra = dict(device=device)
+    state, ema, history = run_training(cfg, dataset=dataset, vae=vae, **extra)
     return int(state.step), history
 
 

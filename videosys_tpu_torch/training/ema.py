@@ -1,8 +1,9 @@
 """Exponential moving average of the model's parameters.
 
-Port of `videosys_tpu/training/ema.py` for one device: the EMA is a dict of
-fp32 tensors by parameter name, a copy that shares no storage with the
-model. `update_ema` updates it in place.
+Port of `videosys_tpu/training/ema.py`: the EMA is a dict of fp32 tensors
+by parameter name, a copy that shares no storage with the model.
+`update_ema` updates it in place. Over ranks the parameters are replicated
+(ZeRO-1 shards the moments only), and so is the EMA: every rank keeps it.
 """
 
 from __future__ import annotations

@@ -8,9 +8,18 @@ decay and clipping, activation recompute, EMA and checkpoints. With
 `dynamic_profile` the DCP profile phase (`core/dcp.py`) picks each bucket's
 batch size, gradient accumulation and (`dynamic_recompute`) recompute
 policy; `sp_balance` runs the packed-step loop. Parameters are held in fp32
-and the model computes in `cfg.model.dtype` (bf16 by default). Not ported:
-multi-device meshes (`dp_size`, `sp_size` > 1, `dynamic_sp`, `zero3` raise;
-ROADMAP Queue 1 item 6).
+and the model computes in `cfg.model.dtype` (bf16 by default).
+
+`dp_size` x `sp_size` > 1 runs on that many ranks (the groups of
+`ParallelConfig(dp, 1, sp)`): spawned as `VideoSysEngine` spawns its ranks
+(`core/engine.py:run_training_ranks`), or joined where a default process
+group exists (`parallel.set_distributed_state`, torchrun). The global batch
+is the plan's batch x dp (the sampler's `batch_multiplier`, JAX train.py
+:201): every rank runs the same sampler from the same seed, builds the
+global batch and keeps its dp share; the sp ranks of a dp index train it
+together (DSP), the optimizer is ZeRO-1 (train_step.py). Rank 0 logs and
+writes checkpoints; every rank returns the same metrics history. Not
+ported: `zero3` and `dynamic_sp` (ROADMAP Queue 1 item 6e (d), (e)).
 """
 
 from __future__ import annotations
@@ -23,6 +32,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
+from videosys_tpu_torch.core import parallel as par
 from videosys_tpu_torch.core.dcp import Profiler
 from videosys_tpu_torch.core.pipeline import resolve_device
 from videosys_tpu_torch.models.transformers.stdit3 import STDiT3, STDiT3Config
@@ -78,7 +90,7 @@ class TrainConfig:
     max_steps: Optional[int] = None
     seed: int = 42
     dataset_size: int = 64
-    # dynamic sequence parallelism: multi-device (raises, Queue 1 item 6)
+    # dynamic sequence parallelism (raises, ROADMAP Queue 1 item 6e (e))
     dynamic_sp: bool = False
     # sp-balance: pack plans of differing sp into GlobalSteps (sampler.py
     # :576-871); each packed step accumulates gradients across its plans
@@ -98,7 +110,7 @@ class TrainConfig:
     ckpt_every: Optional[int] = None
     ckpt_dir: str = "./checkpoints"
     log_every: int = 10
-    # multi-device meshes: > 1 raises (Queue 1 item 6)
+    # ranks: data parallel x sequence parallel (DSP), ZeRO-1 over all
     dp_size: int = 1
     sp_size: int = 1
     # caption dropout: trains y_embedder.y_embedding, the uncond branch of
@@ -110,7 +122,7 @@ class TrainConfig:
     # mean) and lr (of the next update)
     wandb_project: Optional[str] = None
     tracker: Optional[Any] = None
-    # ZeRO-3 parameter sharding: multi-device (raises, Queue 1 item 6)
+    # ZeRO-3 parameter sharding (raises, ROADMAP Queue 1 item 6e (d))
     zero3: bool = False
     # cosine decay to lr * lr_min_ratio over lr_decay_steps after warmup
     # (None = warmup, then constant)
@@ -129,11 +141,15 @@ def _check_config(cfg: TrainConfig) -> None:
             "dynamic_recompute picks the remat policy during the DCP "
             "profile phase; set dynamic_profile=True as well (or set a "
             "fixed remat_policy instead)")
-    if cfg.dp_size > 1 or cfg.sp_size > 1 or cfg.dynamic_sp or cfg.zero3:
+    if cfg.zero3:
         raise NotImplementedError(
-            "dp_size / sp_size > 1, dynamic_sp and zero3 need several "
-            "devices, which the port does not run yet (ROADMAP Queue 1 "
-            "item 6)")
+            "zero3 (parameters sharded over the ranks) is not ported yet "
+            "(ROADMAP Queue 1 item 6e (d)); ZeRO-1 runs under dp_size / "
+            "sp_size > 1")
+    if cfg.dynamic_sp:
+        raise NotImplementedError(
+            "dynamic_sp (a pool of sp sizes, MeshPool) is not ported yet "
+            "(ROADMAP Queue 1 item 6e (e)); a fixed sp_size runs")
 
 
 def latent_size(thw) -> tuple:
@@ -146,17 +162,44 @@ def latent_size(thw) -> tuple:
 
 
 
-def encode_noise(seed: int, micro_seed: int):
+def encode_noise(seed: int, micro_seed: int, share=(0, 1)):
     """`noise(name, shape)` for the VAE encode of one raw-video micro-batch:
     standard normal draws, in the order the encode asks for them, from a
-    CPU generator seeded by (seed, micro_seed)."""
+    CPU generator seeded by (seed, micro_seed). `share` (i, n): the encode
+    is of share i of a batch n times as large (a dp rank's): each draw is
+    made for the whole batch (dim 0 is batch-major) and share i kept."""
     gen = torch.Generator().manual_seed(
         int(np.random.SeedSequence([seed, micro_seed]).generate_state(1)[0]))
-    return lambda name, shape: torch.randn(shape, generator=gen)
+    i, n = share
+
+    def noise(name, shape):
+        k = shape[0]
+        return torch.randn((n * k,) + tuple(shape[1:]),
+                           generator=gen)[i * k:(i + 1) * k]
+
+    return noise
+
+
+def _share(x, share):
+    """Share i of n of `x` along dim 0."""
+    i, n = share
+    k = x.shape[0] // n
+    return x[i * k:(i + 1) * k]
+
+
+def _world_agree(peak: int, seconds: float, fits: bool):
+    """Every rank's profile reading -> the world's: the largest peak and
+    time, a fit only where every rank fitted (so that every rank takes the
+    same next candidate)."""
+    readings = [None] * dist.get_world_size()
+    dist.all_gather_object(readings, (peak, seconds, fits))
+    return (max(r[0] for r in readings), max(r[1] for r in readings),
+            all(r[2] for r in readings))
 
 
 def profile_buckets(cfg: TrainConfig, model: STDiT3, scheduler, bucket: Bucket,
-                    lat_shape, masked: bool, device: torch.device) -> DCPPlanner:
+                    lat_shape, masked: bool, device: torch.device,
+                    groups: Optional[par.Groups] = None) -> DCPPlanner:
     """The DCP profile phase (JAX train.py :170-195) over the run's own
     model: each candidate is a whole train step (forward, backward, clipped
     AdamW) on a zero batch of the bucket's shape, with the recompute policy
@@ -164,17 +207,23 @@ def profile_buckets(cfg: TrainConfig, model: STDiT3, scheduler, bucket: Bucket,
     optimizer, whose moments are allocated before the first candidate so
     that every peak counts them as a real step's does; the weights are
     copied to the host before and back after; the run's optimizer, EMA and
-    generators are never touched, and the global RNG is restored."""
+    generators are never touched, and the global RNG is restored. Over
+    ranks every rank profiles the same candidates (each a step of the
+    whole world, ZeRO-1 included; `bs` is a dp rank's), the ranks agree on
+    each build and each reading (the largest peak and time; a fit where all
+    fit), a candidate that raises on a rank stops the world (`Profiler`),
+    and the planner is rank 0's."""
     saved = {n: p.detach().to("cpu", copy=True)
              for n, p in model.named_parameters()}
     run_policy = model.remat_policy
     ptx = make_optimizer(model.parameters(), cfg.lr, cfg.weight_decay,
                          cfg.warmup_steps, cfg.grad_clip,
                          decay_steps=cfg.lr_decay_steps,
-                         lr_min_ratio=cfg.lr_min_ratio)
+                         lr_min_ratio=cfg.lr_min_ratio, groups=groups)
     for p in ptx.params:
         p.grad = torch.zeros_like(p)
-    ptx.update()  # allocates the moments
+    with par.use_groups(groups):
+        ptx.update()  # allocates the moments
     pstate = create_train_state(model, ptx)
     pgen = torch.Generator().manual_seed(cfg.seed)
     mc = cfg.model
@@ -191,7 +240,8 @@ def profile_buckets(cfg: TrainConfig, model: STDiT3, scheduler, bucket: Bucket,
                                        device=device)
         step = make_train_step(model, scheduler, ptx, float(H), float(W),
                                num_frames=int(T),
-                               class_dropout_prob=cfg.class_dropout_prob)
+                               class_dropout_prob=cfg.class_dropout_prob,
+                               groups=groups)
 
         def run():
             model.remat_policy = policy
@@ -209,7 +259,8 @@ def profile_buckets(cfg: TrainConfig, model: STDiT3, scheduler, bucket: Bucket,
                 bucket, step_builder, sp_candidates=(cfg.sp_size,),
                 remat_candidates=(("none", "dots", "full")
                                   if cfg.dynamic_recompute
-                                  else (cfg.remat_policy,)))
+                                  else (cfg.remat_policy,)),
+                agree=_world_agree if groups is not None else None)
             profiler.profile_all()
     finally:
         ptx.opt.state.clear()
@@ -217,13 +268,16 @@ def profile_buckets(cfg: TrainConfig, model: STDiT3, scheduler, bucket: Bucket,
         with torch.no_grad():
             for n, p in model.named_parameters():
                 p.copy_(saved[n])
-    logger.info("DCP profile: %s", profiler.dump())
-    return profiler.make_planner()
+    if groups is None or groups.rank == 0:
+        logger.info("DCP profile: %s", profiler.dump())
+    return par.broadcast_from_rank0(profiler.make_planner(), groups)
 
 
 def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
                  planner=None, device=None, params: Optional[dict] = None,
-                 vae=None, vae_params: Optional[dict] = None):
+                 vae=None, vae_params: Optional[dict] = None,
+                 groups: Optional[par.Groups] = None,
+                 resume: Optional[str] = None, **rank_kwargs):
     """Train STDiT3 with the rflow loss over bucketized variable-length
     batches. Returns (train_state, ema_params, metrics_history).
 
@@ -247,8 +301,39 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
     passed; without a card and without `device` this raises. Every random
     draw (initial weights aside) comes from CPU generators seeded by
     `cfg.seed`, so a run draws the same captions, dropout flags, timesteps,
-    noise and masks on every device."""
+    noise and masks on every device.
+
+    Ranks (`dp_size` x `sp_size` > 1): with `groups` (this rank's, of
+    `ParallelConfig(dp_size, 1, sp_size)`) the call is one rank's, on
+    `groups.device`; without, and with a default process group, the groups
+    are built over it; without either, the ranks are spawned
+    (`run_training_ranks`, which takes `devices=`, `backend=` and
+    `timeout=` in `rank_kwargs`; the other arguments go to every rank and
+    must pickle) and rank 0's result is returned. `resume`: a checkpoint
+    directory (`ckpt.save`, at any world size) to continue from: weights,
+    moments, EMA, step, sampler and the draws' generator."""
     _check_config(cfg)
+    world = par.ParallelConfig(cfg.dp_size, 1, cfg.sp_size)
+    if world.world_size > 1 and groups is None:
+        if not dist.is_initialized():
+            from videosys_tpu_torch.core.engine import run_training_ranks
+
+            return run_training_ranks(
+                cfg, device=device, dataset=dataset,
+                text_embed_fn=text_embed_fn, planner=planner, params=params,
+                vae=vae, vae_params=vae_params, resume=resume, **rank_kwargs)
+        groups = par.build_groups(world, device)
+    if rank_kwargs:
+        raise TypeError(f"unexpected arguments {sorted(rank_kwargs)}")
+    if groups is not None:
+        if groups.config != world:
+            raise ValueError(f"groups of {groups.config} for {world}")
+        device = groups.device
+        if groups.world_size == 1:
+            groups = None
+    lead = groups is None or groups.rank == 0
+    dp_share = ((groups.axis(par.DP_AXIS).rank, cfg.dp_size)
+                if groups is not None else (0, 1))
     device = resolve_device(device)
     cuda = [device] if device.type == "cuda" else []
     with torch.random.fork_rng(devices=cuda), torch.device(device):
@@ -262,10 +347,6 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
     model.to(device=device, dtype=torch.float32).train()
     scheduler = RFlowScheduler(RFlowConfig(
         use_timestep_transform=True, sample_method="logit-normal"))
-    tx = make_optimizer(model.parameters(), cfg.lr, cfg.weight_decay,
-                        cfg.warmup_steps, cfg.grad_clip,
-                        decay_steps=cfg.lr_decay_steps,
-                        lr_min_ratio=cfg.lr_min_ratio)
 
     if dataset is None:
         dataset = DummyVariableVideoTextDataset(size=cfg.dataset_size,
@@ -284,37 +365,55 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
         return tuple(vae.get_latent_size(thw)) if vae is not None \
             else latent_size(thw)
 
-    state = create_train_state(model, tx)
-    ema_params = init_ema(model)
+    ema_params = init_ema(model)  # held while the profile measures
     if cfg.dynamic_profile:
         planner = profile_buckets(cfg, model, scheduler, bucket, lat_shape,
-                                  mask_gen is not None, device)
+                                  mask_gen is not None, device, groups)
+    # after the profile: under ZeRO-1 the optimizer makes the parameters
+    # views into its flat buffer
+    tx = make_optimizer(model.parameters(), cfg.lr, cfg.weight_decay,
+                        cfg.warmup_steps, cfg.grad_clip,
+                        decay_steps=cfg.lr_decay_steps,
+                        lr_min_ratio=cfg.lr_min_ratio, groups=groups)
+    state = create_train_state(model, tx)
     sampler = VariableVideoBatchSampler(
-        bucket, dataset.shapes(), seed=cfg.seed, planner=planner)
+        bucket, dataset.shapes(), batch_multiplier=cfg.dp_size,
+        seed=cfg.seed, planner=planner)
     generator = torch.Generator().manual_seed(cfg.seed)
 
     metrics_history = []
     global_step = 0
+    first_epoch = 0
     loss_sum = 0.0
+    if resume is not None:
+        state, ema, first_epoch, global_step, sampler_state = ckpt_io.load(
+            resume, state, generator)
+        ema_params = {k: v.to(device) for k, v in ema.items()}
+        if sampler_state is not None:
+            sampler.load_state_dict(sampler_state)
 
     def _sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
     def _load_micro_x(micro_idx, thw, lat, micro_seed):
-        """Latents of one micro-batch: pre-encoded or synthetic, or raw
-        clips through the VAE encoder."""
+        """Latents of one micro-batch: pre-encoded or synthetic (the global
+        batch's), or raw clips of this rank's dp share through the VAE
+        encoder (split over the sp ranks)."""
         if not raw_video:
             return torch.from_numpy(np.asarray(dataset.load_latents(
                 micro_idx, lat, rng_seed=micro_seed), np.float32))
         clips = np.stack([dataset.load_video(int(i), thw, seed=micro_seed)
-                          for i in micro_idx])
-        return vae.encode(torch.from_numpy(clips).to(device),
-                          encode_noise(cfg.seed, micro_seed)).float()
+                          for i in _share(np.asarray(micro_idx), dp_share)])
+        with par.use_groups(groups):
+            return vae.encode(torch.from_numpy(clips).to(device),
+                              encode_noise(cfg.seed, micro_seed, dp_share)
+                              ).float()
 
     def _build_batch(plan, step_seed):
         """gas micro-batches of distinct samples, stacked on a leading gas
-        axis when gas > 1, on the training device."""
+        axis when gas > 1, on the training device: over ranks, this rank's
+        dp share of the global batch."""
         micro_batches = plan.micro_batches()
         if hasattr(dataset, "prefetch"):
             # queue the whole plan's reads so that later micro-batches
@@ -336,11 +435,13 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
                     generator=torch.Generator().manual_seed(
                         (cfg.seed << 20) + micro_seed))
                 kv_mask = torch.ones(len(micro_idx), 8, dtype=torch.bool)
-            mb = {"x": x, "y": y, "kv_mask": kv_mask,
-                  "fps": torch.full((x.shape[0],), 24.0)}
+            n = len(micro_idx)
+            mb = {"y": y, "kv_mask": kv_mask, "fps": torch.full((n,), 24.0)}
             if mask_gen is not None and lat[0] > 1:
                 mb["mask"] = torch.from_numpy(mask_gen(
-                    x.shape[0], lat[0], seed=cfg.seed + micro_seed))
+                    n, lat[0], seed=cfg.seed + micro_seed))
+            mb = {k: _share(v, dp_share) for k, v in mb.items()}
+            mb["x"] = x if raw_video else _share(x, dp_share)
             micros.append({k: v.to(device) for k, v in mb.items()})
         batch = micros[0] if gas == 1 else {
             k: torch.stack([mb[k] for mb in micros]) for k in micros[0]}
@@ -348,8 +449,8 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
 
     # experiment tracker (reference wandb per-step loss/avg_loss/lr,
     # train.py:390-401)
-    tracker = cfg.tracker
-    if tracker is None and cfg.wandb_project:
+    tracker = cfg.tracker if lead else None
+    if tracker is None and cfg.wandb_project and lead:
         try:
             import wandb
 
@@ -366,6 +467,10 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
         nonlocal global_step, loss_sum
         global_step += 1
         logged = global_step % cfg.log_every == 0
+        if logged and groups is not None:
+            # one history on every rank: rank 0's clocks
+            seconds, extra = par.broadcast_from_rank0((seconds, extra),
+                                                      groups)
         if logged or tracker is not None:
             loss = float(metrics["loss"])
         if tracker is not None:
@@ -381,11 +486,14 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
                      "remat_policy": _policy(plan), "seconds": seconds,
                      **extra}
             metrics_history.append(entry)
-            logger.info("step %d bucket=%s loss=%.4f grad_norm=%.4f",
-                        global_step, plan.bucket_id, loss, entry["grad_norm"])
+            if lead:
+                logger.info("step %d bucket=%s loss=%.4f grad_norm=%.4f",
+                            global_step, plan.bucket_id, loss,
+                            entry["grad_norm"])
         if cfg.ckpt_every and global_step % cfg.ckpt_every == 0:
             ckpt_io.save(cfg.ckpt_dir, state, ema_params, epoch, global_step,
-                         sampler_state=sampler.state_dict(global_step))
+                         sampler_state=sampler.state_dict(global_step),
+                         generator=generator)
         return bool(cfg.max_steps and global_step >= cfg.max_steps)
 
     def _timed_batch(plan, step_seed, logged):
@@ -404,9 +512,10 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
         grad_fns: dict = {}
         apply_fn = make_apply_step(tx)
         profile = planner.profile if planner is not None else None
-        for epoch in range(cfg.epochs):
+        for epoch in range(first_epoch, cfg.epochs):
             sampler.set_epoch(epoch)
-            for gstep in pack_global_steps(list(sampler), 1, profile):
+            for gstep in pack_global_steps(list(sampler), world.world_size,
+                                           profile):
                 t0 = time.perf_counter()
                 logged = (global_step + 1) % cfg.log_every == 0
                 grads_acc, losses, data_s = None, [], 0.0
@@ -416,7 +525,8 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
                         grad_fns[plan.bucket_id] = (_policy(plan), make_grad_step(
                             model, scheduler, float(H), float(W),
                             num_frames=int(T),
-                            class_dropout_prob=cfg.class_dropout_prob))
+                            class_dropout_prob=cfg.class_dropout_prob,
+                            groups=groups))
                     model.remat_policy, gfn = grad_fns[plan.bucket_id]
                     batch, gas, seconds = _timed_batch(
                         plan, global_step + len(losses), logged)
@@ -445,7 +555,7 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
         return state, ema_params, metrics_history
 
     step_fns: dict = {}
-    for epoch in range(cfg.epochs):
+    for epoch in range(first_epoch, cfg.epochs):
         sampler.set_epoch(epoch)
         for plan in sampler:
             T, H, W = plan.thw
@@ -455,7 +565,8 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
                 step_fns[key] = (_policy(plan), make_train_step(
                     model, scheduler, tx, float(H), float(W),
                     num_frames=int(T), gas=gas,
-                    class_dropout_prob=cfg.class_dropout_prob))
+                    class_dropout_prob=cfg.class_dropout_prob,
+                    groups=groups))
             model.remat_policy, fn = step_fns[key]
             t0 = time.perf_counter()
             # the step's wall time is read only when it is logged (the loss

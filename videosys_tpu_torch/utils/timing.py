@@ -3,9 +3,8 @@
 Port of `videosys_tpu/utils/timing.py`. The reference's Timer is
 `torch.cuda.synchronize` around wall time plus the CUDA allocator's
 counters; here a Timer on the card times with CUDA events and reads the
-allocator, and on the CPU it reads `time.perf_counter`. GroupTimer's
-cross-device barrier belongs to the multi-device slice (ROADMAP Queue 1
-item 6); on one device it is a plain Timer.
+allocator, and on the CPU it reads `time.perf_counter`. GroupTimer's exit
+also waits for every rank of its groups (the reference's all-reduce).
 """
 
 from __future__ import annotations
@@ -13,6 +12,7 @@ from __future__ import annotations
 import time
 
 import torch
+import torch.distributed as dist
 
 from videosys_tpu_torch.core.pipeline import resolve_device
 
@@ -70,13 +70,22 @@ class Timer:
 
 
 class GroupTimer(Timer):
-    """Timer whose exit would also wait for every device of `mesh` (the
-    reference's all-reduce, utils/training.py:120-148). Only one device is
-    ported: a mesh raises."""
+    """Timer whose exit also waits for every rank of `groups` (the
+    reference's all-reduce, utils/training.py:120-148: a one-element
+    all-reduce over the groups' world), so that the time includes the wait
+    for the slowest rank; on one rank a plain Timer. Every rank of the
+    groups must exit its GroupTimer."""
 
-    def __init__(self, name: str, mesh=None, log: bool = False, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "GroupTimer over a mesh needs the multi-device slice "
-                "(ROADMAP Queue 1 item 6)")
+    def __init__(self, name: str, groups=None, log: bool = False,
+                 device=None):
+        if groups is not None and device is None:
+            device = groups.device
         super().__init__(name, log=log, device=device)
+        self.groups = groups if groups is not None and \
+            groups.world_size > 1 else None
+
+    def __exit__(self, *exc):
+        if self.groups is not None:
+            token = torch.ones(1, device=self.groups.device)
+            dist.all_reduce(token)  # the default group: every rank
+        return super().__exit__(*exc)
