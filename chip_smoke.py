@@ -172,17 +172,30 @@ Phases, each fatal on failure:
      and each rank's VAE seconds and VAE peak are printed beside world
      1's working set over the world size (the prediction).
  17. train STDiT3-XL/2 at its published width over ranks sharing the card
-     (gloo): dp=2, sp=2 and dp=2 x sp=2 (PTRAIN_WORLDS; the four ranks of
-     dp=2 x sp=2 at a cut depth, PERF.md), ZeRO-1 and DSP under recompute
-     "full", the 240p 51-frame bucket, PTRAIN_STEPS steps each, against
-     world 1 on the same global batch and draws (PTRAIN_LIMITS): the
-     per-step loss and grad norm, each rank's peak, ZeRO-1 moment bytes
-     (1/N of world 1's), the seconds in collectives (each wrapped with a
-     sync on both sides) against the steps', and its launches against the
-     per-rank prediction; a tiny fp32 configuration at dp=2 and sp=2 on
-     the card's kernels against the CPU's world 1 (losses 1e-4); the
-     kernels at one rank's new training rows (forward and backward) and at
-     one rank's share of the split decode against their plain versions.
+     (gloo): dp=2, sp=2 and dp=2 x sp=2 (PTRAIN_WORLDS, at 8 pairs), ZeRO-1
+     and DSP under recompute "full", the 240p 51-frame bucket, PTRAIN_STEPS
+     steps each, against world 1 on the same global batch and draws
+     (PTRAIN_LIMITS): the per-step loss and grad norm, each rank's peak,
+     ZeRO-1 moment bytes (1/N of world 1's), the seconds in collectives
+     (each wrapped with a sync on both sides) against the steps', and its
+     launches against the per-rank prediction; then zero3_dynsp: four
+     ranks under ZeRO-3 and dynamic sp at full depth (28 pairs), a given
+     planner putting a 144p image bucket at sp 1 (dp 4), 144p 51 frames at
+     sp 2 and 240p 51 frames at sp 4, one step each, against world 1 on
+     the same plans (PTRAIN_LIMITS), each rank's peak, parameter,
+     gradient, EMA and moment bytes against 1/4 of the sharded leaves
+     plus the whole small ones, seconds in collectives, launches against
+     each step's layout and its forward shapes by layout; tiny fp32
+     configurations at dp=2, sp=2, dp=2 x sp=2, under ZeRO-3 and with
+     dynamic sp on the card's kernels against the CPU's world 1 (losses
+     1e-4); the kernels at one rank's new training rows (forward and
+     backward: the sp=2 world's and the sp=4 and dp=4 layouts') and at one
+     rank's share of the split decode against their plain versions.
+ 18. the port's entry points at their tiny sizes on the card: every
+     `examples/inference/*/sample.py` function but `run_multi_device`
+     (which the CPU tests run), the PAB experiments' `pab_quality` and the
+     CogVideoX demo's `generate_pair` on `build_engines(tiny=True)`; each
+     video read back (uint8 frames) and each run's kernel launches.
 
 Opt-in (named in --phases only): `parallel_fp32` runs the DSP and cp
 worlds of phase 16 (Open-Sora sp=2 and cp=2, Latte-1 sp=2 and cp=2, OSP
@@ -218,7 +231,7 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 PEAK_BYTES = 3.35e12
 PHASES = ("kernel", "serve", "tiny", "bwd_kernel", "train", "tiny_train", "t5",
           "offload", "cogvideox", "dcp", "raw_video", "latte", "open_sora_plan",
-          "vchitect", "parallel", "parallel_train")
+          "vchitect", "parallel", "parallel_train", "entry_points")
 OPT_IN_PHASES = ("parallel_fp32",)  # run only when named in --phases
 TRAIN_STEPS = 4  # on the default buckets: two video shapes and an image
 # rflow steps of the serve phase's conditioned and loop=2 requests (the
@@ -306,13 +319,22 @@ BF16_LIMITS = {**BF16_KIND, "vae_mid": (6.5e-3, 1.5e-2),
                # rows of the same kind
                **{f"ptrain_{k}": BF16_KIND[k]
                   for k in ("spatial", "temporal", "cross")},
-               "vae_mid_rank": (6.5e-3, 1.5e-2)}
+               "vae_mid_rank": (6.5e-3, 1.5e-2),
+               # one rank's training rows of the sp=4 and dp=4 layouts of
+               # the zero3_dynsp world: the limits of the rows of the same
+               # kind
+               **{f"zds_{w}_{k}": BF16_KIND[k]
+                  for w, k in (("sp4", "spatial"), ("sp4", "cross"),
+                               ("sp4", "temporal"), ("dp4", "spatial"),
+                               ("dp4", "cross"))}}
 # the same for the gradients of the backward kernels (the largest of dq, dk,
 # dv): the kernels read at most a third of each limit (3.0e-4, 3.2e-3), the
 # one-key fault at least 10x one of them (1.1e-2, 1.0e-1 at the long row)
 BWD_BF16_LIMITS = {name: (1e-3, 1e-2) for name in (
     "spatial144", "spatial", "temporal", "cross8", "cross300", "long_row",
-    "dcp_spatial", "ptrain_spatial", "ptrain_cross", "ptrain_temporal")}
+    "dcp_spatial", "ptrain_spatial", "ptrain_cross", "ptrain_temporal",
+    "zds_sp4_spatial", "zds_sp4_cross", "zds_sp4_temporal", "zds_dp4_spatial",
+    "zds_dp4_cross")}
 
 
 def log(*a):
@@ -4796,12 +4818,18 @@ def parallel_fp32_phase(seed: int) -> dict:
 # phase 17: training over ranks, dp and sp with ZeRO-1 (training/train_step.py)
 PTRAIN_STEPS = 3
 PTRAIN_BATCH = 2  # the global batch of the 240p 51-frame bucket
-# (label, dp, sp, depth): full depth where the ranks' predicted peaks sum to
-# under ~70 GB; the four ranks of dp=2 x sp=2 at 28 pairs would hold
-# 4 x (14 B x 1.209e9 params + ~2 GiB) = 71 GiB; at 25 pairs they peaked at
-# 4 x 16.22 GiB alone, but ran out after the earlier phases (the driver
-# holds more by then): 24 pairs (PERF.md)
-PTRAIN_WORLDS = (("dp2", 2, 1, 28), ("sp2", 1, 2, 28), ("dp2sp2", 2, 2, 24))
+# (label, dp, sp, depth): the ZeRO-1 worlds, an earlier path, at 8 pairs
+# (with their own world 1 at that depth) to pay for the zero3_dynsp world's
+# 28 (PERF.md §4); at 28 pairs ZeRO-1 could not hold dp=2 x sp=2 (4 x (14 B
+# x 1.209e9 params + ~2 GiB) = 71 GiB of the card)
+PTRAIN_WORLDS = (("dp2", 2, 1, 8), ("sp2", 1, 2, 8), ("dp2sp2", 2, 2, 8))
+# zero3_dynsp: four ranks, ZeRO-3 and dynamic sp at full depth; a given
+# planner puts each bucket on its own layout (sp of the pool: dp = 4 / sp)
+# and the bucket batches (x dp_size 2) make the global batches 4, 4 and 2;
+# one epoch of the dataset `zds_dataset` is one plan of each bucket
+ZDS_DEPTH = 28
+ZDS_BUCKETS = {"144p": {1: (1.0, 2), 51: (1.0, 2)}, "240p": {51: (1.0, 1)}}
+ZDS_SP = {("144p", 1): 1, ("144p", 51): 2, ("240p", 51): 4}
 # full width, bf16, 3 steps against world 1 on the same global batch and
 # draws: the largest relative difference of a step's loss and grad norm.
 # Read on an H100 (dp=2, sp=2, dp=2 x sp=2; PERF.md): at most 4.0e-4 and
@@ -4865,10 +4893,72 @@ def _time_collectives() -> None:
         setattr(dist, name, timed)
 
 
-def rank_parallel_train(target, dataset, params=None) -> dict:
-    """`run_training` on this training rank (`core/worker.py`'s
-    TrainRank): its launches, peak, ZeRO-1 moment bytes, exchange calls,
-    bytes and seconds, and the metrics history."""
+# bytes a training rank holds, their largest over the steps, and the card's
+# peak over the steps (run_training's end, which makes a ZeRO-3 model and
+# EMA whole on every rank, not counted)
+HELD: dict = {}
+LAYOUT_LOG: dict = {}  # (layout, variant, shape, masked) -> forward launches
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _probe_training() -> None:
+    """Wrap (once) the optimizer's update, the EMA update and the forward
+    kernels' launch: HELD records the gradient bytes an update finds and the
+    parameter and EMA bytes after it, LAYOUT_LOG each forward launch's
+    shape under the layout in force. Counts only; nothing is timed."""
+    from videosys_tpu_torch.core import parallel as par
+    from videosys_tpu_torch.ops import flash_attention as fa
+    from videosys_tpu_torch.training import train as tr
+    from videosys_tpu_torch.training import train_step as ts
+
+    if getattr(tr.update_ema, "probed", False):
+        return
+    update, ema_update, launch = ts.ClippedAdamW.update, tr.update_ema, \
+        fa._launch
+
+    def held(key, n):
+        HELD[key] = max(HELD.get(key, 0), n)
+
+    def probed_update(tx, dp=None):
+        held("grads", _nbytes(p.grad for p in tx.params if p.grad is not None))
+        return update(tx, dp)
+
+    def probed_ema(ema, model, decay):
+        import torch
+
+        out = ema_update(ema, model, decay)
+        held("params", _nbytes(model.parameters()))
+        held("ema", _nbytes(ema.values()))
+        if torch.cuda.is_available():
+            held("steps_peak", torch.cuda.max_memory_allocated())
+        return out
+
+    def logged(q, k, v, scale, kv_mask, save_lse=False):
+        groups = par.active_groups()
+        c = groups.config if groups is not None else None
+        layout = (c.dp_size, c.cp_size, c.sp_size) if c else None
+        B, H, Nq, D = q.shape
+        key = (layout, fa.kernel_variant(q.dtype, Nq, k.shape[2], D),
+               (B, H, Nq, k.shape[2], D), kv_mask is not None)
+        LAYOUT_LOG[key] = LAYOUT_LOG.get(key, 0) + 1
+        return launch(q, k, v, scale, kv_mask, save_lse)
+
+    probed_ema.probed = True
+    ts.ClippedAdamW.update, tr.update_ema, fa._launch = \
+        probed_update, probed_ema, logged
+
+
+def rank_parallel_train(target, dataset, params=None, planner=None,
+                        cfg=None) -> dict:
+    """`run_training` of `cfg` (default the rank's own; its dp x sp must be
+    the rank's groups') on this training rank (`core/worker.py`'s
+    TrainRank): its launches, forward shapes by layout, peak, the bytes
+    it held (ZeRO moments, and the largest parameter, gradient and EMA
+    bytes of a step), exchange calls, bytes and seconds, and the metrics
+    history."""
     import torch
 
     from videosys_tpu_torch.core import parallel as par
@@ -4876,21 +4966,26 @@ def rank_parallel_train(target, dataset, params=None) -> dict:
     from videosys_tpu_torch.training.train import run_training
 
     _time_collectives()
+    _probe_training()
     fa.reset_launches()
     par.reset_exchange()
     EXCHANGE_TIME.clear()
+    HELD.clear()
+    LAYOUT_LOG.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with no_fallback(fa):
         state, ema, history = run_training(
-            target.cfg, dataset=dataset, device=target.device,
-            groups=target.groups, params=params)
+            cfg or target.cfg, dataset=dataset, device=target.device,
+            groups=target.groups, params=params, planner=planner)
     torch.cuda.synchronize()
     out = {"history": history, "launches": dict(fa.LAUNCHES),
+           "shapes": [[list(k[0]) if k[0] else None, k[1], list(k[2]), k[3],
+                       n] for k, n in sorted(LAYOUT_LOG.items(), key=str)],
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "moment_bytes": state.tx.moment_bytes,
-           "param_count": sum(p.numel() for p in state.tx.params),
+           "moment_bytes": state.tx.moment_bytes, "held": dict(HELD),
+           "param_count": sum(p.numel() for p in state.model.parameters()),
            "exchange": dict(par.EXCHANGE),
            "exchange_s": dict(EXCHANGE_TIME), "wall_s":
            time.perf_counter() - t0}
@@ -4899,26 +4994,38 @@ def rank_parallel_train(target, dataset, params=None) -> dict:
     return out
 
 
-def ptrain_world(fa, label: str, dp: int, sp: int, depth: int, seed: int,
-                 backend: str, ref: list, devices: list, where: str) -> dict:
-    """One training world on dp x sp ranks: every rank's run, held against
-    world 1's history `ref` and the launch prediction."""
+def world_runs(cfg, backend: str, four, *args) -> tuple:
+    """Every rank's `rank_parallel_train(*args)` for `cfg`: on `four` (the
+    phase's running dp=2 x sp=2 ranks) where cfg is dp_size 2 x sp_size 2,
+    else on dp x sp ranks spawned for it on the shared card and stopped
+    after (a spawn costs ~10 s); (results, the spawn's seconds)."""
     from videosys_tpu_torch.core.engine import Ranks
     from videosys_tpu_torch.core.worker import setup_train_rank
 
-    n = dp * sp
-    cfg = ptrain_config(dp, sp, depth, seed)
-    log(f"parallel_train world {label}: backend {backend}, {where}; the "
-        f"driver holds {free_card():.2f} GiB before the ranks start")
+    if four is not None and (cfg.dp_size, cfg.sp_size) == (2, 2):
+        return four._run_workers(rank_parallel_train, *args, cfg=cfg), 0.0
+    n = cfg.dp_size * cfg.sp_size
     t0 = time.perf_counter()
     ranks = Ranks()
-    ranks._spawn(n, setup_train_rank, (cfg,), devices, backend,
+    ranks._spawn(n, setup_train_rank, (cfg,), [PARALLEL_DEVICE] * n, backend,
                  PTRAIN_TIMEOUT_S)
     setup_s = time.perf_counter() - t0
     try:
-        got = ranks._run_workers(rank_parallel_train, ptrain_dataset(seed))
+        return ranks._run_workers(rank_parallel_train, *args), setup_s
     finally:
         ranks.shutdown()
+
+
+def ptrain_world(fa, label: str, dp: int, sp: int, depth: int, seed: int,
+                 backend: str, ref: list, four=None) -> dict:
+    """One training world on dp x sp ranks: every rank's run, held against
+    world 1's history `ref` and the launch prediction."""
+    n = dp * sp
+    cfg = ptrain_config(dp, sp, depth, seed)
+    where = SHARED
+    log(f"parallel_train world {label}: backend {backend}, {where}; the "
+        f"driver holds {free_card():.2f} GiB before the ranks start")
+    got, setup_s = world_runs(cfg, backend, four, ptrain_dataset(seed))
     hist = got[0]["history"]
     if any(r["history"] != hist for r in got[1:]):
         raise AssertionError(f"parallel_train {label}: ranks' histories "
@@ -5002,63 +5109,273 @@ def ptrain_world1(fa, depth: int, seed: int) -> list:
     return history
 
 
-def tiny_ptrain(fa, seed: int, backend: str) -> dict:
+def zds_config(seed: int, world1: bool = False):
+    """The zero3_dynsp world's TrainConfig: STDiT3-XL/2 at its published
+    width, bf16 compute, "full" recompute, PTRAIN_STEPS steps;
+    dp_size=2 x sp_size=2 with dynamic_sp and zero3, or (`world1`) the same
+    global batches on one rank."""
+    import torch
+
+    from videosys_tpu_torch import TrainConfig
+    from videosys_tpu_torch.models.transformers.stdit3 import STDiT3Config
+
+    buckets = {res: {t: (p, bs * (2 if world1 else 1))
+                     for t, (p, bs) in frames.items()}
+               for res, frames in ZDS_BUCKETS.items()}
+    return TrainConfig(
+        model=STDiT3Config(depth=ZDS_DEPTH, dtype=torch.bfloat16),
+        bucket_config=buckets, remat_policy="full", max_steps=PTRAIN_STEPS,
+        log_every=1, warmup_steps=2, seed=seed, dataset_size=10,
+        dp_size=1 if world1 else 2, sp_size=1 if world1 else 2,
+        dynamic_sp=not world1, zero3=not world1)
+
+
+def zds_dataset(seed: int):
+    """Exactly one global batch of each ZDS bucket: 4 images at 144p, 4
+    clips of 51 frames at 144p, 2 at 240p."""
+    from videosys_tpu_torch.training.datasets import DummyVariableVideoTextDataset
+
+    ds = DummyVariableVideoTextDataset(size=10, seed=seed)
+    ds._shapes = ([(1, 144, 256)] * 4 + [(51, 144, 256)] * 4
+                  + [(51, 240, 426)] * 2)
+    return ds
+
+
+def zds_planner():
+    """The given planner: each bucket at its ZDS_SP (matched by resolution
+    and frames), gas 1."""
+    from videosys_tpu_torch.training.sampler import DCPPlanner
+
+    return DCPPlanner(profile={(res, t, "0.56"): {"time": 1.0, "sp": sp}
+                               for (res, t), sp in ZDS_SP.items()})
+
+
+def zds_expected(fa, mc, history) -> dict:
+    """One rank's launches over the history, each step on its layout
+    (its "mesh": a rank's batch is the global over the layout's dp)."""
+    want = {key: 0 for key in fa.LAUNCHES}
+    for h in history:
+        dp, _, sp = h["mesh"]
+        add_launches(want, step_launches(fa, mc, h["thw"], h["batch"] // dp,
+                                         h["gas"], h["remat_policy"], sp=sp))
+    return want
+
+
+def zds_held_prediction(depth: int, n: int) -> dict:
+    """Bytes a rank should hold under ZeRO-3 on n ranks, from the model's
+    leaves (built on the meta device): each unit's sharded leaves padded to
+    a multiple of n over n, plus the whole small leaves; the same of
+    gradients and EMA, twice of moments; the whole model's for scale."""
+    import torch
+
+    from videosys_tpu_torch.models.transformers.stdit3 import (
+        STDiT3,
+        STDiT3Config,
+    )
+    from videosys_tpu_torch.training.zero3 import ZERO3_MIN_SHARD_BYTES
+
+    with torch.device("meta"):
+        model = STDiT3(STDiT3Config(depth=depth))
+    units, small, whole = {}, 0, 0
+    for name, p in model.named_parameters():
+        whole += 4 * p.numel()
+        if 4 * p.numel() < ZERO3_MIN_SHARD_BYTES:
+            small += 4 * p.numel()
+        else:
+            u = model.param_unit(name)
+            units[u] = units.get(u, 0) + p.numel()
+    held = sum(4 * -(-k // n) for k in units.values()) + small
+    return {"params": held, "grads": held, "ema": held, "moments": 2 * held,
+            "small": small, "whole": whole,
+            "largest_unit": 4 * max(units.values())}
+
+
+def zds_world(fa, seed: int, backend: str, four=None) -> dict:
+    """zero3_dynsp: four ranks sharing the card, ZeRO-3 and dynamic sp at
+    28 pairs, the three buckets on three layouts (ZDS_SP), held against
+    world 1 on the same global batches and plans at PTRAIN_LIMITS; each
+    rank's launches against its layouts' shapes, its bytes against the
+    1/4 prediction, its peak and its seconds in collectives."""
+    import torch
+
+    from videosys_tpu_torch import run_training
+
+    cfg = zds_config(seed)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    with no_fallback(fa):
+        state, ema, ref = run_training(zds_config(seed, world1=True),
+                                       dataset=zds_dataset(seed),
+                                       device="cuda:0", planner=zds_planner())
+    w1_peak = torch.cuda.max_memory_allocated() / 2**30
+    del state, ema
+    log(f"parallel_train zero3_dynsp world 1 (depth {ZDS_DEPTH}): buckets "
+        f"{[h['bucket'] for h in ref]} step_s="
+        f"{[round(h['seconds'], 3) for h in ref]} loss="
+        f"{[h['loss'] for h in ref]} grad_norm="
+        f"{[h['grad_norm'] for h in ref]} peak_gib={w1_peak:.2f}")
+    log(f"parallel_train world zero3_dynsp: backend {backend}, {SHARED}; the "
+        f"driver holds {free_card():.2f} GiB before the ranks start")
+    got, setup_s = world_runs(cfg, backend, four, zds_dataset(seed), None,
+                              zds_planner())
+    hist = got[0]["history"]
+    if any(r["history"] != hist for r in got[1:]):
+        raise AssertionError("zero3_dynsp: ranks' histories disagree")
+    if [h["bucket"] for h in hist] != [h["bucket"] for h in ref]:
+        raise AssertionError("zero3_dynsp ran other plans than world 1")
+    layouts = {h["mesh"] for h in hist}
+    want_layouts = {(4 // sp, 1, sp) for sp in ZDS_SP.values()}
+    if layouts != want_layouts:
+        raise AssertionError(f"zero3_dynsp ran on {layouts}, not "
+                             f"{want_layouts}")
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(hist, ref))
+    norm_rel = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                   for a, b in zip(hist, ref))
+    steps_s = sum(h["seconds"] for h in hist)
+    pred = zds_held_prediction(ZDS_DEPTH, 4)
+    rec = {"world": "zero3_dynsp", "depth": ZDS_DEPTH, "backend": backend,
+           "setup_s": setup_s, "layouts": [h["mesh"] for h in hist],
+           "buckets": [h["bucket"] for h in hist],
+           "loss": [h["loss"] for h in hist],
+           "grad_norm": [h["grad_norm"] for h in hist],
+           "world1_loss": [h["loss"] for h in ref],
+           "world1_grad_norm": [h["grad_norm"] for h in ref],
+           "world1_peak_gib": w1_peak, "loss_max_rel": loss_rel,
+           "grad_norm_max_rel": norm_rel,
+           "step_s": [h["seconds"] for h in hist], "held_predicted": pred,
+           "ranks": []}
+    log(f"parallel_train world zero3_dynsp: backend {backend}, {SHARED}; "
+        f"dp_size=2 sp_size=2 dynamic_sp zero3 depth={ZDS_DEPTH} layouts="
+        f"{rec['layouts']} buckets={rec['buckets']} setup_s={setup_s:.1f} "
+        f"step_s={[round(x, 3) for x in rec['step_s']]} loss={rec['loss']} "
+        f"(world 1 {rec['world1_loss']}) grad_norm={rec['grad_norm']} (world "
+        f"1 {rec['world1_grad_norm']}) max rel diff loss {loss_rel:.3e} "
+        f"grad_norm {norm_rel:.3e} (limits {PTRAIN_LIMITS}); predicted "
+        f"bytes a rank {pred}")
+    for i, r in enumerate(got):
+        want = zds_expected(fa, cfg.model, r["history"])
+        ex_s = sum(r["exchange_s"].values())
+        held = dict(r["held"], moments=r["moment_bytes"])
+        steps_peak = held.pop("steps_peak", 0) / 2**30
+        log(f"parallel_train world zero3_dynsp rank {i}: backend {backend}, "
+            f"{SHARED}; peak_gib={r['peak_gib']:.2f} (over the steps "
+            f"{steps_peak:.2f}; the rest is run_training's end, which gathers "
+            f"the whole model and EMA) held bytes {held} "
+            f"(predicted params/grads/EMA {pred['params']}, moments "
+            f"{pred['moments']}; whole model {pred['whole']}) exchange: "
+            f"{r['exchange']} ({ex_s:.3f} s in collectives = "
+            f"{100 * ex_s / max(steps_s, 1e-9):.1f}% of the steps' "
+            f"{steps_s:.3f} s; by op {r['exchange_s']}) launches="
+            f"{r['launches']} (predicted {want}); forward shapes by layout "
+            f"[layout, variant, shape, masked, launches] {r['shapes']}")
+        rec["ranks"].append({"peak_gib": r["peak_gib"], "held": held,
+                             "steps_peak_gib": steps_peak,
+                             "exchange": r["exchange"], "exchange_s": ex_s,
+                             "exchange_share": ex_s / max(steps_s, 1e-9),
+                             "launches": r["launches"],
+                             "expected_launches": want, "shapes": r["shapes"]})
+        if r["launches"] != want:
+            raise AssertionError(f"zero3_dynsp rank {i} launched other than "
+                                 f"predicted")
+        if held.get("grads", 0) > pred["grads"]:
+            raise AssertionError(f"zero3_dynsp rank {i}: gradient bytes "
+                                 f"{held.get('grads')} above 1/4 of the "
+                                 f"sharded leaves ({pred['grads']})")
+        for key in ("params", "ema", "moments"):
+            if held.get(key) != pred[key]:
+                raise AssertionError(f"zero3_dynsp rank {i}: {key} bytes "
+                                     f"{held.get(key)} are not 1/4 of the "
+                                     f"sharded leaves ({pred[key]})")
+    if not (loss_rel <= PTRAIN_LIMITS["loss_rel"]
+            and norm_rel <= PTRAIN_LIMITS["grad_norm_rel"]):
+        raise AssertionError("zero3_dynsp disagrees with world 1")
+    return rec
+
+
+TINY_WORLDS = ("dp2", "sp2", "dp2sp2", "zero3_dp2sp2", "dynamic_sp")
+
+
+def tiny_ptrain(fa, seed: int, backend: str, four=None,
+                labels=TINY_WORLDS) -> dict:
     """A tiny fp32 configuration trained 3 steps at dp=2, sp=2 and dp=2 x
-    sp=2 on the card's kernels (ranks sharing it) against world 1 on the
-    CPU (plain versions): losses at 1e-4, grad norms at 1e-3 relative, as
-    the tiny one-rank parity phase."""
+    sp=2 (ZeRO-1), at dp=2 x sp=2 under ZeRO-3 (hidden 128, so that its
+    weights shard) and with dynamic sp (images at sp 1, clips at sp 4, a
+    global batch of 4) on the card's kernels (ranks sharing it) against
+    world 1 on the CPU (plain versions) on the same weights, plans and
+    global batches: losses at 1e-4, grad norms at 1e-3 relative, as the
+    tiny one-rank parity phase. `labels` picks the worlds; those of four
+    ranks run on `four` when given."""
     import torch
 
     from videosys_tpu_torch import TrainConfig, run_training
-    from videosys_tpu_torch.core.engine import Ranks
-    from videosys_tpu_torch.core.worker import setup_train_rank
-    from videosys_tpu_torch.models.transformers.stdit3 import STDiT3Config
+    from videosys_tpu_torch.models.transformers.stdit3 import (
+        STDiT3,
+        STDiT3Config,
+    )
+    from videosys_tpu_torch.training.sampler import DCPPlanner
 
-    from videosys_tpu_torch.models.transformers.stdit3 import STDiT3
+    models = {hidden: STDiT3Config(depth=2, hidden_size=hidden, num_heads=2,
+                                   caption_channels=16, model_max_length=8,
+                                   dtype=torch.float32)
+              for hidden in (32, 128)}
+    params = {}
+    for hidden, mc in models.items():
+        torch.manual_seed(seed)  # the same weights on the card and the CPU
+        params[hidden] = {k: v.clone()
+                          for k, v in STDiT3(mc).state_dict().items()}
+    planner = DCPPlanner(profile={("144p", 1, "1.00"): {"time": 1.0, "sp": 1},
+                                  ("144p", 51, "1.00"): {"time": 1.0, "sp": 4}})
 
-    mc = STDiT3Config(depth=2, hidden_size=32, num_heads=2,
-                      caption_channels=16, model_max_length=8,
-                      dtype=torch.float32)
-    torch.manual_seed(seed)  # the same weights on the card and the CPU
-    params = {k: v.clone() for k, v in STDiT3(mc).state_dict().items()}
-
-    def config(dp, sp):
+    def config(dp, sp, hidden=32, batch=2, **kw):
         return TrainConfig(
-            model=mc, bucket_config={"144p": {1: (1.0, 2 // dp),
-                                              51: (1.0, 2 // dp)}},
+            model=models[hidden],
+            bucket_config={"144p": {1: (1.0, batch // dp),
+                                    51: (1.0, batch // dp)}},
             mask_ratios={"identity": 0.5, "quarter_head": 0.25,
                          "random": 0.25},
             max_steps=3, log_every=1, warmup_steps=2, lr=1e-3, seed=seed,
-            dataset_size=16, dp_size=dp, sp_size=sp)
+            dataset_size=16, dp_size=dp, sp_size=sp, **kw)
 
-    cpu = run_training(config(1, 1), device="cpu", params=params)[2]
+    # (label, dp, sp, hidden, global batch, fields, planned)
+    worlds = (("dp2", 2, 1, 32, 2, {}, False), ("sp2", 1, 2, 32, 2, {}, False),
+              ("dp2sp2", 2, 2, 32, 2, {}, False),
+              ("zero3_dp2sp2", 2, 2, 128, 2, {"zero3": True}, False),
+              ("dynamic_sp", 2, 2, 32, 4, {"dynamic_sp": True}, True))
+    cpu_runs = {}
     out = {}
-    for label, dp, sp in (("dp2", 2, 1), ("sp2", 1, 2), ("dp2sp2", 2, 2)):
-        ranks = Ranks()
-        ranks._spawn(dp * sp, setup_train_rank, (config(dp, sp),),
-                     [PARALLEL_DEVICE] * (dp * sp), backend,
-                     PARALLEL_TIMEOUT_S)
-        try:
-            got = ranks._run_workers(rank_parallel_train, None, params)
-        finally:
-            ranks.shutdown()
+    for label, dp, sp, hidden, batch, fields, planned in worlds:
+        if label not in labels:
+            continue
+        plan = planner if planned else None
+        if (hidden, batch, planned) not in cpu_runs:
+            cpu_runs[hidden, batch, planned] = run_training(
+                config(1, 1, hidden, batch), device="cpu",
+                params=params[hidden], planner=plan)[2]
+        cpu = cpu_runs[hidden, batch, planned]
+        got = world_runs(config(dp, sp, hidden, batch, **fields), backend,
+                         four, None, params[hidden], plan)[0]
         card = got[0]["history"]
         loss_err = max(abs(a["loss"] - b["loss"]) for a, b in zip(card, cpu))
         norm_err = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
                        for a, b in zip(card, cpu))
         launches = got[0]["launches"]
+        layouts = sorted({str(h["mesh"]) for h in card})
         log(f"parallel_train tiny {label}: backend {backend}, {SHARED}; fp32 "
-            f"card kernels vs CPU world 1 (plain), 3 steps: losses "
-            f"{[h['loss'] for h in card]} vs {[h['loss'] for h in cpu]} "
-            f"max_abs_diff={loss_err:.3e} (tol 1e-4) grad_norm max_rel_diff="
-            f"{norm_err:.3e} (tol 1e-3) launches rank 0 {launches}")
+            f"card kernels vs CPU world 1 (plain), 3 steps on layouts "
+            f"{layouts}: losses {[h['loss'] for h in card]} vs "
+            f"{[h['loss'] for h in cpu]} max_abs_diff={loss_err:.3e} (tol "
+            f"1e-4) grad_norm max_rel_diff={norm_err:.3e} (tol 1e-3) held "
+            f"bytes rank 0 {got[0]['held']} launches rank 0 {launches}")
+        if [h["bucket"] for h in card] != [h["bucket"] for h in cpu]:
+            raise AssertionError(f"tiny {label} ran other plans than world 1")
         if not (loss_err <= 1e-4 and norm_err <= 1e-3):
             raise AssertionError(f"tiny parallel training {label} disagrees "
                                  f"with the CPU's world 1")
         if not (launches["f32"] > 0 and launches["bwd_fused_f32"] > 0):
             raise AssertionError(f"tiny {label} did not launch the kernels")
         out[label] = {"loss_max_abs_diff": loss_err,
-                      "grad_norm_max_rel_diff": norm_err}
+                      "grad_norm_max_rel_diff": norm_err, "layouts": layouts}
     return out
 
 
@@ -5082,10 +5399,59 @@ def ptrain_kernel_shapes(fa) -> dict:
     return {"fwd": fwd, "bwd": bwd}
 
 
+# one rank's training rows in the zero3_dynsp world's new layouts: sp=4
+# (240p, 51 frames, a global batch of 2: T 15 padded to 16, S 405 to 408)
+# and dp=4 (a 144p image a rank: 144 tokens)
+ZDS_ROWS = (("zds_sp4_spatial", 2 * 16 // 4, 16, 408, 408, 72, 405),
+            ("zds_sp4_cross", 2 * 16, 16, 102, 8, 72, False),
+            ("zds_sp4_temporal", 2 * 102, 16, 16, 16, 72, 15),
+            ("zds_dp4_spatial", 1, 16, 144, 144, 72, False),
+            ("zds_dp4_cross", 1, 16, 144, 8, 72, False))
+
+
+def zds_kernel_shapes(fa, world: dict) -> dict:
+    """The ZDS_ROWS (each among rank 0's logged forward shapes of its
+    layout) against their plain versions, forward and the backward each
+    takes, timed beside SDPA; their launches a rank from the world's log."""
+    import torch
+
+    logged = {(tuple(layout), tuple(shape)): n for layout, _, shape, _, n in
+              world["ranks"][0]["shapes"] if layout}
+    launches = {}
+    for name, B, H, Nq, Nk, D, _ in ZDS_ROWS:
+        layout = (1, 1, 4) if "sp4" in name else (4, 1, 1)
+        n = logged.get((layout, (B, H, Nq, Nk, D)), 0)
+        if n <= 0:
+            raise AssertionError(f"the zero3_dynsp world never launched "
+                                 f"{name} [{B}, {H}, {Nq}, {Nk}, {D}]")
+        launches[name] = n
+    fwd = forward_shapes(fa, list(ZDS_ROWS), seed=7, dtypes=("bf16",))
+    bwd = backward_kernel_phase(fa, [
+        row + (fa.backward_variant(*row[1:6], torch.bfloat16),)
+        for row in ZDS_ROWS])
+    for name in launches:
+        log(f"zero3_dynsp row {name}: forward {fwd[name]['shape']} "
+            f"{fwd[name]['ms']:.4f} ms (plain {fwd[name]['plain_ms']:.4f}, "
+            f"SDPA {fwd[name]['library_ms']:.4f}, bound "
+            f"{fwd[name]['bound_ms']:.4f} by {fwd[name]['bound_by']}); "
+            f"backward {bwd[name]['backward']}: "
+            + ", ".join(f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, "
+                        f"SDPA {v['library_ms']:.4f}, bound "
+                        f"{v['bound_ms']:.4f})" for k, v in bwd[name].items()
+                        if isinstance(v, dict) and "ms" in v)
+            + f"; forward launches a rank {launches[name]}")
+    return {"fwd": fwd, "bwd": bwd, "launches": launches}
+
+
 def parallel_train_phase(fa, seed: int) -> dict:
     """STDiT3-XL/2 trained over ranks sharing the card (dp=2, sp=2, dp=2 x
-    sp=2; ZeRO-1, DSP under recompute), each against world 1 on the same
-    global batch and draws; the tiny fp32 worlds; the new kernel rows."""
+    sp=2; ZeRO-1, DSP under recompute; at 8 pairs), each against world 1
+    on the same global batch and draws; zero3_dynsp (ZeRO-3 and dynamic
+    sp at 28 pairs on three layouts) against its world 1; the tiny fp32
+    worlds; the kernel rows of the sp=2 world and of the new layouts."""
+    from videosys_tpu_torch.core.engine import Ranks
+    from videosys_tpu_torch.core.worker import setup_train_rank
+
     t_start = time.perf_counter()
     backend = "gloo"  # NCCL refuses two ranks on one device (phase 16)
     out = {"worlds": {}}
@@ -5093,13 +5459,114 @@ def parallel_train_phase(fa, seed: int) -> dict:
     for label, dp, sp, depth in PTRAIN_WORLDS:
         if depth not in refs:
             refs[depth] = ptrain_world1(fa, depth, seed)
-        out["worlds"][label] = ptrain_world(
-            fa, label, dp, sp, depth, seed, backend, refs[depth],
-            [PARALLEL_DEVICE] * (dp * sp), SHARED)
-    out["tiny"] = tiny_ptrain(fa, seed, backend)
+        if dp * sp < 4:  # the driver is rank 0 of one world at a time
+            out["worlds"][label] = ptrain_world(
+                fa, label, dp, sp, depth, seed, backend, refs[depth])
+    out["tiny"] = tiny_ptrain(fa, seed, backend, labels=("dp2", "sp2"))
+    # the dp=2 x sp=2 ranks, spawned once for every four-rank world
+    t0 = time.perf_counter()
+    four = Ranks()
+    four._spawn(4, setup_train_rank, (ptrain_config(2, 2, 1, seed),),
+                [PARALLEL_DEVICE] * 4, backend, PTRAIN_TIMEOUT_S)
+    log(f"parallel_train: the four dp=2 x sp=2 ranks spawned in "
+        f"{time.perf_counter() - t0:.1f} s")
+    try:
+        for label, dp, sp, depth in PTRAIN_WORLDS:
+            if dp * sp == 4:
+                out["worlds"][label] = ptrain_world(
+                    fa, label, dp, sp, depth, seed, backend, refs[depth], four)
+        out["worlds"]["zero3_dynsp"] = zds_world(fa, seed, backend, four)
+        out["tiny"].update(tiny_ptrain(
+            fa, seed, backend, four,
+            labels=("dp2sp2", "zero3_dp2sp2", "dynamic_sp")))
+    finally:
+        four.shutdown()
     out["kernel"] = ptrain_kernel_shapes(fa)
+    out["zds_kernel"] = zds_kernel_shapes(fa, out["worlds"]["zero3_dynsp"])
     out["seconds"] = time.perf_counter() - t_start
     log(f"parallel_train phase: {out['seconds']:.1f} s")
+    return out
+
+
+ENTRY_SAMPLES = (("open_sora", ("run_base", "run_pab")),
+                 ("latte", ("run_base", "run_pab")),
+                 ("cogvideox", ("run_base", "run_pab")),
+                 ("open_sora_plan", ("run_base", "run_v110", "run_pab")),
+                 ("vchitect", ("run_base", "run_pab")))
+
+
+def entry_points_phase(fa) -> dict:
+    """Every port entry point's tiny mode on the card (no `device`: the
+    default), each video kept as its frames (the engines' `save_video` is
+    replaced here by a writer of .npy files: the card's machine may lack
+    imageio) and read back finite with its frame count; each call's
+    attention launches, which must not be 0."""
+    import importlib
+    import tempfile
+
+    import numpy as np
+
+    from videosys_tpu_torch.core import engine as engine_mod
+    from videosys_tpu_torch.examples.eval import pab_experiments
+    from videosys_tpu_torch.examples.gradio import cogvideox as demo
+
+    def keep(video, output_path, fps=24):
+        path = f"{output_path}.npy"
+        np.save(path, np.asarray(video))
+        return path
+
+    def frames(path):
+        arr = np.load(path)
+        if arr.dtype != np.uint8 or arr.ndim != 4 or arr.shape[0] < 1:
+            raise AssertionError(f"entry point wrote {arr.dtype} {arr.shape}")
+        return list(arr.shape)
+
+    def launched(label, t0):
+        n = dict(fa.LAUNCHES)
+        total = sum(n.values())
+        if total <= 0:
+            raise AssertionError(f"entry point {label} launched no kernel")
+        return {"s": time.perf_counter() - t0,
+                "launches": {k: v for k, v in n.items() if v}}
+
+    out = {}
+    saved = engine_mod._save_video
+    engine_mod._save_video = keep
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for family, names in ENTRY_SAMPLES:
+                mod = importlib.import_module(
+                    f"videosys_tpu_torch.examples.inference.{family}.sample")
+                for name in names:
+                    fa.reset_launches()
+                    t0 = time.perf_counter()
+                    path = getattr(mod, name)(tiny=True, outdir=tmp)
+                    rec = launched(f"{family}.{name}", t0)
+                    rec["frames"] = frames(path)
+                    out[f"{family}.{name}"] = rec
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            quality = pab_experiments.run_pab_quality(tiny=True)
+            out["pab_quality"] = dict(launched("pab_quality", t0), **quality)
+            if not (quality["n"] == 1 and np.isfinite(quality["psnr"])):
+                raise AssertionError(f"pab_quality read {quality}")
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            dense, pab = demo.build_engines(tiny=True)
+            pair = demo.generate_pair(dense, pab, "Sunset over the sea.",
+                                      steps=2, outdir=tmp, num_frames=5,
+                                      height=32, width=32)
+            rec = launched("gradio generate_pair", t0)
+            rec["frames"] = {k: frames(p) for k, (p, _) in pair.items()}
+            rec["seconds"] = {k: s for k, (_, s) in pair.items()}
+            out["gradio_pair"] = rec
+    finally:
+        engine_mod._save_video = saved
+    for label, rec in out.items():
+        log(f"entry_points {label}: {rec['s']:.2f} s, frames "
+            f"{rec.get('frames')}, launches {rec['launches']}"
+            + (f", psnr {rec['psnr']:.2f} ssim {rec['ssim']:.4f}"
+               if "psnr" in rec else ""))
     return out
 
 
@@ -5213,6 +5680,8 @@ def main(argv=None) -> int:
         par_out = parallel_phase(fa, args.steps, args.seed)
     if "parallel_train" in phases:  # phase 17: training over ranks
         ptrain = parallel_train_phase(fa, args.seed)
+    if "entry_points" in phases:  # phase 18: the entry points, tiny
+        timed("entry_points", entry_points_phase, fa)
     if "parallel_fp32" in phases:  # opt-in: the DSP and cp drift in fp32
         parallel_fp32_phase(args.seed)
     if set(phases) != set(PHASES):

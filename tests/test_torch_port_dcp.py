@@ -264,14 +264,36 @@ def test_sp_balance_runs_the_packed_step_loop():
 @pytest.mark.parametrize("fields,error", [
     (dict(dynamic_recompute=True), ValueError),
     (dict(zero3=True, sp_balance=True), ValueError),
-    (dict(dp_size=2, zero3=True), NotImplementedError),
-    (dict(sp_size=2, dynamic_sp=True), NotImplementedError),
-    (dict(dynamic_sp=True), NotImplementedError),
-    (dict(zero3=True), NotImplementedError),
 ])
 def test_unported_and_conflicting_fields_raise(fields, error):
-    with pytest.raises(error, match="dynamic_profile|sp_balance|Queue 1 item 6"):
+    with pytest.raises(error, match="dynamic_profile|sp_balance"):
         PTR.run_training(_tiny_config(**fields), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def plain_runs():
+    """The plain world-1 runs, with and without sp_balance."""
+    cfg = _tiny_config(max_steps=3)
+    return {False: PTR.run_training(cfg, device="cpu")[2],
+            True: PTR.run_training(dataclasses.replace(cfg, sp_balance=True),
+                                   device="cpu")[2]}
+
+
+@pytest.mark.parametrize("fields", [
+    dict(zero3=True), dict(dynamic_sp=True),
+    dict(zero3=True, dynamic_sp=True), dict(dynamic_sp=True, sp_balance=True),
+])
+def test_zero3_and_dynamic_sp_at_world1_are_the_plain_run(fields, plain_runs):
+    """At one rank ZeRO-3 shards nothing and the sp pool holds one layout
+    (JAX's `_pin_params_zero3` returns the params unchanged there): the
+    losses and grad norms are the plain run's."""
+    got = PTR.run_training(_tiny_config(max_steps=3, **fields),
+                           device="cpu")[2]
+    want = plain_runs[fields.get("sp_balance", False)]
+    assert [h["loss"] for h in got] == [h["loss"] for h in want]
+    assert [h["grad_norm"] for h in got] == [h["grad_norm"] for h in want]
+    assert {h["mesh"] for h in got} == {"sp_balance" if fields.get(
+        "sp_balance") else None}
 
 
 def test_train_config_fields_match_jax():

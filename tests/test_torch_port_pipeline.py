@@ -198,7 +198,8 @@ def test_port_imports_no_jax():
     that read weights import neither transformers nor safetensors, so the
     port runs where neither is installed. The same holds for the parallel
     runtime, the watchdog and the workers' entry point (a spawned worker
-    imports only what it runs)."""
+    imports only what it runs), ZeRO-3 and the entry points (whose demo
+    imports `gradio` only when it launches)."""
     code = ("import sys, videosys_tpu_torch, videosys_tpu_torch.utils.from_jax,"
             " videosys_tpu_torch.training.train, videosys_tpu_torch.training.ckpt,"
             " videosys_tpu_torch.training.datasets, videosys_tpu_torch.core.pab,"
@@ -228,10 +229,18 @@ def test_port_imports_no_jax():
             " videosys_tpu_torch.utils.checkpoint,"
             " videosys_tpu_torch.utils.safetensors_io,"
             " videosys_tpu_torch.core.parallel, videosys_tpu_torch.core.worker,"
-            " videosys_tpu_torch.utils.watchdog;"
+            " videosys_tpu_torch.utils.watchdog,"
+            " videosys_tpu_torch.training.zero3,"
+            " videosys_tpu_torch.examples.inference.open_sora.sample,"
+            " videosys_tpu_torch.examples.inference.latte.sample,"
+            " videosys_tpu_torch.examples.inference.cogvideox.sample,"
+            " videosys_tpu_torch.examples.inference.open_sora_plan.sample,"
+            " videosys_tpu_torch.examples.inference.vchitect.sample,"
+            " videosys_tpu_torch.examples.eval.pab_experiments,"
+            " videosys_tpu_torch.examples.gradio.cogvideox;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'videosys_tpu',"
-            " 'transformers', 'safetensors', 'tokenizers')];"
+            " 'transformers', 'safetensors', 'tokenizers', 'gradio')];"
             "assert not bad, bad")
     root = Path(__file__).resolve().parents[1]
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True)

@@ -33,7 +33,10 @@ group norms sum their statistics over the line (`all_reduce`); one
 all-to-all crosses the seam into frames (`rows_to_frames`), which the 2D
 stage decodes frame-locally and `gather_frames` collects on the line's
 first rank. ZeRO-1 (training/train_step.py) reduce-scatters gradients and
-all-gathers parameters over every rank (`WORLD_AXIS`) in flat buffers.
+all-gathers parameters over every rank (`WORLD_AXIS`) in flat buffers;
+ZeRO-3 (training/zero3.py) gathers each unit of parameters for its forward
+and reduce-scatters its gradient. `GroupsPool` holds one layout per sp for
+dynamic sequence parallelism.
 
 The groups in force are installed with `use_groups`. With none, or with one
 rank, every helper returns its input: the one-card path gains no collective
@@ -88,7 +91,7 @@ DEFAULT_TIMEOUT_S = 600.0
 
 # Collective calls and bytes sent since the last `reset_exchange()`: the
 # forward's ("calls", "bytes"), autograd's backward ("backward_*") and the
-# ZeRO-1 optimizer's ("optimizer_*").
+# ZeRO optimizer's ("optimizer_*").
 EXCHANGE: Dict[str, int] = {}
 
 
@@ -217,6 +220,41 @@ def build_groups(config: ParallelConfig, device=None) -> Groups:
         device = torch.device("cuda", torch.cuda.current_device()) \
             if dist.get_backend() == "nccl" else torch.device("cpu")
     return Groups(config, rank, axes, monitor, torch.device(device))
+
+
+class GroupsPool:
+    """Counterpart of JAX's `MeshPool` (dynamic sequence parallelism): the
+    `Groups` of `ParallelConfig(N // sp, 1, sp)` for each power of two sp
+    that divides the world size N, built once (every rank builds all of
+    them, in the same order: `new_group` is collective). Every layout puts
+    rank r at the same place of the world axis, so ZeRO's slices (of every
+    rank, `WORLD_AXIS`) are the same in each and a switch of layout moves
+    no optimizer bytes and no parameter slices."""
+
+    def __init__(self, device=None):
+        n = dist.get_world_size()
+        self._groups: Dict[int, Groups] = {}
+        sp = 1
+        while sp <= n:
+            if n % sp == 0:
+                self._groups[sp] = build_groups(
+                    ParallelConfig(n // sp, 1, sp), device)
+            sp *= 2
+
+    @property
+    def sp_sizes(self) -> List[int]:
+        return sorted(self._groups)
+
+    def groups_for_sp(self, sp_size: int) -> Groups:
+        if sp_size not in self._groups:
+            raise KeyError(f"sp_size {sp_size} not in pool {self.sp_sizes}")
+        return self._groups[sp_size]
+
+    def groups_for_plan(self, sp_size: int) -> Groups:
+        """The layout a plan of `sp_size` runs on: the largest pool sp not
+        above it (JAX train.py `_plan_mesh`)."""
+        return self._groups[max(s for s in self._groups
+                                if s <= max(1, sp_size))]
 
 
 # --- active groups ------------------------------------------------------ #
@@ -501,22 +539,25 @@ def halo_exchange(x: torch.Tensor, dim: int, width: int = 1,
 # --- flat buffers (ZeRO-1), outside autograd ---------------------------- #
 
 def reduce_scatter_flat(x: torch.Tensor,
-                        group: Union[str, Axis] = WORLD_AXIS) -> torch.Tensor:
+                        group: Union[str, Axis] = WORLD_AXIS,
+                        kind: str = "optimizer_") -> torch.Tensor:
     """This rank's 1/n slice of the sum of the ranks' 1-D `x` (its length
-    a multiple of the group's size)."""
+    a multiple of the group's size). `kind`: the `EXCHANGE` keys it counts
+    under ("optimizer_"; ZeRO-3's gathers "" and "backward_")."""
     ax = _axis(group)
     if ax is None:
         return x
     host = _via_host(ax, x)
     src = x.cpu() if host else x
     out = src.new_empty(x.numel() // ax.size)
-    _count(src, "optimizer_")
+    _count(src, kind)
     dist.reduce_scatter(out, list(src.chunk(ax.size)), group=ax.group)
     return out.to(x.device) if host else out
 
 
 def all_gather_flat(x: torch.Tensor, out: Optional[torch.Tensor] = None,
-                    group: Union[str, Axis] = WORLD_AXIS) -> torch.Tensor:
+                    group: Union[str, Axis] = WORLD_AXIS,
+                    kind: str = "optimizer_") -> torch.Tensor:
     """The ranks' 1-D slices `x` concatenated in rank order, into `out`
     when given."""
     ax = _axis(group)
@@ -525,11 +566,24 @@ def all_gather_flat(x: torch.Tensor, out: Optional[torch.Tensor] = None,
     host = _via_host(ax, x)
     src = x.cpu() if host else x.contiguous()
     whole = src.new_empty(x.numel() * ax.size)
-    _count(src, "optimizer_")
+    _count(src, kind)
     dist.all_gather(list(whole.chunk(ax.size)), src, group=ax.group)
     if out is None:
         return whole.to(x.device)
     return out.copy_(whole)
+
+
+def all_reduce_flat(x: torch.Tensor, group: Union[str, Axis] = WORLD_AXIS,
+                    kind: str = "optimizer_") -> torch.Tensor:
+    """The sum of the ranks' 1-D `x`, in place (ZeRO-3's whole leaves)."""
+    ax = _axis(group)
+    if ax is None:
+        return x
+    host = _via_host(ax, x)
+    src = x.cpu() if host else x
+    _count(src, kind)
+    dist.all_reduce(src, group=ax.group)
+    return x.copy_(src) if host else x
 
 
 def broadcast_from_rank0(obj, groups: Optional[Groups]):

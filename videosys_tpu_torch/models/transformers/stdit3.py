@@ -13,7 +13,9 @@ masked as keys. S is gathered before unpatchify. With no groups the
 one-card loop runs unchanged. For training, `remat` recomputes each
 spatial+temporal pair in the backward pass, and `compute_dtype` computes in
 another dtype than the parameters are held in (fp32 master weights, bf16
-matmuls and attention).
+matmuls and attention). Under ZeRO-3 (`training/zero3.py`, which sets
+`zero3`) each depth pair gathers its weights inside its recompute call and
+the rest of the model for the whole forward (`unit_params`).
 
 PAB (Pyramid Attention Broadcast, `core/pab.py`): `forward(..., plan=,
 pab_cache=)` runs one sampling step under its `PABStepPlan`. A branch whose
@@ -25,6 +27,7 @@ loop runs.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Optional, Tuple
@@ -261,6 +264,22 @@ class STDiT3(nn.Module):
         pt, ph, pw = cfg.patch_size
         self.final_layer = FinalLayer(C, pt * ph * pw * cfg.out_channels)
         set_compute_dtype(self, compute_dtype)
+        self.zero3 = None  # a training/zero3.py Zero3 when sharded
+
+    def param_unit(self, name: str) -> int:
+        """ZeRO-3's unit of parameter `name`: i for the blocks of depth pair
+        i, `depth` for the rest of the model."""
+        head, _, rest = name.partition(".")
+        if head in ("spatial_blocks", "temporal_blocks"):
+            return int(rest.partition(".")[0])
+        return self.config.depth
+
+    def unit_params(self, unit: int):
+        """A context holding unit `unit`'s gathered weights under ZeRO-3
+        (re-entrant); nothing otherwise."""
+        if self.zero3 is None:
+            return contextlib.nullcontext()
+        return self.zero3.gathered(unit)
 
     @staticmethod
     def cache_keys(pab: Optional[PABConfig], temporal: bool) -> Tuple[str, ...]:
@@ -307,30 +326,33 @@ class STDiT3(nn.Module):
         return PABCache(slots, {b: r for r, b in enumerate(blocks)
                                 if b < cfg.depth})
 
-    @staticmethod
-    def _pair(spatial, temporal, xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
-              s_pad=None, t_pad=None):
-        xe = spatial(xe, y, t_mlp, t0_mlp, x_mask, kv_mask, s_pad=s_pad)
-        return temporal(xe, y, t_mlp, t0_mlp, x_mask, kv_mask, t_pad=t_pad)
+    def _pair(self, i, xe, y, t_mlp, t0_mlp, x_mask, kv_mask, s_pad=None,
+              t_pad=None):
+        with self.unit_params(i):
+            xe = self.spatial_blocks[i](xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
+                                        s_pad=s_pad)
+            return self.temporal_blocks[i](xe, y, t_mlp, t0_mlp, x_mask,
+                                           kv_mask, t_pad=t_pad)
 
     def _dense_pairs(self, xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
                      s_pad=None, t_pad=None):
         recompute = (self.remat and self.remat_policy != "none"
                      and torch.is_grad_enabled())
-        for spatial, temporal in zip(self.spatial_blocks, self.temporal_blocks):
+        for i in range(self.config.depth):
             if recompute:
                 # the replay in the backward pass runs the pair's DSP
-                # collectives again, in the forward's order on every rank:
-                # the step's backward runs under the same `use_groups`
+                # collectives (and ZeRO-3's gather) again, in the forward's
+                # order on every rank: the step's backward runs under the
+                # same `use_groups`
                 context = {} if self.remat_policy == "full" else {
                     "context_fn": functools.partial(
                         create_selective_checkpoint_contexts, _save_matmuls)}
-                xe = checkpoint(self._pair, spatial, temporal, xe, y, t_mlp,
-                                t0_mlp, x_mask, kv_mask, s_pad, t_pad,
-                                use_reentrant=False, **context)
+                xe = checkpoint(self._pair, i, xe, y, t_mlp, t0_mlp, x_mask,
+                                kv_mask, s_pad, t_pad, use_reentrant=False,
+                                **context)
             else:
-                xe = self._pair(spatial, temporal, xe, y, t_mlp, t0_mlp,
-                                x_mask, kv_mask, s_pad, t_pad)
+                xe = self._pair(i, xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
+                                s_pad, t_pad)
         return xe
 
     def _pab_pairs(self, xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
@@ -361,6 +383,12 @@ class STDiT3(nn.Module):
                 pab_cache: Optional[PABCache] = None):
         """`plan` and `pab_cache`: run one PAB sampling step (inference);
         without a cache the dense loop runs."""
+        with self.unit_params(self.config.depth):
+            return self._forward(x, timestep, y, kv_mask, x_mask, fps, height,
+                                 width, plan, pab_cache)
+
+    def _forward(self, x, timestep, y, kv_mask, x_mask, fps, height, width,
+                 plan, pab_cache):
         cfg = self.config
         dtype = self.compute_dtype or self.final_layer.linear.weight.dtype
         device = x.device

@@ -5,10 +5,11 @@ checkpoint is `epoch{E}-global_step{S}/` holding `state.pt` (model,
 optimizer, EMA and the draws' generator; `torch.save` in place of orbax)
 and `running_states.json` (epoch, step, sampler state).
 
-Under ZeRO-1 (an optimizer over ranks) every rank calls `save`: the moment
-slices are gathered, and rank 0 writes the same files a one-rank run
-writes. `load` reads them at any world size; each rank keeps its slice of
-the moments.
+Under ZeRO-1 and ZeRO-3 (an optimizer over ranks) every rank calls `save`:
+the moment slices are gathered (under ZeRO-3 the parameters' and the EMA's
+too), and rank 0 writes the same files a one-rank run writes. `load` reads
+them at any world size and under either: each rank keeps its slice of the
+moments (and under ZeRO-3 of the parameters and the EMA).
 """
 
 from __future__ import annotations
@@ -29,12 +30,19 @@ def save(path: str, train_state: TrainState,
          generator: Optional[torch.Generator] = None) -> str:
     ckpt_dir = os.path.abspath(
         os.path.join(path, f"epoch{epoch}-global_step{step}"))
-    optimizer = train_state.tx.state_dict()  # a collective under ZeRO-1
+    optimizer = train_state.tx.state_dict()  # a collective under ZeRO
+    zero3 = train_state.tx.zero3
+    if zero3 is not None:  # collectives too
+        model = zero3.state_dict()
+        if ema_params is not None:
+            ema_params = zero3.gather_dict(ema_params)
+    else:
+        model = train_state.model.state_dict()
     groups = train_state.tx.groups
     if groups is not None and groups.rank != 0:
         return ckpt_dir
     os.makedirs(ckpt_dir, exist_ok=True)
-    blob = {"model": train_state.model.state_dict(), "optimizer": optimizer,
+    blob = {"model": model, "optimizer": optimizer,
             "step": train_state.step, "ema": ema_params}
     if generator is not None:
         blob["generator"] = generator.get_state()
@@ -52,11 +60,17 @@ def load(path: str, train_state: TrainState,
     """Restore a checkpoint directory into `train_state` (its model and
     optimizer are loaded in place, on their own device; `generator`, given,
     takes the saved state) and return (train_state, ema, epoch, step,
-    sampler_state)."""
+    sampler_state); under ZeRO-3 the EMA is this rank's (its slices)."""
     device = next(train_state.model.parameters()).device
     blob = torch.load(os.path.join(os.path.abspath(path), "state.pt"),
                       map_location=device, weights_only=True)
-    train_state.model.load_state_dict(blob["model"])
+    zero3 = train_state.tx.zero3
+    if zero3 is not None:
+        zero3.load_state_dict(blob["model"])
+        if blob["ema"] is not None:
+            blob["ema"] = zero3.shard_dict(blob["ema"])
+    else:
+        train_state.model.load_state_dict(blob["model"])
     train_state.tx.load_state_dict(blob["optimizer"])
     train_state.step = int(blob["step"])
     if generator is not None and "generator" in blob:

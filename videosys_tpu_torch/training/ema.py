@@ -2,8 +2,12 @@
 
 Port of `videosys_tpu/training/ema.py`: the EMA is a dict of fp32 tensors
 by parameter name, a copy that shares no storage with the model.
-`update_ema` updates it in place. Over ranks the parameters are replicated
-(ZeRO-1 shards the moments only), and so is the EMA: every rank keeps it.
+`update_ema` updates it in place. Over ranks under ZeRO-1 the parameters
+are replicated (it shards the moments only), and so is the EMA: every rank
+keeps it. Under ZeRO-3 a model's named parameters are its whole small
+leaves and this rank's slices (`training/zero3.py`), so each rank keeps
+the EMA of its own slices only, as JAX keeps per-rank fp32 ZeRO fragments;
+`Zero3.gather_dict` makes it whole.
 """
 
 from __future__ import annotations

@@ -17,9 +17,21 @@ group exists (`parallel.set_distributed_state`, torchrun). The global batch
 is the plan's batch x dp (the sampler's `batch_multiplier`, JAX train.py
 :201): every rank runs the same sampler from the same seed, builds the
 global batch and keeps its dp share; the sp ranks of a dp index train it
-together (DSP), the optimizer is ZeRO-1 (train_step.py). Rank 0 logs and
-writes checkpoints; every rank returns the same metrics history. Not
-ported: `zero3` and `dynamic_sp` (ROADMAP Queue 1 item 6e (d), (e)).
+together (DSP), the optimizer is ZeRO-1 (train_step.py), or with `zero3`
+ZeRO-3 (zero3.py: the parameters sharded too; the EMA is each rank's
+slices, made whole before it is written or returned). Rank 0 logs and
+writes checkpoints; every rank returns the same metrics history.
+
+`dynamic_sp` (JAX train.py :134-136, :239-263): the dp_size x sp_size
+ranks build a `parallel.GroupsPool`, one layout per power-of-two sp, and
+each plan runs on the layout of the largest pool sp not above its own; the
+sampler's batch multiplier stays dp_size, a rank's share of a plan's batch
+and draws is taken under the plan's dp, and the gradient divisor is that
+dp. The world axis, and so every ZeRO slice, is the same in each layout:
+a switch moves no optimizer bytes. Each history entry carries the layout
+it ran on ("mesh": (dp, 1, sp)). The DCP profile then tries each pool sp
+as a whole step on that sp's groups (JAX's profile builds every sp
+candidate as the same one-device step: ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -52,12 +64,14 @@ from videosys_tpu_torch.training.sampler import (
     pack_global_steps,
 )
 from videosys_tpu_torch.training.train_step import (
+    _dp_share,
     create_train_state,
     make_apply_step,
     make_grad_step,
     make_optimizer,
     make_train_step,
 )
+from videosys_tpu_torch.training.zero3 import shard_model
 
 logger = logging.getLogger(__name__)
 
@@ -90,7 +104,8 @@ class TrainConfig:
     max_steps: Optional[int] = None
     seed: int = 42
     dataset_size: int = 64
-    # dynamic sequence parallelism (raises, ROADMAP Queue 1 item 6e (e))
+    # dynamic sequence parallelism: each plan on the pool layout of its sp
+    # (parallel.GroupsPool over the dp_size x sp_size ranks)
     dynamic_sp: bool = False
     # sp-balance: pack plans of differing sp into GlobalSteps (sampler.py
     # :576-871); each packed step accumulates gradients across its plans
@@ -122,7 +137,8 @@ class TrainConfig:
     # mean) and lr (of the next update)
     wandb_project: Optional[str] = None
     tracker: Optional[Any] = None
-    # ZeRO-3 parameter sharding (raises, ROADMAP Queue 1 item 6e (d))
+    # ZeRO-3: the parameters sharded over every rank too (zero3.py); each
+    # depth pair gathered for its forward, its gradient reduce-scattered
     zero3: bool = False
     # cosine decay to lr * lr_min_ratio over lr_decay_steps after warmup
     # (None = warmup, then constant)
@@ -141,15 +157,6 @@ def _check_config(cfg: TrainConfig) -> None:
             "dynamic_recompute picks the remat policy during the DCP "
             "profile phase; set dynamic_profile=True as well (or set a "
             "fixed remat_policy instead)")
-    if cfg.zero3:
-        raise NotImplementedError(
-            "zero3 (parameters sharded over the ranks) is not ported yet "
-            "(ROADMAP Queue 1 item 6e (d)); ZeRO-1 runs under dp_size / "
-            "sp_size > 1")
-    if cfg.dynamic_sp:
-        raise NotImplementedError(
-            "dynamic_sp (a pool of sp sizes, MeshPool) is not ported yet "
-            "(ROADMAP Queue 1 item 6e (e)); a fixed sp_size runs")
 
 
 def latent_size(thw) -> tuple:
@@ -187,6 +194,24 @@ def _share(x, share):
     return x[i * k:(i + 1) * k]
 
 
+def _layout(groups: Optional[par.Groups]):
+    """A history entry's "mesh": (dp, cp, sp) of the groups, None on one
+    rank (JAX's mesh shape)."""
+    if groups is None:
+        return None
+    c = groups.config
+    return (c.dp_size, c.cp_size, c.sp_size)
+
+
+def _rank_rows(global_rows: int, groups: Optional[par.Groups]) -> int:
+    """A rank's rows of a global batch under the dp of `groups`."""
+    dp = _dp_share(groups)[1]
+    if global_rows % dp:
+        raise ValueError(f"a global batch of {global_rows} does not split "
+                         f"over the plan's dp of {dp} ({_layout(groups)})")
+    return global_rows // dp
+
+
 def _world_agree(peak: int, seconds: float, fits: bool):
     """Every rank's profile reading -> the world's: the largest peak and
     time, a fit only where every rank fitted (so that every rank takes the
@@ -199,7 +224,9 @@ def _world_agree(peak: int, seconds: float, fits: bool):
 
 def profile_buckets(cfg: TrainConfig, model: STDiT3, scheduler, bucket: Bucket,
                     lat_shape, masked: bool, device: torch.device,
-                    groups: Optional[par.Groups] = None) -> DCPPlanner:
+                    groups: Optional[par.Groups] = None,
+                    pool: Optional[par.GroupsPool] = None,
+                    zero3=None) -> DCPPlanner:
     """The DCP profile phase (JAX train.py :170-195) over the run's own
     model: each candidate is a whole train step (forward, backward, clipped
     AdamW) on a zero batch of the bucket's shape, with the recompute policy
@@ -212,14 +239,19 @@ def profile_buckets(cfg: TrainConfig, model: STDiT3, scheduler, bucket: Bucket,
     whole world, ZeRO-1 included; `bs` is a dp rank's), the ranks agree on
     each build and each reading (the largest peak and time; a fit where all
     fit), a candidate that raises on a rank stops the world (`Profiler`),
-    and the planner is rank 0's."""
+    and the planner is rank 0's. With a `pool` (dynamic sp) the sp
+    candidates are its sizes, each run on its own groups: the global batch
+    (bs x dp_size, as the sampler makes it) split over that layout's dp, so
+    that a bucket over the budget at sp 1 gets the smallest sp that fits.
+    Under ZeRO-3 (`zero3`, the model's sharding) the steps are ZeRO-3's."""
     saved = {n: p.detach().to("cpu", copy=True)
              for n, p in model.named_parameters()}
     run_policy = model.remat_policy
     ptx = make_optimizer(model.parameters(), cfg.lr, cfg.weight_decay,
                          cfg.warmup_steps, cfg.grad_clip,
                          decay_steps=cfg.lr_decay_steps,
-                         lr_min_ratio=cfg.lr_min_ratio, groups=groups)
+                         lr_min_ratio=cfg.lr_min_ratio, groups=groups,
+                         zero3=zero3)
     for p in ptx.params:
         p.grad = torch.zeros_like(p)
     with par.use_groups(groups):
@@ -231,6 +263,8 @@ def profile_buckets(cfg: TrainConfig, model: STDiT3, scheduler, bucket: Bucket,
     def step_builder(thw, bs, sp, policy=cfg.remat_policy):
         T, H, W = thw
         t_lat, h, w = lat_shape(thw)
+        g = pool.groups_for_sp(sp) if pool is not None else groups
+        bs = _rank_rows(bs * cfg.dp_size, g)
         batch = {"x": torch.zeros(bs, mc.in_channels, t_lat, h, w, device=device),
                  "y": torch.zeros(bs, 8, mc.caption_channels, device=device),
                  "kv_mask": torch.ones(bs, 8, dtype=torch.bool, device=device),
@@ -241,7 +275,7 @@ def profile_buckets(cfg: TrainConfig, model: STDiT3, scheduler, bucket: Bucket,
         step = make_train_step(model, scheduler, ptx, float(H), float(W),
                                num_frames=int(T),
                                class_dropout_prob=cfg.class_dropout_prob,
-                               groups=groups)
+                               groups=g, zero3=cfg.zero3)
 
         def run():
             model.remat_policy = policy
@@ -256,7 +290,9 @@ def profile_buckets(cfg: TrainConfig, model: STDiT3, scheduler, bucket: Bucket,
     try:
         with torch.random.fork_rng(devices=cuda):
             profiler = Profiler(
-                bucket, step_builder, sp_candidates=(cfg.sp_size,),
+                bucket, step_builder,
+                sp_candidates=(tuple(pool.sp_sizes) if pool is not None
+                               else (cfg.sp_size,)),
                 remat_candidates=(("none", "dots", "full")
                                   if cfg.dynamic_recompute
                                   else (cfg.remat_policy,)),
@@ -310,8 +346,10 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
     (`run_training_ranks`, which takes `devices=`, `backend=` and
     `timeout=` in `rank_kwargs`; the other arguments go to every rank and
     must pickle) and rank 0's result is returned. `resume`: a checkpoint
-    directory (`ckpt.save`, at any world size) to continue from: weights,
-    moments, EMA, step, sampler and the draws' generator."""
+    directory (`ckpt.save`, at any world size, under ZeRO-1 or ZeRO-3) to
+    continue from: weights, moments, EMA, step, sampler and the draws'
+    generator. Under ZeRO-3 the returned model and EMA are whole on every
+    rank, as under ZeRO-1."""
     _check_config(cfg)
     world = par.ParallelConfig(cfg.dp_size, 1, cfg.sp_size)
     if world.world_size > 1 and groups is None:
@@ -332,8 +370,9 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
         if groups.world_size == 1:
             groups = None
     lead = groups is None or groups.rank == 0
-    dp_share = ((groups.axis(par.DP_AXIS).rank, cfg.dp_size)
-                if groups is not None else (0, 1))
+    # dynamic sp: every layout of the ranks, built before the first step
+    pool = par.GroupsPool(device) if cfg.dynamic_sp and groups is not None \
+        else None
     device = resolve_device(device)
     cuda = [device] if device.type == "cuda" else []
     with torch.random.fork_rng(devices=cuda), torch.device(device):
@@ -365,16 +404,19 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
         return tuple(vae.get_latent_size(thw)) if vae is not None \
             else latent_size(thw)
 
+    zero3 = shard_model(model, groups) if cfg.zero3 else None
     ema_params = init_ema(model)  # held while the profile measures
     if cfg.dynamic_profile:
         planner = profile_buckets(cfg, model, scheduler, bucket, lat_shape,
-                                  mask_gen is not None, device, groups)
+                                  mask_gen is not None, device, groups, pool,
+                                  zero3)
     # after the profile: under ZeRO-1 the optimizer makes the parameters
     # views into its flat buffer
     tx = make_optimizer(model.parameters(), cfg.lr, cfg.weight_decay,
                         cfg.warmup_steps, cfg.grad_clip,
                         decay_steps=cfg.lr_decay_steps,
-                        lr_min_ratio=cfg.lr_min_ratio, groups=groups)
+                        lr_min_ratio=cfg.lr_min_ratio, groups=groups,
+                        zero3=zero3)
     state = create_train_state(model, tx)
     sampler = VariableVideoBatchSampler(
         bucket, dataset.shapes(), batch_multiplier=cfg.dp_size,
@@ -396,24 +438,30 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    def _load_micro_x(micro_idx, thw, lat, micro_seed):
+    def _plan_groups(plan) -> Optional[par.Groups]:
+        """The groups a plan runs on: its pool layout under dynamic sp."""
+        return pool.groups_for_plan(plan.sp_size) if pool is not None \
+            else groups
+
+    def _load_micro_x(micro_idx, thw, lat, micro_seed, g):
         """Latents of one micro-batch: pre-encoded or synthetic (the global
-        batch's), or raw clips of this rank's dp share through the VAE
-        encoder (split over the sp ranks)."""
+        batch's), or raw clips of this rank's dp share (under `g`) through
+        the VAE encoder (split over the sp ranks)."""
         if not raw_video:
             return torch.from_numpy(np.asarray(dataset.load_latents(
                 micro_idx, lat, rng_seed=micro_seed), np.float32))
+        share = _dp_share(g)
         clips = np.stack([dataset.load_video(int(i), thw, seed=micro_seed)
-                          for i in _share(np.asarray(micro_idx), dp_share)])
-        with par.use_groups(groups):
+                          for i in _share(np.asarray(micro_idx), share)])
+        with par.use_groups(g):
             return vae.encode(torch.from_numpy(clips).to(device),
-                              encode_noise(cfg.seed, micro_seed, dp_share)
+                              encode_noise(cfg.seed, micro_seed, share)
                               ).float()
 
-    def _build_batch(plan, step_seed):
+    def _build_batch(plan, step_seed, g):
         """gas micro-batches of distinct samples, stacked on a leading gas
         axis when gas > 1, on the training device: over ranks, this rank's
-        dp share of the global batch."""
+        dp share (under the plan's groups `g`) of the global batch."""
         micro_batches = plan.micro_batches()
         if hasattr(dataset, "prefetch"):
             # queue the whole plan's reads so that later micro-batches
@@ -421,10 +469,12 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
             dataset.prefetch([int(i) for mb in micro_batches for i in mb])
         gas = len(micro_batches)
         lat = lat_shape(plan.thw)
+        dp_share = _dp_share(g)
         micros = []
         for k, micro_idx in enumerate(micro_batches):
+            _rank_rows(len(micro_idx), g)
             micro_seed = step_seed * gas + k
-            x = _load_micro_x(micro_idx, plan.thw, lat, micro_seed)
+            x = _load_micro_x(micro_idx, plan.thw, lat, micro_seed, g)
             if text_embed_fn is not None:
                 y, kv_mask = text_embed_fn(micro_idx)
                 y = torch.as_tensor(np.asarray(y, np.float32))
@@ -463,6 +513,15 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
         return (planner.remat_policy(plan.bucket_id, cfg.remat_policy)
                 if planner is not None else cfg.remat_policy)
 
+    def _finish():
+        """(train_state, ema, history); under ZeRO-3 the model and the EMA
+        made whole on every rank first."""
+        if zero3 is None:
+            return state, ema_params, metrics_history
+        ema = zero3.gather_dict(ema_params)
+        zero3.unshard()
+        return state, ema, metrics_history
+
     def _log_and_ckpt(epoch, plan, metrics, seconds, extra):
         nonlocal global_step, loss_sum
         global_step += 1
@@ -496,11 +555,11 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
                          generator=generator)
         return bool(cfg.max_steps and global_step >= cfg.max_steps)
 
-    def _timed_batch(plan, step_seed, logged):
+    def _timed_batch(plan, step_seed, logged, g):
         """The plan's batch, and the seconds its reads (and encodes) took:
         measured, with the device waited for, on logged steps only."""
         t0 = time.perf_counter()
-        batch, gas = _build_batch(plan, step_seed)
+        batch, gas = _build_batch(plan, step_seed, g)
         if logged:
             _sync()
         return batch, gas, time.perf_counter() - t0
@@ -521,27 +580,31 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
                 grads_acc, losses, data_s = None, [], 0.0
                 for plan in gstep.plans:
                     T, H, W = plan.thw
-                    if plan.bucket_id not in grad_fns:
-                        grad_fns[plan.bucket_id] = (_policy(plan), make_grad_step(
+                    g = _plan_groups(plan)
+                    key = (plan.bucket_id, _layout(g))
+                    if key not in grad_fns:
+                        grad_fns[key] = (_policy(plan), make_grad_step(
                             model, scheduler, float(H), float(W),
                             num_frames=int(T),
                             class_dropout_prob=cfg.class_dropout_prob,
-                            groups=groups))
-                    model.remat_policy, gfn = grad_fns[plan.bucket_id]
+                            groups=g))
+                    model.remat_policy, gfn = grad_fns[key]
                     batch, gas, seconds = _timed_batch(
-                        plan, global_step + len(losses), logged)
+                        plan, global_step + len(losses), logged, g)
                     data_s += seconds
                     micros = [batch] if gas == 1 else [
                         {k: v[i] for k, v in batch.items()} for i in range(gas)]
                     for mb in micros:
                         loss, grads = gfn(generator, mb)
+                        # each plan's sums divided by its own layout's dp
+                        torch._foreach_div_(list(grads.values()), _dp_share(g)[1])
                         losses.append(loss)
                         if grads_acc is None:
                             grads_acc = grads
                         else:
                             torch._foreach_add_(list(grads_acc.values()),
                                                 [grads[k] for k in grads_acc])
-                state, metrics = apply_fn(state, grads_acc, len(losses))
+                state, metrics = apply_fn(state, grads_acc, len(losses), dp=1)
                 metrics["loss"] = torch.stack(losses).mean()
                 update_ema(ema_params, model, cfg.ema_decay)
                 if logged:
@@ -550,9 +613,12 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
                                  time.perf_counter() - t0,
                                  {"data_seconds": data_s,
                                   "packed_plans": len(gstep.plans),
-                                  "imbalance": gstep.imbalance}):
-                    return state, ema_params, metrics_history
-        return state, ema_params, metrics_history
+                                  "imbalance": gstep.imbalance,
+                                  "mesh": "sp_balance",
+                                  "meshes": [_layout(_plan_groups(p))
+                                             for p in gstep.plans]}):
+                    return _finish()
+        return _finish()
 
     step_fns: dict = {}
     for epoch in range(first_epoch, cfg.epochs):
@@ -560,24 +626,25 @@ def run_training(cfg: TrainConfig, dataset=None, text_embed_fn=None,
         for plan in sampler:
             T, H, W = plan.thw
             gas = len(plan.micro_batches())
-            key = (plan.bucket_id, gas)
+            g = _plan_groups(plan)
+            key = (plan.bucket_id, gas, _layout(g))
             if key not in step_fns:
                 step_fns[key] = (_policy(plan), make_train_step(
                     model, scheduler, tx, float(H), float(W),
                     num_frames=int(T), gas=gas,
                     class_dropout_prob=cfg.class_dropout_prob,
-                    groups=groups))
+                    groups=g, zero3=cfg.zero3))
             model.remat_policy, fn = step_fns[key]
             t0 = time.perf_counter()
             # the step's wall time is read only when it is logged (the loss
             # read synchronizes); otherwise steps are queued back to back
             logged = (global_step + 1) % cfg.log_every == 0
-            batch, gas, data_s = _timed_batch(plan, global_step, logged)
+            batch, gas, data_s = _timed_batch(plan, global_step, logged, g)
             state, metrics = fn(state, generator, batch)
             update_ema(ema_params, model, cfg.ema_decay)
             if logged:
                 float(metrics["loss"])
             if _log_and_ckpt(epoch, plan, metrics, time.perf_counter() - t0,
-                             {"data_seconds": data_s}):
-                return state, ema_params, metrics_history
-    return state, ema_params, metrics_history
+                             {"data_seconds": data_s, "mesh": _layout(g)}):
+                return _finish()
+    return _finish()

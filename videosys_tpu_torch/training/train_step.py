@@ -1,6 +1,6 @@
 """Training step: rflow loss with caption dropout, gradient accumulation,
 global-norm clipping and AdamW with warmup and cosine decay, on one device
-or over ranks (dp, sp) with ZeRO-1.
+or over ranks (dp, sp) with ZeRO-1 or ZeRO-3.
 
 Port of `videosys_tpu/training/train_step.py`. optax's chain is spelled
 out: `ClippedAdamW` scales the gradients by clip / max(norm, clip), reads
@@ -24,7 +24,18 @@ each rank keeps the AdamW moments of its 1/N slice. An update
 reduce-scatters the gradients (the sum over every rank, divided by dp: the
 sum over sp of the shares, averaged over dp), clips by the global norm (an
 all-reduce of the squared norm), steps its slice and all-gathers the
-parameters. The reported loss is the dp mean, the global batch's.
+parameters. The reported loss is the dp mean, the global batch's. The
+divisor is the dp of the step's groups (`use_groups`, or `update(dp=)`):
+under dynamic sp (`parallel.GroupsPool`) a plan's layout sets it, while
+the world axis, and so every slice, stays the same.
+
+ZeRO-3 (`make_optimizer(zero3=)`, a `training/zero3.py` sharding of the
+model): the optimizer steps the model's parameters as they are then, the
+whole small leaves and this rank's slices. The slices' gradients arrive
+reduce-scattered by the backward (the sum over every rank); the small
+leaves' are all-reduced in one flat buffer; both are divided by dp, clipped
+by the global norm (an all-reduce of the slices' squared norms, the whole
+leaves counted once) and stepped locally; nothing is gathered afterwards.
 """
 
 from __future__ import annotations
@@ -69,17 +80,21 @@ class ClippedAdamW:
 
     def __init__(self, params, schedule: Callable[[int], float],
                  weight_decay: float = 0.0, grad_clip: Optional[float] = None,
-                 groups: Optional[par.Groups] = None):
+                 groups: Optional[par.Groups] = None, zero3=None):
         self.params = [p for p in params if p.requires_grad]
         self.schedule = schedule
         self.grad_clip = grad_clip
         self.count = 0
         self.groups = groups if groups is not None and \
             groups.world_size > 1 else None
+        self.zero3 = zero3 if self.groups is not None else None
         adamw = dict(lr=schedule(0), betas=(0.9, 0.999), eps=1e-8,
                      weight_decay=weight_decay)
-        if self.groups is None:
+        if self.groups is None or self.zero3 is not None:
             self.opt = torch.optim.AdamW(self.params, **adamw)
+            if self.zero3 is not None:
+                slices = {id(s) for s in self.zero3.slices}
+                self.small = [p for p in self.params if id(p) not in slices]
             return
         n = self.groups.world_size
         total = sum(p.numel() for p in self.params)
@@ -128,9 +143,16 @@ class ClippedAdamW:
                    for st in self.opt.state.values() for k, v in st.items()
                    if k in ("exp_avg", "exp_avg_sq"))
 
-    def update(self) -> torch.Tensor:
+    def update(self, dp: Optional[int] = None) -> torch.Tensor:
+        """One step; `dp` divides the ranks' summed gradients (default: the
+        dp of the groups in force, the step's, else the optimizer's)."""
         if self.groups is not None:
-            return self._update_zero1()
+            if dp is None:
+                ax = (par.active_groups() or self.groups).axis(par.DP_AXIS)
+                dp = 1 if ax is None else ax.size
+            if self.zero3 is not None:
+                return self._update_zero3(dp)
+            return self._update_zero1(dp)
         grads = [p.grad for p in self.params if p.grad is not None]
         norm = torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(grads)).float())
@@ -145,10 +167,9 @@ class ClippedAdamW:
         return norm
 
     @torch.no_grad()
-    def _update_zero1(self) -> torch.Tensor:
+    def _update_zero1(self, dp: int) -> torch.Tensor:
         self._bind()
         world = self.groups.axis(par.WORLD_AXIS)
-        dp = self.groups.axis(par.DP_AXIS).size
         g = par.reduce_scatter_flat(self.flat_grad, world)  # a new buffer
         if dp > 1:
             g.div_(dp)
@@ -167,9 +188,87 @@ class ClippedAdamW:
         self.count += 1
         return norm
 
+    @torch.no_grad()
+    def _update_zero3(self, dp: int) -> torch.Tensor:
+        world = self.groups.axis(par.WORLD_AXIS)
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.small:  # this rank's shares of the whole leaves, summed
+            flat = par.all_reduce_flat(
+                torch.cat([p.grad.reshape(-1) for p in self.small]), world)
+            torch._foreach_copy_(
+                [p.grad for p in self.small],
+                [f.view_as(p) for f, p in zip(
+                    flat.split([p.numel() for p in self.small]), self.small)])
+        grads = [p.grad for p in self.params]
+        if dp > 1:
+            torch._foreach_div_(grads, dp)
+
+        def sq(ts):
+            return torch.stack(torch._foreach_norm(ts)).square().sum() if ts \
+                else torch.zeros((), device=self.params[0].device)
+
+        slices = sq([s.grad for s in self.zero3.slices]).reshape(1)
+        norm = (par.all_reduce_flat(slices, world)[0]
+                + sq([p.grad for p in self.small])).sqrt()
+        if self.grad_clip:
+            torch._foreach_mul_(grads, self.grad_clip
+                                / torch.clamp(norm, min=self.grad_clip))
+        for group in self.opt.param_groups:
+            group["lr"] = self.schedule(self.count)
+        self.opt.step()
+        self.opt.zero_grad(set_to_none=True)
+        self.count += 1
+        return norm
+
+    def _zero3_state_dict(self) -> dict:
+        """The world-1 layout of the moments under ZeRO-3: the slices'
+        gathered and cut into their leaves, by the whole model's order."""
+        z3 = self.zero3
+        opt = self.opt.state_dict()
+        names = dict(z3.model.named_parameters())
+        state = {}
+        first = next(iter(self.opt.state.values()), None)
+        if first is not None:
+            moments = {}
+            for k in ("exp_avg", "exp_avg_sq"):
+                local = {n: self.opt.state[p][k] for n, p in names.items()}
+                moments[k] = z3.gather_dict(local)
+            for i, name in enumerate(z3.names):
+                state[i] = {"step": first["step"].clone(),
+                            **{k: moments[k][name] for k in moments}}
+        groups = [dict(g, params=list(range(len(z3.names))))
+                  for g in opt["param_groups"]]
+        return {"opt": {"state": state, "param_groups": groups},
+                "count": self.count}
+
+    def _zero3_load_state_dict(self, state: dict) -> None:
+        z3 = self.zero3
+        opt = state["opt"]
+        names = dict(z3.model.named_parameters())
+        order = list(names)
+        groups = [dict(g, params=list(range(len(order))))
+                  for g in opt["param_groups"]]
+        local_state = {}
+        if opt["state"]:
+            step = opt["state"][0]["step"]
+            by_name = {k: {name: opt["state"][i][k]
+                           for i, name in enumerate(z3.names)}
+                       for k in ("exp_avg", "exp_avg_sq")}
+            local = {k: z3.shard_dict(v) for k, v in by_name.items()}
+            for j, name in enumerate(order):
+                local_state[j] = {"step": step, **{
+                    k: local[k][name].to(names[name].device)
+                    for k in local}}
+        self.opt.load_state_dict({"state": local_state,
+                                  "param_groups": groups})
+
     def state_dict(self) -> dict:
-        """The world-1 layout under ZeRO-1 too (the moments gathered from
-        every rank: a collective, every rank calls it)."""
+        """The world-1 layout under ZeRO-1 and ZeRO-3 too (the moments
+        gathered from every rank: a collective, every rank calls it)."""
+        if self.zero3 is not None:
+            return self._zero3_state_dict()
         if self.groups is None:
             return {"opt": self.opt.state_dict(), "count": self.count}
         opt = self.opt.state_dict()
@@ -192,9 +291,12 @@ class ClippedAdamW:
                 "count": self.count}
 
     def load_state_dict(self, state: dict) -> None:
-        """Loads the world-1 layout; under ZeRO-1 each rank keeps its slice
-        of the moments."""
+        """Loads the world-1 layout; under ZeRO-1 and ZeRO-3 each rank keeps
+        its slice of the moments."""
         self.count = int(state["count"])
+        if self.zero3 is not None:
+            self._zero3_load_state_dict(state)
+            return
         if self.groups is None:
             self.opt.load_state_dict(state["opt"])
             return
@@ -222,13 +324,16 @@ def make_optimizer(params, lr: float = 1e-4, weight_decay: float = 0.0,
                    warmup_steps: int = 1000, grad_clip: Optional[float] = None,
                    decay_steps: Optional[int] = None,
                    lr_min_ratio: float = 0.1,
-                   groups: Optional[par.Groups] = None) -> ClippedAdamW:
+                   groups: Optional[par.Groups] = None,
+                   zero3=None) -> ClippedAdamW:
     """AdamW over `params` (a module's parameters) with linear warmup, an
-    optional cosine decay and global-norm clipping; ZeRO-1 over `groups`."""
+    optional cosine decay and global-norm clipping; ZeRO-1 over `groups`,
+    or ZeRO-3 with `zero3` (the `training/zero3.py` sharding of the model
+    whose parameters `params` are)."""
     return ClippedAdamW(params,
                         lr_schedule(lr, warmup_steps, decay_steps, lr_min_ratio),
                         weight_decay=weight_decay, grad_clip=grad_clip,
-                        groups=groups)
+                        groups=groups, zero3=zero3)
 
 
 @dataclasses.dataclass
@@ -264,6 +369,12 @@ def _make_loss_fn(model, scheduler: RFlowScheduler, height: float,
     def loss_fn(batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None,
                 drop=None, t=None, noise=None):
+        # under ZeRO-3 the rest of the model (the null caption among it) is
+        # gathered once for the whole loss
+        with model.unit_params(model.config.depth):
+            return _loss(batch, generator, drop, t, noise)
+
+    def _loss(batch, generator, drop, t, noise):
         y = batch["y"]
         if class_dropout_prob > 0:
             if drop is None:
@@ -295,11 +406,23 @@ def _dp_mean(loss: torch.Tensor) -> torch.Tensor:
     return par.all_reduce(loss, par.DP_AXIS, "mean")
 
 
+def _check_zero3(zero3: bool, model, groups: Optional[par.Groups]) -> None:
+    """`zero3` must say whether the model is sharded (ZeRO-3 shards nothing
+    at one rank)."""
+    sharded = getattr(model, "zero3", None) is not None
+    over_ranks = groups is not None and groups.world_size > 1
+    if sharded != (zero3 and over_ranks):
+        raise ValueError(
+            f"zero3={zero3} over {groups.world_size if over_ranks else 1} "
+            f"rank(s), but the model is {'' if sharded else 'not '}sharded "
+            f"(training/zero3.py shard_model)")
+
+
 def make_train_step(model, scheduler: RFlowScheduler, tx: ClippedAdamW,
                     height: float, width: float,
                     num_frames: Optional[int] = None, gas: int = 1,
                     class_dropout_prob: float = 0.1,
-                    groups: Optional[par.Groups] = None):
+                    groups: Optional[par.Groups] = None, zero3: bool = False):
     """Returns `train_step(state, generator, batch) -> (state, metrics)`.
 
     batch: dict(x [B,C,T,H,W] latents, y [B,L,Dc], kv_mask [B,L], fps [B],
@@ -310,7 +433,10 @@ def make_train_step(model, scheduler: RFlowScheduler, tx: ClippedAdamW,
     loss, and grad_norm as it was before clipping, both tensors. Keyword
     draws (`drop`, `t`, `noise`; with a leading gas axis when gas > 1)
     replace the generator's. `groups`: this rank's (dp, sp) groups; the
-    batch and the draws are its dp share, the metrics the global batch's."""
+    batch and the draws are its dp share, the metrics the global batch's.
+    `zero3`: the model's parameters are sharded (`training/zero3.py`) and
+    `tx` steps the slices (JAX `make_train_step(zero3=True)`)."""
+    _check_zero3(zero3, model, groups)
     loss_fn = _make_loss_fn(model, scheduler, height, width, num_frames,
                             class_dropout_prob, groups)
 
@@ -329,7 +455,7 @@ def make_train_step(model, scheduler: RFlowScheduler, tx: ClippedAdamW,
                     (li / gas).backward()  # .grad accumulates the mean
                     losses.append(li.detach())
                 loss = torch.stack(losses).mean()
-            gnorm = tx.update()
+            gnorm = tx.update()  # divided by the dp of `groups`
             loss = _dp_mean(loss)
         state.step += 1
         return state, {"loss": loss, "grad_norm": gnorm}
@@ -340,12 +466,14 @@ def make_train_step(model, scheduler: RFlowScheduler, tx: ClippedAdamW,
 def make_grad_step(model, scheduler: RFlowScheduler, height: float,
                    width: float, num_frames: int,
                    class_dropout_prob: float = 0.1,
-                   groups: Optional[par.Groups] = None):
+                   groups: Optional[par.Groups] = None, zero3: bool = False):
     """`grad_step(generator, batch) -> (loss, grads)`: the gradient half of
     a step, for callers that accumulate over several plans before one
     update. grads: {parameter name: tensor} (under `groups` this rank's
-    share, which the update reduces); the loss the global batch's; `.grad`
-    is left untouched."""
+    share, which the update reduces; under ZeRO-3 the slices' already
+    summed over the ranks); the loss the global batch's; `.grad` is left
+    untouched."""
+    _check_zero3(zero3, model, groups)
     loss_fn = _make_loss_fn(model, scheduler, height, width, num_frames,
                             class_dropout_prob, groups)
 
@@ -362,16 +490,22 @@ def make_grad_step(model, scheduler: RFlowScheduler, height: float,
     return grad_step
 
 
-def make_apply_step(tx: ClippedAdamW):
-    """`apply_step(state, grads, n_plans) -> (state, metrics)`: one update
-    from gradients summed over `n_plans` evaluations."""
+def make_apply_step(tx: ClippedAdamW, zero3: bool = False):
+    """`apply_step(state, grads, n_plans, dp=None) -> (state, metrics)`: one
+    update from gradients summed over `n_plans` evaluations; `dp` divides
+    the ranks' sums (default the optimizer's dp; 1 where the caller divided
+    each plan's by the dp of its own layout). `zero3` as `make_train_step`."""
+    if zero3 != (tx.zero3 is not None) and tx.groups is not None:
+        raise ValueError(f"zero3={zero3}, but the optimizer "
+                         f"{'shards' if tx.zero3 else 'does not shard'} "
+                         f"the parameters")
 
     def apply_step(state: TrainState, grads: Dict[str, torch.Tensor],
-                   n_plans):
+                   n_plans, dp: Optional[int] = None):
         for name, p in state.model.named_parameters():
             if name in grads:
                 p.grad = grads[name] / n_plans
-        gnorm = tx.update()
+        gnorm = tx.update() if dp is None else tx.update(dp)
         state.step += 1
         return state, {"grad_norm": gnorm}
 
