@@ -5,9 +5,9 @@ card (an H100 is the target).
     python3 chip_smoke.py [--steps N] [--phases latte,open_sora_plan]
 
 Phases, each fatal on failure:
-  1. build the flash-attention kernels from csrc/ (forward, fp32 backward,
-     fused backward, dk/dv backward, dq backward: one nvcc each, started
-     together) and print the card;
+  1. build the flash-attention kernels from csrc/ (forward, long-row
+     forward, fp32 backward, fused backward, dk/dv backward, dq backward:
+     one nvcc each, started together) and print the card;
   2. hold the forward kernels against their plain PyTorch version at the main
      path's shapes (STDiT3 spatial and cross attention on the narrow wgmma
      kernel, temporal attention on the short-row kernel, the VAE mid
@@ -17,7 +17,11 @@ Phases, each fatal on failure:
      narrow kernels (rows and keys around 16, 64 and 128, head widths 32 to
      128, a fully masked row, the log-sum-exp output) and of the wide kernel
      (a key mask and the log-sum-exp output at D = 512 with 6360 q rows,
-     D = 256, a head that is no multiple of 8);
+     D = 256, a head that is no multiple of 8); then `flash_fwd_long` (rows
+     of more than 4096 keys at heads up to 128) against its plain version
+     at short rows with ragged q and key tails (4097 keys and more), a
+     ragged key mask with a fully masked row, the log-sum-exp, bf16 and
+     fp16, D = 64, 72, 96 and 128 and the partly filled widths 40, 88, 120;
   3. serve Open-Sora v1.2 text-to-video at full width (STDiT3-XL/2, depth
      28, hidden 1152; the full VAE) with random weights from a seed: one
      480p 9:16 2 s video and one 144p 1:1 image; the 480p request again
@@ -55,7 +59,9 @@ Phases, each fatal on failure:
      versions at the training path's shapes (spatial 144p x 51 frames batch
      4 and 240p x 51 frames batch 2, temporal, cross attention to 8 and to
      300 text tokens with a ragged mask, and the 8160-token row of a 1080p
-     image), each on the backward `backward_variant` picks, in fp32 and
+     image, whose forward and log-sum-exp come from `flash_fwd_long`, also
+     held and timed as a forward), each on the backward `backward_variant`
+     picks, in fp32 and
      bf16, and time them beside the plain version, the backward of torch's
      scaled_dot_product_attention and the route passed up ("bwd dispatch");
      then the fused backward's edges (1, 15,
@@ -79,7 +85,7 @@ Phases, each fatal on failure:
      text encoder: the 2b (30 layers, 30 heads of 64, 3D sincos) over 50
      DDIM steps, dense and with PAB (timers, peak memory per phase, launches
      against the plans), the 5b (42 layers, 48 heads, 3D RoPE) with DPM and
-     dynamic CFG over `--cog5b-steps`; then hold the narrow forward at both
+     dynamic CFG over `--cog5b-steps`; then hold the long forward at both
      joint-attention shapes, [2, 30 | 48, 17776, 17776, 64] bf16, against
      its plain version computed in 1024-row chunks over sampled heads, and
      time it beside the chunked plain version and torch's SDPA
@@ -119,9 +125,9 @@ Phases, each fatal on failure:
      one step and its whole tiled decode of 93 frames, and v1.1 (28 pairs
      with RoPE, PNDM over OSP_V110_STEPS) at 65 x 512 x 512 with its pre-fix
      VAE attention, each tiled causal-VAE decode's launches counted tile by
-     tile; then the narrow forward at head_dim 96 ([2, 24, 9600 | 28800,
-     same, 96], in 1024-row chunks over sampled heads, and the
-     cross-attention), at the 17-key temporal rows, and the wide forward
+     tile; then the long forward at head_dim 96 ([2, 24, 9600 | 28800,
+     same, 96], in 1024-row chunks over sampled heads), the narrow forward
+     at the cross-attention and the 17-key temporal rows, and the wide forward
      at the causal VAE's tile rows, each against its plain version and
      timed beside torch's SDPA; tiny v1.1 and v1.2 pipelines on the card
      against the CPU (fp32).
@@ -258,7 +264,9 @@ BF16_LIMITS = {**BF16_KIND, "vae_mid": (6.5e-3, 1.5e-2),
                # CogVideoX's joint attention, 17,776 keys at D = 64, read
                # on an H100: kernel 3.11e-3, 5.88e-3 (2b) and 3.17e-3,
                # 6.21e-3 (5b); one key dropped 7.28e-3, 4.19e-2 and
-               # 8.84e-3, 1.69e-1
+               # 8.84e-3, 1.69e-1. The long kernel against its own plain
+               # version (128-key tiles): 3.68e-4, 2.94e-3 and 3.74e-4,
+               # 3.09e-3
                "cog2b": (6.5e-3, 1.5e-2), "cog5b": (6.5e-3, 1.5e-2),
                # the VAE encoder's mid attention at training buckets: the
                # wide kernel of "vae_mid", held at its limits
@@ -266,7 +274,9 @@ BF16_LIMITS = {**BF16_KIND, "vae_mid": (6.5e-3, 1.5e-2),
                # Latte and Open-Sora-Plan, read on an H100 (kernel; one key
                # dropped): narrow at head_dim 96, 9,600 keys 3.16e-3,
                # 5.41e-3 (1.09e-2, 0.100), 28,800 keys 3.66e-3, 4.27e-3
-               # (6.55e-3, 0.136), the cross-attention 2.94e-3, 4.83e-3
+               # (6.55e-3, 0.136); the long kernel against its own plain
+               # version 3.23e-4, 5.41e-3 and 4.59e-4, 4.27e-3 (7.14e-3,
+               # 0.136); the cross-attention 2.94e-3, 4.83e-3
                # (0.230, 0.873); the 17-key temporal rows 2.94e-3, 4.79e-3
                # (0.257, 0.891); the wide forward at the causal VAE's
                # tiles 3.05e-3, 4.10e-3 (3.14e-2, 0.139) and its v1.1 rows
@@ -310,6 +320,9 @@ BF16_LIMITS = {**BF16_KIND, "vae_mid": (6.5e-3, 1.5e-2),
                # one rank's rows in the other families' worlds: the limits
                # of the family's own rows of the same kind
                "sp2_cog2b": (6.5e-3, 1.5e-2), "sp2_osp120": (6.5e-3, 1.5e-2),
+               # the 1080p training row's forward (the long kernel at D =
+               # 72): the limits of the long rows of the same kind
+               "train1080": (6.5e-3, 1.5e-2),
                "sp2_osp120_cross": (6.5e-3, 1.5e-2),
                **{f"sp2_{f}_{k}": BF16_KIND[k]
                   for f in ("latte", "osp110", "vchitect")
@@ -425,6 +438,7 @@ def kernel_phase(fa, text_len: int) -> dict:
         ("vae_mid", 8, 1, 6360, 6360, 512, False)], seed=0)
     results["narrow_edges"] = narrow_forward_edges(fa)
     results["wgmma_edges"] = wide_forward_edges(fa)
+    results["long_edges"] = long_forward_edges(fa)
     return results
 
 
@@ -575,6 +589,67 @@ def wide_forward_edges(fa) -> dict:
             raise AssertionError(f"wgmma forward disagrees with plain at D={D}")
         out[f"{B}x{H}x{Nq}x{Nk}x{D}"] = {"rel_l2": l2, "rel_max": mx,
                                          "lse_err": lse_err}
+    return out
+
+
+# the source of each forward variant the kernel report names
+FWD_SOURCES = {key: "videosys_tpu_torch/csrc/flash_fwd.cu"
+               for key in ("short", "narrow", "wgmma", "f32")}
+FWD_SOURCES["long"] = "videosys_tpu_torch/csrc/flash_fwd_long.cu"
+# fp16 outputs of the long forward (rel_l2, rel_max): the fp16 limits of
+# tests/test_torch_port_kernel.py (HALF_LIMITS), set from H100 readings
+FP16_LIMITS = (1e-3, 2e-3)
+
+
+def long_forward_edges(fa) -> dict:
+    """`flash_fwd_long` at the edges its design brings, against its plain
+    version (`flash_attention_long_plain`): q rows and keys that are no
+    multiple of its 128-row tiles, the first row it takes (4097 keys), each
+    padded width (D = 64, 72, 96, 128) and heads that fill their padded
+    width's copies only in part (D = 40 of 64, 88 of 96, 120 of 128), a
+    ragged key mask whose last batch row is fully masked, the log-sum-exp,
+    bf16 (the spatial limits) and fp16 (FP16_LIMITS)."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(18)
+    out = {}
+    for B, H, Nq, Nk, D, dtype in (
+            (2, 2, 200, 4097, 64, torch.bfloat16),
+            (2, 2, 130, 4200, 72, torch.float16),
+            (3, 1, 129, 4500, 96, torch.bfloat16),
+            (2, 1, 64, 5000, 128, torch.float16),
+            (2, 2, 300, 4352, 96, torch.float16),
+            (2, 1, 1, 4097, 72, torch.bfloat16),
+            (2, 2, 200, 4300, 40, torch.bfloat16),
+            (2, 1, 130, 4400, 88, torch.float16),
+            (2, 2, 129, 4240, 120, torch.bfloat16)):
+        q, k, v = (torch.randn(B, H, n, D, device="cuda", generator=gen)
+                   .to(dtype) for n in (Nq, Nk, Nk))
+        mask = ragged_mask(B, Nk, gen)
+        mask[-1] = False
+        variant = fa.kernel_variant(dtype, Nq, Nk, D)
+        if variant != "long":
+            raise AssertionError(f"{[Nq, Nk, D]}: expected the long forward, "
+                                 f"the dispatch says {variant}")
+        want, want_lse = fa.flash_attention_long_plain(q, k, v, None, mask,
+                                                       return_lse=True)
+        lim_l2, lim_mx = BF16_LIMITS["spatial"] if dtype == torch.bfloat16 \
+            else FP16_LIMITS
+        got, lse = fa.flash_fwd_long(q, k, v, None, mask, save_lse=True)
+        torch.cuda.synchronize()
+        l2, mx = rel_errors(got, want)
+        lse_err = (lse - want_lse).abs().max().item()
+        ok = l2 <= lim_l2 and mx <= lim_mx and lse_err <= F32_GRAD_TOL \
+            and bool(torch.isfinite(got).all())
+        log(f"kernel edge long   {str(dtype)[6:]:8s} shape="
+            f"{[B, H, Nq, Nk, D]} masked, last row dead rel_l2={l2:.3e} "
+            f"rel_max={mx:.3e} lse_err={lse_err:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the long forward disagrees with its plain "
+                                 f"version at {[B, H, Nq, Nk, D]}")
+        out[f"{B}x{H}x{Nq}x{Nk}x{D}_{str(dtype)[6:]}"] = {
+            "rel_l2": l2, "rel_max": mx, "lse_err": lse_err}
     return out
 
 
@@ -1729,6 +1804,9 @@ def backward_kernel_phase(fa, shapes=None) -> dict:
         results["fused_edges"] = fused_backward_edges(fa)
         results["dkv_edges"] = dkv_edges(fa)
         results["dq_edges"] = dq_edges(fa)
+        # the forward of the 1080p row, whose log-sum-exp the pair reads:
+        # the long kernel
+        results["train1080"] = long_row(fa, "train1080", 1, 16, 8160, 72, gen)
     return results
 
 
@@ -1787,7 +1865,8 @@ class no_fallback:
     own attention raise: nothing may take their route."""
 
     NAMES = ("flash_attention_plain", "flash_attention_bwd_plain",
-             "flash_attention_bwd_lse_plain")
+             "flash_attention_bwd_lse_plain", "flash_attention_long_plain",
+             "flash_attention_by_key_tiles_plain")
 
     def __init__(self, fa):
         self.fa = fa
@@ -2009,20 +2088,20 @@ COG_CHUNK = 1024
 
 
 def long_row(fa, name: str, B: int, H: int, N: int, D: int, gen) -> dict:
-    """`flash_fwd_narrow` on one self-attention of N keys, [B, H, N, N, D]
-    bf16: against the plain version in COG_CHUNK-row chunks over a sample
-    of (batch, head) pairs that includes the last, held by check_bf16
-    (BF16_LIMITS[name]) with a plain version that drops the last key as the
-    fault; timed beside the chunked plain version over the whole shape and
-    torch's scaled_dot_product_attention (a yardstick the port never
-    calls)."""
+    """`flash_fwd_long` on one self-attention of N keys (more than 4096),
+    [B, H, N, N, D] bf16: against its plain version (the online softmax over
+    128-key tiles) in COG_CHUNK-row chunks over a sample of (batch, head)
+    pairs that includes the last, held by check_bf16 (BF16_LIMITS[name])
+    with a plain version that drops the last key as the fault; timed beside
+    the chunked plain version over the whole shape and torch's
+    scaled_dot_product_attention (a yardstick the port never calls)."""
     import torch
     import torch.nn.functional as F
 
     q, k, v = (torch.randn(B, H, N, D, device="cuda", generator=gen)
                .bfloat16() for _ in range(3))
     variant = fa.kernel_variant(q.dtype, N, N, D)
-    if variant != "narrow":
+    if variant != "long":
         raise AssertionError(f"{name}: dispatch says {variant}")
     got = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
@@ -2033,7 +2112,7 @@ def long_row(fa, name: str, B: int, H: int, N: int, D: int, gen) -> dict:
         qs, ks, vs = (t[b:b + 1, h:h + 1] for t in (q, k, v))
         for r0 in range(0, N, COG_CHUNK):
             qc = qs[:, :, r0:r0 + COG_CHUNK]
-            wants.append(fa.flash_attention_plain(qc, ks, vs))
+            wants.append(fa.flash_attention_long_plain(qc, ks, vs))
             faults.append(fa.flash_attention_plain(qc, ks, vs, kv_mask=drop))
         outs.append(got[b:b + 1, h:h + 1])
     want = torch.cat(wants, dim=2).reshape(-1, D)
@@ -2046,7 +2125,7 @@ def long_row(fa, name: str, B: int, H: int, N: int, D: int, gen) -> dict:
 
     def plain_chunked():
         for r0 in range(0, N, COG_CHUNK):
-            fa.flash_attention_plain(q[:, :, r0:r0 + COG_CHUNK], k, v)
+            fa.flash_attention_long_plain(q[:, :, r0:r0 + COG_CHUNK], k, v)
 
     row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v), 5)
     row["plain_ms"] = time_ms(plain_chunked, 1)
@@ -2069,7 +2148,7 @@ def long_row(fa, name: str, B: int, H: int, N: int, D: int, gen) -> dict:
 
 
 def cog_kernel_phase(fa) -> dict:
-    """`flash_fwd_narrow` at the joint attention of a 49 x 480 x 720
+    """`flash_fwd_long` at the joint attention of a 49 x 480 x 720
     request, [2, H, 17776, 17776, 64] bf16 (226 text + 13 * 30 * 45 video
     tokens, CFG batch 2), for the 2b (H = 30) and 5b (H = 48) widths
     (`long_row`)."""
@@ -2108,7 +2187,7 @@ def cog_request(fa, engine, label: str, steps: int, seed: int, plans=None,
     """One `generate` of the 49 x 480 x 720 request with the launch counts
     set to 0 just before it and read just after, held against the plans:
     one joint attention a layer and step, less the steps whose plan reads
-    it from the PAB cache, all on `narrow`; the VAE has no attention."""
+    it from the PAB cache, all on `long`; the VAE has no attention."""
     import numpy as np
     import torch
 
@@ -2268,7 +2347,7 @@ def cogvideox_phase(fa, seed: int, steps_5b: int,
     """CogVideoX text-to-video at its published widths and full depth,
     random weights from `seed`, the stub text encoder (226 tokens): the 2b
     over 50 DDIM steps, dense and with PAB; the 5b with DPM and dynamic CFG
-    over `steps_5b` steps; then the narrow forward at both joint-attention
+    over `steps_5b` steps; then the long forward at both joint-attention
     shapes against its plain version (`cog_kernel_phase`)."""
     import numpy as np
     import torch
@@ -5707,23 +5786,37 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"]})
-    # the narrow forward at CogVideoX's joint attention (the TPU takes it
-    # to the blocked kernel: more than 4096 keys), launches from each
-    # width's request
+    # the long forward at CogVideoX's joint attention (the TPU takes it to
+    # the blocked kernel: more than 4096 keys), launches from each width's
+    # request
     for name in COG_WIDTHS:
         r = cog["kernel"][name]
-        n = cog["launches"][name]["narrow"]
+        n = cog["launches"][name]["long"]
         if n <= 0:
             raise AssertionError(f"CogVideoX-{name} never launched "
-                                 f"flash_fwd_narrow")
+                                 f"flash_fwd_long")
         kernels.append({
-            "name": "flash_fwd_narrow", "route": "cuda",
-            "source": "videosys_tpu_torch/csrc/flash_fwd.cu",
+            "name": "flash_fwd_long", "route": "cuda",
+            "source": FWD_SOURCES["long"],
             "replaces": "videosys_tpu/ops/flash_attention.py:49",
             "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"]})
+    # the long forward at the 1080p training row, launches from the
+    # training path (its 1080p image step)
+    r = bwd_shapes["train1080"]
+    if trained["launches"]["long"] <= 0:
+        raise AssertionError("training never launched flash_fwd_long")
+    kernels.append({
+        "name": "flash_fwd_long", "route": "cuda",
+        "source": FWD_SOURCES["long"],
+        "replaces": "videosys_tpu/ops/flash_attention.py:49",
+        "launches": trained["launches"]["long"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "shape": r["shape"]})
     # the backward kernels, launches from the training path (bf16)
     fused_src = "videosys_tpu_torch/csrc/flash_bwd_fused.cu"
     dkv_src = "videosys_tpu_torch/csrc/flash_bwd_dkv.cu"
@@ -5779,15 +5872,15 @@ def main(argv=None) -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"]})
     # the new shapes of Latte and Open-Sora-Plan, launches from the request
-    # that runs them: the narrow forward at head_dim 96 (more than 4096 keys
-    # go to the blocked kernel on the TPU), at the 17-key temporal rows and
-    # the cross-attention, and at the LatteT2V rows of Latte-1 and v1.1; the
-    # short forward at Latte's 16-frame temporal rows; the wide forward at
-    # the VAEs' mid attention
+    # that runs them: the long forward at head_dim 96 (more than 4096 keys
+    # go to the blocked kernel on the TPU), the narrow forward at the 17-key
+    # temporal rows and the cross-attention, and at the LatteT2V rows of
+    # Latte-1 and v1.1; the short forward at Latte's 16-frame temporal rows;
+    # the wide forward at the VAEs' mid attention
     for r, request, key, replaces in (
             (latte["kernel"]["latte_vae_mid"], latte["dense"], "wgmma", 49),
-            (osp["kernel"]["osp480"], osp["29x480p"]["dense"], "narrow", 49),
-            (osp["kernel"]["osp93"], osp["93x480p"]["dense"], "narrow", 49),
+            (osp["kernel"]["osp480"], osp["29x480p"]["dense"], "long", 49),
+            (osp["kernel"]["osp93"], osp["93x480p"]["dense"], "long", 49),
             (osp["kernel"]["osp_cross"], osp["29x480p"]["dense"], "narrow", 125),
             (osp["kernel"]["temporal17"], osp["65x512x512"]["dense"], "narrow",
              125),
@@ -5814,8 +5907,8 @@ def main(argv=None) -> int:
                                  f"flash_fwd_{key}")
         kernels.append({
             "name": {"wgmma": "flash_fwd_wide", "narrow": "flash_fwd_narrow",
-                     "short": "flash_fwd_short"}[key],
-            "route": "cuda", "source": "videosys_tpu_torch/csrc/flash_fwd.cu",
+                     "short": "flash_fwd_short", "long": "flash_fwd_long"}[key],
+            "route": "cuda", "source": FWD_SOURCES[key],
             "replaces": f"videosys_tpu/ops/flash_attention.py:{replaces}",
             "launches": n, "max_abs_err": r.get("max_abs_err",
                                                 r.get("max_abs_err_bf16")),
@@ -5852,7 +5945,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"world {r['world']} never launched {name}")
         kernels.append({
             "name": f"flash_fwd_{r['variant']}", "route": "cuda",
-            "source": "videosys_tpu_torch/csrc/flash_fwd.cu",
+            "source": FWD_SOURCES[r["variant"]],
             "replaces": "videosys_tpu/ops/flash_attention.py:"
                         + ("49" if r["shape"][3] > 4096 else "125"),
             "launches": r["launches"],

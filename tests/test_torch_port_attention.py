@@ -77,6 +77,24 @@ def test_blocked_length_matches_jax():
     np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=F32_TOL)
 
 
+@pytest.mark.parametrize("D", [64, 96])
+def test_long_rows_match_jax(D):
+    """Nk > 4096 at the head widths of CogVideoX and Open-Sora-Plan v1.2
+    (the rows `flash_fwd_long` takes on the card): the JAX package's blocked
+    kernel in interpret mode against the CPU dispatch and the long kernel's
+    plain version, under a ragged text mask."""
+    q, k, v = _inputs(1, 2, 64, 4200, D, seed=6)
+    mask = _ragged_mask(1, 4200)
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), kv_mask=jnp.asarray(mask),
+                                interpret=True))
+    assert port_flash.kernel_variant(torch.bfloat16, 64, 4200, D) == "long"
+    for fn in (port_flash.flash_attention,
+               port_flash.flash_attention_long_plain):
+        got = _port(fn, q, k, v, mask)
+        np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=F32_TOL)
+
+
 def test_bf16_matches_jax():
     q, k, v = _inputs(1, 2, 256, 256, 72, seed=4)
     bf = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]

@@ -170,6 +170,70 @@ def test_forward_log_sum_exp_of_every_variant(card, dtype, Nq, Nk, D):
     check_forward(dtype, 3, 2, Nq, Nk, D, True)
 
 
+# flash_fwd_long's edges: ragged q and key tails past its 128-row tiles,
+# the first long row (4097 keys), each padded width (64, 80, 96, 128), and
+# heads that fill their padded width's copies only in part (D = 40 of 64,
+# 88 of 96's three blocks, 120 of 128)
+LONG_SHAPES = [(1, 2, 130, 4200, 64), (2, 2, 200, 4097, 72),
+               (1, 2, 129, 4500, 96), (2, 1, 64, 5000, 128),
+               (1, 2, 200, 4300, 40), (2, 1, 130, 4400, 88),
+               (1, 2, 129, 4240, 120)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,H,Nq,Nk,D", LONG_SHAPES)
+def test_long_forward_matches_plain(card, B, H, Nq, Nk, D, dtype, masked):
+    """`flash_fwd_long`, output and log-sum-exp against its plain version
+    (the online softmax over 128-key tiles); with `masked` a ragged key mask
+    whose last batch row is fully masked."""
+    q, k, v, mask = inputs(dtype, B, H, Nq, Nk, D, masked)
+    assert fa.kernel_variant(dtype, Nq, Nk, D) == "long"
+    fa.reset_launches()
+    out, lse = fa.flash_fwd_long(q, k, v, None, mask, save_lse=True)
+    assert fa.LAUNCHES["long"] == 1
+    want, want_lse = fa.flash_attention_long_plain(q, k, v, None, mask,
+                                                   return_lse=True)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(lse, want_lse, atol=F32_GRAD_TOL, rtol=1e-5)
+    err = rel_errors(out, want)
+    lim_l2, lim_max = HALF_LIMITS[dtype]
+    assert err["rel_l2"] <= lim_l2 and err["rel_max"] <= lim_max, err
+
+
+@pytest.mark.cuda
+def test_long_forward_takes_short_rows(card):
+    """The kernel itself takes any key count: 300 and 130 keys (one and two
+    tiles) against its plain version."""
+    for Nq, Nk in ((300, 300), (77, 130)):
+        q, k, v, mask = inputs(torch.bfloat16, 2, 1, Nq, Nk, 80, True)
+        out, lse = fa.flash_fwd_long(q, k, v, None, mask, save_lse=True)
+        want, want_lse = fa.flash_attention_long_plain(q, k, v, None, mask,
+                                                       return_lse=True)
+        torch.testing.assert_close(lse, want_lse, atol=F32_GRAD_TOL,
+                                   rtol=1e-5)
+        err = rel_errors(out, want)
+        lim_l2, lim_max = HALF_LIMITS[torch.bfloat16]
+        assert err["rel_l2"] <= lim_l2 and err["rel_max"] <= lim_max, err
+
+
+@pytest.mark.cuda
+def test_long_forward_refuses_what_tma_cannot_copy(card):
+    """A CUDA tensor routed to the long kernel launches it or raises: fp32,
+    D % 8 != 0 and a misaligned row raise, none falls back."""
+    q = torch.zeros(1, 1, 8, 64, device="cuda", dtype=torch.float32)
+    with pytest.raises(ValueError):
+        fa.flash_fwd_long(q, q, q)
+    q = torch.zeros(1, 1, 8, 76, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_fwd_long(q, q, q)
+    flat = torch.zeros(8 * 64 + 4, device="cuda", dtype=torch.bfloat16)
+    q = flat[4:].view(1, 1, 8, 64)
+    with pytest.raises(ValueError):
+        fa.flash_fwd_long(q, q, q)
+
+
 @pytest.mark.cuda
 def test_dispatch_never_sends_cuda_to_plain(card, monkeypatch):
     from videosys_tpu_torch.ops.attention import scaled_dot_product_attention
@@ -476,12 +540,15 @@ def test_python_mirrors_of_the_kernels_formulas(card):
         assert kinds[lib.flash_bwd_fused_mma_kind(Nq, Nk, 72)] == \
             fa.fused_kind(Nq, Nk, torch.bfloat16)
     fwd = fa._library("fwd")
-    variants = {0: "f32", 1: "short", 2: "narrow", 3: "wgmma"}
+    variants = {0: "f32", 1: "short", 2: "narrow", 3: "wgmma", 4: "long"}
     for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1),
                         (torch.float16, 2)):
         for Nq, Nk, D in ((15, 15, 72), (16, 16, 128), (17, 16, 72),
                           (16, 17, 72), (1590, 1590, 72), (15, 15, 129),
-                          (6360, 6360, 512), (1, 1, 1)):
+                          (6360, 6360, 512), (1, 1, 1), (4096, 4096, 72),
+                          (4097, 4097, 72), (17776, 17776, 64),
+                          (9600, 9600, 96), (8160, 8160, 76),
+                          (34920, 333, 64), (64, 4200, 128)):
             assert variants[fwd.flash_fwd_variant(code, Nq, Nk, D)] == \
                 fa.kernel_variant(dtype, Nq, Nk, D)
     for D in (8, 32, 33, 64, 72, 80, 81, 128):
@@ -493,6 +560,9 @@ def test_python_mirrors_of_the_kernels_formulas(card):
             fa.dq_smem_bytes(D)
     for D in (129, 256, 257, 512):
         assert fwd.flash_fwd_smem(3, D) == fa.wide_smem_bytes(D)
+    long = fa._library("fwd_long")
+    for D in range(8, 129, 8):
+        assert long.flash_fwd_long_smem(D) == fa.long_smem_bytes(D)
 
 
 if __name__ == "__main__":

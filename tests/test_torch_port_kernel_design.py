@@ -46,6 +46,15 @@ BF16, FP16, FP32 = torch.bfloat16, torch.float16, torch.float32
     (FP32, 15, 15, 72, "f32"), (FP32, 16, 16, 128, "f32"),
     # cross attention: 1590 queries against a bucketed caption
     (BF16, 1590, 64, 72, "narrow"), (BF16, 1590, 16, 72, "narrow"),
+    # more than SINGLE_PASS_MAX_KV keys: CogVideoX's joint rows, Open-Sora-
+    # Plan v1.2's self-attention, the 1080p training row; the JAX line at
+    # 4096 keys; Vchitect's cross rows (333 keys) stay on narrow, and so
+    # does a long row whose D % 8 != 0 (TMA copies 16-byte rows)
+    (BF16, 17776, 17776, 64, "long"), (BF16, 9600, 9600, 96, "long"),
+    (FP16, 8160, 8160, 72, "long"), (BF16, 4096, 4096, 72, "narrow"),
+    (BF16, 4097, 4097, 72, "long"), (BF16, 34920, 333, 64, "narrow"),
+    (BF16, 64, 4200, 128, "long"), (BF16, 8160, 8160, 76, "narrow"),
+    (FP32, 17776, 17776, 64, "f32"), (BF16, 9600, 9600, 129, "wgmma"),
 ])
 def test_forward_route_by_head_dim(dtype, Nq, Nk, D, want):
     assert fa.kernel_variant(dtype, Nq, Nk, D) == want
@@ -66,6 +75,34 @@ def test_redesigned_kernels_shared_memory(fn, D):
     n = fn(D)
     assert 0 < n <= SMEM_LIMIT
     assert n <= fn(128)  # a wider head never asks for less
+
+
+@pytest.mark.parametrize("D", range(8, 129, 8))
+def test_long_forward_shared_memory(D):
+    """`flash_fwd_long` at every head width it takes: within the 227 KB a
+    block may ask for, never less for a wider head, at least two K/V stages,
+    and one block an SM, as its design states (its warpgroups fill the
+    register file: 128 * 24 + 256 * 240 or 128 * 32 + 384 * 160)."""
+    n = fa.long_smem_bytes(D)
+    assert 0 < n <= SMEM_LIMIT
+    assert all(n <= fa.long_smem_bytes(w) for w in range(D, 129, 8))
+    assert 2 <= fa.long_stages(D) <= fa.LONG_MAX_STAGES
+    assert n + 1024 <= SM_SMEM < 2 * (n + 1024)
+
+
+@pytest.mark.parametrize("D,consumers,stages", [(64, 3, 4), (72, 2, 4),
+                                                (96, 2, 4), (128, 2, 3)])
+def test_long_forward_ring(D, consumers, stages):
+    """Q of 64 rows a consumer warpgroup (three at 64 padded columns, two
+    above) and `stages` stages of a K and a V tile of 128 keys at the
+    head's own width (D = 96 is not padded to 128), 128 key flags and four
+    8-byte mbarriers a stage, one mbarrier for Q."""
+    dp = fa._long_width(D)
+    assert dp == {64: 64, 72: 80, 96: 96, 128: 128}[D]
+    assert fa.long_consumers(D) == consumers
+    assert fa.long_stages(D) == stages
+    assert fa.long_smem_bytes(D) == 64 * consumers * dp * 2 + stages * (
+        2 * fa.LONG_KEYS * dp * 2 + fa.LONG_KEYS + 4 * 8) + 8
 
 
 @pytest.mark.parametrize("D,blocks", [(32, 2), (64, 2), (72, 2), (80, 2),
@@ -291,6 +328,62 @@ def test_key_tile_forward_matches_jax_kernels(B, H, Nq, Nk, D, lens, save_lse):
     if save_lse:
         np.testing.assert_allclose(lse.numpy(), want_lse, atol=1e-5,
                                    rtol=1e-5)
+
+
+# rows of more than 4096 keys (flash_fwd_long's): ragged q and key tails,
+# the first long row, a ragged mask, a fully masked row, each padded width
+LONG_CASES = [
+    # B, H, Nq, Nk, D, real lengths (None: no mask; 0: a fully masked row)
+    (1, 2, 64, 4200, 64, None),
+    (2, 1, 130, 4097, 72, (4097, 1000)),
+    (2, 1, 70, 4500, 96, (4500, 0)),
+    (1, 1, 129, 4224, 128, None),
+]
+
+
+@pytest.mark.parametrize("B,H,Nq,Nk,D,lens", LONG_CASES)
+def test_long_forward_plain_matches_unblocked_plain(B, H, Nq, Nk, D, lens):
+    """`flash_fwd_long`'s plain version (the online softmax over 128-key
+    tiles) against the unblocked plain version, output and log-sum-exp."""
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(B, H, Nq, Nk, D, Nk))
+    mask = _mask(Nk, lens)
+    mask = None if mask is None else torch.from_numpy(mask)
+    got, lse = fa.flash_attention_long_plain(q, k, v, None, mask,
+                                             return_lse=True)
+    want, want_lse = fa.flash_attention_plain(q, k, v, None, mask,
+                                              return_lse=True)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("D", [64, 96])
+def test_long_forward_plain_matches_jax_kernel(D):
+    """Against the JAX package's `_flash_kernel` (interpret mode), the kernel
+    it takes above 4096 keys, under a ragged mask (the JAX kernels differ on
+    fully masked rows), at the JAX package's 2e-5."""
+    q, k, v, _ = _inputs(1, 2, 64, 4200, D, seed=D)
+    mask = _mask(4200, (3001,))
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), kv_mask=jnp.asarray(mask),
+                                interpret=True))
+    got = fa.flash_attention_long_plain(
+        *(torch.from_numpy(a) for a in (q, k, v)), None,
+        torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("D", [72, 128])
+def test_long_forward_lse_matches_jax_kernel(D):
+    """The log-sum-exp the blocked backward reads, against
+    `_flash_attention_fwd_impl(save_lse=True)`."""
+    q, k, v, _ = _inputs(2, 1, 70, 4300, D, seed=D + 1)
+    mask = _mask(4300, (4300, 2222))
+    want, want_lse = _jax_forward(q, k, v, mask, save_lse=True)
+    got, lse = fa.flash_attention_long_plain(
+        *(torch.from_numpy(a) for a in (q, k, v)), None,
+        torch.from_numpy(mask), return_lse=True)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.parametrize("B,H,Nq,Nk,D,lens", CASES + [

@@ -10,7 +10,9 @@
 // Here the shape picks the kernel, not the key count alone (`fwd_variant`):
 // rows of at most 16 queries and 16 keys (temporal attention over 15
 // frames) take `flash_fwd_short` (one warp per (batch, head), mma.sync);
-// other heads of at most 128 columns take `flash_fwd_narrow` (two
+// rows of more than 4096 keys at heads of at most 128 columns with D % 8 ==
+// 0 take `flash_fwd_long` (flash_fwd_long.cu, its own library); other
+// heads of at most 128 columns take `flash_fwd_narrow` (two
 // warpgroups of 64 q rows, wgmma); wider ones (129 to 512) take
 // `flash_fwd_wide` (wgmma, two warpgroups that split the output columns);
 // fp32 takes a SIMT kernel. Each kernel's note is above it. The tile kernels
@@ -697,14 +699,22 @@ __global__ void __launch_bounds__(F32_ROWS * 32)
   }
 }
 
+// The JAX package's line between its forward kernels
+// (videosys_tpu/ops/flash_attention.py:169): longer rows take _flash_kernel.
+constexpr int SINGLE_PASS_MAX_KV = 4096;
+
 // The forward kernel a shape takes: 0 the fp32 SIMT kernel, 1 short rows,
-// 2 narrow (heads up to 128), 3 wide (129 to 512), -1 none.
+// 2 narrow (heads up to 128), 3 wide (129 to 512), 4 long (more than
+// SINGLE_PASS_MAX_KV keys at heads up to 128 whose rows TMA can copy, D % 8
+// == 0: flash_fwd_long, launched through flash_fwd_long.cu's entry), -1
+// none.
 int fwd_variant(int dtype, int Nq, int Nk, int D) {
   if (Nq <= 0 || Nk <= 0 || D <= 0 || D > F32_MAX_D) return -1;
   if (dtype == 0) return 0;
   if (dtype != 1 && dtype != 2) return -1;
   if (D > 128) return 3;
-  return Nq <= SHORT_ROWS && Nk <= SHORT_ROWS ? 1 : 2;
+  if (Nq <= SHORT_ROWS && Nk <= SHORT_ROWS) return 1;
+  return Nk > SINGLE_PASS_MAX_KV && D % 8 == 0 ? 4 : 2;
 }
 
 template <typename K>
@@ -808,12 +818,14 @@ cudaError_t dispatch_half(const void* q, const void* k, const void* v,
 // [BH, Nq, D], all contiguous and of one type (dtype 0 = fp32, 1 = bf16,
 // 2 = fp16); mask: [BH / H, Nk] bytes (nonzero = attend) or null; lse: fp32
 // [BH, Nq] or null. Launches on `stream` and returns the launch's
-// cudaError_t.
+// cudaError_t; a shape of the long variant (4) is refused here
+// (flash_fwd_long.cu launches it).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* mask, void* o, void* lse, int dtype,
                          int BH, int H, int Nq, int Nk, int D, float scale,
                          int vec, void* stream) {
-  if (BH <= 0 || H <= 0 || fwd_variant(dtype, Nq, Nk, D) < 0)
+  const int variant = fwd_variant(dtype, Nq, Nk, D);
+  if (BH <= 0 || H <= 0 || variant < 0 || variant == 4)
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = scale * 1.4426950408889634f;
   const uint8_t* m = static_cast<const uint8_t*>(mask);
@@ -843,8 +855,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   return (int)err;
 }
 
-// Which kernel a shape takes (0 fp32, 1 short rows, 2 narrow, 3 wide, -1
-// none); the wrapper's `kernel_variant` mirrors it.
+// Which kernel a shape takes (0 fp32, 1 short rows, 2 narrow, 3 wide, 4
+// long, -1 none); the wrapper's `kernel_variant` mirrors it.
 extern "C" int flash_fwd_variant(int dtype, int Nq, int Nk, int D) {
   return fwd_variant(dtype, Nq, Nk, D);
 }

@@ -8,6 +8,10 @@ The kernels replace the five Pallas kernels of the JAX package
   (a short-row kernel for rows of at most 16 queries and keys, a wgmma kernel
   of two 64-row warpgroups for heads up to 128 wide and one for wider heads,
   all with an optional log-sum-exp output);
+* `csrc/flash_fwd_long.cu`: `_flash_kernel` at heads up to 128 on rows of
+  more than SINGLE_PASS_MAX_KV keys, the rows the JAX package sends there
+  (`flash_fwd_long`: a producer warp on TMA and consumer warpgroups in
+  ping-pong, three at heads up to 64 and two above, 128-key tiles);
 * `csrc/flash_bwd_fused.cu`: `_flash_bwd_kernel` -> `flash_bwd_fused` (dq,
   dk, dv from q, k, v, mask and dO alone) for bf16 and fp16: a statistics
   kernel and a thread-block-cluster kernel, or one short-row kernel;
@@ -34,7 +38,8 @@ loaded with `ctypes`; importing this module builds nothing.
 versions for CPU tensors, nothing else: a CUDA tensor a kernel cannot take
 raises. When no input needs a gradient it launches the forward kernel
 alone. `LAUNCHES` counts kernel launches: forward launches by the CUDA
-variant launched (`kernel_variant`: `short`, `narrow`, `wgmma`, `f32`), backward
+variant launched (`kernel_variant`: `short`, `narrow`, `long`, `wgmma`,
+`f32`), backward
 launches by kernel (`bwd_fused`: the statistics + cluster kernels,
 `bwd_fused_short`: the short-row kernel, `bwd_dkv`, `bwd_dq`; fp32 inputs,
 which take the SIMT variants, count under `*_f32`).
@@ -66,9 +71,18 @@ NARROW_MAX_HEAD_DIM = 128
 SHORT_ROWS = 16
 # widest head the backward kernels take (accumulators in registers)
 BWD_MAX_HEAD_DIM = 128
+# the JAX package's line between its two forward kernels
+# (videosys_tpu/ops/flash_attention.py:169): rows of more keys take the
+# KV-blocked `_flash_kernel`, and here, at heads up to 128 whose rows TMA
+# can copy (D % 8 == 0), `flash_fwd_long` (csrc/flash_fwd_long.cu)
+SINGLE_PASS_MAX_KV = 4096
+# its key tile and the most K/V stages its ring takes
+LONG_KEYS = 128
+LONG_MAX_STAGES = 4
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = {"fwd": _CSRC / "flash_fwd.cu", "bwd": _CSRC / "flash_bwd.cu",
+            "fwd_long": _CSRC / "flash_fwd_long.cu",
             "bwd_fused": _CSRC / "flash_bwd_fused.cu",
             "bwd_dkv": _CSRC / "flash_bwd_dkv.cu",
             "bwd_dq": _CSRC / "flash_bwd_dq.cu"}
@@ -106,7 +120,7 @@ DKV_STAGES = 3
 DQ_STAGES = 3
 SHORT_WARPS = 8
 
-LAUNCHES = {"short": 0, "narrow": 0, "wgmma": 0, "f32": 0,
+LAUNCHES = {"short": 0, "narrow": 0, "long": 0, "wgmma": 0, "f32": 0,
             "bwd_fused": 0, "bwd_fused_short": 0, "bwd_dkv": 0, "bwd_dq": 0,
             "bwd_fused_f32": 0, "bwd_dkv_f32": 0, "bwd_dq_f32": 0}
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -114,22 +128,61 @@ build_info: dict = {}
 
 
 def kernel_variant(dtype: torch.dtype, Nq: int, Nk: int, head_dim: int) -> str:
-    """The forward kernel `csrc/flash_fwd.cu` launches for these shapes
-    (`fwd_variant` there): "f32" (SIMT) for fp32; for bf16 and fp16 "short"
-    (rows of at most SHORT_ROWS queries and keys, heads up to 128),
-    "narrow" (wgmma, two warpgroups of 64 q rows, heads up to 128) or
-    "wgmma" (the wide kernel, heads of 129 to 512)."""
+    """The forward kernel these shapes take (`fwd_variant` in
+    csrc/flash_fwd.cu): "f32" (SIMT) for fp32; for bf16 and fp16 "short"
+    (rows of at most SHORT_ROWS queries and keys, heads up to 128), "long"
+    (more than SINGLE_PASS_MAX_KV keys, heads up to 128 whose rows TMA can
+    copy: D % 8 == 0), "narrow" (wgmma, two
+    warpgroups of 64 q rows: the other heads up to 128, among them a long
+    row whose D % 8 != 0) or "wgmma" (the wide kernel, heads of 129 to
+    512)."""
     if dtype == torch.float32:
         return "f32"
     if head_dim > NARROW_MAX_HEAD_DIM:
         return "wgmma"
-    return "short" if Nq <= SHORT_ROWS and Nk <= SHORT_ROWS else "narrow"
+    if Nq <= SHORT_ROWS and Nk <= SHORT_ROWS:
+        return "short"
+    if Nk > SINGLE_PASS_MAX_KV and head_dim % 8 == 0:
+        return "long"
+    return "narrow"
 
 
 def _padded_width(D: int) -> int:
     """The columns a head of D takes in the shared memory of the short,
     narrow and backward kernels: the next of 32, 64, 80, 128."""
     return 32 if D <= 32 else 64 if D <= 64 else 80 if D <= 80 else 128
+
+
+def _long_width(D: int) -> int:
+    """The columns a head of D takes in `flash_fwd_long`'s shared memory:
+    the next of 64, 80, 96, 128 (`long_width` in csrc/flash_fwd_long.cu)."""
+    return 64 if D <= 64 else 80 if D <= 80 else 96 if D <= 96 else 128
+
+
+def long_consumers(D: int) -> int:
+    """Consumer warpgroups of a `flash_fwd_long` block at head_dim D, 64 q
+    rows each (`long_consumers` in the source): three at 64 padded columns,
+    two above."""
+    return 3 if _long_width(D) == 64 else 2
+
+
+def long_stages(D: int) -> int:
+    """K/V stages of `flash_fwd_long`'s ring at head_dim D: as many as fit
+    beside Q, at most LONG_MAX_STAGES (`long_stages` in the source)."""
+    dp = _long_width(D)
+    return min(LONG_MAX_STAGES,
+               (SMEM_PER_BLOCK - 128 * dp * long_consumers(D) - 8)
+               // (512 * dp + LONG_KEYS + 32))
+
+
+def long_smem_bytes(D: int) -> int:
+    """Shared memory `flash_fwd_long` asks for (`long_smem_bytes` in
+    csrc/flash_fwd_long.cu): Q of 64 rows a consumer warpgroup at the padded
+    width, and per stage a K and a V tile of LONG_KEYS rows, LONG_KEYS key
+    flags and four 8-byte mbarriers; one more mbarrier for Q."""
+    dp = _long_width(D)
+    return 128 * dp * long_consumers(D) \
+        + long_stages(D) * (512 * dp + LONG_KEYS + 32) + 8
 
 
 def narrow_smem_bytes(D: int) -> int:
@@ -341,6 +394,14 @@ def flash_attention_bwd_lse_plain(q, k, v, kv_mask, do, o, lse, scale=None):
 
 # ---- plain versions of how the kernels combine partial results -------------
 
+def flash_attention_long_plain(q, k, v, scale=None, kv_mask=None,
+                               return_lse: bool = False):
+    """`flash_fwd_long`'s arithmetic in plain PyTorch: the online softmax
+    of `flash_attention_by_key_tiles_plain` over LONG_KEYS-key tiles."""
+    return flash_attention_by_key_tiles_plain(q, k, v, scale, kv_mask,
+                                              return_lse, tile=LONG_KEYS)
+
+
 def scores_by_depth_halves_plain(q, k, scale, padded: int):
     """The wgmma forward's scores: head_dim zero-padded to `padded` (256 or
     512), each warpgroup's product over one half of the depth, the two fp32
@@ -409,9 +470,9 @@ def flash_attention_by_key_tiles_plain(q, k, v, scale=None, kv_mask=None,
         scale = 1.0 / math.sqrt(q.shape[-1])
     acc = _acc_dtype(q)
     s_all = _scores_log2(q, k, scale, kv_mask)
-    m = torch.full(s_all.shape[:-1], -math.inf, dtype=acc)
+    m = torch.full(s_all.shape[:-1], -math.inf, dtype=acc, device=q.device)
     l = torch.zeros_like(m)
-    o = torch.zeros(q.shape, dtype=acc)
+    o = torch.zeros(q.shape, dtype=acc, device=q.device)
     for k0 in range(0, k.shape[2], tile):
         s = s_all[..., k0:k0 + tile]
         m_new = torch.maximum(m, s.amax(-1))
@@ -572,8 +633,9 @@ def _nvcc() -> str:
 def build() -> Dict[str, Path]:
     """Compile the kernel libraries whose sources have not been built yet
     (one `nvcc` per source, started together) and return their paths by
-    name ("fwd", "bwd", "bwd_fused", "bwd_dkv", "bwd_dq"). A file name carries the hash of its
-    source and the shared headers, so an edited source builds anew."""
+    name ("fwd", "fwd_long", "bwd", "bwd_fused", "bwd_dkv", "bwd_dq"). A
+    file name carries the hash of its source and the shared headers, so an
+    edited source builds anew."""
     header = b"".join(h.read_bytes() for h in _HEADERS)
     libs, running = {}, []
     t0 = time.perf_counter()
@@ -617,6 +679,10 @@ def _library(name: str):
         fwd.flash_fwd_variant.argtypes = [i32] * 4
         fwd.flash_fwd_smem.argtypes = [i32, i32]
         fwd.flash_fwd_smem.restype = ctypes.c_long
+        long = ctypes.CDLL(str(paths["fwd_long"]))
+        long.flash_fwd_long.argtypes = [ptr] * 6 + [i32] * 6 + [f32, ptr]
+        long.flash_fwd_long_smem.argtypes = [i32]
+        long.flash_fwd_long_smem.restype = ctypes.c_long
         bwd = ctypes.CDLL(str(paths["bwd"]))
         tail = [i32] * 6 + [f32, i32, ptr]
         tail32 = [i32] * 5 + [f32, ptr]  # fp32 only: no dtype, no `vec`
@@ -641,6 +707,7 @@ def _library(name: str):
         for lib, fns, err in (
                 (fwd, ("flash_fwd", "flash_fwd_variant"),
                  "flash_fwd_error_string"),
+                (long, ("flash_fwd_long",), "flash_fwd_long_error_string"),
                 (dkv, ("flash_bwd_dkv_wgmma",),
                  "flash_bwd_dkv_wgmma_error_string"),
                 (dq, ("flash_bwd_dq_wgmma",),
@@ -653,8 +720,8 @@ def _library(name: str):
                 getattr(lib, fn).restype = i32
             getattr(lib, err).argtypes = [i32]
             getattr(lib, err).restype = ctypes.c_char_p
-        _libs.update(fwd=fwd, bwd=bwd, bwd_fused=fused, bwd_dkv=dkv,
-                     bwd_dq=dq)
+        _libs.update(fwd=fwd, fwd_long=long, bwd=bwd, bwd_fused=fused,
+                     bwd_dkv=dkv, bwd_dq=dq)
     return _libs[name]
 
 
@@ -691,11 +758,43 @@ def _ptr(t: Optional[torch.Tensor]):
     return t.data_ptr() if t is not None else None
 
 
+def flash_fwd_long(q, k, v, scale=None, kv_mask=None, save_lse: bool = False):
+    """Launch `flash_fwd_long` on CUDA tensors (bf16 or fp16, D % 8 == 0, D
+    <= 128, 16-byte aligned), whatever the key count: the output, and the
+    fp32 log-sum-exp [B, H, Nq] when `save_lse` (else None). Raises on what
+    the kernel cannot take."""
+    scale = _check(q, k, v, scale, kv_mask, NARROW_MAX_HEAD_DIM)
+    B, H, Nq, D = q.shape
+    if q.device.type != "cuda":
+        raise ValueError("flash_fwd_long launches on CUDA tensors only")
+    if q.dtype == torch.float32 or D % 8 != 0:
+        raise ValueError(f"flash_fwd_long takes bf16 or fp16 heads with "
+                         f"D % 8 == 0, not {q.dtype} at D = {D}")
+    out = torch.empty_like(q)
+    if not _vec(D, q, k, v, out):
+        raise ValueError("flash_fwd_long copies rows by TMA: q, k and v "
+                         "must be 16-byte aligned")
+    lse = torch.empty(B, H, Nq, dtype=torch.float32, device=q.device) \
+        if save_lse else None
+    lib = _library("fwd_long")
+    err = lib.flash_fwd_long(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+        out.data_ptr(), _ptr(lse), _DTYPE_CODES[q.dtype], B * H, H, Nq,
+        k.shape[2], D, scale, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("flash_fwd_long launch failed: "
+                           + lib.flash_fwd_long_error_string(err).decode())
+    LAUNCHES["long"] += 1
+    return out, lse
+
+
 def _launch(q, k, v, scale, kv_mask, save_lse: bool = False):
     """Forward kernel: the output, and the fp32 log-sum-exp [B, H, Nq] when
     `save_lse` (else None)."""
     scale = _check(q, k, v, scale, kv_mask, MAX_HEAD_DIM)
     B, H, Nq, D = q.shape
+    if kernel_variant(q.dtype, Nq, k.shape[2], D) == "long":
+        return flash_fwd_long(q, k, v, scale, kv_mask, save_lse)
     lib = _library("fwd")
     out = torch.empty_like(q)
     lse = torch.empty(B, H, Nq, dtype=torch.float32, device=q.device) \

@@ -18,7 +18,13 @@ row [1, 16, 8160, 8160, 72] and the spatial training shape, `dq` `flash_bwd_dq`
 at the same two shapes and at cross attention from 405 tokens to 300 masked
 keys (a tree whose `flash_bwd_dq` still takes di, from before the dq kernel
 computed it, is timed without the di and reports the di's own time in plain
-PyTorch as `di_ms`). Card times drift
+PyTorch as `di_ms`), `long` the forward at the rows of more than 4096 keys
+at heads up to 128 (Open-Sora-Plan v1.2 [2, 24 | 12, 9600, 9600, 96] and
+[2, 24, 28800, 28800, 96], CogVideoX [2, 30 | 48 | 15, 17776, 17776, 64],
+the 1080p training row [1, 16, 8160, 8160, 72]): whatever kernel the tree's
+dispatch gives them (`narrow` before `flash_fwd_long`), its error over the
+first 1024 rows of the first and the last (batch, head) against the plain
+version, and torch's SDPA beside it. Card times drift
 between calls, so compare versions only within one call, and name a tree
 twice (A B B A) to see the spread. Needs a CUDA card and `nvcc`; prints the
 card's name and power limit.
@@ -26,6 +32,7 @@ card's name and power limit.
 
 from __future__ import annotations
 
+import os
 import subprocess
 import sys
 
@@ -109,6 +116,29 @@ if "fused" in groups:
             "bit_equal": all(torch.equal(a, b) for a, b in zip(got, again)),
             "ms": [time_ms(lambda: fa.flash_bwd_fused(q, k, v, mask, do), 20)
                    for _ in range(3)]}
+if "long" in groups:
+    import torch.nn.functional as F
+    for B, H, N, D in ((2, 24, 9600, 96), (2, 12, 9600, 96),
+                       (2, 24, 28800, 96), (2, 30, 17776, 64),
+                       (2, 48, 17776, 64), (2, 15, 17776, 64),
+                       (1, 16, 8160, 72)):
+        q, k, v = inputs(B, H, N, N, D)
+        got = fa._launch(q, k, v, None, None)[0]
+        errs = []
+        for b, h in ((0, 0), (B - 1, H - 1)):
+            want = fa.flash_attention_plain(q[b:b + 1, h:h + 1, :1024],
+                                            k[b:b + 1, h:h + 1],
+                                            v[b:b + 1, h:h + 1])
+            errs.append(rel_l2(got[b:b + 1, h:h + 1, :1024], want))
+        iters = 2 if N > 20000 else 5
+        row = {"variant": fa.kernel_variant(q.dtype, N, N, D),
+               "rel_l2": max(errs),
+               "ms": [time_ms(lambda: fa._launch(q, k, v, None, None), iters)
+                      for _ in range(3)],
+               "sdpa_ms": time_ms(
+                   lambda: F.scaled_dot_product_attention(q, k, v), iters)}
+        out[f"long_{B}x{H}x{N}x{D}"] = row
+        del q, k, v, got
 if "dkv" in groups:
     for name, B, H, N in (("long_row", 1, 16, 8160), ("spatial", 30, 16, 405)):
         q, k, v, do = inputs(B, H, N, N, 72, 4)
@@ -154,7 +184,7 @@ if "dq" in groups:
 print(json.dumps(out))
 '''
 
-GROUPS = ("fwd", "wide", "fused", "dkv", "dq")
+GROUPS = ("fwd", "wide", "fused", "dkv", "dq", "long")
 
 
 def main(argv=None) -> int:
@@ -175,6 +205,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True).stdout.strip())
     failed = 0
     for tree in args:
+        tree = os.path.abspath(tree)  # the child checks where it imported from
         proc = subprocess.run([sys.executable, "-c", CHILD, tree, groups],
                               capture_output=True, text=True)
         print(f"{tree}: {proc.stdout.strip()[-4000:]}")

@@ -1,19 +1,27 @@
 #!/usr/bin/env python3
 """Where a block's time goes inside the redesigned tile kernels: cycle counts
 of each phase of the cluster kernel of `flash_bwd_fused`, of the wide-head
-forward, of the narrow forward, of the dk/dv kernel and of the dq kernel, and
-the device time of the fused backward's two kernels.
+forward, of the narrow forward, of the long-row forward (its consumer
+warpgroup 0 and its producer warp apart), of the dk/dv kernel and of the dq
+kernel, and the device time of the fused backward's two kernels.
 
     python3 videosys_tpu_torch/tools/phase_clocks.py [--what-if]
+        [--kernels fused,wide,narrow,long96,long64,dkv,dq]
 
 The script builds throw-away copies of `csrc/flash_bwd_fused.cu`,
-`csrc/flash_fwd.cu`, `csrc/flash_bwd_dkv.cu` and `csrc/flash_bwd_dq.cu` in which thread 0 of one block
+`csrc/flash_fwd.cu`, `csrc/flash_fwd_long.cu`, `csrc/flash_bwd_dkv.cu` and
+`csrc/flash_bwd_dq.cu` in which thread 0 of one block
 reads `clock64()` at the phase boundaries of its tile loop and adds the
 differences into a device array (text substitution on the sources: it stops
 if a boundary is no longer found), runs them at the spatial training shape
 [30, 16, 405, 405, 72], at the VAE mid shape [8, 1, 6360, 6360, 512], at the
-spatial serving shape [30, 16, 1590, 1590, 72] and at the 1080p row [1, 16,
-8160, 8160, 72] (dk/dv and dq) in bf16, and prints the shares. The copies compute the same
+spatial serving shape [30, 16, 1590, 1590, 72], at the 1080p row [1, 16,
+8160, 8160, 72] (dk/dv and dq) and, for the long-row forward, at Open-Sora-
+Plan v1.2's [2, 24, 9600, 9600, 96] and CogVideoX-2b's [2, 30, 17776,
+17776, 64] in bf16, and prints the shares. In the long-row forward the
+producer warp's first lane reads its own clock beside thread 0:
+its phases (waits for a free stage, the copies it issues) are reported
+apart, as shares of its own time. The copies compute the same
 results; the clocks cost a few percent. One thread's view of one block (in
 the two-warpgroup kernels, warpgroup 0's): the other warps of the block and
 the other blocks on the SM run beside it. Needs a CUDA card and `nvcc`;
@@ -44,6 +52,14 @@ CSRC = ROOT / "videosys_tpu_torch" / "csrc"
 CLOCKS = '''
 __device__ long long g_t[32];
 #define TT(n) do { if (timed_block && threadIdx.x == 0) { long long t_ = clock64(); g_t[n] += t_ - t_last; t_last = t_; } } while (0)
+'''
+# the long-row forward's: per-thread sums in registers, flushed once at the
+# end of the thread's branch (a device-memory add a phase would be most of a
+# 128-key tile)
+CLOCKS_LONG = '''
+#define TL(n) do { if (timed) { long long t_ = clock64(); t_acc[n] += t_ - t_last; t_last = t_; } } while (0)
+#define TL_INIT(thread) const bool timed = blockIdx.x == gridDim.x / 2 && threadIdx.x == (thread); long long t_acc[16] = {0}; long long t_last = clock64()
+#define TL_FLUSH(first, count) do { if (timed) for (int i_ = 0; i_ < (count); ++i_) g_t[(first) + i_] += t_acc[i_]; } while (0)
 '''
 READER = '''
 extern "C" void read_times(long long* out) {
@@ -172,6 +188,58 @@ def timed_narrow_source() -> tuple:
              "S product and wait", "softmax, rescale", "P V product and wait",
              "epilogue: lse, output through shared memory"]
     return s + READER, names
+
+
+def timed_long_source() -> tuple:
+    """The long-row forward with clocks: thread 0's at g_t[0..9] (one key
+    tile of the loop), the producer's first lane (thread 128 * its consumer
+    warpgroups) at g_t[10..14]."""
+    s = (CSRC / "flash_fwd_long.cu").read_text()
+    s = mark(s, "namespace {\n\nconstexpr int LONG_KEYS",
+             "namespace {\n" + CLOCKS + CLOCKS_LONG + "\nconstexpr int LONG_KEYS")
+    s = mark(s, "    const uint8_t* mrow = mask ? mask + (size_t)(bh / H) * Nk : nullptr;\n",
+             "    const uint8_t* mrow = mask ? mask + (size_t)(bh / H) * Nk : nullptr;\n"
+             "    TL_INIT(128 * NWG);\n")
+    s = mark(s, "      if (j >= S) mbar_wait(empty_k + st, (j / S - 1) & 1);\n",
+             "      TL(0);\n      if (j >= S) mbar_wait(empty_k + st, (j / S - 1) & 1);\n"
+             "      TL(1);\n")
+    s = mark(s, "      if (j >= S) mbar_wait(empty_v + st, (j / S - 1) & 1);\n",
+             "      TL(2);\n      if (j >= S) mbar_wait(empty_v + st, (j / S - 1) & 1);\n"
+             "      TL(3);\n")
+    s = mark(s, "        KL::load(smem_addr(sV0 + st * KL::BYTES), tm_v, kv0, bh, full_v + st);\n"
+             "      }\n    }\n  } else {\n",
+             "        KL::load(smem_addr(sV0 + st * KL::BYTES), tm_v, kv0, bh, full_v + st);\n"
+             "      }\n      TL(4);\n    }\n    TL_FLUSH(10, 5);\n  } else {\n")
+    s = mark(s, "      const int row0 = q0 + wg * 64;\n",
+             "      const int row0 = q0 + wg * 64;\n      TL_INIT(0);\n")
+    s = mark(s, "        mbar_wait(full_k + stk, (j / S) & 1);\n"
+             "        named_sync(SCHED_BAR + wg, 256);\n",
+             "        TL(0);\n        mbar_wait(full_k + stk, (j / S) & 1);\n        TL(1);\n"
+             "        named_sync(SCHED_BAR + wg, 256);\n        TL(2);\n")
+    s = mark(s, "        score(stk);\n        wgmma_commit();\n",
+             "        score(stk);\n        wgmma_commit();\n        TL(3);\n")
+    s = mark(s, "        mbar_wait(full_v + stv, ((j - 1) / S) & 1);\n        value(stv);",
+             "        mbar_wait(full_v + stv, ((j - 1) / S) & 1);\n        TL(4);\n        value(stv);")
+    s = mark(s, "        named_arrive(SCHED_BAR + (wg + 1) % NWG, 256);\n"
+             "        wait_wgmma<1>();  // S_j is out; the value product may still run\n"
+             "        pin<64>(s);\n",
+             "        named_arrive(SCHED_BAR + (wg + 1) % NWG, 256);\n        TL(5);\n"
+             "        wait_wgmma<1>();  // S_j is out; the value product may still run\n"
+             "        pin<64>(s);\n        TL(6);\n")
+    s = mark(s, "        warp_arrive(empty_k + stk, lane);\n        wait_wgmma<0>();\n"
+             "        pin<NACC>(acc);\n        pin<64>(s);\n",
+             "        TL(7);\n        warp_arrive(empty_k + stk, lane);\n        wait_wgmma<0>();\n"
+             "        pin<NACC>(acc);\n        pin<64>(s);\n        TL(8);\n")
+    s = mark(s, "        pack();\n      }\n      // the last value product\n",
+             "        pack();\n        TL(9);\n      }\n      // the last value product\n")
+    s = mark(s, "STORE_BAR + wg);\n    }\n  }\n}\n",
+             "STORE_BAR + wg);\n      TL_FLUSH(0, 10);\n    }\n  }\n}\n")
+    names = ["tile end to loop top", "wait for K", "wait for the tensor cores",
+             "issue S", "wait for V", "issue P V, hand over", "wait for S",
+             "softmax (P V running)", "wait for P V", "rescale, pack P"]
+    producer = ["loop top (Q before the first)", "wait for a free K stage",
+                "key flags, K copies", "wait for a free V stage", "V copies"]
+    return s + READER, names, producer
 
 
 def timed_dkv_source() -> tuple:
@@ -304,15 +372,19 @@ def runners(torch) -> dict:
     def rand(*shape):
         return torch.randn(*shape, device="cuda", generator=gen).bfloat16()
 
-    def forward(B, H, N, D):
+    def forward(B, H, N, D, entry="flash_fwd"):
         q, k, v = (rand(B, H, N, D) for _ in range(3))
         o = torch.empty_like(q)
 
         def run(lib):
-            lib.flash_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [f32, i32, ptr]
-            err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
-                                o.data_ptr(), None, 1, B * H, H, N, N, D,
-                                D ** -0.5, 1, stream)
+            # flash_fwd takes one more int, `vec`, before the stream
+            vec = [1] if entry == "flash_fwd" else []
+            fn = getattr(lib, entry)
+            fn.argtypes = [ptr] * 6 + [i32] * 6 + [f32] + [i32] * len(vec) \
+                + [ptr]
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                     o.data_ptr(), None, 1, B * H, H, N, N, D, D ** -0.5,
+                     *vec, stream)
             assert err == 0, err
         return run
 
@@ -362,6 +434,9 @@ def runners(torch) -> dict:
 
     return {"wide": (forward(8, 1, 6360, 512), 6360, 6360),
             "narrow": (forward(30, 16, 1590, 72), 1590, 1590),
+            "long96": (forward(2, 24, 9600, 96, "flash_fwd_long"), 9600, 9600),
+            "long64": (forward(2, 30, 17776, 64, "flash_fwd_long"), 17776,
+                       17776),
             "fused": (fused(30, 16, 405, 72), 405, 405),
             "dkv": (dkv(1, 16, 8160, 72), 8160, 8160),
             "dq": (dq(1, 16, 8160, 72), 8160, 8160)}
@@ -406,13 +481,16 @@ def build(work: Path, name: str, text: str):
     return ctypes.CDLL(str(lib))
 
 
-def report(title: str, lib, names, tiles: int):
-    out = (ctypes.c_longlong * 32)()
-    lib.read_times(out)
-    total = sum(out[:len(names)])
+def report(title: str, lib, names, tiles: int, first: int = 0, out=None):
+    """The phases g_t[first:first + len(names)] as shares of their sum."""
+    if out is None:
+        out = (ctypes.c_longlong * 32)()
+        lib.read_times(out)
+    total = sum(out[first:first + len(names)]) or 1
     print(f"{title}: {total} cycles, {total / tiles:.0f} a tile")
     for n, name in enumerate(names):
-        print(f"   {name:36s} {out[n]:9d} {100.0 * out[n] / total:5.1f}%")
+        c = out[first + n]
+        print(f"   {name:36s} {c:9d} {100.0 * c / total:5.1f}%")
 
 
 def main() -> int:
@@ -434,13 +512,20 @@ def main() -> int:
                 timed_forward_source, 64),
                ("narrow", "narrow forward, spatial [30, 16, 1590, 1590, 72]",
                 timed_narrow_source, 64),
+               ("long96", "long forward, OSP v1.2 [2, 24, 9600, 9600, 96]",
+                timed_long_source, 128),
+               ("long64", "long forward, CogVideoX-2b [2, 30, 17776, 17776, "
+                "64]", timed_long_source, 128),
                ("dkv", "dk/dv kernel, 1080p row [1, 16, 8160, 8160, 72]",
                 timed_dkv_source, 64),
                ("dq", "dq kernel, 1080p row [1, 16, 8160, 8160, 72]",
                 timed_dq_source, 64)]
+    if "--kernels" in sys.argv[1:]:
+        chosen = sys.argv[sys.argv.index("--kernels") + 1].split(",")
+        clocked = [c for c in clocked if c[0] in chosen]
     with tempfile.TemporaryDirectory() as work:
         for kernel, title, source, tile in clocked:
-            text, names = source()
+            text, names, *producer = source()
             lib = build(Path(work), kernel + "_timed", text)
             fn, rows, keys = run[kernel]
             fn(lib)
@@ -449,8 +534,15 @@ def main() -> int:
             fn(lib)
             torch.cuda.synchronize()
             # the loop walks the keys (forwards) or the q rows (backwards)
-            walked = keys if kernel in ("wide", "narrow", "dq") else rows
-            report(f"{title}, one block", lib, names, -(-walked // tile))
+            walked = keys if kernel in ("wide", "narrow", "dq", "long96",
+                                        "long64") else rows
+            out = (ctypes.c_longlong * 32)()
+            lib.read_times(out)
+            report(f"{title}, one block", lib, names, -(-walked // tile),
+                   out=out)
+            if producer:
+                report(f"{title}, its producer warp", lib, producer[0],
+                       -(-walked // tile), first=10, out=out)
             if kernel == "fused":
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     for _ in range(5):
