@@ -85,11 +85,17 @@ Phases, each fatal on failure:
      text encoder: the 2b (30 layers, 30 heads of 64, 3D sincos) over 50
      DDIM steps, dense and with PAB (timers, peak memory per phase, launches
      against the plans), the 5b (42 layers, 48 heads, 3D RoPE) with DPM and
-     dynamic CFG over `--cog5b-steps`; then hold the long forward at both
-     joint-attention shapes, [2, 30 | 48, 17776, 17776, 64] bf16, against
-     its plain version computed in 1024-row chunks over sampled heads, and
-     time it beside the chunked plain version and torch's SDPA
-     (`--profile`: one 2b transformer step by kernel, attention's share).
+     dynamic CFG over `--cog5b-steps`; the 2b's VAE (published widths,
+     bf16) encodes one seeded 49 x 480 x 720 clip to [1, 16, 13, 60, 90]
+     (seconds, peak memory, every value finite); then hold the long
+     forward at both joint-attention shapes, [2, 30 | 48, 17776, 17776,
+     64] bf16, against its plain version computed in 1024-row chunks over
+     sampled heads, and time it beside the chunked plain version and
+     torch's SDPA (`--profile`: one 2b transformer step by kernel,
+     attention's share); a tiny CogVideoX VAE's moments and encode in fp32
+     with TF32 off (2e-4 relative L2) and the DDIM, PNDM and
+     Euler-Ancestral `add_noise` (1e-6 relative) on the card against the
+     CPU.
  11. train Open-Sora at full width and depth with the DCP profile phase
      (`run_training(dynamic_profile=True, dynamic_recompute=True)` on the
      144p and 240p 51-frame buckets, 4 steps): print each profiled
@@ -2342,13 +2348,121 @@ def host_tables_ab(label: str, pipe, step) -> dict:
     return res
 
 
+# one clip of the request's size through the CogVideoX-2b VAE's encoder at
+# its published widths, bf16: 49 frames encode to 13 latent frames
+COG_ENCODE_SHAPE = (1, 3, 49, 480, 720)
+COG_LATENT_SHAPE = [1, 16, 13, 60, 90]
+# fp32 card against CPU, TF32 off: the whole-model tolerance (relative L2)
+COG_ENCODE_TOL = 2e-4
+# add_noise card against CPU (fp32, the same formula): relative max error
+ADD_NOISE_TOL = 1e-6
+
+
+def cog_encode(vae, seed: int) -> dict:
+    """`AutoencoderKLCogVideoX.encode` of one seeded clip of
+    COG_ENCODE_SHAPE in bf16 on the card, twice (the first call takes
+    cuDNN's choices): seconds, the peak memory over the resident weights,
+    the latent's shape and that every value is finite."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    x = torch.rand(COG_ENCODE_SHAPE, device="cuda", generator=gen,
+                   dtype=torch.bfloat16) * 2 - 1
+    rec = {"shape_in": list(COG_ENCODE_SHAPE), "dtype": "bf16",
+           "resident_gib": torch.cuda.memory_allocated() / 2**30}
+    for run in ("first", "second"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            z = vae.encode(x, generator=gen)
+        torch.cuda.synchronize()
+        rec[f"{run}_s"] = time.perf_counter() - t0
+        rec[f"{run}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec.update(latent_shape=list(z.shape), finite=bool(torch.isfinite(z).all()),
+               latent_std=float(z.float().std()))
+    log("cogvideox 2b encode:", json.dumps(rec))
+    if rec["latent_shape"] != COG_LATENT_SHAPE or not rec["finite"] \
+            or not rec["latent_std"] > 0:
+        raise AssertionError(f"cogvideox encode: latent {rec['latent_shape']}"
+                             f" (want {COG_LATENT_SHAPE}), finite="
+                             f"{rec['finite']}, std={rec['latent_std']}")
+    del x, z
+    torch.cuda.empty_cache()
+    return rec
+
+
+def api_gaps_parity(seed: int) -> dict:
+    """A tiny CogVideoX VAE's `moments` and `encode` (13 frames, a given
+    noise) in fp32 on the card against the CPU with TF32 off
+    (COG_ENCODE_TOL, relative L2), and each diffusers scheduler's
+    `add_noise` on the card against the CPU at a batch of timesteps that
+    holds the first and the last (ADD_NOISE_TOL, relative max)."""
+    import copy
+
+    import torch
+
+    from videosys_tpu_torch.models.autoencoders.autoencoder_cogvideox import (
+        AutoencoderKLCogVideoX, CogVideoXVAEConfig)
+    from videosys_tpu_torch.schedulers.ddim import DDIMScheduler
+    from videosys_tpu_torch.schedulers.euler_ancestral import (
+        EulerAncestralScheduler)
+    from videosys_tpu_torch.schedulers.pndm import PNDMScheduler
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        torch.manual_seed(seed)
+        cpu = AutoencoderKLCogVideoX(CogVideoXVAEConfig(
+            latent_channels=4, block_out_channels=(8, 8, 16, 16),
+            layers_per_block=1, norm_num_groups=4)).eval()
+        card = copy.deepcopy(cpu).cuda()
+        gen = torch.Generator().manual_seed(seed)
+        x = torch.rand(1, 3, 13, 32, 32, generator=gen) * 2 - 1
+        with torch.no_grad():
+            want = cpu.moments(x)
+            noise = torch.randn(want[0].shape, generator=gen)
+            want = want + (cpu.encode(x, noise),)
+            got = card.moments(x.cuda()) + (card.encode(x.cuda(),
+                                                        noise.cuda()),)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    rec = {name: rel_errors(g.cpu(), w)[0]
+           for name, g, w in zip(("mean", "logvar", "sample"), got, want)}
+    x0 = torch.randn(2, 16, 13, 60, 90, generator=gen)
+    eps = torch.randn(x0.shape, generator=gen)
+    euler = EulerAncestralScheduler()
+    euler.set_timesteps(50)
+    for name, sched, t in (("ddim", DDIMScheduler(), [0, 999]),
+                           ("pndm", PNDMScheduler(), [0, 999]),
+                           ("euler_ancestral", euler, [0, 50])):
+        want = sched.add_noise(x0, eps, torch.tensor(t))
+        got = sched.add_noise(x0.cuda(), eps.cuda(), torch.tensor(t).cuda())
+        if got.device.type != "cuda":
+            raise AssertionError(f"add_noise {name} left the card")
+        rec[f"add_noise_{name}"] = rel_errors(got.cpu(), want)[1]
+    log("api gaps, card against CPU:", json.dumps(rec))
+    bad = {k: v for k, v in rec.items()
+           if v > (ADD_NOISE_TOL if k.startswith("add_noise") else
+                   COG_ENCODE_TOL)}
+    if bad:
+        raise AssertionError(f"card against CPU over tolerance: {bad}")
+    return rec
+
+
 def cogvideox_phase(fa, seed: int, steps_5b: int,
                     profile: bool = False) -> dict:
     """CogVideoX text-to-video at its published widths and full depth,
     random weights from `seed`, the stub text encoder (226 tokens): the 2b
     over 50 DDIM steps, dense and with PAB; the 5b with DPM and dynamic CFG
-    over `steps_5b` steps; then the long forward at both joint-attention
-    shapes against its plain version (`cog_kernel_phase`)."""
+    over `steps_5b` steps; the 2b's VAE encodes one clip of the request's
+    size (`cog_encode`); then the long forward at both joint-attention
+    shapes against its plain version (`cog_kernel_phase`), and a tiny
+    encode and the schedulers' `add_noise` on the card against the CPU
+    (`api_gaps_parity`)."""
     import numpy as np
     import torch
 
@@ -2391,7 +2505,8 @@ def cogvideox_phase(fa, seed: int, steps_5b: int,
                 f"read_steps={rec['read_steps']} denoise_vs_dense="
                 f"{rec['denoise_vs_dense']:.3f}")
             engine.config.enable_pab = False
-            out["2b"] = {"dense": dense, "pab": rec}
+            out["2b"] = {"dense": dense, "pab": rec,
+                         "encode": cog_encode(pipe.vae, seed)}
             launches["2b"] = dense["launches"]
             if profile:
                 out["profile_2b"] = profile_cog_step(pipe, seed)
@@ -2407,6 +2522,7 @@ def cogvideox_phase(fa, seed: int, steps_5b: int,
         torch.cuda.empty_cache()
     out["kernel"] = cog_kernel_phase(fa)
     out["launches"] = launches
+    out["api_gaps"] = api_gaps_parity(seed)
     return out
 
 

@@ -12,6 +12,7 @@ the CUDA kernels build at first use.
 from videosys_tpu_torch.core.dcp import BucketProfile, Profiler
 from videosys_tpu_torch.core.engine import VideoSysEngine, initialize
 from videosys_tpu_torch.core.pab import PABConfig
+from videosys_tpu_torch.core.parallel import ParallelConfig
 from videosys_tpu_torch.pipelines.cogvideox.pipeline_cogvideox import (
     CogVideoXConfig,
     CogVideoXPABConfig,
@@ -47,7 +48,7 @@ __all__ = ["VideoSysEngine", "initialize", "BucketProfile", "CogVideoXConfig",
            "LattePABConfig", "LattePipeline", "OpenSoraConfig",
            "OpenSoraPABConfig", "OpenSoraPipeline", "OpenSoraPlanConfig",
            "OpenSoraPlanPipeline", "OpenSoraPlanV110PABConfig",
-           "OpenSoraPlanV120PABConfig", "PABConfig",
+           "OpenSoraPlanV120PABConfig", "PABConfig", "ParallelConfig",
            "PreprocessedLatentDataset", "Profiler", "TrainConfig",
            "VchitectConfig", "VchitectPABConfig", "VchitectXLPipeline",
            "preprocess", "run_training"]

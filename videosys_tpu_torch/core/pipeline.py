@@ -136,6 +136,12 @@ class VideoSysPipeline:
     def __call__(self, *args, **kwargs) -> VideoSysPipelineOutput:
         return self.generate(*args, **kwargs)
 
+    def save_video(self, video, output_path: str, fps: int = 24):
+        """Write `generate`'s uint8 video (`utils.video.save_video`)."""
+        from videosys_tpu_torch.utils.video import save_video
+
+        return save_video(video, output_path, fps=fps)
+
     def _on_device(self, module: Optional[nn.Module], name: str = ""):
         """`on_device` under the config's `cpu_offload`; otherwise (or with
         no module) this does nothing: the module is resident."""

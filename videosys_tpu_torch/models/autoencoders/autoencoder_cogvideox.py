@@ -17,6 +17,8 @@ names follow the reference checkpoint's state_dict (diffusers'
   norms see per-chunk statistics, as the reference's default decode does;
   with tiling on, each spatial tile is streamed and the tiles are blended
   linearly.
+* `encode` runs the encoder over the whole clip (no streaming, no tiling,
+  as the JAX package's `_encode_impl`) and samples the posterior.
 """
 
 from __future__ import annotations
@@ -291,9 +293,9 @@ class CogVideoXVAEConfig:
 
 
 class AutoencoderKLCogVideoX(nn.Module):
-    """`decode` latent [B, C_lat, T', h, w] -> pixels [B, 3, T, H, W] (the
-    reference's layouts). The encoder is built so that the state_dict is
-    the reference's; text-to-video never runs it."""
+    """`encode` pixels [B, 3, T, H, W] -> a latent sample
+    [B, C_lat, T', H/8, W/8] and `decode` back (the reference's layouts);
+    `moments` gives the posterior's mean and log-variance."""
 
     def __init__(self, config: CogVideoXVAEConfig = CogVideoXVAEConfig()):
         super().__init__()
@@ -310,6 +312,30 @@ class AutoencoderKLCogVideoX(nn.Module):
 
     def enable_tiling(self):
         self.use_tiling = True
+
+    def moments(self, x):
+        """x: [B, 3, T, H, W] -> (mean, logvar), each [B, C_lat, T', H/8,
+        W/8], logvar clipped to [-30, 20]: the encoder over the whole clip
+        in its parameters' dtype."""
+        h = self.encoder(x.to(self.encoder.conv_out.conv.weight.dtype))
+        mean, logvar = h.chunk(2, dim=1)
+        return mean, logvar.clamp(-30.0, 20.0)
+
+    def encode(self, x, noise: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None):
+        """x: [B, 3, T, H, W] -> latent sample mean + std * noise
+        [B, C_lat, T', H/8, W/8]. `noise`, of the mean's shape, is drawn
+        from `generator` (on the mean's device) when not given; one of the
+        two is needed."""
+        mean, logvar = self.moments(x)
+        if noise is None:
+            if generator is None:
+                raise ValueError("encode samples the posterior: pass noise "
+                                 "or a generator")
+            noise = torch.randn(mean.shape, generator=generator,
+                                device=mean.device)
+        return mean + torch.exp(0.5 * logvar) * noise.to(mean.device,
+                                                         mean.dtype)
 
     def _decode_streamed(self, z):
         """Decode the latent frames `num_latent_frames_batch_size` at a time

@@ -77,6 +77,10 @@ class CogVideoXConfig:
     def hidden_size(self) -> int:
         return self.num_heads * self.head_dim
 
+    @property
+    def depth(self) -> int:
+        return self.num_layers
+
 
 def rope_3d(head_dim: int, t: int, h: int, w: int,
             theta: float = 10000.0) -> Tuple[np.ndarray, np.ndarray]:

@@ -83,7 +83,9 @@ def LattePABConfig(**overrides) -> PABConfig:
 class LatteConfig:
     """`model_path`: a local diffusers-layout Latte snapshot; None (with
     `transformer_config`, `vae_config`) runs random weights and the stub
-    encoder. `vae_config`: AutoencoderKL2D keyword arguments."""
+    encoder. `vae_config`: AutoencoderKL2D keyword arguments. `vae`: a
+    VAE module to use in place of the built one (the pipeline's `vae=`
+    argument comes first)."""
 
     model_path: Optional[str] = "maxin-cn/Latte-1"
     num_gpus: int = 1  # ranks: sp = num_gpus, or num_gpus / 2 with cp
@@ -101,6 +103,7 @@ class LatteConfig:
     # random-init hooks: model sizes when no checkpoint is loaded
     transformer_config: Optional[LatteModelConfig] = None
     vae_config: Optional[dict] = None
+    vae: Optional[AutoencoderKL2D] = None
 
     def __post_init__(self):
         if self.pab_config is None:
@@ -138,11 +141,12 @@ class LattePipeline(VideoSysPipeline):
                     max_length=TEXT_TOKENS, device=self.device))
         self.text_encoder = text_encoder
 
+        vae = vae if vae is not None else config.vae
         params = dict(params or {})
         if not {"transformer", "vae"} <= set(params):
             loaded = try_load_params(config, family="latte") or {}
             params = {**loaded, **params}
-            require_weights(params, config)
+            require_weights(params, config, vae=vae is None)
         modules = build_modules(
             {"transformer": lambda: LatteT2V(self.model_config),
              "vae": lambda: vae or AutoencoderKL2D(**(config.vae_config or {}))},
@@ -245,3 +249,6 @@ class LattePipeline(VideoSysPipeline):
         if not return_dict:
             return (video,)
         return VideoSysPipelineOutput(video=video)
+
+    def save_video(self, video, output_path: str, fps: int = 8):
+        return super().save_video(video, output_path, fps=fps)

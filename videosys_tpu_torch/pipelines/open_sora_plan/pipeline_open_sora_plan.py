@@ -111,7 +111,9 @@ class OpenSoraPlanConfig:
     """`transformer`: a local Open-Sora-Plan snapshot (or `save_params`
     directory); `text_encoder`: a local T5 / mT5 snapshot with its
     tokenizer; None for either (with `transformer_config`, `vae_config`)
-    runs random weights and the stub encoder."""
+    runs random weights and the stub encoder. `vae`: a causal VAE module
+    to use in place of the built one (the pipeline's `vae=` argument comes
+    first); tiling is switched on it as on the built one."""
 
     version: str = "v120"
     transformer_type: str = "29x480p"
@@ -129,6 +131,7 @@ class OpenSoraPlanConfig:
     # random-init hooks: model sizes when no checkpoint is loaded
     transformer_config: Any = None
     vae_config: Optional[CausalVAEConfig] = None
+    vae: Optional[CausalVAE] = None
 
     def __post_init__(self):
         if self.version not in TYPES:
@@ -186,11 +189,12 @@ class OpenSoraPlanPipeline(VideoSysPipeline):
                     max_length=TEXT_TOKENS[self.version], device=self.device))
         self.text_encoder = text_encoder
 
+        vae = vae if vae is not None else config.vae
         params = dict(params or {})
         if not {"transformer", "vae"} <= set(params):
             loaded = try_load_params(config, family="osp") or {}
             params = {**loaded, **params}
-            require_weights(params, config)
+            require_weights(params, config, vae=False)  # checked below
             if config.transformer and "vae" not in params and \
                     vae is None and config.vae_config is None:
                 raise FileNotFoundError(
@@ -324,3 +328,6 @@ class OpenSoraPlanPipeline(VideoSysPipeline):
         if not return_dict:
             return (video,)
         return VideoSysPipelineOutput(video=video)
+
+    def save_video(self, video, output_path: str, fps: int = 24):
+        return super().save_video(video, output_path, fps=fps)

@@ -62,7 +62,6 @@ from videosys_tpu_torch.utils.checkpoint import (
     transformer_depth,
     try_load_params,
 )
-from videosys_tpu_torch.utils.video import save_video as _save_video
 
 # SD3 VAE constants: latents / scaling + shift before the decode
 VAE_SCALING = 1.5305
@@ -130,7 +129,8 @@ class VchitectConfig:
     text encoders when it has `text_encoder/`); None (with
     `transformer_config`) runs random weights and the stub encoder.
     `vae_config`: AutoencoderKL2D keyword arguments (16 latent channels
-    unless given)."""
+    unless given); `vae`: a VAE module to use in place of the built one
+    (the pipeline's `vae=` argument comes first)."""
 
     model_path: Optional[str] = "Vchitect/Vchitect-2.0-2B"
     num_gpus: int = 1  # ranks: sp = num_gpus, or num_gpus / 2 with cp
@@ -145,6 +145,7 @@ class VchitectConfig:
     # random-init hooks: model sizes when no checkpoint is loaded
     transformer_config: Optional[VchitectModelConfig] = None
     vae_config: Optional[dict] = None
+    vae: Optional[AutoencoderKL2D] = None
 
     def __post_init__(self):
         if self.pab_config is None:
@@ -196,6 +197,7 @@ class VchitectXLPipeline(VideoSysPipeline):
                     pooled_dim=mc.pooled_projection_dim, device=self.device)
         self.text_encoder = text_encoder
 
+        vae = vae if vae is not None else config.vae
         vae_kw = {"latent_channels": mc.in_channels, **(config.vae_config or {})}
         modules = build_modules(
             {"transformer": lambda: VchitectXLTransformer(mc),
@@ -288,4 +290,4 @@ class VchitectXLPipeline(VideoSysPipeline):
         return VideoSysPipelineOutput(video=video)
 
     def save_video(self, video, output_path: str, fps: int = 8):
-        return _save_video(video, output_path, fps=fps)
+        return super().save_video(video, output_path, fps=fps)

@@ -35,6 +35,18 @@ def make_betas(num_train_timesteps: int, beta_start: float, beta_end: float,
     raise ValueError(beta_schedule)
 
 
+def add_noise_at(alphas_cumprod: np.ndarray, x0: torch.Tensor,
+                 noise: torch.Tensor, t) -> torch.Tensor:
+    """sqrt(a_t) x0 + sqrt(1 - a_t) noise with a_t = alphas_cumprod[t] in
+    fp32, for a scalar or a batch of integer timesteps `t` (broadcast over
+    x0's trailing dims)."""
+    table = torch.as_tensor(alphas_cumprod, dtype=torch.float32,
+                            device=x0.device)
+    a = table[torch.as_tensor(t, dtype=torch.long, device=x0.device)]
+    a = a.reshape(a.shape + (1,) * (x0.ndim - a.ndim))
+    return a ** 0.5 * x0 + (1 - a) ** 0.5 * noise
+
+
 def rescale_zero_terminal_snr(alphas_cumprod: np.ndarray) -> np.ndarray:
     """Shift and scale sqrt(alphas_cumprod) so that the last step has zero
     SNR and the first keeps its value (arXiv:2305.08891)."""
@@ -137,3 +149,8 @@ class DDIMScheduler:
                 raise ValueError("eta > 0 needs the step's noise")
             prev = prev + std * noise
         return prev
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor,
+                  t) -> torch.Tensor:
+        """x0 noised to the training timestep(s) `t`."""
+        return add_noise_at(self.alphas_cumprod, x0, noise, t)

@@ -93,3 +93,15 @@ class EulerAncestralScheduler:
         if sigma_up > 0:
             prev = prev + draw("ancestral", tuple(sample.shape)) * sigma_up
         return prev
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor,
+                  step_indices) -> torch.Tensor:
+        """x0 + sigma * noise with the ladder's fp32 sigma at each of
+        `step_indices` (a scalar or one a sample, broadcast over x0's
+        trailing dims); needs `set_timesteps`."""
+        table = torch.as_tensor(self.sigmas, dtype=torch.float32,
+                                device=x0.device)
+        sig = table[torch.as_tensor(step_indices, dtype=torch.long,
+                                    device=x0.device)]
+        sig = sig.reshape(sig.shape + (1,) * (x0.ndim - sig.ndim))
+        return x0 + sig * noise

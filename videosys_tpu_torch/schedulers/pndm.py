@@ -14,7 +14,7 @@ from typing import List
 import numpy as np
 import torch
 
-from videosys_tpu_torch.schedulers.ddim import make_betas
+from videosys_tpu_torch.schedulers.ddim import add_noise_at, make_betas
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +95,11 @@ class PNDMScheduler:
         if self.counter < len(self.prk_timesteps) and not self.config.skip_prk_steps:
             return self._step_prk(model_output, int(timestep), sample)
         return self._step_plms(model_output, int(timestep), sample)
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor,
+                  t) -> torch.Tensor:
+        """x0 noised to the training timestep(s) `t` (DDIM's formula)."""
+        return add_noise_at(self.alphas_cumprod, x0, noise, t)
 
     def _step_prk(self, model_output, timestep: int, sample):
         """Runge-Kutta warm-up: four model calls per full step."""

@@ -82,6 +82,25 @@ def load_torch_checkpoint(path: str, family: str = "stdit3"):
     return _drop_computed(sd)
 
 
+def load_stdit3_torch_checkpoint(path: str, depth: int = 28
+                                 ) -> Optional[StateDict]:
+    """An STDiT3 reference checkpoint directory
+    (hpcai-tech/OpenSora-STDiT-v3 layout) as this package's state_dict,
+    None when it holds no weights. Like the JAX package's
+    `convert_stdit3(sd, depth=depth)`, it keeps the first `depth` spatial
+    and temporal blocks and raises KeyError when the checkpoint has fewer."""
+    sd = load_torch_checkpoint(path, "stdit3")
+    if sd is None:
+        return None
+    for kind in ("spatial", "temporal"):
+        if not any(k.startswith(f"{kind}_blocks.{depth - 1}.") for k in sd):
+            raise KeyError(f"{kind}_blocks.{depth - 1}: the checkpoint at "
+                           f"{path!r} has fewer than {depth} blocks")
+    block = re.compile(r"(spatial|temporal)_blocks\.(\d+)\.")
+    return {k: v for k, v in sd.items()
+            if not (m := block.match(k)) or int(m.group(2)) < depth}
+
+
 def _weights_path(config) -> Optional[str]:
     """Where a pipeline's weights live: `config.transformer` (Open-Sora,
     Open-Sora-Plan) or `config.model_path` (CogVideoX, Latte)."""

@@ -5,10 +5,14 @@ Port of `videosys_tpu/utils/timing.py`. The reference's Timer is
 counters; here a Timer on the card times with CUDA events and reads the
 allocator, and on the CPU it reads `time.perf_counter`. GroupTimer's exit
 also waits for every rank of its groups (the reference's all-reduce).
+`profile_trace` captures a trace of the with-block (the JAX package's
+`jax.profiler` trace) as a Chrome / Perfetto trace file.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 
 import torch
@@ -89,3 +93,27 @@ class GroupTimer(Timer):
             token = torch.ones(1, device=self.groups.device)
             dist.all_reduce(token)  # the default group: every rank
         return super().__exit__(*exc)
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str):
+    """`with profile_trace(logdir): ...` records the block's host (CPU)
+    activity and, when a card is present, its CUDA kernels and copies with
+    `torch.profiler`, and on exit writes them to
+    `logdir/trace_{pid}_{time_ns}.json` (open it in Perfetto or
+    chrome://tracing), also when the block raises. Yields `logdir`;
+    starts no work of its own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield logdir
+    finally:  # as the JAX package's: the trace is written if the block raises
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
