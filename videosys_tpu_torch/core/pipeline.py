@@ -13,12 +13,15 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
 import torch.nn as nn
+
+from videosys_tpu_torch.utils import timing
 
 # called as hook(name, module, seconds, nbytes) after each fetch, with the
 # module on the card
@@ -126,9 +129,35 @@ class VideoSysPipelineOutput:
     video: Any
 
 
+def timed_request(generate):
+    """Decorator of a pipeline's `generate`: the call is one
+    `videosys.request` span, and the phases' CUDA events (`_phase`) are
+    read into `last_timings` at its end, once, when the video's copy to
+    the host has already waited for the card."""
+
+    @functools.wraps(generate)
+    def run(self, *args, **kwargs):
+        self._phase_events = []
+        try:
+            with timing.span(timing.REQUEST):
+                return generate(self, *args, **kwargs)
+        finally:
+            events, self._phase_events = self._phase_events, []
+            for timer, start, end in events:
+                end.synchronize()
+                self.last_timings[timer] += start.elapsed_time(end) / 1e3
+
+    return run
+
+
+# the span of each phase `_phase` times
+PHASE_SPANS = {"text": timing.TEXT, "denoise": timing.DENOISE,
+               "vae": timing.VAE, "postprocess": timing.POSTPROCESS}
+
+
 class VideoSysPipeline:
-    """Subclasses implement generate(...) -> VideoSysPipelineOutput and set
-    `_config` and `device`."""
+    """Subclasses implement generate(...) -> VideoSysPipelineOutput,
+    decorated with `timed_request`, and set `_config` and `device`."""
 
     def generate(self, *args, **kwargs) -> VideoSysPipelineOutput:
         raise NotImplementedError
@@ -153,10 +182,24 @@ class VideoSysPipeline:
     def _phase(self, timer: str, module: Optional[nn.Module] = None,
                name: str = ""):
         """Add the with-block's time, to the end of its device work, to
-        `last_timings[timer]`; under cpu_offload `module` is on the card
-        for the block only."""
-        t0 = time.perf_counter()
-        with self._on_device(module, name):
-            yield
-            _sync(self.device)
-        self.last_timings[timer] += time.perf_counter() - t0
+        `last_timings[timer]`, and open its span; under cpu_offload
+        `module` is on the card for the block only. On the card the time
+        is the stream's between two CUDA events, read at the end of the
+        request (`timed_request`); on the CPU, and under cpu_offload, whose
+        fetches wait for the card in order, the host clock to a sync."""
+        with timing.span(PHASE_SPANS[timer]):
+            if self.device.type == "cuda" and not getattr(
+                    self._config, "cpu_offload", False):
+                stream = torch.cuda.current_stream(self.device)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record(stream)
+                yield
+                end.record(stream)
+                self._phase_events.append((timer, start, end))
+                return
+            t0 = time.perf_counter()
+            with self._on_device(module, name):
+                yield
+                _sync(self.device)
+            self.last_timings[timer] += time.perf_counter() - t0

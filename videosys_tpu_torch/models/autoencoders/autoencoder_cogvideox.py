@@ -31,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from videosys_tpu_torch.models.modules.normalization import GroupNorm
+from videosys_tpu_torch.utils.timing import VAE_TILE, span
 
 # causal conv -> its previous chunk's last raw input frames
 StreamCache = Dict[nn.Module, torch.Tensor]
@@ -374,8 +375,13 @@ class AutoencoderKLCogVideoX(nn.Module):
         limit_h, limit_w = th * sf - blend_h, tw * sf - blend_w
 
         H, W = z.shape[3], z.shape[4]
-        rows = [[self._decode_streamed(z[:, :, :, i:i + th, j:j + tw])
-                 for j in range(0, W, step_w)] for i in range(0, H, step_h)]
+
+        def tile(i, j):
+            with span(VAE_TILE):
+                return self._decode_streamed(z[:, :, :, i:i + th, j:j + tw])
+
+        rows = [[tile(i, j) for j in range(0, W, step_w)]
+                for i in range(0, H, step_h)]
 
         def blend(a, b, extent, dim):
             n = min(a.shape[dim], extent)

@@ -34,6 +34,7 @@ import torch.nn as nn
 from videosys_tpu_torch.core import parallel as par
 from videosys_tpu_torch.models.autoencoders.vae2d import AutoencoderKL2D
 from videosys_tpu_torch.models.autoencoders.vae_temporal import VAETemporal
+from videosys_tpu_torch.utils.timing import VAE_CHUNK, span
 
 SHIFT = (-0.10, 0.34, 0.27, 0.98)
 SCALE = (3.85, 2.32, 2.33, 3.06)
@@ -192,12 +193,14 @@ class OpenSoraVAE(nn.Module):
         z, rows = par.shard_vae_rows(self._unnormalize(z))
         outs = []
         for c, nf in self._chunks(z, num_frames):
-            with par.use_rows(rows):
-                x_z = self.temporal_vae.decode(c, nf)
-            x = self.spatial_decode(x_z, rows, everywhere=False)
-            if x is None:  # the video's owner is the line's first rank
-                continue
-            x = x.permute(0, 1, 3, 4, 2)
-            u8 = torch.clamp((torch.clamp(x, -1, 1) + 1) / 2 * 255 + 0.5, 0, 255)
-            outs.append(u8.to(torch.uint8))
+            with span(VAE_CHUNK):
+                with par.use_rows(rows):
+                    x_z = self.temporal_vae.decode(c, nf)
+                x = self.spatial_decode(x_z, rows, everywhere=False)
+                if x is None:  # the video's owner is the line's first rank
+                    continue
+                x = x.permute(0, 1, 3, 4, 2)
+                u8 = torch.clamp((torch.clamp(x, -1, 1) + 1) / 2 * 255 + 0.5,
+                                 0, 255)
+                outs.append(u8.to(torch.uint8))
         return outs

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from videosys_tpu_torch.core.pipeline import offload_to_host, on_device, resolve_device
 from videosys_tpu_torch.utils import safetensors_io
+from videosys_tpu_torch.utils.timing import T5, span
 
 # feed_forward_proj -> the feed-forward activation; a "gated-" one runs
 # act(wi_0 x) * wi_1 x. HF's gated-gelu is gelu_new, the tanh form.
@@ -256,7 +257,8 @@ class T5EncoderModel(nn.Module):
                 p.normal_(0.0, std)
 
     def forward(self, input_ids, attention_mask=None):
-        return self.encoder(input_ids, attention_mask)
+        with span(T5):
+            return self.encoder(input_ids, attention_mask)
 
     @classmethod
     def from_pretrained(cls, path: str, dtype: torch.dtype = torch.float32

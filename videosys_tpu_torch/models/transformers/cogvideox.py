@@ -51,6 +51,16 @@ from videosys_tpu_torch.models.modules.embeddings import (
     timestep_embedding,
 )
 from videosys_tpu_torch.ops.attention import scaled_dot_product_attention
+from videosys_tpu_torch.utils.timing import (
+    ATTN,
+    BLOCK,
+    EMBED,
+    FINAL,
+    FORWARD,
+    MLP,
+    MODULATE,
+    span,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,23 +273,29 @@ class CogVideoXBlock(nn.Module):
         attention, which is not computed; write receives a copy of it.
         `key_mask`: the joint attention's, under sp with padded tokens."""
         L = enc.shape[1]
-        mods = self.norm1.modulations(temb)
-        gate, e_gate = mods[2], mods[5]
-        if read and "attn" in read:
-            attn = read["attn"].to(x.dtype)
-        else:
-            nx, nenc = self.norm1(x, enc, mods)
-            attn = self.attn1(torch.cat([nenc, nx], 1), L, rope, key_mask)
-            if write and "attn" in write:
-                write["attn"].copy_(attn)
-        x = x + gate * attn[:, L:]
-        enc = enc + e_gate * attn[:, :L]
-
-        mods = self.norm2.modulations(temb)
-        nx, nenc = self.norm2(x, enc, mods)
-        ff = self.ff(torch.cat([nenc, nx], 1))
-        x = x + mods[2] * ff[:, L:]
-        enc = enc + mods[5] * ff[:, :L]
+        cached = bool(read) and "attn" in read
+        with span(MODULATE):
+            mods = self.norm1.modulations(temb)
+            gate, e_gate = mods[2], mods[5]
+            if not cached:
+                nx, nenc = self.norm1(x, enc, mods)
+        with span(ATTN):
+            if cached:
+                attn = read["attn"].to(x.dtype)
+            else:
+                attn = self.attn1(torch.cat([nenc, nx], 1), L, rope, key_mask)
+                if write and "attn" in write:
+                    write["attn"].copy_(attn)
+        with span(MODULATE):
+            x = x + gate * attn[:, L:]
+            enc = enc + e_gate * attn[:, :L]
+            mods = self.norm2.modulations(temb)
+            nx, nenc = self.norm2(x, enc, mods)
+        with span(MLP):
+            ff = self.ff(torch.cat([nenc, nx], 1))
+        with span(MODULATE):
+            x = x + mods[2] * ff[:, L:]
+            enc = enc + mods[5] * ff[:, :L]
         return x, enc
 
 
@@ -353,6 +369,12 @@ class CogVideoXTransformer3D(nn.Module):
     def forward(self, hidden_states, encoder_hidden_states, timestep,
                 plan: Optional[PABStepPlan] = None,
                 pab_cache: Optional[PABCache] = None):
+        with span(FORWARD):
+            return self._forward(hidden_states, encoder_hidden_states,
+                                 timestep, plan, pab_cache)
+
+    def _forward(self, hidden_states, encoder_hidden_states, timestep, plan,
+                 pab_cache):
         cfg = self.config
         dtype = self.proj_out.weight.dtype
         B, F_, C_in, H, W = hidden_states.shape
@@ -360,48 +382,53 @@ class CogVideoXTransformer3D(nn.Module):
         h_p, w_p = H // p, W // p
         N = F_ * h_p * w_p
 
-        temb = self.time_embedding(timestep.float())
-        imgs = hidden_states.to(dtype).reshape(B * F_, C_in, H, W)
-        xe = self.patch_embed.proj(imgs)  # [B F, C, h, w]
-        xe = xe.flatten(2).transpose(1, 2).reshape(B, N, cfg.hidden_size)
-        enc = self.patch_embed.text_proj(encoder_hidden_states.to(dtype))
-        L = enc.shape[1]
+        with span(EMBED):
+            temb = self.time_embedding(timestep.float())
+            imgs = hidden_states.to(dtype).reshape(B * F_, C_in, H, W)
+            xe = self.patch_embed.proj(imgs)  # [B F, C, h, w]
+            xe = xe.flatten(2).transpose(1, 2).reshape(B, N, cfg.hidden_size)
+            enc = self.patch_embed.text_proj(encoder_hidden_states.to(dtype))
+            L = enc.shape[1]
 
-        rope = None
-        table = self._positions(F_, h_p, w_p, xe.device, dtype)
-        if cfg.use_rotary_positional_embeddings:
-            rope = table
-        else:
-            xe = xe + table[None]
+            rope = None
+            table = self._positions(F_, h_p, w_p, xe.device, dtype)
+            if cfg.use_rotary_positional_embeddings:
+                rope = table
+            else:
+                xe = xe + table[None]
 
-        # sp: the video tokens padded to the sp size, this rank's shard
-        # resident, the pad masked as keys (JAX cogvideox.py:313)
-        m = par.token_pad_multiple()
-        key_mask = None
-        if m > 1:
-            xe = par.shard_tokens(xe)
-            if rope is not None:
-                rope = tuple(par.shard_tokens(a, 0) for a in rope)
-            if N % m:
-                key_mask = (torch.arange(L + N + -N % m, device=xe.device)
-                            < L + N).expand(B, -1)
+            # sp: the video tokens padded to the sp size, this rank's shard
+            # resident, the pad masked as keys (JAX cogvideox.py:313)
+            m = par.token_pad_multiple()
+            key_mask = None
+            if m > 1:
+                xe = par.shard_tokens(xe)
+                if rope is not None:
+                    rope = tuple(par.shard_tokens(a, 0) for a in rope)
+                if N % m:
+                    key_mask = (torch.arange(L + N + -N % m, device=xe.device)
+                                < L + N).expand(B, -1)
 
         plan = plan or PABStepPlan()
         for i, block in enumerate(self.transformer_blocks):
             views = (pab_cache.views(plan, "spatial", i) if pab_cache
                      is not None else ({}, {}))
-            xe, enc = block(xe, enc, temb, rope, *views, key_mask=key_mask)
+            with span(BLOCK):
+                xe, enc = block(xe, enc, temb, rope, *views,
+                                key_mask=key_mask)
 
-        if cfg.use_rotary_positional_embeddings:  # 5b: over the joint tokens
-            xe = layer_norm_fp32(self.norm_final, torch.cat([enc, xe], 1))[:, L:]
-        else:
-            xe = layer_norm_fp32(self.norm_final, xe)
-        xe = self.proj_out(self.norm_out(xe, temb))
-        if m > 1:  # gather the video tokens, drop the sp padding
-            xe = par.gather(xe, 1)[:, :N]
+        with span(FINAL):
+            if cfg.use_rotary_positional_embeddings:  # 5b: the joint tokens
+                xe = layer_norm_fp32(self.norm_final,
+                                     torch.cat([enc, xe], 1))[:, L:]
+            else:
+                xe = layer_norm_fp32(self.norm_final, xe)
+            xe = self.proj_out(self.norm_out(xe, temb))
+            if m > 1:  # gather the video tokens, drop the sp padding
+                xe = par.gather(xe, 1)[:, :N]
 
-        # unpatchify -> [B, F, C_out, H, W]
-        out = xe.reshape(B, F_, h_p, w_p, cfg.out_channels, p, p)
-        out = out.permute(0, 1, 4, 2, 5, 3, 6).reshape(
-            B, F_, cfg.out_channels, h_p * p, w_p * p)
-        return out.float()
+            # unpatchify -> [B, F, C_out, H, W]
+            out = xe.reshape(B, F_, h_p, w_p, cfg.out_channels, p, p)
+            out = out.permute(0, 1, 4, 2, 5, 3, 6).reshape(
+                B, F_, cfg.out_channels, h_p * p, w_p * p)
+            return out.float()

@@ -65,6 +65,18 @@ from videosys_tpu_torch.models.modules.embeddings import (
     rope_freqs,
 )
 from videosys_tpu_torch.models.modules.normalization import layer_norm, t2i_modulate
+from videosys_tpu_torch.utils.timing import (
+    ATTN,
+    BLOCK_SPATIAL,
+    BLOCK_TEMPORAL,
+    CROSS,
+    EMBED,
+    FINAL,
+    FORWARD,
+    MLP,
+    MODULATE,
+    span,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,24 +154,27 @@ class STDiT3Block(nn.Module):
         read = read or {}
         write = write or {}
         B, T, S, C = x.shape
-        (shift_msa, scale_msa, gate_msa,
-         shift_mlp, scale_mlp, gate_mlp) = _modulations(
-            self.scale_shift_table, t_mlp, x.dtype)
-        if x_mask is not None:
-            (shift_msa0, scale_msa0, gate_msa0,
-             shift_mlp0, scale_mlp0, gate_mlp0) = _modulations(
-                self.scale_shift_table, t0_mlp, x.dtype)
+        with span(MODULATE):
+            (shift_msa, scale_msa, gate_msa,
+             shift_mlp, scale_mlp, gate_mlp) = _modulations(
+                self.scale_shift_table, t_mlp, x.dtype)
+            if x_mask is not None:
+                (shift_msa0, scale_msa0, gate_msa0,
+                 shift_mlp0, scale_mlp0, gate_mlp0) = _modulations(
+                    self.scale_shift_table, t0_mlp, x.dtype)
+            if "attn" not in read:
+                normed1 = layer_norm(x)
+                x_m = t2i_modulate(normed1, shift_msa, scale_msa)
+                if x_mask is not None:
+                    x_m = t_mask_select(
+                        x_mask, x_m,
+                        t2i_modulate(normed1, shift_msa0, scale_msa0))
 
         # attention (spatial or temporal)
-        if "attn" in read:
-            x_m_s = read["attn"].to(x.dtype)
-        else:
-            normed1 = layer_norm(x)
-            x_m = t2i_modulate(normed1, shift_msa, scale_msa)
-            if x_mask is not None:
-                x_m = t_mask_select(x_mask, x_m,
-                                    t2i_modulate(normed1, shift_msa0, scale_msa0))
-            if self.temporal:
+        with span(ATTN):
+            if "attn" in read:
+                x_m_s = read["attn"].to(x.dtype)
+            elif self.temporal:
                 # local under the resident S shard
                 xa = x_m.permute(0, 2, 1, 3).reshape(B * S, T, C)
                 rope = rope_channel_tables(np.arange(T, dtype=np.float32),
@@ -179,38 +194,47 @@ class STDiT3Block(nn.Module):
                                 kv_mask=s_kv).reshape(Ba, Ta, Sa, C)
                 x_m = (par.unshard_batch(x_m, B) if is_image
                        else par.shard_spatial(x_m))
-            x_m_s = gate_msa * x_m
-            if x_mask is not None:
-                x_m_s = t_mask_select(x_mask, x_m_s, gate_msa0 * x_m)
-            if "attn" in write:
-                write["attn"].copy_(x_m_s)
-        x = x + x_m_s
+        with span(MODULATE):
+            if "attn" not in read:
+                x_m_s = gate_msa * x_m
+                if x_mask is not None:
+                    x_m_s = t_mask_select(x_mask, x_m_s, gate_msa0 * x_m)
+                if "attn" in write:
+                    write["attn"].copy_(x_m_s)
+            x = x + x_m_s
 
         # cross attention, per frame
-        if "cross" in read:
-            x_cross = read["cross"].to(x.dtype)
-        else:
-            x_cross = self.cross_attn(x.reshape(B * T, S, C), y,
-                                      kv_mask).reshape(B, T, S, C)
-            if "cross" in write:
-                write["cross"].copy_(x_cross)
-        x = x + x_cross
+        with span(CROSS):
+            if "cross" in read:
+                x_cross = read["cross"].to(x.dtype)
+            else:
+                x_cross = self.cross_attn(x.reshape(B * T, S, C), y,
+                                          kv_mask).reshape(B, T, S, C)
+                if "cross" in write:
+                    write["cross"].copy_(x_cross)
 
         # MLP
         if "mlp" in read:
-            return x + read["mlp"].to(x.dtype)
-        normed2 = layer_norm(x)
-        x_m = t2i_modulate(normed2, shift_mlp, scale_mlp)
-        if x_mask is not None:
-            x_m = t_mask_select(x_mask, x_m,
-                                t2i_modulate(normed2, shift_mlp0, scale_mlp0))
-        x_m = self.mlp(x_m)
-        x_m_s = gate_mlp * x_m
-        if x_mask is not None:
-            x_m_s = t_mask_select(x_mask, x_m_s, gate_mlp0 * x_m)
-        if "mlp" in write:
-            write["mlp"].copy_(x_m_s)
-        return x + x_m_s
+            with span(MLP):
+                x_m_s = read["mlp"].to(x.dtype)
+            with span(MODULATE):
+                return x + x_cross + x_m_s
+        with span(MODULATE):
+            x = x + x_cross
+            normed2 = layer_norm(x)
+            x_m = t2i_modulate(normed2, shift_mlp, scale_mlp)
+            if x_mask is not None:
+                x_m = t_mask_select(
+                    x_mask, x_m, t2i_modulate(normed2, shift_mlp0, scale_mlp0))
+        with span(MLP):
+            x_m = self.mlp(x_m)
+        with span(MODULATE):
+            x_m_s = gate_mlp * x_m
+            if x_mask is not None:
+                x_m_s = t_mask_select(x_mask, x_m_s, gate_mlp0 * x_m)
+            if "mlp" in write:
+                write["mlp"].copy_(x_m_s)
+            return x + x_m_s
 
 
 class FinalLayer(nn.Module):
@@ -329,10 +353,12 @@ class STDiT3(nn.Module):
     def _pair(self, i, xe, y, t_mlp, t0_mlp, x_mask, kv_mask, s_pad=None,
               t_pad=None):
         with self.unit_params(i):
-            xe = self.spatial_blocks[i](xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
-                                        s_pad=s_pad)
-            return self.temporal_blocks[i](xe, y, t_mlp, t0_mlp, x_mask,
-                                           kv_mask, t_pad=t_pad)
+            with span(BLOCK_SPATIAL):
+                xe = self.spatial_blocks[i](xe, y, t_mlp, t0_mlp, x_mask,
+                                            kv_mask, s_pad=s_pad)
+            with span(BLOCK_TEMPORAL):
+                return self.temporal_blocks[i](xe, y, t_mlp, t0_mlp, x_mask,
+                                               kv_mask, t_pad=t_pad)
 
     def _dense_pairs(self, xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
                      s_pad=None, t_pad=None):
@@ -367,10 +393,12 @@ class STDiT3(nn.Module):
                 xe = xe + delta[i].to(xe.dtype)
                 continue
             x_in = xe
-            xe = spatial(xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
-                         *cache.views(plan, "spatial", i), s_pad=s_pad)
-            xe = temporal(xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
-                          *cache.views(plan, "temporal", i), t_pad=t_pad)
+            with span(BLOCK_SPATIAL):
+                xe = spatial(xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
+                             *cache.views(plan, "spatial", i), s_pad=s_pad)
+            with span(BLOCK_TEMPORAL):
+                xe = temporal(xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
+                              *cache.views(plan, "temporal", i), t_pad=t_pad)
             if delta is not None and plan.save_pair:
                 delta[i].copy_(xe - x_in)
         return xe
@@ -383,7 +411,7 @@ class STDiT3(nn.Module):
                 pab_cache: Optional[PABCache] = None):
         """`plan` and `pab_cache`: run one PAB sampling step (inference);
         without a cache the dense loop runs."""
-        with self.unit_params(self.config.depth):
+        with span(FORWARD), self.unit_params(self.config.depth):
             return self._forward(x, timestep, y, kv_mask, x_mask, fps, height,
                                  width, plan, pab_cache)
 
@@ -397,49 +425,53 @@ class STDiT3(nn.Module):
         T, H, W = -(-Rt // pt), -(-Rh // ph), -(-Rw // pw)
         S = H * W
 
-        base_size = round(S ** 0.5)
-        resolution_sq = (float(height) * float(width)) ** 0.5
-        scale = resolution_sq / cfg.input_sq_size if resolution_sq > 0 else 1.0
-        pos = torch.as_tensor(
-            pos_embed_2d(cfg.hidden_size, H, W, scale=scale,
-                         base_size=base_size), device=device).to(dtype)
+        with span(EMBED):
+            base_size = round(S ** 0.5)
+            resolution_sq = (float(height) * float(width)) ** 0.5
+            scale = (resolution_sq / cfg.input_sq_size if resolution_sq > 0
+                     else 1.0)
+            pos = torch.as_tensor(
+                pos_embed_2d(cfg.hidden_size, H, W, scale=scale,
+                             base_size=base_size), device=device).to(dtype)
 
-        # timesteps are rounded to the model dtype before the sinusoid
-        timestep = timestep.to(dtype)
-        if fps is None:
-            fps = torch.full((B,), 24.0, device=device)
-        fps_emb = self.fps_embedder(fps.to(dtype), B)
-        t = self.t_embedder(timestep) + fps_emb
-        t_mlp = self.t_block(t)
-        t0 = t0_mlp = None
-        if x_mask is not None:
-            t0 = self.t_embedder(torch.zeros_like(timestep)) + fps_emb
-            t0_mlp = self.t_block(t0)
+            # timesteps are rounded to the model dtype before the sinusoid
+            timestep = timestep.to(dtype)
+            if fps is None:
+                fps = torch.full((B,), 24.0, device=device)
+            fps_emb = self.fps_embedder(fps.to(dtype), B)
+            t = self.t_embedder(timestep) + fps_emb
+            t_mlp = self.t_block(t)
+            t0 = t0_mlp = None
+            if x_mask is not None:
+                t0 = self.t_embedder(torch.zeros_like(timestep)) + fps_emb
+                t0_mlp = self.t_block(t0)
 
-        y = self.y_embedder(y.to(dtype))
-        xe = self.x_embedder(x.to(dtype)).reshape(B, T, S, cfg.hidden_size)
-        xe = xe + pos[None, None]
+            y = self.y_embedder(y.to(dtype))
+            xe = self.x_embedder(x.to(dtype)).reshape(B, T, S,
+                                                      cfg.hidden_size)
+            xe = xe + pos[None, None]
 
-        # sp: pad T and S to the sp size (an image never pads T), mask the
-        # pad as keys, keep this rank's S shard (JAX stdit3.py:515-537)
-        T0, S0 = T, S
-        s_pad = t_pad = None
-        m = par.token_pad_multiple()
-        if m > 1:
-            Sp = -(-S // m) * m
-            Tp = T if T == 1 else -(-T // m) * m
-            if Sp != S:
-                s_pad = torch.arange(Sp, device=device) < S
-            if Tp != T:
-                t_pad = torch.arange(Tp, device=device) < T
-                if x_mask is not None:
-                    x_mask = torch.cat([x_mask, x_mask.new_ones(
-                        (B, Tp - T))], dim=1)
-            if (Tp, Sp) != (T, S):
-                xe = torch.nn.functional.pad(
-                    xe, (0, 0, 0, Sp - S, 0, Tp - T))
-                T, S = Tp, Sp
-            xe = par.split(xe, 2)
+            # sp: pad T and S to the sp size (an image never pads T), mask
+            # the pad as keys, keep this rank's S shard (JAX
+            # stdit3.py:515-537)
+            T0, S0 = T, S
+            s_pad = t_pad = None
+            m = par.token_pad_multiple()
+            if m > 1:
+                Sp = -(-S // m) * m
+                Tp = T if T == 1 else -(-T // m) * m
+                if Sp != S:
+                    s_pad = torch.arange(Sp, device=device) < S
+                if Tp != T:
+                    t_pad = torch.arange(Tp, device=device) < T
+                    if x_mask is not None:
+                        x_mask = torch.cat([x_mask, x_mask.new_ones(
+                            (B, Tp - T))], dim=1)
+                if (Tp, Sp) != (T, S):
+                    xe = torch.nn.functional.pad(
+                        xe, (0, 0, 0, Sp - S, 0, Tp - T))
+                    T, S = Tp, Sp
+                xe = par.split(xe, 2)
 
         if pab_cache is not None:
             xe = self._pab_pairs(xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
@@ -449,26 +481,29 @@ class STDiT3(nn.Module):
             xe = self._dense_pairs(xe, y, t_mlp, t0_mlp, x_mask, kv_mask,
                                    s_pad, t_pad)
 
-        table = self.final_layer.scale_shift_table.float()
-        mods = (table[None] + t[:, None].float()).to(dtype)
-        xo = t2i_modulate(layer_norm(xe), mods[:, 0, None, None, :],
-                          mods[:, 1, None, None, :])
-        if x_mask is not None:
-            mods0 = (table[None] + t0[:, None].float()).to(dtype)
-            # reference quirk kept for checkpoint parity: the t0 branch
-            # normalizes the already modulated x
-            xo0 = t2i_modulate(layer_norm(xo), mods0[:, 0, None, None, :],
-                               mods0[:, 1, None, None, :])
-            xo = t_mask_select(x_mask, xo, xo0)
-        xo = self.final_layer.linear(xo)
-        if m > 1:  # gather S, drop the sp padding (JAX stdit3.py:625-626)
-            xo = par.gather(xo, 2)[:, :T0, :S0]
-            T, S = T0, S0
+        with span(FINAL):
+            table = self.final_layer.scale_shift_table.float()
+            mods = (table[None] + t[:, None].float()).to(dtype)
+            xo = t2i_modulate(layer_norm(xe), mods[:, 0, None, None, :],
+                              mods[:, 1, None, None, :])
+            if x_mask is not None:
+                mods0 = (table[None] + t0[:, None].float()).to(dtype)
+                # reference quirk kept for checkpoint parity: the t0 branch
+                # normalizes the already modulated x
+                xo0 = t2i_modulate(layer_norm(xo),
+                                   mods0[:, 0, None, None, :],
+                                   mods0[:, 1, None, None, :])
+                xo = t_mask_select(x_mask, xo, xo0)
+            xo = self.final_layer.linear(xo)
+            if m > 1:  # gather S, drop the sp padding (JAX stdit3.py:625-626)
+                xo = par.gather(xo, 2)[:, :T0, :S0]
+                T, S = T0, S0
 
-        # unpatchify: [B, T, (H W), (pt ph pw c)] -> [B, c, T*pt, H*ph, W*pw]
-        c = cfg.out_channels
-        out = xo.reshape(B, T, H, W, pt, ph, pw, c)
-        out = out.permute(0, 7, 1, 4, 2, 5, 3, 6).reshape(
-            B, c, T * pt, H * ph, W * pw)
-        return out[:, :, :Rt, :Rh, :Rw].float()
+            # unpatchify: [B, T, (H W), (pt ph pw c)]
+            # -> [B, c, T*pt, H*ph, W*pw]
+            c = cfg.out_channels
+            out = xo.reshape(B, T, H, W, pt, ph, pw, c)
+            out = out.permute(0, 7, 1, 4, 2, 5, 3, 6).reshape(
+                B, c, T * pt, H * ph, W * pw)
+            return out[:, :, :Rt, :Rh, :Rw].float()
 

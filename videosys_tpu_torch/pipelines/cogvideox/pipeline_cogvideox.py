@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -40,6 +39,7 @@ from videosys_tpu_torch.core.pipeline import (
     VideoSysPipelineOutput,
     build_modules,
     resolve_device,
+    timed_request,
 )
 from videosys_tpu_torch.models.autoencoders.autoencoder_cogvideox import (
     AutoencoderKLCogVideoX,
@@ -61,6 +61,7 @@ from videosys_tpu_torch.schedulers.dpm_cogvideox import (
     CogVideoXDPMScheduler,
 )
 from videosys_tpu_torch.utils.checkpoint import require_weights, try_load_params
+from videosys_tpu_torch.utils.timing import SCHEDULER, STEP, span
 
 _DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
 
@@ -174,6 +175,7 @@ class CogVideoXPipeline(VideoSysPipeline):
         F_lat = (num_frames - 1) // mc.temporal_compression_ratio + 1
         return (batch, F_lat, mc.in_channels, height // sf, width // sf)
 
+    @timed_request
     @torch.no_grad()
     def generate(self, prompt: str, negative_prompt: str = "",
                  num_inference_steps: int = 50, guidance_scale: float = 6.0,
@@ -232,20 +234,24 @@ class CogVideoXPipeline(VideoSysPipeline):
                 self.last_pab_cache_bytes = cache.nbytes if cache else 0
             old_x0 = None
             for i, (t_i, plan) in enumerate(zip(timesteps, plans)):
-                z_in = torch.cat([z, z]).to(self.dtype)
-                t_in = torch.full((2 * B,), float(t_i), device=self.device)
-                pred = self.transformer(z_in, enc_all, t_in, plan=plan,
-                                        pab_cache=cache).float()
-                g = (dynamic_guidance(guidance_scale, float(t_i),
-                                      num_inference_steps)
-                     if use_dynamic_cfg else guidance_scale)
-                eps = pred[:B] + g * (pred[B:] - pred[:B])
-                if is_dpm:
-                    t_back = int(timesteps[i - 1]) if i > 0 else None
-                    z, old_x0 = self.scheduler.step(eps, old_x0, int(t_i),
-                                                    t_back, z, draw(f"dpm/{i}"))
-                else:
-                    z = self.scheduler.step(eps, int(t_i), z)
+                with span(STEP):
+                    z_in = torch.cat([z, z]).to(self.dtype)
+                    t_in = torch.full((2 * B,), float(t_i),
+                                      device=self.device)
+                    pred = self.transformer(z_in, enc_all, t_in, plan=plan,
+                                            pab_cache=cache).float()
+                    with span(SCHEDULER):
+                        g = (dynamic_guidance(guidance_scale, float(t_i),
+                                              num_inference_steps)
+                             if use_dynamic_cfg else guidance_scale)
+                        eps = pred[:B] + g * (pred[B:] - pred[:B])
+                        if is_dpm:
+                            t_back = int(timesteps[i - 1]) if i > 0 else None
+                            z, old_x0 = self.scheduler.step(
+                                eps, old_x0, int(t_i), t_back, z,
+                                draw(f"dpm/{i}"))
+                        else:
+                            z = self.scheduler.step(eps, int(t_i), z)
             del cache  # free the PAB cache before the VAE runs
         if getattr(self, "keep_latents", False):
             self.last_latents = z.cpu().numpy()
@@ -257,10 +263,10 @@ class CogVideoXPipeline(VideoSysPipeline):
         if self.groups is not None and self.groups.rank != 0:
             return (None,) if not return_dict else VideoSysPipelineOutput(
                 video=None)  # rank 0 alone returns the video
-        t0 = time.perf_counter()
-        video = torch.round(torch.clamp(video.float() / 2 + 0.5, 0, 1) * 255)
-        video = video.permute(0, 2, 3, 4, 1).to(torch.uint8).cpu().numpy()
-        self.last_timings["postprocess"] = time.perf_counter() - t0
+        with self._phase("postprocess"):
+            video = torch.round(
+                torch.clamp(video.float() / 2 + 0.5, 0, 1) * 255)
+            video = video.permute(0, 2, 3, 4, 1).to(torch.uint8).cpu().numpy()
         if not return_dict:
             return (video,)
         return VideoSysPipelineOutput(video=video)

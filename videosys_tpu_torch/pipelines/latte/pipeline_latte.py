@@ -27,7 +27,6 @@ the same steps and decodes the whole video; rank 0 alone returns it.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
@@ -40,6 +39,7 @@ from videosys_tpu_torch.core.pipeline import (
     VideoSysPipelineOutput,
     build_modules,
     resolve_device,
+    timed_request,
 )
 from videosys_tpu_torch.models.autoencoders.vae2d import AutoencoderKL2D
 from videosys_tpu_torch.models.text_encoders.t5 import StubTextEncoder
@@ -163,6 +163,7 @@ class LattePipeline(VideoSysPipeline):
         return (batch, self.model_config.in_channels, video_length,
                 height // sf, width // sf)
 
+    @timed_request
     @torch.no_grad()
     def generate(self, prompt: str, negative_prompt: str = "",
                  num_inference_steps: int = 50, guidance_scale: float = 7.5,
@@ -240,12 +241,11 @@ class LattePipeline(VideoSysPipeline):
         if self.groups is not None and self.groups.rank != 0:
             return (None,) if not return_dict else VideoSysPipelineOutput(
                 video=None)  # rank 0 alone returns the video
-        t0 = time.perf_counter()
-        video = torch.clamp(video.float() / 2 + 0.5, 0, 1) * 255
-        video = video.to(torch.uint8).reshape(B, video_length,
-                                               *video.shape[1:])
-        video = video.permute(0, 1, 3, 4, 2).cpu().numpy()
-        self.last_timings["postprocess"] = time.perf_counter() - t0
+        with self._phase("postprocess"):
+            video = torch.clamp(video.float() / 2 + 0.5, 0, 1) * 255
+            video = video.to(torch.uint8).reshape(B, video_length,
+                                                   *video.shape[1:])
+            video = video.permute(0, 1, 3, 4, 2).cpu().numpy()
         if not return_dict:
             return (video,)
         return VideoSysPipelineOutput(video=video)

@@ -29,7 +29,6 @@ rank 0 alone gathers, post-processes and returns the video.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
@@ -41,6 +40,7 @@ from videosys_tpu_torch.core.pipeline import (
     VideoSysPipelineOutput,
     build_modules,
     resolve_device,
+    timed_request,
 )
 from videosys_tpu_torch.models.autoencoders.autoencoder_open_sora import (
     OpenSoraVAE,
@@ -65,6 +65,7 @@ from videosys_tpu_torch.pipelines.open_sora.data_process import (
 )
 from videosys_tpu_torch.schedulers.rflow import RFlowConfig, RFlowScheduler
 from videosys_tpu_torch.utils.checkpoint import require_weights, try_load_params
+from videosys_tpu_torch.utils.timing import SCHEDULER, STEP, span
 
 _DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
 
@@ -200,21 +201,26 @@ class OpenSoraPipeline(VideoSysPipeline):
               guidance_scale, x_mask=None, plan=None, cache=None):
         """One CFG-doubled model eval, guidance combine and Euler step;
         `plan` and `cache`: the PAB step plan and cache."""
-        B = z.shape[0]
-        z_in = torch.cat([z, z]).to(self.dtype)
-        t_in = torch.full((2 * B,), float(t_scalar), device=z.device)
-        batch = [z_in, t_in, y_all, kv_mask_all, torch.cat([fps, fps]), x_mask]
-        # cp: this rank runs its half of the CFG-doubled batch
-        z_in, t_in, y_all, kv_mask_all, fps_in, x_mask = (
-            None if a is None else par.split(a, 0, par.CP_AXIS) for a in batch)
-        out = self.transformer(z_in, t_in, y_all, kv_mask=kv_mask_all,
-                               x_mask=x_mask, fps=fps_in,
-                               height=height, width=width, plan=plan,
-                               pab_cache=cache)
-        pred = par.gather(out[:, : self.model_config.in_channels], 0,
-                          par.CP_AXIS)
-        v = self.scheduler.apply_cfg(pred[:B], pred[B:], guidance_scale)
-        return self.scheduler.step(z, v, dt)
+        with span(STEP):
+            B = z.shape[0]
+            z_in = torch.cat([z, z]).to(self.dtype)
+            t_in = torch.full((2 * B,), float(t_scalar), device=z.device)
+            batch = [z_in, t_in, y_all, kv_mask_all, torch.cat([fps, fps]),
+                     x_mask]
+            # cp: this rank runs its half of the CFG-doubled batch
+            z_in, t_in, y_all, kv_mask_all, fps_in, x_mask = (
+                None if a is None else par.split(a, 0, par.CP_AXIS)
+                for a in batch)
+            out = self.transformer(z_in, t_in, y_all, kv_mask=kv_mask_all,
+                                   x_mask=x_mask, fps=fps_in,
+                                   height=height, width=width, plan=plan,
+                                   pab_cache=cache)
+            pred = par.gather(out[:, : self.model_config.in_channels], 0,
+                              par.CP_AXIS)
+            with span(SCHEDULER):
+                v = self.scheduler.apply_cfg(pred[:B], pred[B:],
+                                             guidance_scale)
+                return self.scheduler.step(z, v, dt)
 
     def _masked_step(self, z, t_scalar, dt, y_all, kv_mask_all, fps, height,
                      width, guidance_scale, mask, noise_added, eps,
@@ -252,6 +258,7 @@ class OpenSoraPipeline(VideoSysPipeline):
                 y_all, kv_mask_all, self.model_config.model_max_length)
         return y_all, kv_mask_all
 
+    @timed_request
     @torch.no_grad()
     def generate(self, prompt, resolution: str = "480p",
                  aspect_ratio: str = "9:16", num_frames="2s", seed=-1,
@@ -413,19 +420,18 @@ class OpenSoraPipeline(VideoSysPipeline):
         if self.groups is not None and self.groups.rank != 0:
             return (None,) if not return_dict else VideoSysPipelineOutput(
                 video=None)  # rank 0 alone returns the video
-        t0 = time.perf_counter()
-        if loop == 1:
-            video = torch.cat(clips[0], dim=1)
-        else:
-            # stitch the loops, dropping each later clip's condition frames
-            dpix = ms.dframe_to_frame(condition_frame_length)
-            samples = torch.cat([clips[0]] + [c[:, :, dpix:] for c in clips[1:]],
-                                dim=2)
-            u8 = torch.clamp((torch.clamp(samples, -1, 1) + 1) / 2 * 255 + 0.5,
-                             0, 255)
-            video = u8.to(torch.uint8).permute(0, 2, 3, 4, 1)
-        video = video.cpu().numpy()
-        self.last_timings["postprocess"] = time.perf_counter() - t0
+        with self._phase("postprocess"):
+            if loop == 1:
+                video = torch.cat(clips[0], dim=1)
+            else:
+                # stitch the loops, dropping each later clip's condition frames
+                dpix = ms.dframe_to_frame(condition_frame_length)
+                samples = torch.cat(
+                    [clips[0]] + [c[:, :, dpix:] for c in clips[1:]], dim=2)
+                u8 = torch.clamp(
+                    (torch.clamp(samples, -1, 1) + 1) / 2 * 255 + 0.5, 0, 255)
+                video = u8.to(torch.uint8).permute(0, 2, 3, 4, 1)
+            video = video.cpu().numpy()
         if not return_dict:
             return (video,)
         return VideoSysPipelineOutput(video=video)

@@ -30,7 +30,6 @@ alone returns it.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
@@ -43,6 +42,7 @@ from videosys_tpu_torch.core.pipeline import (
     VideoSysPipelineOutput,
     build_modules,
     resolve_device,
+    timed_request,
 )
 from videosys_tpu_torch.models.autoencoders.autoencoder_causal_vae import (
     CausalVAE,
@@ -223,6 +223,7 @@ class OpenSoraPlanPipeline(VideoSysPipeline):
         p = self.model_config.patch_size
         return (shape[3] // p) * (shape[4] // p)
 
+    @timed_request
     @torch.no_grad()
     def generate(self, prompt: str, negative_prompt: str = "",
                  num_inference_steps: int = 100, guidance_scale: float = 7.5,
@@ -320,11 +321,10 @@ class OpenSoraPlanPipeline(VideoSysPipeline):
         if self.groups is not None and self.groups.rank != 0:
             return (None,) if not return_dict else VideoSysPipelineOutput(
                 video=None)  # rank 0 alone returns the video
-        t0 = time.perf_counter()
-        video = torch.clamp(video / 2 + 0.5, 0, 1) * 255
-        video = video.permute(0, 2, 3, 4, 1).to(torch.uint8)
-        video = video[:, :cfg.num_frames].cpu().numpy()
-        self.last_timings["postprocess"] = time.perf_counter() - t0
+        with self._phase("postprocess"):
+            video = torch.clamp(video / 2 + 0.5, 0, 1) * 255
+            video = video.permute(0, 2, 3, 4, 1).to(torch.uint8)
+            video = video[:, :cfg.num_frames].cpu().numpy()
         if not return_dict:
             return (video,)
         return VideoSysPipelineOutput(video=video)

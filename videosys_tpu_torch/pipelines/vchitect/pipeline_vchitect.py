@@ -35,7 +35,6 @@ import dataclasses
 import hashlib
 import math
 import os
-import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -48,6 +47,7 @@ from videosys_tpu_torch.core.pipeline import (
     VideoSysPipelineOutput,
     build_modules,
     resolve_device,
+    timed_request,
 )
 from videosys_tpu_torch.models.autoencoders.vae2d import AutoencoderKL2D
 from videosys_tpu_torch.models.transformers.vchitect import (
@@ -212,6 +212,7 @@ class VchitectXLPipeline(VideoSysPipeline):
         return (1, frames, self.model_config.in_channels, height // sf,
                 width // sf)
 
+    @timed_request
     @torch.no_grad()
     def generate(self, prompt: str, negative_prompt: str = "",
                  num_inference_steps: int = 100, guidance_scale: float = 7.5,
@@ -281,10 +282,10 @@ class VchitectXLPipeline(VideoSysPipeline):
         if self.groups is not None and self.groups.rank != 0:
             return (None,) if not return_dict else VideoSysPipelineOutput(
                 video=None)  # rank 0 alone returns the video
-        t0 = time.perf_counter()
-        video = torch.clamp(video.float() / 2 + 0.5, 0, 1) * 255
-        video = video.to(torch.uint8).permute(0, 2, 3, 1)[None].cpu().numpy()
-        self.last_timings["postprocess"] = time.perf_counter() - t0
+        with self._phase("postprocess"):
+            video = torch.clamp(video.float() / 2 + 0.5, 0, 1) * 255
+            video = video.to(torch.uint8).permute(0, 2, 3, 1)[None]
+            video = video.cpu().numpy()
         if not return_dict:
             return (video,)
         return VideoSysPipelineOutput(video=video)

@@ -7,6 +7,12 @@ allocator, and on the CPU it reads `time.perf_counter`. GroupTimer's exit
 also waits for every rank of its groups (the reference's all-reduce).
 `profile_trace` captures a trace of the with-block (the JAX package's
 `jax.profiler` trace) as a Chrome / Perfetto trace file.
+
+`span(name)` marks a region of the program in such a trace: while a torch
+profiler records it is a `torch.profiler.record_function` range, whose
+host times share the clock of the device ops in the exported trace;
+otherwise it is one shared null context and costs a flag check. Every
+name is declared once, in `SPANS`.
 """
 
 from __future__ import annotations
@@ -16,9 +22,43 @@ import os
 import time
 
 import torch
+import torch.autograd.profiler as autograd_profiler
 import torch.distributed as dist
 
-from videosys_tpu_torch.core.pipeline import resolve_device
+# The program's spans, each opened where its work happens:
+REQUEST = "videosys.request"  # a whole `generate`
+TEXT = "videosys.text"  # the pipeline's phases (`VideoSysPipeline._phase`)
+DENOISE = "videosys.denoise"
+VAE = "videosys.vae"
+POSTPROCESS = "videosys.postprocess"
+T5 = "videosys.t5"  # the T5 encoder's forward, tokenizing left out
+STEP = "videosys.step"  # one denoise step: CFG doubling to scheduler update
+FORWARD = "videosys.forward"  # the transformer's forward
+EMBED = "videosys.embed"  # timestep, caption, patch and position embeddings
+FINAL = "videosys.final"  # final layer and unpatchify
+BLOCK = "videosys.block"  # a CogVideoX block
+BLOCK_SPATIAL = "videosys.block.spatial"  # STDiT3's blocks
+BLOCK_TEMPORAL = "videosys.block.temporal"
+MODULATE = "videosys.modulate"  # a block's norm, modulate, gate and residual
+ATTN = "videosys.attn"  # a block's self-attention (or its PAB cache read)
+CROSS = "videosys.cross"  # a block's cross-attention (or its cache read)
+MLP = "videosys.mlp"  # a block's feed-forward (or its cache read)
+SCHEDULER = "videosys.scheduler"  # guidance combine and scheduler step
+VAE_CHUNK = "videosys.vae.chunk"  # a temporal chunk of Open-Sora's decode
+VAE_TILE = "videosys.vae.tile"  # a tile of CogVideoX's tiled decode
+SPANS = (REQUEST, TEXT, DENOISE, VAE, POSTPROCESS, T5, STEP, FORWARD, EMBED,
+         FINAL, BLOCK, BLOCK_SPATIAL, BLOCK_TEMPORAL, MODULATE, ATTN, CROSS,
+         MLP, SCHEDULER, VAE_CHUNK, VAE_TILE)
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """`with span(STEP): ...`: a `record_function` range named `name`
+    while a torch profiler records, else a null context."""
+    if autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def device_memory_stats(device=None) -> dict:
@@ -26,6 +66,9 @@ def device_memory_stats(device=None) -> dict:
     allocator (allocated bytes now and at their peak since the last
     `torch.cuda.reset_peak_memory_stats`, and the card's memory); {} for the
     CPU, which has no such allocator."""
+    # imported here: core.pipeline imports this module for `span`
+    from videosys_tpu_torch.core.pipeline import resolve_device
+
     dev = resolve_device(device)
     if dev.type != "cuda":
         return {}
@@ -42,6 +85,8 @@ class Timer:
     events, waited for at exit; on the CPU the host clock."""
 
     def __init__(self, name: str, log: bool = False, device=None):
+        from videosys_tpu_torch.core.pipeline import resolve_device
+
         self.name = name
         self.log = log
         self.device = resolve_device(device)
